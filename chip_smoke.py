@@ -17,7 +17,19 @@ Phases (any failure ends the run with a non-zero exit):
 4. the serving path: first a small f32 model's prefill and decode steps on
    the card (kernels) must give the CPU's logits (plain versions) within
    1e-4; then qwen2-7b at full width (bf16, seeded random weights)
-   serves 16 Poisson requests, with every launch counted.
+   serves 16 Poisson requests, with every launch counted;
+5. top-k compression kernel vs its plain version, bit for bit (int32 /
+   int16 views): the reference's test grid in f32 and bf16 with ef absent,
+   of x's type and f32; an all-zero block, tied magnitudes, theta = 1 and
+   k = 1; every ResNet-20 leaf at R = 64, block 256 (the round's 59
+   launches, timed together); FEMNIST's fc1_w at R = 64 (timed);
+6. the FedSim path: a small MLP FedSim runs 3 rounds on the card (kernel)
+   and on the CPU (plain version) from the same parameters and bits; the
+   histories agree within FEDSIM_RTOL;
+7. the HCEF round at full width: ResNet-20 on the synthetic CIFAR-10
+   stand-in, 64 devices in 8 clusters, the configuration's budgets,
+   FEDSIM_ROUNDS rounds (two of them gossip rounds), then the averaged
+   model's accuracy, with every top-k launch counted.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -42,6 +54,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM
 PEAK_BYTES = 3.35e12
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 SLOTS, PAGE = 8, 16  # the engine's decode slots and page size in phase 4
+TOPK_GRID = [(1, 2048, 256), (4, 4096, 512), (3, 1024, 1024)]  # test_kernels
+# phase 6: card vs CPU histories of the same small FedSim.  Both are f32;
+# sums run in other orders, and a coordinate at a top-k threshold may be
+# kept on one side only, so the history is held to a relative tolerance.
+FEDSIM_RTOL = 1e-3
+FEDSIM_ROUNDS = 12  # phase 7: gossip at rounds 5 and 10 (q = 5)
 
 
 def fail(msg):
@@ -357,6 +375,225 @@ def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: top-k compression kernel
+# ---------------------------------------------------------------------------
+
+def _raw(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def topk_case(tk, gen, *, R, L, block, dtype, ef_dtype=None, theta=None,
+              x=None, ef=None, label=""):
+    """The kernel and the plain version on the same inputs, bit for bit;
+    masked + resid == x + ef exactly where both are f32.  Returns the
+    largest |difference| (0 when the bits agree)."""
+    if x is None:
+        x = torch.randn((R, L), generator=gen, device="cuda").to(dtype)
+    if ef is None and ef_dtype is not None:
+        ef = (0.3 * torch.randn((R, L), generator=gen,
+                                device="cuda")).to(ef_dtype)
+    if theta is None:
+        theta = 0.05 + 0.95 * torch.rand((R,), generator=gen, device="cuda")
+    got = tk.topk_compress_cuda(x, theta, ef=ef, block=block)
+    torch.cuda.synchronize()
+    want = tk.topk_compress_plain(x, theta, ef=ef, block=block)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    same = all(a.dtype == b.dtype and torch.equal(_raw(a), _raw(b))
+               for a, b in zip(got, want))
+    if not same:
+        fail(f"top-k kernel differs from the plain version ({label} R={R} "
+             f"L={L} block={block} {dtype} ef={ef_dtype}): max |diff| "
+             f"{err}")
+    if x.dtype == torch.float32 and (ef is None
+                                     or ef.dtype == torch.float32):
+        total = x if ef is None else x + ef
+        if not torch.equal(got[0] + got[1], total):
+            fail(f"masked + residual != x + ef ({label} R={R} L={L})")
+    return err
+
+
+def _edge_inputs(block):
+    """Row 0: an all-zero block, then tied magnitudes; row 1: five
+    distinct magnitudes, then random normals."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.zeros((2, 2 * block), device="cuda")
+    sign = torch.randint(0, 2, (block,), generator=g, device="cuda") * 2 - 1
+    x[0, block:] = 1.5 * sign
+    vals = torch.tensor([-2.0, -0.5, 0.5, 1.0, 2.0], device="cuda")
+    x[1, :block] = vals[torch.randint(0, 5, (block,), generator=g,
+                                      device="cuda")]
+    x[1, block:] = torch.randn((block,), generator=g, device="cuda")
+    return x
+
+
+def topk_bytes(x, ef):
+    """Each input read once, each output written once (masked in x's
+    type, residual in ef's)."""
+    reads = x.element_size() + (0 if ef is None else ef.element_size())
+    writes = x.element_size() + (x if ef is None else ef).element_size()
+    return x.numel() * (reads + writes)
+
+
+def topk_phase(tk, leaf_shapes, femnist_fc1):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    n_cases = 0
+    for R, L, block in TOPK_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            for ef_dtype in (None, dtype, torch.float32):
+                worst = max(worst, topk_case(tk, gen, R=R, L=L, block=block,
+                                             dtype=dtype, ef_dtype=ef_dtype,
+                                             label="grid"))
+                n_cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _edge_inputs(256).to(dtype)
+        for th in (1.0, 1e-4, 0.3):  # everything kept; k = 1; ties
+            theta = torch.full((2,), th, device="cuda")
+            for ef_dtype in (None, torch.float32):
+                ef = None
+                if ef_dtype is not None:  # keeps the zero block zero
+                    ef = torch.zeros((2, 512), device="cuda")
+                    ef[1] = 0.25 * torch.randn((512,), generator=gen,
+                                               device="cuda")
+                worst = max(worst, topk_case(
+                    tk, gen, R=2, L=512, block=256, dtype=dtype, x=x,
+                    ef=ef, theta=theta, label=f"edge theta={th}"))
+                n_cases += 1
+        if tk.topk_compress_cuda(x, torch.full((2,), 0.3, device="cuda"),
+                                 block=256)[0][0, :256].any():
+            fail("top-k kernel kept a nonzero in an all-zero block")
+
+    # the main path: every ResNet-20 leaf, padded to the block, at R = 64,
+    # f32 delta and f32 EF, theta as the controller hands it over (f32)
+    R, block = 64, 256
+    xs, efs = [], []
+    for shape in leaf_shapes:
+        L = int(np.prod(shape))
+        Lp = L + (-L) % block
+        xs.append(torch.randn((R, Lp), generator=gen, device="cuda"))
+        efs.append(0.3 * torch.randn((R, Lp), generator=gen, device="cuda"))
+    theta = 0.05 + 0.95 * torch.rand((R,), generator=gen, device="cuda")
+    for x, ef in zip(xs, efs):
+        worst = max(worst, topk_case(tk, gen, R=R, L=x.shape[1], block=block,
+                                     dtype=torch.float32, x=x, ef=ef,
+                                     theta=theta, label="resnet20 leaf"))
+        n_cases += 1
+    round_k = lambda: [tk.topk_compress_cuda(x, theta, ef=e, block=block)
+                       for x, e in zip(xs, efs)]
+    round_p = lambda: [tk.topk_compress_plain(x, theta, ef=e, block=block)
+                       for x, e in zip(xs, efs)]
+    nbytes = sum(topk_bytes(x, e) for x, e in zip(xs, efs))
+    ms = time_ms(round_k)
+    plain_ms = time_ms(round_p, iters=3, warmup=1)
+    bound_ms, bound_by = bound(0, nbytes, torch.float32)
+    main = dict(case="resnet20 round: 59 leaves, R=64, block 256, f32 x/ef",
+                elements=sum(x.numel() for x in xs), bytes=nbytes,
+                launches_timed=len(xs), max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+    print("topk " + json.dumps(main))
+
+    # where the kernel does real work: FEMNIST-CNN's fc1_w at R = 64
+    L = int(np.prod(femnist_fc1))
+    x = torch.randn((R, L), generator=gen, device="cuda")
+    ef = 0.3 * torch.randn((R, L), generator=gen, device="cuda")
+    err = topk_case(tk, gen, R=R, L=L, block=block, dtype=torch.float32,
+                    x=x, ef=ef, theta=theta, label="femnist fc1_w")
+    nbytes = topk_bytes(x, ef)
+    bound_f, by_f = bound(0, nbytes, torch.float32)
+    big = dict(case=f"femnist fc1_w {tuple(femnist_fc1)}, R=64, block 256, "
+               f"f32 x/ef", elements=x.numel(), bytes=nbytes,
+               max_abs_err=err,
+               ms=time_ms(lambda: tk.topk_compress_cuda(x, theta, ef=ef,
+                                                        block=block)),
+               plain_ms=time_ms(lambda: tk.topk_compress_plain(
+                   x, theta, ef=ef, block=block), iters=3, warmup=1),
+               bound_ms=bound_f, bound_by=by_f, library_ms=None)
+    print("topk " + json.dumps(big))
+    print(f"topk: {n_cases + 1} cases bitwise equal to the plain version")
+    del x, ef, xs, efs
+    torch.cuda.empty_cache()
+    main["max_abs_err"] = max(worst, err)
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the FedSim round
+# ---------------------------------------------------------------------------
+
+HIST_KEYS = ("loss", "rho_mean", "theta_mean", "time", "energy")
+
+
+def fedsim_agrees(fedsim):
+    """A small MLP FedSim (8 devices in 4 clusters, the ResNet-20
+    configuration's round and budgets) for 3 rounds on the card and on the
+    CPU, from the same parameters and masked-step bits."""
+    def three_rounds(dev):
+        sim = fedsim.make_sim("hcef", model="mlp", n_devices=8, n_clusters=4,
+                              n_train=2048, device=dev)
+        return [sim.run_round() for _ in range(3)]
+
+    cpu, card = three_rounds("cpu"), three_rounds("cuda")
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                for a, b in zip(card, cpu) for k in HIST_KEYS)
+    print(f"fedsim small: card vs CPU over 3 rounds, largest relative "
+          f"deviation of {HIST_KEYS} {worst:.3e} (tolerance {FEDSIM_RTOL}); "
+          f"theta_mean {[round(h['theta_mean'], 4) for h in card]}")
+    if not worst <= FEDSIM_RTOL:
+        fail("the FedSim path on the card disagrees with the CPU path")
+
+
+def fedsim_full(fedsim, tk):
+    """ResNet-20 at the paper's topology: FEDSIM_ROUNDS rounds of
+    ``FedSim.run`` as the launcher drives it, every top-k launch counted."""
+    t0 = time.perf_counter()
+    sim = fedsim.make_sim("hcef", model="resnet20", device="cuda")
+    torch.cuda.synchronize()
+    n_leaves = len(sim.params)
+    n_params = sum(p[0].numel() for p in sim.params.values())
+    print(f"fedsim resnet20: {n_params} params in {n_leaves} leaves, "
+          f"{sim.cfg.n_devices} devices in {sim.cfg.n_clusters} clusters, "
+          f"set up in {time.perf_counter() - t0:.1f} s")
+    sim.timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    sim.run(FEDSIM_ROUNDS, eval_every=5,
+            on_round=fedsim.print_round(sim, "resnet20 "))
+    launches = tk.LAUNCHES["topk_compress"]
+    hist, walls = sim.history, sim.round_ms
+    if len(hist) != FEDSIM_ROUNDS:
+        fail(f"the run stopped after {len(hist)} of {FEDSIM_ROUNDS} rounds")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"non-finite loss: {[h['loss'] for h in hist]}")
+    if not min(h["theta_mean"] for h in hist) < 1.0:
+        fail("theta_mean is 1 in every round: Q dropped nothing")
+    if launches != n_leaves * FEDSIM_ROUNDS:
+        fail(f"{launches} top-k launches, expected {n_leaves} leaves x "
+             f"{FEDSIM_ROUNDS} rounds")
+    if sim.budget.l < 2:
+        fail(f"{sim.budget.l} gossip rounds, expected 2")
+    if any(b["time"] < a["time"] or b["energy"] < a["energy"]
+           for a, b in zip(hist, hist[1:])):
+        fail("simulated time or energy decreased")
+    acc = hist[-1]["acc"]
+    if not 0.0 <= acc <= 1.0:
+        fail(f"accuracy {acc}")
+    med = lambda v: float(np.percentile(v, 50))
+    stats = dict(rounds=FEDSIM_ROUNDS, gossip_rounds=sim.budget.l,
+                 round_wall_ms_p50=med(walls), round_wall_ms=walls,
+                 phase_ms_p50={k: med(v) for k, v in sim.timings.items()},
+                 launches=launches, acc=acc,
+                 loss=[h["loss"] for h in hist],
+                 theta_mean=[h["theta_mean"] for h in hist],
+                 rho_mean=[h["rho_mean"] for h in hist],
+                 time_s=hist[-1]["time"], energy_j=hist[-1]["energy"],
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("fedsim " + json.dumps(stats))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -367,6 +604,9 @@ def main():
     from repro_torch import configs
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch import fedsim
+    from repro_torch.models.vision import make_vision_model
     from repro_torch.launch.serve import poisson_requests
     from repro_torch.models import lm
     from repro_torch.serving import engine as engine_mod
@@ -425,6 +665,17 @@ def main():
     small_path_agrees(lm, configs)
     launches = serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests)
 
+    # -- phase 5 -------------------------------------------------------------
+    init = lambda m: make_vision_model(fedsim.vision_config(m))[0](
+        torch.Generator().manual_seed(0))
+    leaf_shapes = [tuple(p.shape) for p in init("resnet20").values()]
+    fc1 = tuple(init("femnist_cnn")["fc1_w"].shape)
+    main_topk = topk_phase(tk, leaf_shapes, fc1)
+
+    # -- phases 6 and 7 ------------------------------------------------------
+    fedsim_agrees(fedsim)
+    launches["topk_compress"] = fedsim_full(fedsim, tk)
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -433,7 +684,10 @@ def main():
              main_prefill),
             ("paged_decode_attention", "src/repro_torch/kernels/csrc/"
              "paged_decode.cu", "src/repro/kernels/flash_attention.py:90",
-             main_decode)):
+             main_decode),
+            ("topk_compress", "src/repro_torch/kernels/csrc/"
+             "topk_compress.cu", "src/repro/kernels/topk_compress.py:101",
+             main_topk)):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=row["max_abs_err"],

@@ -1,13 +1,15 @@
 """Config registry (own copy of ``repro/configs/__init__.py``), limited to
-the architectures the port serves."""
+the architectures the port serves and the paper's two vision models."""
 from __future__ import annotations
 
 import importlib
 from typing import List
 
 from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.vision import VISION_CONFIGS, VisionBundle
 
 ARCH_IDS: List[str] = ["qwen2_7b", "smollm_135m"]
+PAPER_IDS: List[str] = list(VISION_CONFIGS)
 
 _ALIASES = {
     "qwen2-7b": "qwen2_7b",
@@ -38,3 +40,11 @@ def smoke_model(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+
+
+def get_vision_config(name: str) -> VisionBundle:
+    """The paper's vision configurations by id (``PAPER_IDS``)."""
+    key = name.replace("-", "_")
+    if key not in VISION_CONFIGS:
+        raise ValueError(f"vision config {name!r} not in {PAPER_IDS}")
+    return VISION_CONFIGS[key]

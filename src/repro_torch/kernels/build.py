@@ -24,12 +24,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # name -> argtypes of each C entry point (all return a cudaError_t as int)
 SIGNATURES = {
     "repro_flash_attention_fwd":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_paged_decode_attention_fwd":
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "repro_topk_compress": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -2,8 +2,8 @@
 tensors (port of ``repro/kernels/ops.py``).
 
 Every op takes ``impl`` in {None, "kernel", "plain"} (plus "ref" for
-flash attention); None picks by the device of the first tensor, as the
-reference's ``_route`` picks by backend.  ``impl="plain"`` runs the plain
+flash attention and top-k); None picks by the device of the first
+tensor, as the reference's ``_route`` picks by backend.  ``impl="plain"`` runs the plain
 version on any device (the card-side comparison uses it); ``impl="kernel"``
 on a CPU tensor raises.  Nothing catches a kernel's failure and falls back.
 """
@@ -13,6 +13,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_plain, paged_decode_attention_cuda,
     paged_decode_attention_plain)
+from repro_torch.kernels.topk_compress import (compress_with,
+                                               topk_compress_cuda,
+                                               topk_compress_plain)
 
 
 def _route(impl, x):
@@ -66,3 +69,16 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
         raise ValueError("paged_decode_attention has no 'ref' impl")
     return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                         kv_len, softmax_scale=softmax_scale)
+
+
+def topk_compress(x, theta, *, block=1024, impl=None, ef=None):
+    """Q(x + ef) per (row, block) (port of ``ops.py:111``).  x, ef: (R, L);
+    theta: (R,) float32.  Returns (masked, residual): the kernel or its
+    plain version (bisection), or with ``impl="ref"`` the exact-sort
+    oracle; all add ef in f32 before masking."""
+    r = _route(impl, x)
+    if r == "kernel":
+        return topk_compress_cuda(x, theta, ef=ef, block=block)
+    if r == "plain":
+        return topk_compress_plain(x, theta, ef=ef, block=block)
+    return compress_with(ref.topk_mask_exact, x, theta, ef=ef, block=block)

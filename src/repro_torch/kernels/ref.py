@@ -165,3 +165,61 @@ def gather_kv_pages(pages, page_table):
     tail = pages.shape[2:]
     flat = torch.index_select(pages, 0, page_table.reshape(-1))
     return flat.reshape((B, P * ps) + tuple(tail))
+
+
+# ---------------------------------------------------------------------------
+# Block-local top-k compression (the paper's Q operator)
+# ---------------------------------------------------------------------------
+
+BISECT_ITERS = 16
+
+
+def _blocks(x, block):
+    L = x.shape[-1]
+    if L % block:
+        raise ValueError(f"last dim {L} is not a multiple of block {block}")
+    return x.reshape(*x.shape[:-1], L // block, block)
+
+
+def topk_mask_exact(x, theta, *, block=1024):
+    """Exact per-block top-k by sort (ref.py:356).  Oracle only.
+
+    x: (..., L), L % block == 0; theta broadcasts against (..., L // block).
+    Keeps every entry whose magnitude reaches the k-th largest,
+    k = clip(ceil(theta * block), 1, block).  Returns (masked, keep)."""
+    xb = _blocks(x, block)
+    mag = xb.abs()
+    k = torch.clamp(torch.ceil(theta * block).to(torch.int64), 1, block)
+    srt = torch.sort(mag, dim=-1).values  # ascending
+    idx = torch.broadcast_to(block - k, srt.shape[:-1])[..., None]
+    thr = torch.gather(srt, -1, idx)
+    keep = mag >= thr
+    masked = torch.where(keep, xb, torch.zeros((), dtype=xb.dtype,
+                                               device=xb.device))
+    return masked.reshape(x.shape), keep.reshape(x.shape)
+
+
+def topk_mask_bisect(x, theta, *, block=1024, iters=BISECT_ITERS):
+    """Bisection-threshold block top-k (``ref.topk_mask_bisect_jnp``,
+    ref.py:378): the plain version of the top-k kernel, op for op.
+
+    Per block, ``iters`` halvings of [0, max|x|] on the count of
+    ``|x| > mid`` against k = clip(ceil(theta * block), 1, block) in f32;
+    keeps ``|x| > lo`` (the lower bound, so ties are kept) and, in an
+    all-zero block, its maximum.  Returns (masked, keep)."""
+    xb = _blocks(x, block)
+    mag = xb.float().abs()
+    k = torch.clamp(torch.ceil(theta * block), 1.0, float(block))
+    lo = torch.zeros(mag.shape[:-1], dtype=torch.float32, device=x.device)
+    hi0 = mag.amax(dim=-1)
+    hi = hi0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        cnt = (mag > mid[..., None]).sum(dim=-1).float()
+        lo = torch.where(cnt > k, mid, lo)
+        hi = torch.where(cnt > k, hi, mid)
+    keep = mag > lo[..., None]
+    keep |= (mag >= hi0[..., None]) & (hi0 == 0.0)[..., None]
+    masked = torch.where(keep, xb, torch.zeros((), dtype=xb.dtype,
+                                               device=xb.device))
+    return masked.reshape(x.shape), keep.reshape(x.shape)

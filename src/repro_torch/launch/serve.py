@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, smoke_model
+from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.registry import get_model
 from repro_torch.serving.engine import Engine, PagedConfig, ServeConfig
 from repro_torch.serving.scheduler import Request
@@ -41,28 +42,9 @@ def poisson_requests(n, rate, prompt_len, new_tokens, vocab, seed=0,
     return reqs
 
 
-def _activities(engine):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if engine.device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return acts
-
-
 def _sync(engine):
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
-
-
-def _print_profile(prof, wall_s, top=12):
-    """Device busy share of the traced serve and its kernels by time."""
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    print(f"profile: wall {wall_s * 1e3:.1f} ms, device kernels "
-          f"{busy_us / 1e3:.1f} ms, busy share {busy_us / 1e6 / wall_s:.3f}")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
-              f"{e.key[:90]}")
 
 
 def main(argv=None):
@@ -105,12 +87,13 @@ def main(argv=None):
                             args.new_tokens, cfg.vocab_size)
     if args.profile:
         engine.serve(poisson_requests(2, 1e6, 32, 4, cfg.vocab_size, seed=1))
-        with torch.profiler.profile(activities=_activities(engine)) as prof:
+        with torch.profiler.profile(
+                activities=activities(engine.device)) as prof:
             t0 = time.perf_counter()
             outs = engine.serve(reqs)
             _sync(engine)
             dt = time.perf_counter() - t0
-        _print_profile(prof, dt)
+        print_profile(prof, dt)
     else:
         t0 = time.perf_counter()
         outs = engine.serve(reqs)

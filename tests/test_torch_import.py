@@ -33,7 +33,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
                          capture_output=True, text=True, check=True,
                          timeout=120).stdout.split(maxsplit=1)
     n_modules, bad = int(out[0]), out[1].strip()
-    assert n_modules >= 15
+    assert n_modules >= 42  # the serving and FedSim slices
     assert bad == "[]", f"repro_torch imported {bad}"
 
 
