@@ -29,7 +29,21 @@ Phases (any failure ends the run with a non-zero exit):
 7. the HCEF round at full width: ResNet-20 on the synthetic CIFAR-10
    stand-in, 64 devices in 8 clusters, the configuration's budgets,
    FEDSIM_ROUNDS rounds (two of them gossip rounds), then the averaged
-   model's accuracy, with every top-k launch counted.
+   model's accuracy, with every top-k launch counted;
+8. the SSD scan kernels (forward, and backward through the autograd
+   Function) vs their plain versions (``ref.ssd_chunked``, and autograd
+   through it evaluated in f64): the reference's test grid in f32 and
+   bf16; the inputs the
+   first layer of mamba2-1.3B at full width gives ``ops.ssd`` (b=2, s=512,
+   h=64, p=64, g=8, n=128, chunk 256, bf16; both kernels timed there);
+   at that shape in bf16 and f32, dt and A drawn as the test grid draws
+   them and as mamba2's init gives them (dt about 0.7, A = -1: the decays
+   underflow), and a padded length (s=300); an all-zero x;
+9. the HCEF round step on mamba2: first a smoke-config round on the card
+   (kernels) against the same round on the CPU (plain versions), then the
+   train launcher's entry point on mamba2-1.3B at full width
+   and depth (MAMBA2_ROUNDS rounds, gossip in the last), with every SSD
+   and top-k launch counted.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -37,6 +51,7 @@ It needs one CUDA card and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +75,58 @@ TOPK_GRID = [(1, 2048, 256), (4, 4096, 512), (3, 1024, 1024)]  # test_kernels
 # kept on one side only, so the history is held to a relative tolerance.
 FEDSIM_RTOL = 1e-3
 FEDSIM_ROUNDS = 12  # phase 7: gossip at rounds 5 and 10 (q = 5)
+SSD_GRID = [(1, 32, 2, 16, 1, 8, 8), (2, 64, 4, 16, 2, 16, 16),
+            (1, 128, 8, 32, 8, 16, 32)]  # tests/test_kernels.py:91
+SSD_MAIN = dict(b=2, s=512, h=64, p=64, g=8, n=128, chunk=256)
+# The SSD kernels are held to the plain version evaluated in f64 on the
+# same inputs.  y: the reference's tolerance (F32_TOL / BF16_TOL) and
+# within rtol of y's largest entry; each gradient: within this share of
+# its largest entry (bf16: dx, dB, dC are rounded to bf16, one ulp 2^-8).
+SSD_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Where the plain version in the inputs' own arithmetic itself misses that
+# tolerance, the kernel must be within this many times the plain version's
+# distance from the f64 evaluation.  With mamba2's dt (about 0.7) the
+# decays fall fast: y and dA sum terms whose large parts cancel, so an f32
+# evaluation of them is off the f64 value by about 1e-5 of their max.  The
+# factor leaves room for two summation orders rounding differently; a
+# wrong or missing term is off by orders of magnitude more.  Each case
+# prints both distances.
+SSD_PLAIN_FACTOR = 4.0
+# phase 9: the smoke round on the card vs the CPU (f32 on both; sums in
+# other orders, and a top-k threshold tie may fall either way)
+ROUND_RTOL, ROUND_ATOL = 1e-4, 1e-4
+MAMBA2_ROUNDS = 4  # q = 4: round 4 gossips
+
+
+def _demangled_name(mangled):
+    """The function's own name in an Itanium-mangled nested name
+    (_ZN5repro..14ssd_fwd_kernelI...): the last length-prefixed part."""
+    i, name = mangled.index("_ZN") + 3, ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    return name
+
+
+def ptxas_summary(log):
+    """{kernel: (most registers, most spill-store bytes, instantiations)}
+    from ``nvcc -Xptxas -v`` output, template instantiations merged."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(_ZN\w+)'", line)
+        if m:
+            name = _demangled_name(m.group(1))
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if name and (regs or spill):
+            r, sp, n = out.get(name, (0, 0, 0))
+            out[name] = (max(r, int(regs.group(1))) if regs else r,
+                         max(sp, int(spill.group(1))) if spill else sp,
+                         n + bool(regs))
+    return out
 
 
 def fail(msg):
@@ -105,8 +172,12 @@ def max_err(a, b, tol):
     return float(err.max()), ok
 
 
-def bound(flops, nbytes, dtype):
-    t_ops = flops / PEAK_FLOPS[dtype]
+def bound(flops, nbytes, dtype=None):
+    """(least ms, what bounds it): ``flops`` operations at ``dtype``'s
+    peak, or with no dtype a {dtype: operations} of work in several types,
+    each at its own peak; ``nbytes`` at the memory rate."""
+    parts = flops if dtype is None else {dtype: flops}
+    t_ops = sum(f / PEAK_FLOPS[d] for d, f in parts.items())
     t_mem = nbytes / PEAK_BYTES
     return (max(t_ops, t_mem) * 1e3,
             "operations" if t_ops >= t_mem else "bytes")
@@ -594,6 +665,303 @@ def fedsim_full(fedsim, tk):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the SSD scan kernels
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(gen, *, b, s, h, p, g, n, dtype, regime="test",
+               zero_x=False):
+    """x, dt, A, B, C on the card; x, B, C normal.  ``regime="test"``
+    draws dt ~ U(0.001, 0.1) and A ~ -U(0.5, 2) as tests/test_kernels.py
+    does; ``"model"`` draws them as mamba2's init gives them (dt =
+    softplus(N(0, 1)), about 0.7, and A = -1): a 256-step chunk's decay
+    then reaches about exp(-180), where exp(cs) and the state decays
+    underflow."""
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    ru = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device="cuda")
+    x = torch.zeros((b, s, h, p), device="cuda") if zero_x else rn(b, s, h, p)
+    if regime == "model":
+        dt = torch.nn.functional.softplus(rn(b, s, h))
+        A = -torch.ones(h, device="cuda")
+    else:
+        dt, A = ru(0.001, 0.1, b, s, h), -ru(0.5, 2.0, h)
+    return [x.to(dtype), dt, A, rn(b, s, g, n).to(dtype),
+            rn(b, s, g, n).to(dtype)]
+
+
+def layer_inputs(configs, mamba2, gen):
+    """x, dt, A, B, C as the first layer of mamba2-1.3B at full width hands
+    them to ``ops.ssd`` (``models/mamba2.py:_block``): seeded weights, two
+    random sequences of 512 tokens, as the main path's local step has."""
+    from repro_torch.models.common import dtype_of, rms_norm
+    cfg = configs.get_config("mamba2_1p3b").model.replace(num_layers=1)
+    params = mamba2.init(cfg, seed=9, device="cuda")
+    w = mamba2.layer_list(params)[0]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        x = params["emb"][tokens].to(dtype_of(cfg.compute_dtype))
+        _, xs, Bm, Cm, dt = mamba2._block_core(
+            cfg, rms_norm(x, w["ln"], cfg.norm_eps), w)
+        A = -torch.exp(w["A_log"])
+    return [t.contiguous() for t in (xs, dt, A, Bm, Cm)], cfg.ssm_chunk
+
+
+def ssd_work(*, b, s, h, p, g, n, chunk, dtype):
+    """(forward, backward), each ({type: operations}, bytes), that the
+    inputs need: the causal half of each chunk's L x L products, 2
+    operations per multiply-add.  G = C Bt is formed once per (b, group,
+    chunk) and shared by the group's heads; on bf16 inputs it is exact on
+    the bf16 tensor cores with f32 accumulation, so it counts at the bf16
+    peak.  The backward forms G again, and dC = dG B and dB = dGt C once
+    per group (dG summed over the group's heads first); those take an f32
+    dG, so they count at the f32 peak with the rest.  Bytes: each input
+    read once, each output written once (the forward's chunk states
+    included, the backward's per-head scratch not)."""
+    nc = -(-s // chunk)
+    tri = sum(min(chunk, s - c * chunk) * (min(chunk, s - c * chunk) + 1)
+              // 2 for c in range(nc))          # (l, s) pairs with s <= l
+    state = 2 * s * n * p                       # y_off and S_new per step
+    cb = 2 * b * g * tri * n                    # G = C Bt, per group
+
+    def ops(f32):
+        out = {torch.float32: f32}
+        out[dtype] = out.get(dtype, 0) + cb
+        return out
+    fwd = ops(2 * b * h * (tri * p + state))
+    bwd = ops(2 * b * g * tri * 2 * n + 2 * b * h * (2 * tri * p
+                                                     + 2 * state))
+    e = torch.tensor([], dtype=dtype).element_size()
+    io = b * s * (2 * h * p + 2 * g * n) * e + b * s * h * 4 + h * 4
+    states = b * h * nc * p * n * 4
+    return (fwd, io + states), (bwd, 2 * io + states)
+
+
+def ssd_case(ss, gen, args, *, label, chunk, zero_x=False, timed=False):
+    """Both kernels against their plain versions on one input (x, dt, A, B,
+    C); returns the worst (forward, backward) errors and, if ``timed``,
+    the timings."""
+    dtype = args[0].dtype
+    b, s, h, p = args[0].shape
+    g, n = args[3].shape[2:]
+    shape = dict(b=b, s=s, h=h, p=p, g=g, n=n)
+    y, states = ss.ssd_fwd_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    y_p = ss.ssd_plain(*args, chunk=chunk)
+    y64 = ss.ssd_plain(*[a.double() for a in args], chunk=chunk)
+    scale_f = max(float(y64.abs().max()), 1e-30)
+    lim = tol["atol"] + tol["rtol"] * y64.abs()
+
+    def meets(out):
+        # and within rtol of y's largest entry: atol alone would pass
+        # anything on small activations (mamba2's layer gives |y| < 1)
+        d = (out.double() - y64).abs()
+        return (bool((d <= lim).all()) and float(d.max())
+                <= tol["rtol"] * scale_f), float(d.max())
+    ok_f, err_f = meets(y)
+    plain_ok, err_fp = meets(y_p)
+    if not plain_ok:
+        ok_f = err_f <= SSD_PLAIN_FACTOR * err_fp
+    if not bool(torch.isfinite(y.float()).all()):
+        fail(f"SSD forward kernel: non-finite y ({label})")
+    if zero_x and not bool((y == 0).all()):
+        fail(f"SSD forward kernel: nonzero y for x = 0 ({label})")
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    leaves_k = [a.clone().requires_grad_() for a in args]
+    got = torch.autograd.grad(ss.ssd_cuda(*leaves_k, chunk=chunk), leaves_k,
+                              dy)
+    torch.cuda.synchronize()
+    leaves_p = [a.clone().requires_grad_() for a in args]
+    y_pg = ss.ssd_plain(*leaves_p, chunk=chunk)
+    plain = torch.autograd.grad(y_pg, leaves_p, dy, retain_graph=True)
+    leaves_64 = [a.double().requires_grad_() for a in args]
+    want = torch.autograd.grad(ss.ssd_plain(*leaves_64, chunk=chunk),
+                               leaves_64, dy.double())
+    err_b, abs_b, plain_b, ok_b = 0.0, 0.0, 0.0, True
+    per_grad = {}
+    for name, a, pl, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain,
+                              want):
+        if a.dtype != pl.dtype or a.shape != pl.shape:
+            fail(f"SSD backward kernel: {name} {a.dtype} {tuple(a.shape)}, "
+                 f"plain {pl.dtype} {tuple(pl.shape)} ({label})")
+        if not bool(torch.isfinite(a.float()).all()):
+            fail(f"SSD backward kernel: non-finite {name} ({label})")
+        scale = max(float(w.abs().max()), 1e-30)
+        e = float((a.double() - w).abs().max())
+        e_plain = float((pl.double() - w).abs().max())
+        err_b, abs_b = max(err_b, e / scale), max(abs_b, e)
+        plain_b = max(plain_b, e_plain / scale)
+        per_grad[name] = [e / scale, e_plain / scale]
+        tol_g = SSD_BWD_TOL[dtype] * scale
+        ok_b &= e <= (tol_g if e_plain <= tol_g
+                      else SSD_PLAIN_FACTOR * e_plain)
+    row = dict(case=label, dtype=str(dtype)[6:], chunk=chunk, **shape,
+               max_abs_err=err_f, tol=tol["atol"],
+               fwd_err_of_max=err_f / scale_f,
+               fwd_plain_err_of_max=err_fp / scale_f,
+               bwd_max_abs_err=abs_b, bwd_err_of_max=err_b,
+               bwd_plain_err_of_max=plain_b,
+               bwd_tol_of_max=SSD_BWD_TOL[dtype],
+               bwd_kernel_and_plain_err_of_max=per_grad)
+    if timed:
+        (f_ops, f_bytes), (b_ops, b_bytes) = ssd_work(
+            chunk=chunk, dtype=dtype, **shape)
+        with torch.no_grad():
+            row["fwd_ms"] = time_ms(lambda: ss.ssd_fwd_cuda(*args,
+                                                            chunk=chunk))
+            row["fwd_plain_ms"] = time_ms(
+                lambda: ss.ssd_plain(*args, chunk=chunk), iters=3, warmup=1)
+            row["bwd_ms"] = time_ms(lambda: ss.ssd_bwd_cuda(
+                dy, *args, states, chunk=chunk))
+        row["bwd_plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            y_pg, leaves_p, dy, retain_graph=True), iters=3, warmup=1)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(f_ops, f_bytes)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound(b_ops, b_bytes)
+        gflop = lambda ops: {str(d)[6:]: v / 1e9 for d, v in ops.items()}
+        row.update(fwd_gflop=gflop(f_ops), fwd_mb=f_bytes / 1e6,
+                   bwd_gflop=gflop(b_ops), bwd_mb=b_bytes / 1e6)
+    print("ssd " + json.dumps(row))
+    if not (ok_f and ok_b):
+        fail(f"SSD kernels disagree with the plain versions: {row}")
+    return row
+
+
+def ssd_phase(ss, configs, mamba2):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    chunk = SSD_MAIN["chunk"]
+    shape = {k: v for k, v in SSD_MAIN.items() if k != "chunk"}
+    drawn = lambda dtype, **kw: ssd_inputs(gen, dtype=dtype,
+                                           **{**shape, **kw})
+    rows = []
+    for b, s, h, p, g, n, c in SSD_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(ssd_case(
+                ss, gen, ssd_inputs(gen, b=b, s=s, h=h, p=p, g=g, n=n,
+                                    dtype=dtype), label="grid", chunk=c))
+    # the main path's own inputs: one full-width layer's activations
+    main = ssd_case(ss, gen, layer_inputs(configs, mamba2, gen)[0],
+                    label="mamba2 layer 0", chunk=chunk, timed=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(ssd_case(ss, gen, drawn(dtype), chunk=chunk,
+                             label="main shape"))
+        rows.append(ssd_case(ss, gen, drawn(dtype, regime="model"),
+                             chunk=chunk, label="main shape, model dt/A"))
+        rows.append(ssd_case(ss, gen, drawn(dtype, s=300), chunk=chunk,
+                             label="padded s=300"))
+    rows.append(ssd_case(ss, gen, drawn(torch.bfloat16, zero_x=True),
+                         chunk=chunk, zero_x=True, label="x = 0"))
+    print(f"ssd: {len(rows) + 1} cases within tolerance; forward worst "
+          f"{max(r['max_abs_err'] for r in rows + [main]):.3e} absolute, "
+          f"{max(r['fwd_err_of_max'] for r in rows + [main]):.3e} of y's "
+          f"max; backward "
+          f"worst {max(r['bwd_err_of_max'] for r in rows + [main]):.3e} "
+          f"of each gradient's max")
+    common = dict(library_ms=None, max_abs_err=main["max_abs_err"])
+    return ({**common, "ms": main["fwd_ms"], "plain_ms": main["fwd_plain_ms"],
+             "bound_ms": main["fwd_bound_ms"],
+             "bound_by": main["fwd_bound_by"]},
+            {**common, "max_abs_err": main["bwd_max_abs_err"],
+             "ms": main["bwd_ms"], "plain_ms": main["bwd_plain_ms"],
+             "bound_ms": main["bwd_bound_ms"],
+             "bound_by": main["bwd_bound_by"]})
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the HCEF round step on mamba2
+# ---------------------------------------------------------------------------
+
+def small_round_agrees(configs, mamba2, rnd_mod, base):
+    """Three rounds (the last a gossip round) of the smoke mamba2's round
+    step on the card and on the CPU, from the same parameters, tokens,
+    controls and bits: losses, statistics and parameters within
+    ROUND_RTOL / ROUND_ATOL."""
+    from repro_torch.tree import flatten
+    cfg = configs.smoke_model(configs.get_config("mamba2_1p3b").model)
+    hcef = base.HCEFConfig(tau=4, q=3, eta=0.1)
+    topo = base.FLTopology(2, 2)
+    params0 = mamba2.init(cfg, torch.Generator().manual_seed(3),
+                          device="cpu")
+    rng = np.random.default_rng(3)
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 40)))
+              for _ in range(3)]
+    rho = np.array([0.9, 0.6, 0.8, 0.7])
+    theta = np.array([0.5, 0.25, 1.0, 0.1])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state = rnd_mod.init_state(cfg, hcef, topo, params0, device=dev)
+        hist = []
+        for r in range(3):
+            step = rnd_mod.make_round_step(cfg, hcef, topo, gossip=r == 2)
+            state, m = step(state, {"tokens": tokens[r]}, rho, theta, 7 + r)
+            hist.append({k: v.cpu().numpy() for k, v in m.items()})
+        runs[dev] = (hist, {k: v.cpu() for k, v in
+                            flatten(state.params).items()})
+    worst = 0.0
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        for k in ("loss", "g2", "sigma2"):
+            worst = max(worst, float(np.max(np.abs(a[k] - b[k])
+                                            / np.abs(b[k]))))
+        if not np.array_equal(a["steps"], b["steps"]):
+            fail("the card's round drew other masked-step bits")
+    perr = max(float((runs["cuda"][1][k] - v).abs().max())
+               for k, v in runs["cpu"][1].items())
+    print(f"mamba2 small round: card vs CPU over 3 rounds, largest relative "
+          f"deviation of loss/g2/sigma2 {worst:.3e} (tolerance {ROUND_RTOL}),"
+          f" largest parameter deviation {perr:.3e} (tolerance "
+          f"{ROUND_ATOL})")
+    if not (worst <= ROUND_RTOL and perr <= ROUND_ATOL):
+        fail("the mamba2 round step on the card disagrees with the CPU")
+
+
+def mamba2_full(train, ss, tk):
+    """The launcher's entry point on mamba2-1.3B at full width: every SSD
+    and top-k launch of the run counted, the run's numbers checked."""
+    argv = ["--arch", "mamba2_1p3b", "--full", "--rounds",
+            str(MAMBA2_ROUNDS), "--seq", "511"]
+    print("python -m repro_torch.launch.train " + " ".join(argv))
+    torch.cuda.empty_cache()
+    ss.reset_launches()
+    tk.reset_launches()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ss.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"])
+    cfg, hist = out["cfg"], out["history"]
+    tau, R = 4, 4  # the configuration's HCEFConfig and the host topology
+    steps = MAMBA2_ROUNDS * R * tau
+    want = {"ssd_scan_fwd": steps * cfg.num_layers * (2 if cfg.remat else 1),
+            "ssd_scan_bwd": steps * cfg.num_layers,
+            "topk_compress": MAMBA2_ROUNDS * 11}  # one per leaf
+    if len(hist) != MAMBA2_ROUNDS:
+        fail(f"the launcher ran {len(hist)} of {MAMBA2_ROUNDS} rounds")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"non-finite loss: {[h['loss'] for h in hist]}")
+    if launches != want:
+        fail(f"launch counts {launches}, expected {want}")
+    if any(b["time"] < a["time"] or b["energy"] < a["energy"]
+           for a, b in zip(hist, hist[1:])):
+        fail("simulated time or energy decreased")
+    if not hist[-1]["gossip"] or any(h["gossip"] for h in hist[:-1]):
+        fail("expected gossip in the last round only")
+    med = lambda v: float(np.percentile(v, 50))
+    stats = dict(rounds=MAMBA2_ROUNDS, layers=cfg.num_layers,
+                 d_model=cfg.d_model, params=out["n_params"],
+                 round_wall_ms_p50=med(out["round_ms"]),
+                 round_wall_ms=out["round_ms"],
+                 phase_ms_p50={k: med(v) for k, v in out["timings"].items()},
+                 phase_ms=out["timings"],
+                 launches_per_round={k: v / MAMBA2_ROUNDS
+                                     for k, v in launches.items()},
+                 loss=[h["loss"] for h in hist],
+                 rho_mean=[h["rho_mean"] for h in hist],
+                 theta_mean=[h["theta_mean"] for h in hist],
+                 time_s=hist[-1]["time"], energy_j=hist[-1]["energy"],
+                 peak_mem_gb=out["peak_mem_gb"])
+    print("mamba2 " + json.dumps(stats))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -603,9 +971,13 @@ def main():
     sys.path.insert(0, str(SRC))
     from repro_torch import configs
     from repro_torch.kernels import build
+    from repro_torch.configs import base
+    from repro_torch.core import round as rnd_mod
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import topk_compress as tk
-    from repro_torch.launch import fedsim
+    from repro_torch.launch import fedsim, train
+    from repro_torch.models import mamba2
     from repro_torch.models.vision import make_vision_model
     from repro_torch.launch.serve import poisson_requests
     from repro_torch.models import lm
@@ -627,9 +999,9 @@ def main():
     build.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc wall {build.build_seconds})")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas: " + line.strip())
+    for name, (regs, spills, n) in ptxas_summary(build.build_log).items():
+        print(f"  ptxas: {name}: up to {regs} registers, {spills} bytes of "
+              f"spill stores, over {n} instantiations")
 
     # the served stream fixes the main path's prefill and decode shapes:
     # every prefill runs at S_pad, every decode over `width` pages per slot
@@ -676,6 +1048,15 @@ def main():
     fedsim_agrees(fedsim)
     launches["topk_compress"] = fedsim_full(fedsim, tk)
 
+    # -- phase 8 -------------------------------------------------------------
+    main_ssd_fwd, main_ssd_bwd = ssd_phase(ss, configs, mamba2)
+
+    # -- phase 9 -------------------------------------------------------------
+    small_round_agrees(configs, mamba2, rnd_mod, base)
+    m2 = mamba2_full(train, ss, tk)
+    launches.update(ssd_scan_fwd=m2["ssd_scan_fwd"],
+                    ssd_scan_bwd=m2["ssd_scan_bwd"])
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -687,12 +1068,19 @@ def main():
              main_decode),
             ("topk_compress", "src/repro_torch/kernels/csrc/"
              "topk_compress.cu", "src/repro/kernels/topk_compress.py:101",
-             main_topk)):
+             main_topk),
+            ("ssd_scan_fwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:77", main_ssd_fwd),
+            ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:77", main_ssd_bwd)):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    kernels[-1]["note"] = ("the backward has no TPU counterpart: jax.grad "
+                           "through ssd_pallas fails; held to jax.grad of "
+                           "ref.ssd_chunked_jnp through the plain version")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

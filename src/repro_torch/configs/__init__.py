@@ -1,5 +1,5 @@
 """Config registry (own copy of ``repro/configs/__init__.py``), limited to
-the architectures the port serves and the paper's two vision models."""
+the architectures the port runs and the paper's two vision models."""
 from __future__ import annotations
 
 import importlib
@@ -8,10 +8,11 @@ from typing import List
 from repro_torch.configs.base import ArchBundle, ModelConfig
 from repro_torch.configs.vision import VISION_CONFIGS, VisionBundle
 
-ARCH_IDS: List[str] = ["qwen2_7b", "smollm_135m"]
+ARCH_IDS: List[str] = ["mamba2_1p3b", "qwen2_7b", "smollm_135m"]
 PAPER_IDS: List[str] = list(VISION_CONFIGS)
 
 _ALIASES = {
+    "mamba2-1.3b": "mamba2_1p3b",
     "qwen2-7b": "qwen2_7b",
     "smollm-135m": "smollm_135m",
 }
@@ -27,9 +28,9 @@ def get_config(name: str) -> ArchBundle:
 
 
 def smoke_model(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family config for CPU tests (the reference's dense
-    branch of ``smoke_model``)."""
-    return cfg.replace(
+    """Reduced same-family config for CPU tests (the reference's dense and
+    ssm branches of ``smoke_model``)."""
+    kw = dict(
         num_layers=2,
         d_model=64,
         num_heads=4,
@@ -39,7 +40,12 @@ def smoke_model(cfg: ModelConfig) -> ModelConfig:
         vocab_size=257,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
     )
+    if cfg.family == "ssm":
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_groups=1, ssm_chunk=16,
+                  num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0)
+    return cfg.replace(**kw)
 
 
 def get_vision_config(name: str) -> VisionBundle:

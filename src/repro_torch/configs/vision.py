@@ -6,6 +6,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from repro_torch.configs.base import FLTopology, HCEFConfig
+
 
 @dataclass(frozen=True)
 class VisionConfig:
@@ -19,52 +21,12 @@ class VisionConfig:
 
 
 @dataclass(frozen=True)
-class FLTopology:
-    clusters: int
-    devices_per_cluster: int
-    backhaul: str = "ring"  # ring | complete | erdos_renyi
-
-    @property
-    def num_devices(self) -> int:
-        return self.clusters * self.devices_per_cluster
-
-
-@dataclass(frozen=True)
-class HCEFConfig:
-    """Round structure and controller knobs (base.py:139), the fields the
-    FedSim reads."""
-    tau: int = 4
-    q: int = 4
-    eta: float = 0.05
-    momentum: float = 0.9
-    theta_min: float = 0.05
-    rho_min: float = 0.1
-    time_budget: float = float("inf")
-    energy_budget: float = float("inf")
-
-
-@dataclass(frozen=True)
 class VisionBundle:
     vision: VisionConfig
     fl: FLTopology
     hcef: HCEFConfig = field(default_factory=HCEFConfig)
     dataset: str = "cifar"  # data/synthetic.py kind
     source: str = ""
-
-
-def validate_theta_levels(theta_levels) -> None:
-    """Sparse-gossip level grid (base.py:120): non-empty, in (0, 1], and
-    reaching 1.0, since ``quantize_theta`` rounds up and raises above the
-    largest level."""
-    if not theta_levels:
-        raise ValueError("sparse_gossip requires theta_levels")
-    if any(not 0.0 < float(t) <= 1.0 for t in theta_levels):
-        raise ValueError(
-            f"theta_levels must lie in (0, 1], got {theta_levels}")
-    if max(float(t) for t in theta_levels) < 1.0:
-        raise ValueError(
-            f"theta_levels {theta_levels} do not cover [theta_min, 1.0]: "
-            f"the largest level must be 1.0")
 
 
 RESNET20_CIFAR10 = VisionBundle(

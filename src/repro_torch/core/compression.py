@@ -1,16 +1,17 @@
 """The paper's compression operator Q on stacked-replica parameter dicts
 (port of ``repro/core/compression.py``, its plain branch).
 
-Each leaf of the per-replica delta (R, *shape) is flattened to (R, L),
-padded with zeros to a multiple of the block, compressed with the
-block-local top-k kernel with fused error feedback (``ops.topk_compress``:
-the CUDA kernel for CUDA tensors, its plain version on the CPU) and
-unpadded.  The reference's per-shard ``shard_map`` branch waits for the
+Each leaf of the per-replica delta (R, *shape) is flattened to (R, L)
+and compressed with the block-local top-k kernel with fused error feedback
+(``ops.topk_compress``: the CUDA kernel for CUDA tensors, its plain version
+on the CPU), the compressed delta written over the delta and the residual
+over the EF buffer.  A leaf whose L is not a multiple of the block is
+padded with zeros and copied back.  The reference's per-shard ``shard_map`` branch waits for the
 multi-GPU slice (ROADMAP.md, multi-GPU mesh path).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -19,44 +20,43 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 
-def _compress_flat(flat, theta, block, ef=None):
-    """flat, ef: (R, L); theta: (R,) float32.  The pad goes through the
-    kernel like any other data and is sliced off after it (:32)."""
+def _leaf(d, e, theta, block, error_feedback):
+    """d, e: (R, *shape), contiguous; theta: (R,) float32.  Q over the
+    flattened (R, L) rows, masked written over d and the residual over e.
+    A pad to the block goes through the kernel like any other data and is
+    sliced off after it (:32)."""
+    R = d.shape[0]
+    flat, res = d.view(R, -1), e.view(R, -1)
+    ef = res if error_feedback else None
     L = flat.shape[1]
     pad = (-L) % block
-    if pad:
-        flat = F.pad(flat, (0, pad))
-        if ef is not None:
-            ef = F.pad(ef, (0, pad))
-    masked, resid = ops.topk_compress(flat, theta, block=block, ef=ef)
-    return masked[:, :L], resid[:, :L]
-
-
-def _leaf(d, e, theta, block, error_feedback):
-    R = d.shape[0]
-    flat = d.reshape(R, -1)
-    ef = e.reshape(R, -1) if error_feedback and e is not None else None
-    masked, resid = _compress_flat(flat, theta, block, ef=ef)
-    return (masked.reshape(d.shape).to(d.dtype),
-            resid.reshape(d.shape).to(e.dtype if e is not None
-                                      else d.dtype))
+    if not pad:
+        ops.topk_compress(flat, theta, block=block, ef=ef, out=(flat, res))
+        return
+    masked, resid = ops.topk_compress(
+        F.pad(flat, (0, pad)), theta, block=block,
+        ef=None if ef is None else F.pad(ef, (0, pad)))
+    flat.copy_(masked[:, :L])
+    res.copy_(resid[:, :L])
 
 
 def compress_delta(delta: Dict[str, torch.Tensor],
-                   ef: Optional[Dict[str, torch.Tensor]], theta, *,
+                   ef: Dict[str, torch.Tensor], theta, *,
                    block: int = 1024,
                    error_feedback: bool = True) -> Tuple[Dict, Dict]:
-    """delta, ef: dicts of (R, *shape) tensors; theta: (R,) float32 tensor.
+    """delta, ef: dicts of contiguous (R, *shape) tensors; theta: (R,)
+    float32 tensor.
 
-    Returns (compressed, new_ef) with compressed + new_ef == delta + ef,
-    exact in f32.  As in the reference, the residual is returned as the new
-    EF buffer even with ``error_feedback=False`` (then ef is not added)."""
-    comp, new_ef = {}, {}
+    Writes the compressed delta over ``delta`` and the residual over
+    ``ef``, and returns them as (compressed, new_ef): compressed + new_ef
+    == delta + ef, exact in f32.  As in the reference, the residual is the
+    new EF buffer even with ``error_feedback=False`` (then ef is not
+    added).  ef holds delta's type, or float32 with error feedback on; the
+    round step's memory at full width has no room for a second copy of
+    either."""
     for name, d in delta.items():
-        comp[name], new_ef[name] = _leaf(
-            d, None if ef is None else ef[name], theta, block,
-            error_feedback)
-    return comp, new_ef
+        _leaf(d, ef[name], theta, block, error_feedback)
+    return delta, ef
 
 
 def quantize_theta(theta, levels):

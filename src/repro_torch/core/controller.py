@@ -45,6 +45,20 @@ class BudgetState:
     population: int = 0
     cohort: int = 0
 
+    def charge(self, time: float, energy: float, gossip: bool) -> None:
+        """Account one edge round's time and energy (Eq. 8/9); a gossip
+        round closes the global round (the reference's launchers do this
+        inline: runtime/driver.py, launch/train.py)."""
+        self.time_spent_this += time
+        self.energy_spent_this += energy
+        self.r += 1
+        if gossip:
+            self.time_spent_prev += self.time_spent_this
+            self.energy_spent_prev += self.energy_spent_this
+            self.time_spent_this = self.energy_spent_this = 0.0
+            self.r = 0
+            self.l += 1
+
     def allowances(self):
         """Per-edge-round (time, energy) room implied by (15b)/(15c)."""
         rem_g = max(self.phi - self.l, 1)

@@ -1,0 +1,240 @@
+"""The HCEF round step (Algorithm 1, lines 4-19), off the mesh, fault-free
+and synchronous (port of ``repro/core/round.py``: ``FLState``,
+``init_state``, ``_split_batch``, ``_global_norm2`` and the off-mesh
+branch of ``make_round_step``, :178-300 and :506-547).
+
+Stacked-replica layout: every leaf of the state holds the R devices' copies
+on a leading dim.  One call is one edge round:
+  tau masked local SGD steps per device  ->  delta = x_tau - x_0
+  -> Q(delta + ef) block top-k with error feedback (theta per device),
+     one top-k kernel launch per leaf over the R rows
+  -> the intra-cluster mean, or on gossip rounds the (C, R) GEMM
+     M = H diag(1/Dev) B that folds the mean and the H mix into one
+  -> every device of a cluster takes its cluster's model.
+
+Where the reference is pure, this step updates the state's tensors in
+place, with the same arithmetic: the devices' local steps run one after the
+other into one stacked delta buffer, SGD updates in place
+(``optim.sgd.sgd_update_``), Q writes the compressed delta over the delta
+and the residual over the EF buffer, and the aggregate is computed in f32
+column chunks written back into the parameters.  At mamba2-1.3B's width
+(R = 4) the state alone is 48.7 GB; this keeps the round's extra memory to
+the delta buffer, one device's gradients and activations.
+
+The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
+reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
+-> (R, tau)``.  Left out, each with the ROADMAP.md item that brings it:
+the mesh branch and ``cluster_levels`` (modules to port, item 5), the
+chaos masks (item 2), and the overlap engine (item 3).  The reference's
+R == 1 branch exists for ``vmap``; here the devices run in a loop and
+R = 1 takes the same path.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FLTopology, HCEFConfig, ModelConfig
+from repro_torch.core.compression import compress_delta
+from repro_torch.core.mixing import make_mixing
+from repro_torch.device import from_numpy, resolve
+from repro_torch.models.common import dtype_of
+from repro_torch.models.registry import get_model
+from repro_torch.optim.sgd import sgd_update_
+from repro_torch.tree import flatten, tree_map
+
+AGG_COLS = 1 << 22  # columns of a leaf per f32 aggregation chunk
+
+
+class FLState(NamedTuple):
+    params: Any      # nested dict, leaves (R, *shape)
+    momentum: Any    # like params (state_dtype), or None
+    ef: Any          # error feedback, like params
+    round_idx: int
+
+
+def bernoulli_bits(key: int, rho, *, tau: int) -> torch.Tensor:
+    """Default masked-step bits: (N, tau) in {0, 1}, P(1) = clip(rho, 0, 1)
+    per device, from a CPU torch.Generator seeded with ``key``."""
+    gen = torch.Generator().manual_seed(int(key))
+    rho = torch.as_tensor(np.clip(np.asarray(rho, np.float64), 0.0, 1.0))
+    u = torch.rand((len(rho), tau), generator=gen, dtype=torch.float64)
+    return (u < rho[:, None]).float()
+
+
+def _global_norm2(tensors) -> torch.Tensor:
+    """sum of squares of every tensor, in f32 (:95)."""
+    return sum(torch.sum(torch.square(t.float())) for t in tensors)
+
+
+def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
+               params0, device=None) -> FLState:
+    """Every device starts from ``params0`` (a nested dict of tensors or
+    numpy arrays: the reference draws its own with ``jax.random``, so the
+    weights are an input here); momentum in ``cfg.state_dtype`` and EF in
+    the parameters' type start at zero."""
+    dev = resolve(device)
+    R = topo.num_devices
+
+    def stack(x):
+        t = x.to(dev) if isinstance(x, torch.Tensor) else from_numpy(
+            np.asarray(x), dev)
+        return t[None].expand((R,) + tuple(t.shape)).clone()
+
+    params = tree_map(stack, params0)
+    mom = None
+    if hcef.momentum and cfg.state_dtype:
+        sd = dtype_of(cfg.state_dtype)
+        mom = tree_map(lambda x: torch.zeros(x.shape, dtype=sd, device=dev),
+                        params)
+    ef = tree_map(torch.zeros_like, params)
+    return FLState(params=params, momentum=mom, ef=ef, round_idx=0)
+
+
+def _split_batch(batch: Dict[str, torch.Tensor], R: int, tau: int):
+    """(global_batch, ...) -> (R, tau, b_local, ...) (:146)."""
+    def split(x):
+        B = x.shape[0]
+        assert B % (R * tau) == 0, (B, R, tau)
+        return x.reshape(R, tau, B // (R * tau), *x.shape[1:])
+    return {k: split(v) for k, v in batch.items()}
+
+
+def _per_layer(tree):
+    """The leaves a local step differentiates, in a fixed order: each
+    top-level leaf whole, then each layer's slice of every stacked layer
+    leaf.  Returns (list of views, rebuild(list) -> the tree loss_fn
+    takes, with "layers" as a list of per-layer dicts).  Gradients then
+    come per layer: no zero-filled (L, ...) gradient per layer slice."""
+    tops = sorted(k for k in tree if k != "layers")
+    names = sorted(tree["layers"])
+    L = tree["layers"][names[0]].shape[0]
+    leaves = ([tree[k] for k in tops]
+              + [tree["layers"][n][l] for l in range(L) for n in names])
+
+    def rebuild(vals):
+        out = dict(zip(tops, vals[:len(tops)]))
+        rest, m = vals[len(tops):], len(names)
+        out["layers"] = [dict(zip(names, rest[l * m:(l + 1) * m]))
+                         for l in range(L)]
+        return out
+    return leaves, rebuild
+
+
+def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
+                    *, gossip: bool = True,
+                    bits_fn: Optional[Callable] = None):
+    """Returns round_step(state, batch, rho, theta, key, timings=None) ->
+    (state, metrics).
+
+    batch: {"tokens": (R * tau * b_local, S + 1)}; rho, theta: (R,)
+    controls; key: the integer ``bits_fn(key, rho)`` turns into the (R,
+    tau) masked-step bits (default: ``bernoulli_bits``).
+    ``gossip`` selects the inter-cluster mix (Eq. 5) at the end of the
+    round.  metrics: (R,) tensors loss, g2, sigma2, steps.  ``timings``
+    (a dict) collects the synchronised host ms of device_round, compress
+    and aggregate."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"the round step trains the ssm family; {cfg.family!r} needs a "
+            f"flash-attention backward kernel (ROADMAP.md, kernel item 1, "
+            f"and the LM round of modules to port)")
+    model = get_model(cfg)
+    C, Dev = topo.clusters, topo.devices_per_cluster
+    R = topo.num_devices
+    H = torch.as_tensor(make_mixing(topo.backhaul, C), dtype=torch.float32)
+    M = torch.repeat_interleave(H / Dev, Dev, dim=1)  # (C, R)
+    bits_fn = bits_fn or functools.partial(bernoulli_bits, tau=hcef.tau)
+    loss_fn = functools.partial(model.loss_fn, cfg)
+
+    def device_round(work, x0, mom, tokens, bits):
+        """One device's tau local iterations, in place.  work: a copy of
+        x0 on entry and the delta x_tau - x_0 on exit; mom: updated in
+        place; tokens: (tau, b_local, S + 1); bits: (tau,)."""
+        leaves, rebuild = _per_layer(work)
+        moms = None if mom is None else _per_layer(mom)[0]
+        losses, gn2s = [], []
+        for t in range(hcef.tau):
+            ps = [v.detach().requires_grad_() for v in leaves]
+            with torch.enable_grad():
+                loss = loss_fn(rebuild(ps), {"tokens": tokens[t]})
+                grads = torch.autograd.grad(loss, ps)
+            with torch.no_grad():
+                gn2s.append(_global_norm2(grads))
+                for g in grads:
+                    g.mul_(bits[t])
+            sgd_update_(ps, grads, moms, lr=hcef.eta, momentum=hcef.momentum)
+            losses.append(loss.detach())
+        with torch.no_grad():
+            for k, w in flatten(work).items():
+                w.sub_(x0[k])
+        gn2 = torch.stack(gn2s)
+        g2 = gn2.min()
+        return {"loss": torch.stack(losses).mean(), "g2": g2,
+                "sigma2": torch.clamp_min(gn2.mean() - g2, 0.0),
+                "steps": bits.sum()}
+
+    def round_step(state: FLState, batch, rho, theta, key, timings=None):
+        params = flatten(state.params)
+        dev = next(iter(params.values())).device
+        sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+                else (lambda: None))
+
+        @contextlib.contextmanager
+        def phase(name):
+            if timings is None:
+                yield
+                return
+            sync()
+            t0 = time.perf_counter()
+            yield
+            sync()
+            timings.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+        tokens = _split_batch(batch, R, hcef.tau)["tokens"].to(dev)
+        bits = torch.as_tensor(bits_fn(key, rho), dtype=torch.float32,
+                               device=dev)
+        delta_tree = tree_map(torch.empty_like, state.params)
+        delta = flatten(delta_tree)
+        per_dev: List[Dict] = []
+        with phase("device_round"):
+            for r in range(R):
+                with torch.no_grad():
+                    for k, d in delta.items():
+                        d[r].copy_(params[k][r])
+                work = tree_map(lambda d: d[r], delta_tree)
+                mom = (None if state.momentum is None
+                       else tree_map(lambda m: m[r], state.momentum))
+                per_dev.append(device_round(
+                    work, {k: v[r] for k, v in params.items()}, mom,
+                    tokens[r], bits[r]))
+        # theta in float32 before Q, as the reference casts it: k is
+        # computed from the f32 value
+        theta32 = torch.as_tensor(np.asarray(theta, np.float32), device=dev)
+        with phase("compress"), torch.no_grad():
+            comp, _ = compress_delta(delta, flatten(state.ef), theta32,
+                                     block=hcef.block_size,
+                                     error_feedback=hcef.error_feedback)
+        with phase("aggregate"), torch.no_grad():
+            Md = M.to(dev)
+            for k, x0 in params.items():
+                xf, cf = x0.view(R, -1), comp[k].view(R, -1)
+                for c0 in range(0, xf.shape[1], AGG_COLS):
+                    xc = xf[:, c0:c0 + AGG_COLS]
+                    upd = xc.float() + cf[:, c0:c0 + AGG_COLS].float()
+                    if gossip:
+                        yc = Md @ upd
+                    else:
+                        yc = upd.view(C, Dev, -1).mean(dim=1)
+                    xc.view(C, Dev, -1).copy_(yc[:, None])
+        metrics = {k: torch.stack([m[k] for m in per_dev])
+                   for k in per_dev[0]}
+        return state._replace(round_idx=state.round_idx + 1), metrics
+
+    return round_step

@@ -2,8 +2,10 @@
 ``repro/data/synthetic.py:synthetic_images`` and ``dirichlet_partition``,
 numpy): the exact shapes (32x32x3 / 10 classes, 28x28x1 / 62 classes),
 learnable class prototypes with per-sample sign, brightness and noise, and
-the paper's Dirichlet(beta) non-IID partition.  The token and population
-shards wait for their slices (ROADMAP.md).
+the paper's Dirichlet(beta) non-IID partition; and the device-skewed token
+corpus of the LM round (``_shared_topics``, ``client_token_shard``,
+``synthetic_tokens``), the same numbers as the reference's.  The vision
+population shards wait for the cohort slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -64,3 +66,40 @@ def dirichlet_partition(labels: np.ndarray, n_devices: int, beta: float,
         rng.shuffle(idx)
         out.append(idx)
     return out
+
+
+_TOPIC_CACHE: dict = {}
+
+
+def _shared_topics(vocab: int, seed: int, K: int = 8) -> np.ndarray:
+    """K shared 'topic' unigram models (synthetic.py:85), cached."""
+    key = (vocab, seed, K)
+    if key not in _TOPIC_CACHE:
+        rng = np.random.default_rng(seed)
+        _TOPIC_CACHE[key] = rng.dirichlet([0.1] * vocab, K)
+    return _TOPIC_CACHE[key]
+
+
+def client_token_shard(vocab: int, n_seq: int, seq_len: int, client_id: int,
+                       beta: float = 1.0, seed: int = 0) -> np.ndarray:
+    """One client's non-IID LM shard (synthetic.py:97): (n_seq, seq_len)
+    int32 from SeedSequence([seed, 31337, client_id]); topic weights ~
+    Dirichlet(beta), and every odd position is the previous token + 1."""
+    topics = _shared_topics(vocab, seed)
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, 31337, int(client_id)]))
+    mix = rng.dirichlet([beta] * topics.shape[0])
+    probs = mix @ topics
+    draws = rng.choice(vocab, (n_seq, seq_len), p=probs)
+    n_odd = draws[:, 1::2].shape[1]
+    draws[:, 1::2] = (draws[:, 0:2 * n_odd:2] + 1) % vocab
+    return draws.astype(np.int32)
+
+
+def synthetic_tokens(vocab: int, n_seq: int, seq_len: int, n_devices: int,
+                     beta: float = 1.0, seed: int = 0) -> np.ndarray:
+    """Device-skewed synthetic LM corpus (synthetic.py:120): (n_devices,
+    n_seq, seq_len) int32, device d holding client shard d."""
+    return np.stack([
+        client_token_shard(vocab, n_seq, seq_len, d, beta=beta, seed=seed)
+        for d in range(n_devices)])

@@ -20,7 +20,9 @@
 // reduction; each bisection step counts per lane and sums the counts with
 // __reduce_add_sync, so the counts are exact integers as in the reference.
 // f32 arithmetic goes through the _rn intrinsics, so nothing is contracted
-// into an FMA.
+// into an FMA.  A warp reads its whole block before it writes it, so masked
+// may be x and resid may be ef (the round compresses in place); the data
+// pointers are therefore not __restrict__.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,9 +45,9 @@ __device__ __forceinline__ float load_f32(const T* p) {
 // the block hold mag = -1, which no comparison below keeps or counts.
 template <typename TX, typename TE, typename TR, bool kHasEf, int VPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-topk_compress_kernel(const TX* __restrict__ x, const TE* __restrict__ ef,
-                     const float* __restrict__ theta, TX* __restrict__ masked,
-                     TR* __restrict__ resid, int64_t R, int64_t L, int block) {
+topk_compress_kernel(const TX* x, const TE* ef,
+                     const float* __restrict__ theta, TX* masked, TR* resid,
+                     int64_t R, int64_t L, int block) {
   const int lane = threadIdx.x & 31;
   const int64_t nb = L / block;
   const int64_t pair =

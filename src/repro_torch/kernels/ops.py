@@ -13,6 +13,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_plain, paged_decode_attention_cuda,
     paged_decode_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
 from repro_torch.kernels.topk_compress import (compress_with,
                                                topk_compress_cuda,
                                                topk_compress_plain)
@@ -71,14 +72,36 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
                                         kv_len, softmax_scale=softmax_scale)
 
 
-def topk_compress(x, theta, *, block=1024, impl=None, ef=None):
+def ssd(x, dt, A, B, C, *, chunk=64, impl=None):
+    """y of the Mamba2 SSD scan (port of ``ops.py:100``).  x: (b, s, h, p);
+    dt: (b, s, h) f32; A: (h,) f32; B, C: (b, s, g, n).  The kernels on
+    the card, differentiable through the hand-written backward; the plain
+    chunked version (autograd through it) on the CPU; ``impl="ref"`` the
+    sequential oracle."""
+    r = _route(impl, x)
+    if r == "kernel":
+        return ssd_cuda(x, dt, A, B, C, chunk=chunk)
+    if r == "ref":
+        return ref.ssd_ref(x, dt, A, B, C)[0]
+    return ssd_plain(x, dt, A, B, C, chunk=chunk)
+
+
+def topk_compress(x, theta, *, block=1024, impl=None, ef=None, out=None):
     """Q(x + ef) per (row, block) (port of ``ops.py:111``).  x, ef: (R, L);
     theta: (R,) float32.  Returns (masked, residual): the kernel or its
     plain version (bisection), or with ``impl="ref"`` the exact-sort
-    oracle; all add ef in f32 before masking."""
+    oracle; all add ef in f32 before masking.  ``out=(masked, residual)``
+    writes the results there (they may be x and ef themselves)."""
     r = _route(impl, x)
     if r == "kernel":
-        return topk_compress_cuda(x, theta, ef=ef, block=block)
+        return topk_compress_cuda(x, theta, ef=ef, block=block, out=out)
     if r == "plain":
-        return topk_compress_plain(x, theta, ef=ef, block=block)
-    return compress_with(ref.topk_mask_exact, x, theta, ef=ef, block=block)
+        res = topk_compress_plain(x, theta, ef=ef, block=block)
+    else:
+        res = compress_with(ref.topk_mask_exact, x, theta, ef=ef,
+                            block=block)
+    if out is None:
+        return res
+    for o, v in zip(out, res):
+        o.copy_(v)
+    return out

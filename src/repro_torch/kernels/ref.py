@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the attention functions (port of
+"""Plain PyTorch versions of the kernels' functions (port of
 ``repro/kernels/ref.py`` and ``gather_kv_pages`` of
-``repro/kernels/flash_attention.py``).
+``repro/kernels/flash_attention.py``): attention, block top-k and the
+Mamba2 SSD scan.
 
 They compute what the reference's oracles compute, line for line, and are
 what the CPU runs and what the CUDA kernels are held against on the card.
@@ -223,3 +224,117 @@ def topk_mask_bisect(x, theta, *, block=1024, iters=BISECT_ITERS):
     masked = torch.where(keep, xb, torch.zeros((), dtype=xb.dtype,
                                                device=xb.device))
     return masked.reshape(x.shape), keep.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality)
+# ---------------------------------------------------------------------------
+
+def _work_dtype(x):
+    """The scan's arithmetic type: f32 for f32 and bf16 inputs, as the
+    reference computes; f64 for f64 inputs (a more exact evaluation of the
+    same sums, which the kernels' checks use as an oracle)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _heads(t, rep):
+    """(b, s, g, n) -> (b, s, g * rep, n) in ``_work_dtype``: each group's
+    B or C for its ``rep`` heads (``jnp.repeat`` on the group axis).  Cast
+    before the repeat, the same values as the reference's repeat-then-cast;
+    the gradient then sums a group's heads in f32 and rounds once, as the
+    backward kernel does."""
+    return torch.repeat_interleave(t.to(_work_dtype(t)), rep, dim=2)
+
+
+def ssd_ref(x, dt, A, B, C, *, initial_state=None):
+    """Sequential SSD recurrence (ref.py:178).  Oracle only.
+
+    x: (b, s, h, p); dt: (b, s, h) f32; A: (h,) f32 (negative); B, C:
+    (b, s, g, n).  Returns y (b, s, h, p) in x's type and the final state
+    (b, h, p, n) f32."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    rep = h // B.shape[2]
+    Bh, Ch = _heads(B, rep), _heads(C, rep)
+    decay = torch.exp(dt * A[None, None, :]).float()
+    xdt = (x * dt[..., None]).float()
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state)
+    ys = []
+    for t in range(s):
+        state = state * decay[:, t, :, None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xdt[:, t], Bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype), state
+
+
+def _segsum(x):
+    """x: (..., L) -> (..., L, L) with out[..., i, j] = cs_i - cs_j for
+    i >= j (cs the inclusive cumsum of x) and -inf above the diagonal
+    (ref.py:211)."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk=64, initial_state=None):
+    """Chunked SSD in the dual (matmul) form (``ssd_chunked_jnp``,
+    ref.py:221): the plain version of the SSD forward kernel.
+
+    Within each chunk y_diag = C (L o B^T) (x dt) with L = exp(segsum(dt
+    A)); each chunk's final state carries into the next, whose y_off = C
+    S_prev exp(cs).  A length that is not a multiple of ``chunk`` is padded
+    with dt = 0 (decay 1, no contribution) and cut back.  The inter-chunk
+    recurrence is a loop over chunks where the reference runs an
+    associative scan: the same sums in another order.  Returns y (x's
+    type) and the final state (b, h, p, n) f32 (f64 for f64 inputs)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        y, st = ssd_chunked(x, dt, A, B, C, chunk=chunk,
+                            initial_state=initial_state)
+        return y[:, :s], st
+    nc = s // chunk
+    wt = _work_dtype(x)
+    Bh = _heads(B, rep).reshape(b, nc, chunk, h, n)
+    Ch = _heads(C, rep).reshape(b, nc, chunk, h, n)
+    xdt = (x * dt[..., None]).to(wt).reshape(b, nc, chunk, h, p)
+    dA = (dt * A[None, None, :]).to(wt).reshape(b, nc, chunk, h)
+    dA = dA.permute(0, 1, 3, 2)  # (b, nc, h, L)
+
+    # 1. within-chunk (diagonal blocks)
+    Lm = torch.exp(_segsum(dA))  # (b, nc, h, L, L)
+    G = torch.einsum("bclhn,bcshn->bchls", Ch, Bh)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", G * Lm, xdt)
+
+    # 2. chunk-final states
+    dA_cum = torch.cumsum(dA, dim=-1)  # (b, nc, h, L)
+    decay_states = torch.exp(dA_cum[..., -1:] - dA_cum)
+    states = torch.einsum("bclhn,bchl,bclhp->bchpn", Bh, decay_states, xdt)
+
+    # 3. inter-chunk recurrence: S_c = exp(cs_last) S_{c-1} + states_c
+    chunk_decay = torch.exp(dA_cum[..., -1])  # (b, nc, h)
+    prev = (torch.zeros((b, h, p, n), dtype=wt, device=x.device)
+            if initial_state is None else initial_state.to(wt))
+    prev_states = []
+    for c in range(nc):
+        prev_states.append(prev)
+        prev = prev * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev_states, dim=1)  # (b, nc, h, p, n)
+
+    # 4. off-diagonal contribution from the carried state
+    decay_in = torch.exp(dA_cum)  # (b, nc, h, L)
+    y_off = torch.einsum("bclhn,bchl,bchpn->bclhp", Ch, decay_in,
+                         prev_states)
+
+    y = (y_diag + y_off).reshape(b, s, h, p).to(x.dtype)
+    return y, prev

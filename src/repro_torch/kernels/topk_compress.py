@@ -54,11 +54,13 @@ def topk_compress_plain(x, theta, *, ef=None, block=1024):
     return compress_with(topk_mask_bisect, x, theta, ef=ef, block=block)
 
 
-def topk_compress_cuda(x, theta, *, ef=None, block=1024):
+def topk_compress_cuda(x, theta, *, ef=None, block=1024, out=None):
     """The kernel.  x: (R, L) f32 or bf16; ef: None, x's type or f32;
     theta: (R,) f32; block a multiple of 32 in [32, 1024] dividing L; all
-    contiguous on one CUDA device."""
-    tensors = [x, theta] + ([] if ef is None else [ef])
+    contiguous on one CUDA device.  ``out=(masked, resid)`` gives the
+    outputs (x's type, and ef's or x's); they may be x and ef themselves,
+    since each warp reads its block whole before it writes it."""
+    tensors = [x, theta] + ([] if ef is None else [ef]) + list(out or ())
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"topk_compress: CUDA kernel given a tensor on "
@@ -89,8 +91,19 @@ def topk_compress_cuda(x, theta, *, ef=None, block=1024):
     if block % 32 or not 32 <= block <= 1024 or L % block:
         raise ValueError(f"topk_compress: block {block} must be a multiple "
                          f"of 32 in [32, 1024] dividing L = {L}")
-    masked = torch.empty_like(x)
-    resid = torch.empty(x.shape, dtype=_resid_dtype(x, ef), device=x.device)
+    if out is None:
+        masked = torch.empty_like(x)
+        resid = torch.empty(x.shape, dtype=_resid_dtype(x, ef),
+                            device=x.device)
+    else:
+        masked, resid = out
+        if (masked.shape != x.shape or resid.shape != x.shape
+                or masked.dtype != x.dtype
+                or resid.dtype != _resid_dtype(x, ef)):
+            raise ValueError(f"topk_compress: out {tuple(masked.shape)} "
+                             f"{masked.dtype}, {tuple(resid.shape)} "
+                             f"{resid.dtype} for x {tuple(x.shape)} "
+                             f"{x.dtype}")
     err = build.lib().repro_topk_compress(
         x.data_ptr(), None if ef is None else ef.data_ptr(),
         theta.data_ptr(), masked.data_ptr(), resid.data_ptr(),

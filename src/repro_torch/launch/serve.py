@@ -76,6 +76,10 @@ def main(argv=None):
                  "Engine.generate path is not)")
 
     cfg = get_config(args.arch).model
+    if cfg.family != "dense":
+        ap.error(f"--arch {args.arch}: serving the {cfg.family} family is "
+                 f"not ported yet (ROADMAP.md, modules to port, 'Other "
+                 f"architectures': mamba2 prefill and decode_step)")
     if args.smoke:
         cfg = smoke_model(cfg)
     params = get_model(cfg).init(cfg, seed=0, device=args.device)

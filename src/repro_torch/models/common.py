@@ -49,3 +49,28 @@ def softcap(logits, cap):
         return logits
     lf = logits.float()
     return (torch.tanh(lf / cap) * cap).to(logits.dtype)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross entropy in f32 (common.py:51).  logits (B, S, V),
+    labels (B, S).  The label's logit is gathered where the reference sums
+    logits times a one-hot: the same value, without a (B, S, V) one-hot."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    ce = lse - ll
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(ce * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return torch.mean(ce)
+
+
+def mask_padded_logits(cfg, logits):
+    """Padded vocab columns to -1e30 (common.py:72)."""
+    if cfg.vocab_padded == cfg.vocab_size:
+        return logits
+    keep = torch.arange(cfg.vocab_padded, device=logits.device) < \
+        cfg.vocab_size
+    return torch.where(keep, logits,
+                       torch.full((), -1e30, dtype=logits.dtype,
+                                  device=logits.device))

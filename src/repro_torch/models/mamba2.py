@@ -1,0 +1,153 @@
+"""Mamba2 (SSD), the attention-free ``ssm`` family: init, forward and loss
+(port of ``repro/models/mamba2.py:23-126``).  [arXiv:2405.21060]
+
+Block: in_proj -> [z | xBC | dt]; causal depthwise conv over xBC; the SSD
+scan (``ops.ssd``: the hand-written kernels on the card, forward and
+backward); gated RMSNorm; out_proj.  Parameters are a plain dict with the
+reference's leaf names and shapes, layers stacked on a leading L dim.  The
+reference's ``lax.scan`` over layers is a Python loop; ``params["layers"]``
+may also be a list of per-layer dicts (the round step differentiates with
+respect to each layer's slices, so that no stacked gradient is formed).
+With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``: its
+forward runs again in the backward, as ``jax.checkpoint`` does.
+``prefill`` and ``decode_step`` wait for the ssm serving slice (ROADMAP.md,
+modules to port, 'Other architectures').
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.kernels import ops
+from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
+                                       mask_padded_logits, rms_norm)
+
+
+def _dims(cfg: ModelConfig):
+    Din = cfg.d_inner
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    H = cfg.ssm_heads
+    conv_ch = Din + 2 * G * N
+    return Din, G, N, H, conv_ch
+
+
+def init(cfg: ModelConfig, generator: torch.Generator = None, *, seed=0,
+         device=None) -> Dict[str, Any]:
+    """Random weights drawn from ``generator`` (or one seeded with ``seed``
+    on ``device``), with the reference's names, shapes, types and scales.
+    The draws differ from ``jax.random``'s; tests carry the reference's
+    weights over with ``convert.params_from_jax``."""
+    dev = resolve(device)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+    dt = dtype_of(cfg.param_dtype)
+    f32 = torch.float32
+    D, L = cfg.d_model, cfg.num_layers
+    Din, G, N, H, conv_ch = _dims(cfg)
+    proj_in = Din + conv_ch + H  # z, xBC, dt
+    draw = functools.partial(dense_init, generator, device=dev)
+    full = lambda shape, v, dtype: torch.full(shape, v, dtype=dtype,
+                                              device=dev)
+    w_in = draw((L, D, proj_in), dt)
+    conv_w = draw((L, cfg.conv_width, conv_ch), dt, scale=0.1)
+    w_out = draw((L, Din, D), dt)
+    layers = {
+        "ln": full((L, D), 1.0, dt),
+        "w_in": w_in,
+        "conv_w": conv_w,
+        "conv_b": full((L, conv_ch), 0.0, dt),
+        "dt_bias": full((L, H), 0.0, f32),
+        "A_log": full((L, H), 0.0, f32),  # A = -exp(A_log) = -1
+        "D_skip": full((L, H), 1.0, f32),
+        "norm_w": full((L, Din), 1.0, dt),
+        "w_out": w_out,
+    }
+    params = {
+        "emb": draw((cfg.vocab_padded, D), dt),
+        "final_norm": full((D,), 1.0, dt),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        params["out_head"] = draw((D, cfg.vocab_padded), dt)
+    return params
+
+
+def _conv1d(x, w, b):
+    """Causal depthwise conv. x: (B, S, C); w: (K, C); b: (C,)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = xp[:, :S] * w[0][None, None, :]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i][None, None, :]
+    return out + b[None, None, :]
+
+
+def _split_proj(cfg, proj):
+    Din, G, N, H, conv_ch = _dims(cfg)
+    return (proj[..., :Din], proj[..., Din:Din + conv_ch],
+            proj[..., Din + conv_ch:])
+
+
+def _block_core(cfg, h, w):
+    """Projection, conv and split. h: (B, S, D)."""
+    Din, G, N, H, conv_ch = _dims(cfg)
+    B, S, _ = h.shape
+    cd = dtype_of(cfg.compute_dtype)
+    proj = (h @ w["w_in"]).to(cd)
+    z, xBC, dt_raw = _split_proj(cfg, proj)
+    xBC = F.silu(_conv1d(xBC, w["conv_w"], w["conv_b"]).float()).to(cd)
+    xs = xBC[..., :Din].reshape(B, S, H, cfg.ssm_head_dim)
+    Bm = xBC[..., Din:Din + G * N].reshape(B, S, G, N)
+    Cm = xBC[..., Din + G * N:].reshape(B, S, G, N)
+    dt = F.softplus(dt_raw.float() + w["dt_bias"])
+    return z, xs, Bm, Cm, dt
+
+
+def _block(cfg, x, w):
+    Din = cfg.d_inner
+    cd = dtype_of(cfg.compute_dtype)
+    h = rms_norm(x, w["ln"], cfg.norm_eps)
+    z, xs, Bm, Cm, dt = _block_core(cfg, h, w)
+    A = -torch.exp(w["A_log"])
+    y = ops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    y = y + xs * w["D_skip"][None, None, :, None].to(cd)
+    y = y.reshape(*x.shape[:2], Din)
+    y = rms_norm(y * F.silu(z.float()).to(cd), w["norm_w"], cfg.norm_eps)
+    return x + y @ w["w_out"]
+
+
+def layer_list(params):
+    """params["layers"] as a list of per-layer dicts (views of the stacked
+    leaves, or the list itself)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+    L = next(iter(layers.values())).shape[0]
+    return [{k: v[l] for k, v in layers.items()} for l in range(L)]
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Logits (B, S, vocab_padded) of ``batch["tokens"]`` (B, S)."""
+    x = params["emb"][batch["tokens"].long()].to(dtype_of(cfg.compute_dtype))
+    block = functools.partial(_block, cfg)
+    for w in layer_list(params):
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, w, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block(x, w)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["emb"].T if cfg.tie_embeddings else params["out_head"]
+    return mask_padded_logits(cfg, x @ head.to(x.dtype))
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    logits = forward(cfg, params, batch)
+    return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])

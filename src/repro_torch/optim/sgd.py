@@ -1,6 +1,9 @@
 """SGD with heavy-ball momentum on dicts of tensors (port of
-``repro/optim/sgd.py:sgd_init``, ``sgd_update``).  AdamW waits for the LM
-round (ROADMAP.md)."""
+``repro/optim/sgd.py:sgd_init``, ``sgd_update``).  ``sgd_update`` returns
+new tensors (the FedSim's vmapped steps); ``sgd_update_`` does the same
+arithmetic in place (the round step: at mamba2-1.3B's width the momentum
+alone is 6 GB a device).  The round uses only these; AdamW is not
+ported."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +28,17 @@ def sgd_update(params, grads, mom_state, *, lr, momentum: float):
     new_params = {k: (p.float() - lr * new_mom[k].float()).to(p.dtype)
                   for k, p in params.items()}
     return new_params, new_mom
+
+
+@torch.no_grad()
+def sgd_update_(params, grads, moms, *, lr, momentum: float):
+    """``sgd_update`` in place, over parallel lists of tensors: m <-
+    momentum * m + g, then p <- p - lr * m, each computed in f32 with the
+    result cast to the tensor's type (``moms`` may be None)."""
+    if not momentum or moms is None:
+        for p, g in zip(params, grads):
+            p.sub_(g, alpha=lr)
+        return
+    for p, g, m in zip(params, grads, moms):
+        m.mul_(momentum).add_(g)
+        p.sub_(m, alpha=lr)

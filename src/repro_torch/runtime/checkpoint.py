@@ -19,25 +19,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten
+
 META_KEY = "__meta_json__"
 
 
 class CheckpointError(RuntimeError):
     """The checkpoint file is unreadable (torn write or corruption)."""
-
-
-def _flatten(tree, prefix=""):
-    """Nested dicts of tensors -> [(key path, leaf)], keys sorted as
-    jax.tree_util orders dict keys."""
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        key = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.extend(_flatten(v, key + "/"))
-        else:
-            out.append((key, v))
-    return out
 
 
 def _atomic_write(path: Path, write_fn) -> None:
@@ -58,7 +46,7 @@ def save_pytree(path: Path, tree: Any, meta: Optional[Dict] = None) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     arrays = {}
-    for key, leaf in _flatten(tree):
+    for key, leaf in flatten(tree).items():
         if key == META_KEY:
             raise ValueError(f"tree key collides with {META_KEY!r}")
         arrays[key] = leaf.detach().cpu().numpy()
@@ -84,7 +72,7 @@ def load_pytree(path: Path, template: Any) -> Tuple[Any, Optional[Dict]]:
     out: Dict = {}
     try:
         with np.load(path) as data:
-            for key, leaf in _flatten(template):
+            for key, leaf in flatten(template).items():
                 if key not in data:
                     raise CheckpointError(
                         f"{path}: missing array {key!r} (torn or "

@@ -37,11 +37,12 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.vision import validate_theta_levels
+from repro_torch.configs.base import validate_theta_levels
 from repro_torch.core.compression import (cluster_levels_from_theta,
                                           compress_delta, quantize_theta)
 from repro_torch.core.controller import BudgetState
 from repro_torch.core.mixing import check_mixing, make_mixing
+from repro_torch.core.round import bernoulli_bits
 from repro_torch.device import from_numpy, resolve
 from repro_torch.fl.baselines import Controller, make_local_objective
 from repro_torch.fl.cost_model import round_energy, round_time
@@ -85,15 +86,6 @@ class FedSimConfig:
             validate_theta_levels(self.theta_levels)
         if self.local_objective not in ("sgd", "fedprox"):
             raise ValueError(f"local_objective {self.local_objective!r}")
-
-
-def bernoulli_bits(key: int, rho, *, tau: int) -> torch.Tensor:
-    """Default masked-step bits: (N, tau) in {0, 1}, P(1) = clip(rho, 0, 1)
-    per device, from a CPU torch.Generator seeded with ``key``."""
-    gen = torch.Generator().manual_seed(int(key))
-    rho = torch.as_tensor(np.clip(np.asarray(rho, np.float64), 0.0, 1.0))
-    u = torch.rand((len(rho), tau), generator=gen, dtype=torch.float64)
-    return (u < rho[:, None]).float()
 
 
 def _as_tensor(x, device):
@@ -285,16 +277,7 @@ class FedSim:
         e_round = round_energy(rho, theta, reports.mu, reports.nu,
                                reports.alpha, reports.p, cfg.tau, **wire_kw)
         b = self.budget
-        b.time_spent_this += t_round
-        b.energy_spent_this += e_round
-        b.r += 1
-        if gossip:
-            b.time_spent_prev += b.time_spent_this
-            b.energy_spent_prev += b.energy_spent_this
-            b.time_spent_this = 0.0
-            b.energy_spent_this = 0.0
-            b.r = 0
-            b.l += 1
+        b.charge(t_round, e_round, gossip)
         self.round += 1
         rec = {
             "round": self.round, "loss": float(losses.mean()),

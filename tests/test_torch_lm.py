@@ -20,7 +20,7 @@ from repro.configs import smoke_model as j_smoke  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, smoke_model  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, mamba2  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 
 # Sums run in a different order in torch and in XLA on the CPU (matmul
@@ -64,7 +64,8 @@ def test_init_names_and_shapes_match_reference(arch):
 
 def test_registry_names_the_roadmap_item():
     assert get_model(smoke_model(get_config("qwen2_7b").model)) is lm
-    for fam in ("moe", "encdec", "ssm", "hybrid"):
+    assert get_model(smoke_model(get_config("mamba2_1p3b").model)) is mamba2
+    for fam in ("moe", "encdec", "hybrid"):
         cfg = smoke_model(get_config("qwen2_7b").model).replace(family=fam)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_model(cfg)

@@ -162,15 +162,18 @@ def test_compress_delta_matches_reference(error_feedback):
         block=256, error_feedback=error_feedback)
     td = {k: torch.from_numpy(v) for k, v in delta.items()}
     te = {k: torch.from_numpy(v) for k, v in ef.items()}
+    total = {k: td[k] + te[k] if error_feedback else td[k].clone()
+             for k in SHAPES}
     tc, tne = tcomp.compress_delta(td, te, torch.from_numpy(theta),
                                    block=256, error_feedback=error_feedback)
     for k in SHAPES:
-        assert tc[k].shape == td[k].shape
+        # written in place: the compressed delta over delta, the residual
+        # over ef
+        assert tc[k] is td[k] and tne[k] is te[k]
         np.testing.assert_array_equal(_bits(tc[k]), _bits(jc[k]))
         np.testing.assert_array_equal(_bits(tne[k]), _bits(je[k]))
         # Eq. 7's conservation, exact in f32
-        total = td[k] + te[k] if error_feedback else td[k]
-        assert torch.equal(tc[k] + tne[k], total)
+        assert torch.equal(tc[k] + tne[k], total[k])
 
 
 def test_quantize_theta_and_cluster_levels_match_reference():
