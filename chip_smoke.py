@@ -43,7 +43,25 @@ Phases (any failure ends the run with a non-zero exit):
    (kernels) against the same round on the CPU (plain versions), then the
    train launcher's entry point on mamba2-1.3B at full width
    and depth (MAMBA2_ROUNDS rounds, gossip in the last), with every SSD
-   and top-k launch counted.
+   and top-k launch counted;
+10. the gossip wire's kernels (encode, p4 pack, p4 unpack) vs their plain
+   versions, bit for bit: every wire dtype, wire blocks 128, 1000, 1024
+   and 2048, k_b from 1 to wb, blocks with planted threshold ties,
+   all-zero blocks and zero payloads; then the inputs a column chunk of
+   mamba2-1.3B's largest leaf (w_in) hands the encode at theta 0.05,
+   0.1, 0.2, 0.6 and 1 (int4), each kernel timed there;
+11. the fused round step (a policy: the sparse gossip over the int4 wire,
+   per-cluster levels, the CHOCO wire error feedback) on the smoke
+   mamba2, 4 rounds on the card (kernels) against the CPU (plain
+   versions): at eta 0 everything within ROUND_RTOL / ROUND_ATOL; at
+   eta 0.1, round by round from the card's state, the statistics within
+   ROUND_RTOL and the state within ROUND_ATOL but for top-k threshold
+   flips (at most Q_FLIP_SHARE of the entries);
+12. the fused round step on mamba2-1.3B at full width and depth (R = 4,
+   bf16), the launcher's corpus and batch draw, the int4 wire at the
+   per-device theta (0.05, 0.1, 0.4, 0.6), so cluster levels (0.1, 0.6),
+   SPARSE_ROUNDS rounds with gossip in rounds 2 and 4, every launch of
+   every kernel counted.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -96,6 +114,17 @@ SSD_PLAIN_FACTOR = 4.0
 # other orders, and a top-k threshold tie may fall either way)
 ROUND_RTOL, ROUND_ATOL = 1e-4, 1e-4
 MAMBA2_ROUNDS = 4  # q = 4: round 4 gossips
+WIRE_DTYPES = ("f32", "bf16", "int8", "int4", "fp8")
+WIRE_BLOCKS = (128, 1000, 1024, 2048)
+WIRE_LEVELS = (0.05, 0.1, 0.2, 0.6, 1.0)  # phase 10's w_in chunk
+WIRE_MAIN_LEVEL = 0.6  # the kernels line: the main path's larger level
+SPARSE_ROUNDS, SPARSE_Q = 4, 2  # phase 12: rounds 2 and 4 gossip
+SPARSE_THETA = (0.05, 0.1, 0.4, 0.6)  # per device; cluster levels 0.1, 0.6
+PEAK_LIMIT_GB = 72.0
+# phase 11 in lockstep: the share of parameter and estimate entries that
+# may sit beyond ROUND_ATOL after a round (top-k threshold flips; the card
+# has shown 2 of the smoke model's 1,069,632 entries in a round)
+Q_FLIP_SHARE = 1e-4
 
 
 def _demangled_name(mangled):
@@ -962,6 +991,351 @@ def mamba2_full(train, ss, tk):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the wire kernels
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    """A tensor's bits as integers, for bit-for-bit comparisons."""
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}
+                  .get(t.dtype, t.dtype))
+
+
+def wire_blocks(gen, m, nb, wb, k_b):
+    """(m, nb, wb) f32 on the card: block 0 all zero; block 1 with fewer
+    nonzeros than k_b; block 2 with k_b + 5 magnitudes equal to its k_b-th
+    largest; block 3 with magnitudes spaced below the bisection's
+    resolution (max * 2^-16); the rest normal.  Signs random."""
+    x = torch.randn((m, nb, wb), generator=gen, device="cuda")
+    x[:, 0] = 0.0
+    x[:, 1] = 0.0
+    nz = k_b // 2
+    if nz:
+        x[:, 1, :nz] = torch.randn((m, nz), generator=gen, device="cuda")
+    thr = x[:, 2].abs().sort(dim=-1, descending=True).values[:, k_b - 1]
+    pick = torch.randperm(wb, generator=gen, device="cuda")[:min(wb, k_b + 5)]
+    x[:, 2, pick] = thr[:, None]
+    dense = 1.0 + torch.arange(wb, device="cuda") * 2.0 ** -22
+    dense[0] = 2.0
+    x[:, 3] = dense[torch.randperm(wb, generator=gen, device="cuda")]
+    sign = torch.randint(0, 2, x.shape, generator=gen, device="cuda") * 2 - 1
+    return (x * sign).contiguous()
+
+
+def wire_check(wp, xb, k_b, wd, label, zero_payload=False):
+    """encode, p4 pack and p4 unpack against their plain versions on xb,
+    bit for bit; the unpack also gives back the offsets, and an all-zero
+    payload decodes to offset 0.  Returns (payload, off)."""
+    wb = xb.shape[-1]
+    got = wp.encode_blocks_cuda(xb, k_b, wire_dtype=wd)
+    torch.cuda.synchronize()
+    want = wp.encode_blocks_plain(xb, k_b, wire_dtype=wd)
+    for name, a, b in zip(("vals", "off", "scale"), got, want):
+        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
+            fail(f"wire encode kernel differs from its plain version in "
+                 f"{name} ({label} wb={wb} k_b={k_b} {wd})")
+    off = got[1]
+    packed = wp.pack_offsets_cuda(off, wb=wb)
+    torch.cuda.synchronize()
+    if not torch.equal(packed, wp.pack_offsets_plain(off, wb=wb,
+                                                     mode="p4")):
+        fail(f"p4 pack kernel differs from its plain version ({label} "
+             f"wb={wb} k_b={k_b})")
+    if zero_payload:  # a partial rotation's zero rows ride along
+        packed = torch.cat([packed, torch.zeros_like(packed)])
+    back = wp.unpack_offsets_cuda(packed, wb=wb, k_b=k_b)
+    torch.cuda.synchronize()
+    if not torch.equal(back, wp.unpack_offsets_plain(packed, wb=wb, k_b=k_b,
+                                                     mode="p4")):
+        fail(f"p4 unpack kernel differs from its plain version ({label} "
+             f"wb={wb} k_b={k_b})")
+    if not torch.equal(back[:off.shape[0]], off):
+        fail(f"p4 unpack did not give back the offsets ({label})")
+    if zero_payload and back[off.shape[0]:].any():
+        fail(f"a zero payload decoded to nonzero offsets ({label})")
+    return packed, off
+
+
+def wire_phase(wp, configs, mamba2, agg_cols):
+    """Phase 10.  Returns {kernel: row} at WIRE_MAIN_LEVEL on w_in."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n = 0
+    for wb in WIRE_BLOCKS:
+        for k_b in sorted({1, 2, 7, wb // 10, wb // 2 - 1, wb - 1, wb}):
+            xb = wire_blocks(gen, 2, 6, wb, k_b)
+            for wd in WIRE_DTYPES:
+                wire_check(wp, xb, k_b, wd, "grid", zero_payload=True)
+                n += 1
+    # the main path's inputs: a column chunk of w_in's first layer (bf16
+    # weights, so many exactly tied magnitudes), one sender row in f32
+    cfg = configs.get_config("mamba2_1p3b").model.replace(num_layers=1)
+    w_in = mamba2.init(cfg, seed=12, device="cuda")["layers"]["w_in"]
+    wb = 1024
+    xb = w_in.reshape(-1)[:agg_cols].float().reshape(1, -1, wb).contiguous()
+    del w_in
+    rows = {}
+    for theta in WIRE_LEVELS:
+        k_b = max(1, min(wb, int(np.ceil(theta * wb))))
+        packed, off = wire_check(wp, xb, k_b, "int4", f"w_in theta={theta}",
+                                 zero_payload=True)
+        n += 1
+        nb = xb.shape[1]
+        lo_b, bm_b = wp._p4_sizes(wb, k_b)
+        nbytes = lo_b + bm_b
+        works = {  # (bytes read once + written once, launch, plain)
+            "wire_encode": (
+                xb.numel() * 4 + nb * (-(-k_b // 2) + 4 * k_b + 4),
+                lambda: wp.encode_blocks_cuda(xb, k_b, wire_dtype="int4"),
+                lambda: wp.encode_blocks_plain(xb, k_b, wire_dtype="int4")),
+            "wire_pack": (
+                nb * (4 * k_b + nbytes),
+                lambda: wp.pack_offsets_cuda(off, wb=wb),
+                lambda: wp.pack_offsets_plain(off, wb=wb, mode="p4")),
+            "wire_unpack": (  # the sender row and a zero payload
+                2 * nb * (nbytes + 4 * k_b),
+                lambda: wp.unpack_offsets_cuda(packed, wb=wb, k_b=k_b),
+                lambda: wp.unpack_offsets_plain(packed, wb=wb, k_b=k_b,
+                                                mode="p4"))}
+        for name, (nbytes_io, kern, plain) in works.items():
+            bound_ms, bound_by = bound(0, nbytes_io, torch.float32)
+            row = dict(kernel=name, case=f"w_in chunk (1, {nb}, {wb}) f32, "
+                       f"int4, theta {theta}", k_b=k_b, bytes=nbytes_io,
+                       ms=time_ms(kern),
+                       plain_ms=time_ms(plain, iters=3, warmup=1),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None, max_abs_err=0.0)
+            print("wire " + json.dumps(row))
+            if theta == WIRE_MAIN_LEVEL:
+                rows[name] = row
+    print(f"wire: {n} cases bit for bit equal to the plain versions "
+          f"(encode, p4 pack, p4 unpack, zero payloads)")
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the fused round step with the sparse gossip wire
+# ---------------------------------------------------------------------------
+
+def sparse_setup(configs, base, compression, policies, full):
+    """(cfg, hcef, topo, policy, quantized theta, cluster levels) of the
+    fused round with the int4 wire."""
+    import dataclasses
+    bundle = configs.get_config("mamba2_1p3b")
+    cfg = bundle.model if full else configs.smoke_model(bundle.model)
+    hcef = dataclasses.replace(bundle.hcef, q=SPARSE_Q, sparse_gossip=True,
+                               wire_dtype="int4", wire_ef=not full)
+    if not full:
+        hcef = dataclasses.replace(hcef, tau=2, eta=0.1)
+    topo = base.FLTopology(2, 2)
+    cluster_of = np.repeat(np.arange(2), 2)
+    theta = compression.quantize_theta(SPARSE_THETA, hcef.theta_levels)
+    levels = compression.cluster_levels_from_theta(
+        SPARSE_THETA, hcef.theta_levels, cluster_of)
+    if levels != (0.1, 0.6):
+        fail(f"cluster levels {levels}, expected (0.1, 0.6)")
+    return (cfg, hcef, topo, policies.make_train_policy(topo), theta,
+            levels)
+
+
+def _sparse_rounds(cfg, hcef, topo, policy, theta, levels, rnd_mod, params0,
+                   tokens, lockstep):
+    """SPARSE_ROUNDS fused rounds on the CPU and the card; with
+    ``lockstep`` each round starts both from the card's state.  Yields
+    (round, {device: metrics}, {device: params and estimates on the
+    CPU})."""
+    from repro_torch.tree import flatten, tree_map
+    rho = np.array([0.9, 0.6, 0.8, 0.7])
+    states = {d: rnd_mod.init_state(cfg, hcef, topo, params0, device=d)
+              for d in ("cpu", "cuda")}
+    for r in range(SPARSE_ROUNDS):
+        if lockstep:
+            c = states["cuda"]
+            cpu = lambda t: None if t is None else tree_map(
+                lambda x: x.cpu().clone(), t)
+            states["cpu"] = c._replace(
+                params=cpu(c.params), momentum=cpu(c.momentum),
+                ef=cpu(c.ef), wire_ef=cpu(c.wire_ef))
+        step = rnd_mod.make_round_step(
+            cfg, hcef, topo, policy, gossip=(r + 1) % SPARSE_Q == 0,
+            cluster_levels=levels if r == 1 else None)
+        mets, leaves = {}, {}
+        for d in ("cpu", "cuda"):
+            states[d], m = step(states[d], {"tokens": tokens[r]}, rho, theta,
+                                11 + r)
+            mets[d] = {k: v.cpu().numpy() for k, v in m.items()}
+            lv = dict(flatten(states[d].params))
+            for f in ("est_self", "est_wsum"):
+                lv.update({f + "/" + k: v for k, v in
+                           flatten(states[d].wire_ef[f]).items()})
+            leaves[d] = {k: v.cpu() for k, v in lv.items()}
+        yield r, mets, leaves
+
+
+def small_sparse_round_agrees(configs, mamba2, rnd_mod, base, compression,
+                              policies):
+    """Phase 11: SPARSE_ROUNDS rounds of the smoke mamba2's fused round
+    (int4 wire, levels (0.1, 0.6) in round 2 and the traced-theta
+    fallback in round 4, wire EF) on the card and on the CPU, from the
+    same parameters, tokens, controls and bits, twice:
+    - eta = 0, each side on its own: Q sees zero deltas, so both wires get
+      the same bits and everything (losses, statistics, parameters,
+      estimates) must agree within ROUND_RTOL / ROUND_ATOL;
+    - eta = 0.1 in lockstep (each round starts both sides from the card's
+      state): losses and statistics within ROUND_RTOL; parameters and
+      estimates within ROUND_ATOL except at most Q_FLIP_SHARE of the
+      entries.  A delta entry at a block's top-k threshold can be kept on
+      one side and left in the EF on the other (ROADMAP.md section 3),
+      and the wire then carries it from that side only; without lockstep
+      such a flip spreads through the next rounds' training."""
+    import dataclasses
+    cfg, hcef, topo, policy, theta, levels = sparse_setup(
+        configs, base, compression, policies, full=False)
+    params0 = mamba2.init(cfg, torch.Generator().manual_seed(11),
+                          device="cpu")
+    rng = np.random.default_rng(11)
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (16, 40)))
+              for _ in range(SPARSE_ROUNDS)]
+    for eta, lockstep in ((0.0, False), (hcef.eta, True)):
+        h = dataclasses.replace(hcef, eta=eta)
+        worst, perr, flips, moved = 0.0, 0.0, 0, 0.0
+        for r, mets, leaves in _sparse_rounds(cfg, h, topo, policy, theta,
+                                              levels, rnd_mod, params0,
+                                              tokens, lockstep):
+            a, b = mets["cuda"], mets["cpu"]
+            for k in ("loss", "g2", "sigma2"):
+                worst = max(worst, float(np.max(np.abs(a[k] - b[k])
+                                                / np.abs(b[k]))))
+            if a.get("theta_wire") != b.get("theta_wire"):
+                fail(f"theta_wire {a.get('theta_wire')} on the card, "
+                     f"{b.get('theta_wire')} on the CPU")
+            dev = {k: (leaves["cuda"][k] - v).abs()
+                   for k, v in leaves["cpu"].items()}
+            perr = max(perr, max(float(v.max()) for v in dev.values()))
+            n = sum(int((v > ROUND_ATOL).sum()) for v in dev.values())
+            total = sum(v.numel() for v in dev.values())
+            flips = max(flips, n)
+            moved = max(moved, max(float(v.abs().max()) for k, v in
+                                   leaves["cpu"].items()
+                                   if k.startswith("est_")))
+        allowed = 0 if not lockstep else int(Q_FLIP_SHARE * total)
+        print(f"mamba2 small sparse round (eta {eta}, lockstep "
+              f"{lockstep}): card vs CPU over {SPARSE_ROUNDS} rounds (int4 "
+              f"wire, levels {levels}, wire EF), largest relative deviation "
+              f"of loss/g2/sigma2 {worst:.3e} (tolerance {ROUND_RTOL}), "
+              f"largest parameter or estimate deviation {perr:.3e}, "
+              f"entries above {ROUND_ATOL} in a round: at most {flips} of "
+              f"{total} (allowed {allowed}); estimates moved {moved:.3e}")
+        if not (worst <= ROUND_RTOL and flips <= allowed and moved > 0):
+            fail("the fused round on the card disagrees with the CPU")
+
+
+def predicted_wire_launches(cfg_params, levels, hcef, wf, agg_cols, bands):
+    """Launches of each wire kernel in one gossip round: per leaf and per
+    wire plan (a level whose int4 encoding stays below the bf16 row), one
+    encode and one p4 pack a column chunk, and one unpack a chunk and a
+    band of H."""
+    want = {"wire_encode": 0, "wire_pack": 0, "wire_unpack": 0}
+    for L in cfg_params:
+        wb = wf.wire_block_of(L, hcef.wire_block)
+        chunks = -(-L // max(wb, agg_cols // wb * wb))
+        for k_b in sorted({wf.wire_k(t, L, hcef.wire_block)
+                           for t in levels}):
+            if wf.encoding_reaches_dense(k_b, L, hcef.wire_block, "int4", 2):
+                continue
+            want["wire_encode"] += chunks
+            if wf.offset_mode(wb, k_b, "int4") == "p4":
+                want["wire_pack"] += chunks
+                want["wire_unpack"] += chunks * bands
+    return want
+
+
+def mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
+                       policies, wf, train, synthetic, wp, ss, tk):
+    """Phase 12: ``make_round_step(..., policy=...)`` on mamba2-1.3B at
+    full width, driven as the launcher drives its rounds; every launch
+    counted and checked against the leaves' and chunks' prediction."""
+    from repro_torch.tree import flatten
+    cfg, hcef, topo, policy, theta, levels = sparse_setup(
+        configs, base, compression, policies, full=True)
+    R = topo.num_devices
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params0 = mamba2.init(cfg, gen, device="cuda")
+    state = rnd_mod.init_state(cfg, hcef, topo, params0, device="cuda")
+    del params0
+    torch.cuda.synchronize()
+    sizes = [v[0].numel() for v in flatten(state.params).values()]
+    print(f"mamba2 sparse full width: {cfg.num_layers} layers, "
+          f"{sum(sizes)} params in {len(sizes)} leaves, R={R}, int4 wire, "
+          f"theta {SPARSE_THETA} -> levels {levels}, set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    steps = {g: rnd_mod.make_round_step(
+        cfg, hcef, topo, policy, gossip=g, cluster_levels=levels if g
+        else None) for g in (False, True)}
+    corpus = synthetic.synthetic_tokens(cfg.vocab_size, n_seq=train.N_SEQ,
+                                        seq_len=512, n_devices=R, beta=0.5)
+    rng = np.random.default_rng(0)
+    b_per_dev = hcef.tau * 2
+    rho = np.ones(R)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wp.reset_launches()
+    ss.reset_launches()
+    tk.reset_launches()
+    hist, walls, timings = [], [], {}
+    for rnd in range(SPARSE_ROUNDS):
+        gossip = (rnd + 1) % SPARSE_Q == 0
+        idx = rng.integers(0, train.N_SEQ, (R, b_per_dev))
+        tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+        t0 = time.perf_counter()
+        state, m = steps[gossip](state, {"tokens": torch.from_numpy(tokens)},
+                                 rho, theta, 1000 + rnd, timings=timings)
+        loss = float(m["loss"].mean())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        hist.append(dict(loss=loss, gossip=gossip, theta_wire=(
+            float(m["theta_wire"]) if "theta_wire" in m else None)))
+        print(f"round {rnd} loss={loss:.4f} gossip={gossip} "
+              f"wall={walls[-1]:.0f}ms", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(wp.LAUNCHES, **ss.LAUNCHES, **tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_gossip = sum(h["gossip"] for h in hist)
+    per_round = predicted_wire_launches(sizes, levels, hcef, wf, rnd_mod.
+                                        AGG_COLS, bands=1)  # C = 2 ring
+    steps_run = SPARSE_ROUNDS * R * hcef.tau
+    want = {k: v * n_gossip for k, v in per_round.items()}
+    want.update(ssd_scan_fwd=steps_run * cfg.num_layers * (2 if cfg.remat
+                                                            else 1),
+                ssd_scan_bwd=steps_run * cfg.num_layers,
+                topk_compress=SPARSE_ROUNDS * len(sizes))
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"non-finite loss: {[h['loss'] for h in hist]}")
+    if n_gossip != 2 or any(h["theta_wire"] != (np.float32(0.6) if
+                                                h["gossip"] else None)
+                            for h in hist):
+        fail(f"theta_wire {[h['theta_wire'] for h in hist]}, expected 0.6 "
+             f"in rounds 2 and 4 only")
+    if launches != want:
+        fail(f"launch counts {launches}, expected {want}")
+    if not peak <= PEAK_LIMIT_GB:
+        fail(f"peak device memory {peak:.2f} GB above {PEAK_LIMIT_GB} GB")
+    med = lambda v: float(np.percentile(v, 50))
+    stats = dict(rounds=SPARSE_ROUNDS, gossip_rounds=n_gossip,
+                 layers=cfg.num_layers, params=sum(sizes), levels=levels,
+                 round_wall_ms_p50=med(walls), round_wall_ms=walls,
+                 phase_ms_p50={k: med(v) for k, v in timings.items()},
+                 phase_ms=timings,
+                 wire_launches_per_gossip_round=per_round,
+                 launches=launches, loss=[h["loss"] for h in hist],
+                 peak_mem_gb=peak)
+    print("mamba2_sparse " + json.dumps(stats))
+    del state, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -976,6 +1350,11 @@ def main():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    from repro_torch.core import compression
+    from repro_torch.core import wire_format as wf
+    from repro_torch.data import synthetic
+    from repro_torch.dist import policies
     from repro_torch.launch import fedsim, train
     from repro_torch.models import mamba2
     from repro_torch.models.vision import make_vision_model
@@ -1057,6 +1436,16 @@ def main():
     launches.update(ssd_scan_fwd=m2["ssd_scan_fwd"],
                     ssd_scan_bwd=m2["ssd_scan_bwd"])
 
+    # -- phase 10 ------------------------------------------------------------
+    main_wire = wire_phase(wp, configs, mamba2, rnd_mod.AGG_COLS)
+
+    # -- phases 11 and 12 ----------------------------------------------------
+    small_sparse_round_agrees(configs, mamba2, rnd_mod, base, compression,
+                              policies)
+    m12 = mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
+                             policies, wf, train, synthetic, wp, ss, tk)
+    launches.update({k: m12[k] for k in main_wire})
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -1072,15 +1461,22 @@ def main():
             ("ssd_scan_fwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:77", main_ssd_fwd),
             ("ssd_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan.py:77", main_ssd_bwd)):
+             "src/repro/kernels/ssd_scan.py:77", main_ssd_bwd),
+            ("wire_encode", "src/repro_torch/kernels/csrc/wire_pack.cu",
+             "src/repro/kernels/wire_pack.py:343", main_wire["wire_encode"]),
+            ("wire_pack", "src/repro_torch/kernels/csrc/wire_pack.cu",
+             "src/repro/kernels/wire_pack.py:244", main_wire["wire_pack"]),
+            ("wire_unpack", "src/repro_torch/kernels/csrc/wire_pack.cu",
+             "src/repro/kernels/wire_pack.py:264",
+             main_wire["wire_unpack"])):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    kernels[-1]["note"] = ("the backward has no TPU counterpart: jax.grad "
-                           "through ssd_pallas fails; held to jax.grad of "
-                           "ref.ssd_chunked_jnp through the plain version")
+    kernels[4]["note"] = ("the backward has no TPU counterpart: jax.grad "
+                          "through ssd_pallas fails; held to jax.grad of "
+                          "ref.ssd_chunked_jnp through the plain version")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

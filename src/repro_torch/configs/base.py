@@ -4,15 +4,15 @@
 decoder (served) and the ``ssm`` family (mamba2, trained by the HCEF round
 step); the MoE, encoder-decoder and hybrid families are not ported
 (``models/registry.py``).  ``FLTopology`` and ``HCEFConfig`` keep the
-fields the off-mesh round step reads; the sparse gossip wire, wire error
-feedback and the overlapped engine raise and name the ROADMAP.md item
-that brings them.
+fields the round step reads, the sparse gossip wire and its error
+feedback included; the overlapped engine raises and names the ROADMAP.md
+item that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -96,10 +96,6 @@ def validate_theta_levels(theta_levels) -> None:
 
 
 _NOT_PORTED = {
-    "sparse_gossip": "ROADMAP.md, modules to port, item 5 (multi-GPU mesh "
-                     "path: sparse_neighbor_exchange and the wire kernels)",
-    "wire_ef": "ROADMAP.md, modules to port, item 5 (multi-GPU mesh path: "
-               "CHOCO wire error feedback)",
     "overlap": "ROADMAP.md, modules to port, item 3 (overlap engine)",
     "staleness": "ROADMAP.md, modules to port, item 3 (overlap engine)",
 }
@@ -119,14 +115,36 @@ class HCEFConfig:
     # budgets (seconds / joules); None = un-budgeted
     time_budget: Optional[float] = None
     energy_budget: Optional[float] = None
-    error_feedback: bool = True
-    # not ported: asking for any of these raises (see _NOT_PORTED)
+    # --- sparse gossip wire (base.py:159-174) ---
+    # gossip through sparse_neighbor_exchange on the fused branch (a
+    # policy); theta is quantized up to theta_levels
     sparse_gossip: bool = False
+    theta_levels: Tuple[float, ...] = (0.05, 0.1, 0.2, 0.4, 0.6, 0.8, 1.0)
+    wire_dtype: str = "f32"  # f32 | bf16 | int8 | int4 | fp8
+    wire_block: int = 1024  # wire-encode slab length
+    error_feedback: bool = True
+    # CHOCO wire error feedback: payloads carry the difference to a shared
+    # estimate of each cluster's mean
     wire_ef: bool = False
+    wire_ef_gamma: float = 1.0  # consensus step size (1.0 = plain mix)
+    # not ported: asking for either raises (see _NOT_PORTED)
     overlap: bool = False
     staleness: int = 0
 
     def __post_init__(self):
+        if self.wire_dtype not in ("f32", "bf16", "int8", "int4", "fp8"):
+            raise ValueError(f"wire_dtype {self.wire_dtype!r}")
+        if self.wire_dtype == "int8" and self.wire_block > 32768:
+            raise ValueError(  # int16 block-local offsets wrap past 2^15-1
+                f"int8 wire needs wire_block <= 32768, got {self.wire_block}")
+        if self.sparse_gossip:
+            validate_theta_levels(self.theta_levels)
+        if self.wire_ef and not self.sparse_gossip:
+            raise ValueError("wire_ef requires sparse_gossip=True (the "
+                             "estimates track wire-encoded payloads)")
+        if self.wire_ef_gamma <= 0.0 or self.wire_ef_gamma > 1.0:
+            raise ValueError(f"wire_ef_gamma must lie in (0, 1], got "
+                             f"{self.wire_ef_gamma}")
         for name, where in _NOT_PORTED.items():
             if getattr(self, name):
                 raise NotImplementedError(

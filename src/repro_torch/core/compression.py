@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 
-def _leaf(d, e, theta, block, error_feedback):
+def _leaf(d, e, theta, block, error_feedback, impl):
     """d, e: (R, *shape), contiguous; theta: (R,) float32.  Q over the
     flattened (R, L) rows, masked written over d and the residual over e.
     A pad to the block goes through the kernel like any other data and is
@@ -31,19 +31,20 @@ def _leaf(d, e, theta, block, error_feedback):
     L = flat.shape[1]
     pad = (-L) % block
     if not pad:
-        ops.topk_compress(flat, theta, block=block, ef=ef, out=(flat, res))
+        ops.topk_compress(flat, theta, block=block, ef=ef, out=(flat, res),
+                          impl=impl)
         return
     masked, resid = ops.topk_compress(
         F.pad(flat, (0, pad)), theta, block=block,
-        ef=None if ef is None else F.pad(ef, (0, pad)))
+        ef=None if ef is None else F.pad(ef, (0, pad)), impl=impl)
     flat.copy_(masked[:, :L])
     res.copy_(resid[:, :L])
 
 
 def compress_delta(delta: Dict[str, torch.Tensor],
                    ef: Dict[str, torch.Tensor], theta, *,
-                   block: int = 1024,
-                   error_feedback: bool = True) -> Tuple[Dict, Dict]:
+                   block: int = 1024, error_feedback: bool = True,
+                   impl=None) -> Tuple[Dict, Dict]:
     """delta, ef: dicts of contiguous (R, *shape) tensors; theta: (R,)
     float32 tensor.
 
@@ -53,9 +54,9 @@ def compress_delta(delta: Dict[str, torch.Tensor],
     new EF buffer even with ``error_feedback=False`` (then ef is not
     added).  ef holds delta's type, or float32 with error feedback on; the
     round step's memory at full width has no room for a second copy of
-    either."""
+    either.  ``impl`` routes the top-k (``ops.topk_compress``)."""
     for name, d in delta.items():
-        _leaf(d, ef[name], theta, block, error_feedback)
+        _leaf(d, ef[name], theta, block, error_feedback, impl)
     return delta, ef
 
 

@@ -1,33 +1,39 @@
-"""The HCEF round step (Algorithm 1, lines 4-19), off the mesh, fault-free
-and synchronous (port of ``repro/core/round.py``: ``FLState``,
-``init_state``, ``_split_batch``, ``_global_norm2`` and the off-mesh
-branch of ``make_round_step``, :178-300 and :506-547).
+"""The HCEF round step (Algorithm 1, lines 4-19), fault-free and
+synchronous (port of ``repro/core/round.py``: ``FLState``, ``init_state``,
+``_split_batch``, ``_global_norm2``, ``_check_cluster_levels`` and
+``make_round_step``, :178-547).
 
 Stacked-replica layout: every leaf of the state holds the R devices' copies
 on a leading dim.  One call is one edge round:
   tau masked local SGD steps per device  ->  delta = x_tau - x_0
   -> Q(delta + ef) block top-k with error feedback (theta per device),
      one top-k kernel launch per leaf over the R rows
-  -> the intra-cluster mean, or on gossip rounds the (C, R) GEMM
-     M = H diag(1/Dev) B that folds the mean and the H mix into one
+  -> the aggregation, by one of two branches:
+     off the mesh (no policy): the intra-cluster mean, or on gossip rounds
+       the (C, R) GEMM M = H diag(1/Dev) B that folds the mean and the H
+       mix into one, in f32;
+     fused (a ``dist.policies`` policy, the reference's mesh branch at one
+       shard, :301-505): x0 + Q in the parameters' type, its cluster means
+       (``mix_local``), and on gossip rounds with ``sparse_gossip`` the
+       theta-scaled gossip through the wire (``sparse_exchange_``), with
+       per-cluster levels and the CHOCO wire error feedback
   -> every device of a cluster takes its cluster's model.
 
 Where the reference is pure, this step updates the state's tensors in
 place, with the same arithmetic: the devices' local steps run one after the
 other into one stacked delta buffer, SGD updates in place
 (``optim.sgd.sgd_update_``), Q writes the compressed delta over the delta
-and the residual over the EF buffer, and the aggregate is computed in f32
-column chunks written back into the parameters.  At mamba2-1.3B's width
-(R = 4) the state alone is 48.7 GB; this keeps the round's extra memory to
-the delta buffer, one device's gradients and activations.
+and the residual over the EF buffer, and the aggregation and the gossip
+run in column chunks written back into the parameters.  At mamba2-1.3B's
+width (R = 4) the state alone is 48.7 GB; this keeps the round's extra
+memory to the delta buffer, one device's gradients and activations.
 
 The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
 reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
 -> (R, tau)``.  Left out, each with the ROADMAP.md item that brings it:
-the mesh branch and ``cluster_levels`` (modules to port, item 5), the
-chaos masks (item 2), and the overlap engine (item 3).  The reference's
-R == 1 branch exists for ``vmap``; here the devices run in a loop and
-R = 1 takes the same path.
+more than one rank (item 5), the chaos masks (item 2), and the overlap
+engine (item 3).  The reference's R == 1 branch exists for ``vmap``; here
+the devices run in a loop and R = 1 takes the same path.
 """
 from __future__ import annotations
 
@@ -43,12 +49,13 @@ from repro_torch.configs.base import FLTopology, HCEFConfig, ModelConfig
 from repro_torch.core.compression import compress_delta
 from repro_torch.core.mixing import make_mixing
 from repro_torch.device import from_numpy, resolve
+from repro_torch.dist.collectives import mix_local, sparse_exchange_
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import get_model
 from repro_torch.optim.sgd import sgd_update_
 from repro_torch.tree import flatten, tree_map
 
-AGG_COLS = 1 << 22  # columns of a leaf per f32 aggregation chunk
+AGG_COLS = 1 << 22  # columns of a leaf per aggregation or gossip chunk
 
 
 class FLState(NamedTuple):
@@ -56,6 +63,9 @@ class FLState(NamedTuple):
     momentum: Any    # like params (state_dtype), or None
     ef: Any          # error feedback, like params
     round_idx: int
+    # CHOCO wire-EF estimates (hcef.wire_ef): {"est_self": tree, "est_wsum":
+    # tree} of f32 leaves shaped like params, or None
+    wire_ef: Any = None
 
 
 def bernoulli_bits(key: int, rho, *, tau: int) -> torch.Tensor:
@@ -77,7 +87,8 @@ def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     """Every device starts from ``params0`` (a nested dict of tensors or
     numpy arrays: the reference draws its own with ``jax.random``, so the
     weights are an input here); momentum in ``cfg.state_dtype`` and EF in
-    the parameters' type start at zero."""
+    the parameters' type start at zero, as do the f32 wire-EF estimates
+    with ``hcef.wire_ef``."""
     dev = resolve(device)
     R = topo.num_devices
 
@@ -93,7 +104,13 @@ def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         mom = tree_map(lambda x: torch.zeros(x.shape, dtype=sd, device=dev),
                         params)
     ef = tree_map(torch.zeros_like, params)
-    return FLState(params=params, momentum=mom, ef=ef, round_idx=0)
+    wef = None
+    if hcef.wire_ef:
+        z = lambda: tree_map(lambda x: torch.zeros(
+            x.shape, dtype=torch.float32, device=dev), params)
+        wef = {"est_self": z(), "est_wsum": z()}
+    return FLState(params=params, momentum=mom, ef=ef, round_idx=0,
+                   wire_ef=wef)
 
 
 def _split_batch(batch: Dict[str, torch.Tensor], R: int, tau: int):
@@ -126,8 +143,33 @@ def _per_layer(tree):
     return leaves, rebuild
 
 
+def _check_cluster_levels(cluster_levels, hcef, C, policy, gossip):
+    """Static per-cluster wire levels (:155): grid levels, one a cluster,
+    on a sparse gossip step with a policy."""
+    if cluster_levels is None:
+        return None
+    if not (hcef.sparse_gossip and gossip):
+        raise ValueError("cluster_levels requires sparse_gossip and a "
+                         "gossip round step")
+    if policy is None:
+        raise ValueError("cluster_levels requires a mesh policy (the "
+                         "non-fused path has no wire)")
+    cluster_levels = tuple(float(t) for t in cluster_levels)
+    if len(cluster_levels) != C:
+        raise ValueError(f"cluster_levels has {len(cluster_levels)} "
+                         f"entries for {C} clusters")
+    grid = {float(t) for t in hcef.theta_levels}
+    bad = [t for t in cluster_levels if t not in grid]
+    if bad:
+        raise ValueError(f"cluster_levels {bad} not in theta_levels "
+                         f"{sorted(grid)} (the static-k contract only "
+                         f"lowers grid levels)")
+    return cluster_levels
+
+
 def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
-                    *, gossip: bool = True,
+                    policy=None, *, gossip: bool = True, impl=None,
+                    cluster_levels=None,
                     bits_fn: Optional[Callable] = None):
     """Returns round_step(state, batch, rho, theta, key, timings=None) ->
     (state, metrics).
@@ -136,9 +178,16 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     controls; key: the integer ``bits_fn(key, rho)`` turns into the (R,
     tau) masked-step bits (default: ``bernoulli_bits``).
     ``gossip`` selects the inter-cluster mix (Eq. 5) at the end of the
-    round.  metrics: (R,) tensors loss, g2, sigma2, steps.  ``timings``
-    (a dict) collects the synchronised host ms of device_round, compress
-    and aggregate."""
+    round.  ``policy`` (``dist.policies.make_train_policy``) selects the
+    fused branch; ``cluster_levels`` (one ``hcef.theta_levels`` entry a
+    cluster, from ``cluster_levels_from_theta``) sizes each cluster's
+    gossip payload by its own level, and without it the wire takes the
+    smallest level >= max(theta).  ``impl`` routes Q and the wire ops
+    (None: kernels for CUDA tensors, plain versions on the CPU; "ref":
+    the exact top-k oracles, the reference's CPU route).  metrics: (R,)
+    tensors loss, g2, sigma2, steps, and on a sparse gossip round the
+    scalar theta_wire.  ``timings`` (a dict) collects the synchronised
+    host ms of device_round, compress, aggregate and gossip."""
     if cfg.family != "ssm":
         raise NotImplementedError(
             f"the round step trains the ssm family; {cfg.family!r} needs a "
@@ -147,6 +196,25 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     model = get_model(cfg)
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
+    cluster_levels = _check_cluster_levels(cluster_levels, hcef, C, policy,
+                                           gossip)
+    if hcef.wire_ef and gossip and policy is None:
+        raise ValueError("wire_ef requires a mesh policy: the non-fused "
+                         "aggregation path has no wire to feed back on")
+    if policy is not None and policy.replicas != R:
+        raise ValueError(f"policy for {policy.replicas} replicas, topology "
+                         f"has {R}")
+    sparse = policy is not None and hcef.sparse_gossip and gossip and R > 1
+    use_wef = bool(hcef.wire_ef) and sparse
+    # the fused branch's mix before any gossip: the intra mean, or on a
+    # dense gossip round the whole W (reference :344, :364)
+    fused_hkind = topo.backhaul if gossip and not sparse else "none"
+    levels = sorted({float(t) for t in hcef.theta_levels})
+    levels32 = np.asarray(levels, np.float32)
+    wire_kw = dict(clusters=C, dev=Dev, hkind=topo.backhaul,
+                   wire_dtype=hcef.wire_dtype, wire_block=hcef.wire_block,
+                   wire_ef_gamma=hcef.wire_ef_gamma, impl=impl,
+                   chunk_cols=AGG_COLS)
     H = torch.as_tensor(make_mixing(topo.backhaul, C), dtype=torch.float32)
     M = torch.repeat_interleave(H / Dev, Dev, dim=1)  # (C, R)
     bits_fn = bits_fn or functools.partial(bernoulli_bits, tau=hcef.tau)
@@ -220,9 +288,20 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         with phase("compress"), torch.no_grad():
             comp, _ = compress_delta(delta, flatten(state.ef), theta32,
                                      block=hcef.block_size,
-                                     error_feedback=hcef.error_feedback)
+                                     error_feedback=hcef.error_feedback,
+                                     impl=impl)
+        metrics = {k: torch.stack([m[k] for m in per_dev])
+                   for k in per_dev[0]}
+        if policy is None:
+            aggregate(params, comp, phase)
+        else:
+            fused(params, comp, state, theta32, metrics, phase)
+        return state._replace(round_idx=state.round_idx + 1), metrics
+
+    def aggregate(params, comp, phase):
+        """The off-mesh aggregate (:506-547), in f32 column chunks."""
         with phase("aggregate"), torch.no_grad():
-            Md = M.to(dev)
+            Md = M.to(next(iter(params.values())).device)
             for k, x0 in params.items():
                 xf, cf = x0.view(R, -1), comp[k].view(R, -1)
                 for c0 in range(0, xf.shape[1], AGG_COLS):
@@ -233,8 +312,38 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     else:
                         yc = upd.view(C, Dev, -1).mean(dim=1)
                     xc.view(C, Dev, -1).copy_(yc[:, None])
-        metrics = {k: torch.stack([m[k] for m in per_dev])
-                   for k in per_dev[0]}
-        return state._replace(round_idx=state.round_idx + 1), metrics
+
+    def fused(params, comp, state, theta32, metrics, phase):
+        """The fused branch (:301-505) with the whole replica dim here:
+        per leaf x0 + Q in the parameters' type and its ``mix_local``,
+        then on sparse gossip rounds the wire gossip of the cluster
+        means, leaf by leaf, the wire-EF estimates advanced in place."""
+        with phase("aggregate"), torch.no_grad():
+            for k, x0 in params.items():
+                xf, cf = x0.view(R, -1), comp[k].view(R, -1)
+                for c0 in range(0, xf.shape[1], AGG_COLS):
+                    xc = xf[:, c0:c0 + AGG_COLS]
+                    upd = xc + cf[:, c0:c0 + AGG_COLS]
+                    xc.copy_(mix_local(upd, clusters=C, dev=Dev,
+                                       hkind=fused_hkind) if R > 1 else upd)
+        if not sparse:
+            return
+        if cluster_levels is not None:
+            lv = dict(cluster_theta=cluster_levels)
+            theta_wire = max(cluster_levels)
+        else:  # the smallest grid level >= max theta, in f32 (:463)
+            i = min(int(np.searchsorted(levels32, theta32.max().item(),
+                                        side="left")), len(levels) - 1)
+            lv = dict(theta=levels[i])
+            theta_wire = levels32[i]
+        est = ([flatten(state.wire_ef[f]) for f in ("est_self", "est_wsum")]
+               if use_wef else None)
+        with phase("gossip"), torch.no_grad():
+            for k, x0 in params.items():
+                wef = (None if est is None
+                       else [e[k].view(R, -1) for e in est])
+                sparse_exchange_(x0.view(R, -1), wire_ef=wef, **lv,
+                                 **wire_kw)
+        metrics["theta_wire"] = torch.tensor(theta_wire, dtype=torch.float32)
 
     return round_step

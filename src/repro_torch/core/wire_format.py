@@ -1,8 +1,8 @@
 """Wire byte layouts (own copy of ``repro/core/wire_format.py``, numpy).
 
-The cost model reads ``compression_ratio_bytes`` when a FedSim runs with
-``sparse_gossip``; the gossip wire itself (``dist/collectives`` in the
-reference) is not ported yet (ROADMAP.md, multi-GPU mesh path).
+The single source of the wire's sizes: ``dist/collectives`` (the wire
+block, k_b, the offset encoding and the dense-fallback test of each wire
+plan) and the cost model (``compression_ratio_bytes``) both read them.
 
 Formats (per wire block of ``wb`` dense entries, ``k_b`` kept):
 
@@ -23,9 +23,7 @@ whichever packed encoding is smaller for the static (wb, k_b) pair:
       bytes.
 
 All sizes are static in (wb, k_b); functions accept scalar or ndarray
-``k_b``/``theta`` (the cost model's per-device vectors).  The layouts'
-other helpers (offset modes, row bytes, the dense-fallback test) come with
-the gossip wire.
+``k_b``/``theta`` (the cost model's per-device vectors).
 """
 from __future__ import annotations
 
@@ -41,6 +39,21 @@ _SCALE_BYTES = {"f32": 0, "bf16": 0, "int8": 4, "fp8": 4, "int4": 4}
 _V1_OFF_BYTES = {"f32": 4, "bf16": 4, "int8": 2}
 
 
+def wire_block_of(L: int, wire_block: int) -> int:
+    """Effective wire block: never larger than the row."""
+    return max(1, min(int(wire_block), int(L)))
+
+
+def num_blocks(L: int, wb: int) -> int:
+    return -(-int(L) // int(wb))
+
+
+def wire_k(theta: float, L: int, wire_block: int = 1024) -> int:
+    """Static per-wire-block k for a compression level theta (k_b)."""
+    wb = wire_block_of(L, wire_block)
+    return max(1, min(wb, int(np.ceil(float(theta) * wb))))
+
+
 def _ceil_div(a, b):
     return -(-a // b)
 
@@ -54,6 +67,16 @@ def p4_bytes(wb: int, k_b):
     """Bytes of the p4 packed-offset encoding (lo nibbles + hi bitmap)."""
     k = np.asarray(k_b)
     return _ceil_div(k, 2) + _ceil_div(k + _ceil_div(int(wb), 16), 8)
+
+
+def offset_mode(wb: int, k_b: int, wire_dtype: str) -> str:
+    """Static offset encoding for one (wb, k_b) pair:
+    "i32"/"i16" for the v1 formats, else the smaller of "u8"/"p4"."""
+    if wire_dtype in _V1_OFF_BYTES:
+        return "i16" if wire_dtype == "int8" else "i32"
+    if wb <= 256 and int(k_b) <= int(p4_bytes(wb, k_b)):
+        return "u8"
+    return "p4"
 
 
 def offset_bytes(wb: int, k_b, wire_dtype: str):
@@ -72,6 +95,24 @@ def block_bytes(wb: int, k_b, wire_dtype: str):
         raise ValueError(f"wire_dtype {wire_dtype!r} not in {WIRE_DTYPES}")
     return (value_bytes(k_b, wire_dtype) + offset_bytes(wb, k_b, wire_dtype)
             + _SCALE_BYTES[wire_dtype])
+
+
+def row_bytes(theta: float, L: int, *, wire_dtype: str = "f32",
+              wire_block: int = 1024) -> int:
+    """Exact bytes one encoded row occupies on the wire."""
+    wb = wire_block_of(L, wire_block)
+    return int(num_blocks(L, wb)
+               * block_bytes(wb, wire_k(theta, L, wire_block), wire_dtype))
+
+
+def encoding_reaches_dense(k_b: int, L: int, wire_block: int,
+                           wire_dtype: str, dense_itemsize: int) -> bool:
+    """True when the sparse encoding at per-block budget k_b would occupy
+    at least the dense row at ``dense_itemsize`` bytes/entry: the level
+    then takes the dense-wire fallback (dist/collectives)."""
+    wb = wire_block_of(L, wire_block)
+    return bool(num_blocks(L, wb) * block_bytes(wb, int(k_b), wire_dtype)
+                >= int(L) * int(dense_itemsize))
 
 
 def compression_ratio_bytes(theta, *, wire_dtype: str = "f32",

@@ -1,0 +1,453 @@
+"""HCEF aggregation on the stacked replica dim, in one process (port of the
+single-process part of ``repro/dist/collectives.py``).
+
+The round's aggregation operator on the (R, ...) replica dim is
+
+    W = B^T diag(1/Dev) H B        (gossip rounds)
+    W = B^T diag(1/Dev) B          (intra-only rounds)
+
+with B the (C, R) cluster membership and H the (C, C) backhaul mixing
+matrix (Paper Eq. 5).  ``mix_local`` applies it densely.
+``sparse_neighbor_exchange`` applies the gossip to the wire-encoded
+cluster means: per nonzero band o of H, each cluster's payload is rolled
+to the cluster o rows on and decoded there, so the neighbour terms of the
+mix are block-local top-k_b approximations while the self term stays
+exact.  Wire levels may differ per cluster (``cluster_theta``): senders
+with the same encode shape share one payload, the others' rows of a
+rotation are zero (a zero payload, which decodes to zero), and a level
+whose encoding would reach the dense row ships the dense row instead.
+``wire_encode`` / ``wire_decode`` are the five wire formats
+(``core/wire_format.py``); int4 and fp8 go through the wire kernels
+(``ops.encode_blocks``, ``ops.pack_offsets``, ``ops.unpack_offsets``).
+
+Every step of the wire is local to one wire block and the mix is linear
+in each column, so ``sparse_exchange_`` runs a leaf in column chunks of
+whole wire blocks (the plans are decided on the whole row), in place: the
+result is the unchunked one.
+
+The reference runs this on a shard_map mesh; at one shard its layout B
+rotations are these row rolls, and it encodes only a plan's sender rows,
+as here.  Not ported, each raising and naming its ROADMAP.md item: mesh
+``axes`` (torch.distributed rotations, layouts A and B across ranks, the
+psum fallback, multi-axis), the degraded-mode masks ``alive``/``conn``
+and the overlap engine's ``stale``/``stale_clusters``.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import wire_format as wf
+from repro_torch.core.mixing import make_mixing
+from repro_torch.kernels import ops
+from repro_torch.kernels.wire_pack import dequantize_vals
+
+WIRE_DTYPES = wf.WIRE_DTYPES
+MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path, "
+              "multi-rank: torch.distributed rotations, layouts A/B at "
+              "n > 1, the psum fallback, multi-axis)")
+_DEGRADED = "ROADMAP.md, modules to port, item 2 (degraded mode and cohorts)"
+_OVERLAP = "ROADMAP.md, modules to port, item 3 (overlap engine)"
+
+
+def _local_only(axes, alive=None, conn=None):
+    if axes:
+        raise NotImplementedError(f"mesh axes {axes!r} are not ported yet: "
+                                  f"{MULTI_RANK}")
+    if alive is not None or conn is not None:
+        raise NotImplementedError(f"alive=/conn= masks are not ported yet: "
+                                  f"{_DEGRADED}")
+
+
+def _h_bands(H: np.ndarray):
+    """H -> (diag, {offset o: coef[c] = H[c, (c - o) % C]}), the nonzero
+    circulant bands (ring: {1, C-1})."""
+    C = H.shape[0]
+    diag = np.ascontiguousarray(np.diag(H))
+    bands = {}
+    for o in range(1, C):
+        coef = np.array([H[c, (c - o) % C] for c in range(C)])
+        if np.any(np.abs(coef) > 0):
+            bands[o] = coef
+    return diag, bands
+
+
+@functools.lru_cache(maxsize=None)
+def _mixing_cached(hkind: str, C: int, p_edge: float, seed: int):
+    H = make_mixing(hkind, C, p_edge, seed)
+    return _h_bands(H) + (H,)
+
+
+# ---------------------------------------------------------------------------
+# mix_local
+# ---------------------------------------------------------------------------
+
+def mix_local(x, *, clusters: int, dev: int, axes=(), hkind: str = "ring",
+              p_edge: float = 0.4, seed: int = 0, alive=None, conn=None):
+    """W applied to the whole (R, *dims) replica array (the reference's
+    ``_mix_dense_local``): per-cluster means in f32, the (C, C) H product
+    unless ``hkind="none"``, every device of a cluster taking its row;
+    same shape and type as x."""
+    _local_only(axes, alive, conn)
+    C, Dev = clusters, dev
+    dims = tuple(x.shape[1:])
+    means = x.float().reshape((C, Dev) + dims).mean(dim=1)
+    if hkind != "none":
+        _, _, H = _mixing_cached(hkind, C, p_edge, seed)
+        means = torch.tensordot(torch.as_tensor(H, dtype=torch.float32,
+                                                device=x.device),
+                                means, dims=([1], [0]))
+    return means[:, None].expand((C, Dev) + dims).reshape(x.shape).to(
+        x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the wire formats
+# ---------------------------------------------------------------------------
+
+class Wire(NamedTuple):
+    """Block-local top-k_b rows: ``vals`` (m, nb, k_b) f32 / bf16 / int8,
+    or uint8 for fp8 bits and int4 nibbles ((m, nb, ceil(k_b/2)));
+    ``off`` the block-local offsets, (m, nb, k_b) int32 (f32, bf16) or
+    int16 (int8), or packed uint8 (int4, fp8: ascending, u8 or p4 per
+    ``wire_format.offset_mode``); ``scale`` (m, nb) f32 or None (f32,
+    bf16).  The v2 payloads do not carry k_b in their shapes."""
+    vals: torch.Tensor
+    off: torch.Tensor
+    scale: Optional[torch.Tensor]
+
+
+def wire_k(theta: float, L: int, wire_block: int = 1024) -> int:
+    """Static per-wire-block k for a compression level theta (k_b)."""
+    return wf.wire_k(theta, L, wire_block)
+
+
+def wire_bytes_per_row(theta: float, L: int, *, wire_dtype: str = "f32",
+                       wire_block: int = 1024) -> int:
+    """Exact bytes one encoded row occupies on the wire."""
+    return wf.row_bytes(theta, L, wire_dtype=wire_dtype,
+                        wire_block=wire_block)
+
+
+def wire_ships_dense(theta: float, L: int, *, wire_dtype: str = "f32",
+                     wire_block: int = 1024, dense_itemsize: int = 2) -> bool:
+    """True when the level takes the dense-wire fallback: its encoding
+    would occupy at least the dense row at ``dense_itemsize`` bytes an
+    entry, so the row ships uncompressed in the delta's type."""
+    return _wire_plan_key(theta, L, wire_block, wire_dtype,
+                          int(dense_itemsize)) == ("dense",)
+
+
+def _wire_plan_key_from_kb(k_b: int, L: int, wire_block: int,
+                           wire_dtype: str, dense_itemsize: int):
+    """("dense",) when the encoding would reach the dense row, else
+    ("wire", k_b)."""
+    if wf.encoding_reaches_dense(k_b, L, wire_block, wire_dtype,
+                                 dense_itemsize):
+        return ("dense",)
+    return ("wire", k_b)
+
+
+def _wire_plan_key(level: float, L: int, wire_block: int, wire_dtype: str,
+                   dense_itemsize: int):
+    return _wire_plan_key_from_kb(wire_k(level, L, wire_block), L,
+                                  wire_block, wire_dtype, dense_itemsize)
+
+
+def _wire_plans(sender_levels, L: int, wire_block: int, wire_dtype: str,
+                dense_itemsize: int):
+    """Senders grouped by their encode key -> [(key, src)], keys sorted;
+    ``src`` is the frozenset of sender rows, or None when one key covers
+    every sender (the uniform case: a full rotation)."""
+    groups: dict = {}
+    for s, lvl in enumerate(sender_levels):
+        key = _wire_plan_key(float(lvl), L, wire_block, wire_dtype,
+                             dense_itemsize)
+        groups.setdefault(key, []).append(s)
+    return [(key, None if len(groups[key]) == len(sender_levels)
+             else frozenset(groups[key])) for key in sorted(groups)]
+
+
+def _encode(rows, k_b: int, wb: int, wire_dtype: str, impl=None) -> Wire:
+    """(m, L) rows -> Wire at wire block ``wb``; rows are zero-padded to a
+    multiple of it.  The v1 formats select with a stable descending sort,
+    which breaks ties toward the lower index as ``lax.top_k`` does."""
+    m, L = rows.shape
+    if wire_dtype == "int8" and wb > 32768:
+        raise ValueError(  # int16 offsets wrap past 2^15 - 1
+            f"int8 wire needs wire_block <= 32768, got {wb}")
+    pad = (-L) % wb
+    xb = F.pad(rows.float(), (0, pad)).reshape(m, (L + pad) // wb, wb)
+    k_b = max(1, min(int(k_b), wb))
+    if wire_dtype in ("int4", "fp8"):
+        vals, off, scale = ops.encode_blocks(xb.contiguous(), k_b,
+                                             wire_dtype=wire_dtype,
+                                             impl=impl)
+        packed = ops.pack_offsets(off, wb=wb,
+                                  mode=wf.offset_mode(wb, k_b, wire_dtype),
+                                  impl=impl)
+        return Wire(vals, packed, scale)
+    off = torch.sort(xb.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :k_b]
+    vals = torch.gather(xb, -1, off)
+    if wire_dtype == "f32":
+        return Wire(vals, off.to(torch.int32), None)
+    if wire_dtype == "bf16":
+        return Wire(vals.to(torch.bfloat16), off.to(torch.int32), None)
+    scale = vals.abs().amax(dim=-1)
+    q = torch.round(vals / torch.clamp_min(scale, 1e-30)[..., None] * 127.0)
+    return Wire(q.to(torch.int8), off.to(torch.int16), scale)
+
+
+def _decode(wire: Wire, L: int, wb: int, wire_dtype: str, k_b, impl=None):
+    vals, off, scale = wire
+    m, nb = vals.shape[:2]
+    if wire_dtype in ("int4", "fp8"):
+        off = ops.unpack_offsets(off, wb=wb, k_b=k_b,
+                                 mode=wf.offset_mode(wb, k_b, wire_dtype),
+                                 impl=impl)
+        v = dequantize_vals(vals, scale, k_b, wire_dtype=wire_dtype)
+    else:
+        v = vals.float()
+        if scale is not None:
+            v = v * (scale / 127.0)[..., None]
+    dense = torch.zeros((m, nb, wb), dtype=torch.float32, device=v.device)
+    dense.scatter_(-1, off.long(), v)
+    return dense.reshape(m, nb * wb)[:, :L]
+
+
+def wire_encode(rows, k_b: int, *, wire_block: int = 1024,
+                wire_dtype: str = "f32", impl=None) -> Wire:
+    """rows: (m, L) -> block-local top-k_b Wire: each wire_block slab keeps
+    its k_b largest-|.| entries.  ``impl`` routes the int4/fp8 encode
+    (``ops.encode_blocks``: None = the kernel on the card, the bisection
+    on the CPU; "ref" = the exact top-k, the reference's CPU route)."""
+    if wire_dtype not in WIRE_DTYPES:
+        raise ValueError(f"wire_dtype {wire_dtype!r} not in {WIRE_DTYPES}")
+    return _encode(rows, k_b, wf.wire_block_of(rows.shape[1], wire_block),
+                   wire_dtype, impl)
+
+
+def wire_decode(wire: Wire, L: int, *, wire_block: int = 1024,
+                wire_dtype: Optional[str] = None, k_b: Optional[int] = None,
+                impl=None):
+    """Wire -> dense (m, L) f32; exact for f32 wires.  The v1 formats are
+    self-describing; int4/fp8 take ``wire_dtype`` and ``k_b``."""
+    if wire_dtype in ("int4", "fp8") and k_b is None:
+        raise ValueError(f"{wire_dtype} wire_decode needs k_b= (packed "
+                         f"payloads do not carry it in their shapes)")
+    return _decode(wire, L, wf.wire_block_of(L, wire_block), wire_dtype,
+                   k_b, impl)
+
+
+# ---------------------------------------------------------------------------
+# sparse neighbor exchange
+# ---------------------------------------------------------------------------
+
+def _sparse_mix_rows(means, C, hkind, p_edge, seed, *, plans, wb,
+                     wire_dtype, dense_dtype, wire_ef=None,
+                     wire_ef_gamma=1.0, impl=None):
+    """The gossip on (C, L) f32 cluster means: encode each plan's sender
+    rows, per band roll the zero-filled C-row payload and decode it, and
+    add coef * decode to diag * means, band by band and plan by plan in
+    the reference's order.
+
+    ``wire_ef = (est_self, est_wsum)``, (C, L) f32: the CHOCO wire error
+    feedback.  The payload is ``means - est_self``; each row decodes its
+    own payload as its neighbours do, and
+        est_self+ = est_self + dec_self
+        est_wsum+ = est_wsum + diag * dec_self + sum_o coef_o * dec_o
+        y         = means + gamma * (est_wsum+ - est_self+)
+    Returns y, or (y, est_self+, est_wsum+)."""
+    L = means.shape[1]
+    dev = means.device
+    diag, bands, _ = _mixing_cached(hkind, C, p_edge, seed)
+    col = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                    device=dev)[:, None]
+    send = means if wire_ef is None else means - wire_ef[0]
+    payloads = []  # (payload, k_b or None for a dense plan, sender rows)
+    for key, src in plans:
+        rows = None if src is None else torch.as_tensor(
+            sorted(src), dtype=torch.long, device=dev)
+        sub = send if rows is None else send.index_select(0, rows)
+        if key[0] == "dense":
+            payloads.append(((sub.to(dense_dtype),), None, rows))
+        else:
+            payloads.append((tuple(_encode(sub, key[1], wb, wire_dtype,
+                                           impl)), key[1], rows))
+
+    def dec(payload, k_b):
+        if k_b is None:
+            return payload[0].float()
+        return _decode(Wire(*payload), L, wb, wire_dtype, k_b, impl)
+
+    def zero_filled(payload, rows):
+        """The C-row payload: the senders' rows, zeros elsewhere."""
+        if rows is None:
+            return payload
+        return tuple(None if p is None else torch.zeros(
+            (C,) + tuple(p.shape[1:]), dtype=p.dtype,
+            device=dev).index_copy_(0, rows, p) for p in payload)
+
+    if wire_ef is None:
+        y = col(diag) * means
+    else:
+        est_self, est_wsum = wire_ef
+        dec_self = torch.zeros_like(means)
+        for payload, k_b, rows in payloads:
+            d = dec(payload, k_b)
+            if rows is None:
+                dec_self = dec_self + d
+            else:
+                dec_self.index_add_(0, rows, d)
+        est_self = est_self + dec_self
+        y = est_wsum + col(diag) * dec_self
+    for o, coef in sorted(bands.items()):
+        for payload, k_b, rows in payloads:
+            rolled = tuple(None if p is None else torch.roll(p, o, dims=0)
+                           for p in zero_filled(payload, rows))
+            y = y + col(coef) * dec(rolled, k_b)
+    if wire_ef is None:
+        return y
+    return means + wire_ef_gamma * (y - est_self), est_self, y
+
+
+def _level_plans(L: int, dense_itemsize: int, C: int, *, k, theta,
+                 cluster_theta, wire_block, wire_dtype):
+    """Check the static level arguments (exactly one of k / theta /
+    cluster_theta) and return the wire plans for a row of L entries."""
+    if (k is None) + (theta is None) + (cluster_theta is None) != 2:
+        raise ValueError("pass exactly one of k= / theta= / cluster_theta=")
+    if wire_dtype not in WIRE_DTYPES:
+        raise ValueError(f"wire_dtype {wire_dtype!r} not in {WIRE_DTYPES}")
+    plan_kw = dict(L=L, wire_block=wire_block, wire_dtype=wire_dtype,
+                   dense_itemsize=dense_itemsize)
+    if cluster_theta is not None:
+        cluster_theta = tuple(float(t) for t in cluster_theta)
+        if len(cluster_theta) != C:
+            raise ValueError(f"cluster_theta has {len(cluster_theta)} "
+                             f"entries for {C} clusters")
+        return _wire_plans(cluster_theta, **plan_kw)
+    if theta is not None:
+        return _wire_plans((theta,), **plan_kw)
+    wb = wf.wire_block_of(L, wire_block)
+    k_b = max(1, min(wb, int(np.ceil(int(k) * wb / L))))
+    return [(_wire_plan_key_from_kb(k_b, **plan_kw), None)]
+
+
+def _col_chunks(L: int, wb: int, chunk_cols):
+    """[c0, c1) column ranges of whole wire blocks (the last one ragged)."""
+    if chunk_cols is None:
+        return [(0, L)]
+    step = max(wb, int(chunk_cols) // wb * wb)
+    return [(c, min(c + step, L)) for c in range(0, L, step)]
+
+
+def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
+                     cluster_theta=None, hkind: str = "ring",
+                     p_edge: float = 0.4, seed: int = 0,
+                     wire_dtype: str = "f32", wire_block: int = 1024,
+                     dense_dtype=None, wire_ef=None,
+                     wire_ef_gamma: float = 1.0, impl=None,
+                     chunk_cols: Optional[int] = None) -> None:
+    """The sparse gossip in place on intra-cluster means.
+
+    x: (R, L), contiguous, every device row holding its cluster's mean
+    (``intra_done`` rows); overwritten with the mixed rows in x's type.
+    ``wire_ef``: None or (est_self, est_wsum), (R, L) f32, advanced in
+    place.  ``dense_dtype`` (default x's type) is what a dense-fallback
+    plan ships and what sizes the fallback test.  The leaf runs in column
+    chunks of ``chunk_cols`` rounded down to whole wire blocks (None: one
+    chunk), the plans decided on the whole row."""
+    C, Dev = clusters, dev
+    R, L = x.shape
+    if R != C * Dev:
+        raise ValueError(f"{R} rows for {C} clusters x {Dev} devices")
+    dense_dtype = dense_dtype or x.dtype
+    plans = _level_plans(L, torch.empty((), dtype=dense_dtype)
+                         .element_size(), C, k=k, theta=theta,
+                         cluster_theta=cluster_theta, wire_block=wire_block,
+                         wire_dtype=wire_dtype)
+    wb = wf.wire_block_of(L, wire_block)
+    xv = x.view(C, Dev, L)
+    ev = None if wire_ef is None else [e.view(C, Dev, L) for e in wire_ef]
+    for c0, c1 in _col_chunks(L, wb, chunk_cols):
+        means = xv[:, 0, c0:c1].float()
+        ef_rows = None if ev is None else tuple(e[:, 0, c0:c1] for e in ev)
+        out = _sparse_mix_rows(means, C, hkind, p_edge, seed, plans=plans,
+                               wb=wb, wire_dtype=wire_dtype,
+                               dense_dtype=dense_dtype, wire_ef=ef_rows,
+                               wire_ef_gamma=wire_ef_gamma, impl=impl)
+        if ev is not None:
+            out, es, ew = out
+            ev[0][:, :, c0:c1].copy_(es[:, None])
+            ev[1][:, :, c0:c1].copy_(ew[:, None])
+        xv[:, :, c0:c1].copy_(out[:, None])
+
+
+def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
+                             k: Optional[int] = None,
+                             theta: Optional[float] = None,
+                             cluster_theta=None, hkind: str = "ring",
+                             p_edge: float = 0.4, seed: int = 0,
+                             wire_dtype: str = "f32",
+                             wire_block: int = 1024,
+                             intra_done: bool = False, alive=None,
+                             conn=None, stale=None, stale_clusters=None,
+                             wire_ef: Optional[Tuple] = None,
+                             wire_ef_gamma: float = 1.0, impl=None):
+    """Gossip mix where only wire-encoded cluster means cross the
+    backhaul (the reference's ``axes=()`` path, collectives.py:758).
+
+    delta: (R, *dims) replica rows; exactly one of ``k`` (a per-row
+    coordinate budget), ``theta`` (one level) or ``cluster_theta`` (one
+    level per cluster) sizes the payloads.  ``intra_done=True`` rows are
+    already cluster means.  A uniform dense-fallback plan on raw rows is
+    the dense mix (``mix_local``).  ``wire_ef=(est_self, est_wsum)`` (f32,
+    shaped like delta) turns on the CHOCO wire error feedback (needs
+    ``intra_done`` and a gossip ``hkind``); the return is then (y,
+    est_self+, est_wsum+).  ``impl`` routes the wire ops.  Returns the
+    mixed rows, delta's shape and type."""
+    _local_only(axes, alive, conn)
+    if stale is not None or stale_clusters is not None:
+        raise NotImplementedError(f"stale= payloads are not ported yet: "
+                                  f"{_OVERLAP}")
+    if wire_ef is not None:
+        if not intra_done:
+            raise ValueError("wire_ef requires intra_done=True rows (the "
+                             "estimates track per-cluster means)")
+        if hkind == "none":
+            raise ValueError("wire_ef requires a gossip hkind (no wire to "
+                             "feed back on)")
+        if len(wire_ef) != 2:
+            raise ValueError("wire_ef must be (est_self, est_wsum)")
+    C, Dev = clusters, dev
+    if hkind == "none":
+        return mix_local(delta, clusters=C, dev=Dev, hkind="none")
+    R = delta.shape[0]
+    L = delta[0].numel()
+    level_kw = dict(k=k, theta=theta, cluster_theta=cluster_theta,
+                    wire_block=wire_block, wire_dtype=wire_dtype)
+    plans = _level_plans(L, delta.element_size(), C, **level_kw)
+    if plans == [(("dense",), None)] and not intra_done:
+        # the uniform dense fallback end to end is the dense mix
+        return mix_local(delta, clusters=C, dev=Dev, hkind=hkind,
+                         p_edge=p_edge, seed=seed)
+    if intra_done:
+        x = delta.reshape(R, L).clone()
+    else:  # f32 cluster means, rounded to delta's type only at the end
+        x = delta.float().reshape(C, Dev, L).mean(dim=1)[:, None].expand(
+            C, Dev, L).reshape(R, L).contiguous()
+    est = None if wire_ef is None else [
+        e.float().reshape(R, L).clone() for e in wire_ef]
+    sparse_exchange_(x, clusters=C, dev=Dev, hkind=hkind, p_edge=p_edge,
+                     seed=seed, dense_dtype=delta.dtype, wire_ef=est,
+                     wire_ef_gamma=wire_ef_gamma, impl=impl, **level_kw)
+    y = x.to(delta.dtype).reshape(delta.shape)
+    if est is None:
+        return y
+    return y, est[0].reshape(delta.shape), est[1].reshape(delta.shape)

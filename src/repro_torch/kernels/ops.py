@@ -2,12 +2,14 @@
 tensors (port of ``repro/kernels/ops.py``).
 
 Every op takes ``impl`` in {None, "kernel", "plain"} (plus "ref" for
-flash attention and top-k); None picks by the device of the first
+flash attention, top-k, the SSD scan and the wire encode); None picks by the device of the first
 tensor, as the reference's ``_route`` picks by backend.  ``impl="plain"`` runs the plain
 version on any device (the card-side comparison uses it); ``impl="kernel"``
 on a CPU tensor raises.  Nothing catches a kernel's failure and falls back.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
@@ -17,6 +19,9 @@ from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
 from repro_torch.kernels.topk_compress import (compress_with,
                                                topk_compress_cuda,
                                                topk_compress_plain)
+from repro_torch.kernels.wire_pack import (
+    encode_blocks_cuda, encode_blocks_plain, pack_offsets_cuda,
+    pack_offsets_plain, unpack_offsets_cuda, unpack_offsets_plain)
 
 
 def _route(impl, x):
@@ -105,3 +110,38 @@ def topk_compress(x, theta, *, block=1024, impl=None, ef=None, out=None):
     for o, v in zip(out, res):
         o.copy_(v)
     return out
+
+
+def encode_blocks(xb, k_b, *, wire_dtype, impl=None):
+    """The fused wire encode (port of ``ops.py:155``): (m, nb, wb) f32 ->
+    (vals, off, scale) with ascending offsets and the values quantized for
+    the wire dtype.  The kernel on the card, its plain version (the same
+    bisection) on the CPU; ``impl="ref"`` the exact top-k oracle, which is
+    the reference's CPU route (``encode_blocks_jnp``)."""
+    r = _route(impl, xb)
+    if r == "kernel":
+        return encode_blocks_cuda(xb, k_b, wire_dtype=wire_dtype)
+    if r == "ref":
+        return ref.encode_blocks_topk(xb, k_b, wire_dtype=wire_dtype)
+    return encode_blocks_plain(xb, k_b, wire_dtype=wire_dtype)
+
+
+def pack_offsets(off, *, wb, mode, impl=None):
+    """Ascending (m, nb, k_b) int32 offsets -> packed uint8 (port of
+    ``ops.py:135``).  u8 is a cast; p4 is the kernel on the card.  The
+    plain version is lossless, so "plain" and "ref" are one route."""
+    if mode == "u8":
+        return off.to(torch.uint8)
+    if _route(impl, off) == "kernel":
+        return pack_offsets_cuda(off, wb=wb)
+    return pack_offsets_plain(off, wb=wb, mode=mode)
+
+
+def unpack_offsets(packed, *, wb, k_b, mode, impl=None):
+    """Packed uint8 -> (m, nb, k_b) int32 ascending offsets (port of
+    ``ops.py:145``), the inverse of ``pack_offsets``."""
+    if mode == "u8":
+        return packed.to(torch.int32)
+    if _route(impl, packed) == "kernel":
+        return unpack_offsets_cuda(packed, wb=wb, k_b=k_b)
+    return unpack_offsets_plain(packed, wb=wb, k_b=k_b, mode=mode)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels' functions (port of
 ``repro/kernels/ref.py`` and ``gather_kv_pages`` of
 ``repro/kernels/flash_attention.py``): attention, block top-k and the
-Mamba2 SSD scan.
+Mamba2 SSD scan, and the exact top-k wire encode.
 
 They compute what the reference's oracles compute, line for line, and are
 what the CPU runs and what the CUDA kernels are held against on the card.
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.wire_pack import quantize_vals
 
 # Finite "minus infinity", as in the reference (ref.py:18): rows with
 # nothing live keep exp(m_old - m_new) = 1 and never produce NaN.
@@ -338,3 +340,22 @@ def ssd_chunked(x, dt, A, B, C, *, chunk=64, initial_state=None):
 
     y = (y_diag + y_off).reshape(b, s, h, p).to(x.dtype)
     return y, prev
+
+
+# ---------------------------------------------------------------------------
+# The wire encode's exact oracle
+# ---------------------------------------------------------------------------
+
+def encode_blocks_topk(xb, k_b: int, *, wire_dtype: str):
+    """Exact per-block top-k_b wire encode (``encode_blocks_jnp``,
+    wire_pack.py:91): xb (m, nb, wb) f32 -> (vals, off, scale), offsets
+    ascending.  ``lax.top_k`` breaks ties toward the lower index; a stable
+    descending sort does the same, so the kept set is the reference's, bit
+    for bit.  The encode kernel's bisection may keep other members of a
+    threshold band (``wire_pack.encode_blocks_plain``)."""
+    x = xb.float()
+    order = torch.sort(x.abs(), dim=-1, descending=True, stable=True).indices
+    off = torch.sort(order[..., :k_b], dim=-1).values
+    vals = torch.gather(x, -1, off)
+    scale = x.abs().amax(dim=-1)
+    return quantize_vals(vals, scale, wire_dtype), off.to(torch.int32), scale

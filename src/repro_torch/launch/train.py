@@ -14,6 +14,14 @@ same-family config, ``--full`` the architecture itself.  ``--profile``
 traces the rounds after the first with torch.profiler and prints the
 device's busy share and its kernels by device time.
 
+``--sparse-gossip`` (with ``--wire-dtype``) keeps the reference's
+``--mesh host`` meaning: no policy, so the round takes the off-mesh
+aggregate, while theta is quantized up to the level grid and the
+simulated time and energy charge the wire's bytes (``dense_bits=16``).
+``--wire-ef`` needs a policy and raises, as in the reference.  The fused
+branch with the wire runs from ``make_round_step(..., policy=...)``
+(``chip_smoke.py`` phase 12).
+
 The numpy stream is the reference's: the corpus, then per round
 ``rng.integers(0, n_seq, (R, b_per_dev))`` from ``default_rng(0)``.  The
 weights (``init`` from a seeded ``torch.Generator``) and the masked-step
@@ -22,13 +30,14 @@ bits (``bits_fn(1000 + round, rho)``) cannot be the reference's
 
 Not ported, each exits naming its ROADMAP.md item: the dense family
 (training it needs a flash-attention backward kernel), ``--mesh
-single|multi`` and the gossip wire options, the overlap engine, population
+single|multi`` (more than one rank), the overlap engine, population
 mode, fault injection and checkpoints.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -36,10 +45,12 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, smoke_model
 from repro_torch.configs.base import FLTopology
+from repro_torch.core.compression import quantize_theta
 from repro_torch.core.controller import BudgetState
 from repro_torch.core.round import init_state, make_round_step
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import resolve
+from repro_torch.dist.collectives import MULTI_RANK
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
 from repro_torch.fl.cost_model import round_energy, round_time
 from repro_torch.fl.heterogeneity import HeterogeneityModel
@@ -47,12 +58,10 @@ from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.lm import param_count
 from repro_torch.models.registry import get_model
 
-_MESH = "ROADMAP.md, modules to port, item 5 (multi-GPU mesh path)"
 _OVERLAP = "ROADMAP.md, modules to port, item 3 (overlap engine)"
 _COHORTS = "ROADMAP.md, modules to port, item 2 (degraded mode and cohorts)"
 # flag -> where it is ported; giving any of them exits
 NOT_PORTED = {
-    "sparse_gossip": _MESH, "wire_dtype": _MESH, "wire_ef": _MESH,
     "overlap": _OVERLAP, "staleness": _OVERLAP, "stale_quantile": _OVERLAP,
     "population": _COHORTS, "cohort_seed": _COHORTS, "store_root": _COHORTS,
     "chaos": _COHORTS, "chaos_dropout": _COHORTS,
@@ -80,10 +89,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", action="store_true",
                     help="trace the rounds after the first and print the "
                          "device busy share and kernels by time")
-    for flag in ("--sparse-gossip", "--wire-ef", "--overlap", "--chaos"):
+    ap.add_argument("--sparse-gossip", action="store_true",
+                    help="quantize theta to the level grid and charge the "
+                         "gossip wire's bytes")
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=["f32", "bf16", "int8", "int4", "fp8"])
+    ap.add_argument("--wire-ef", action="store_true",
+                    help="CHOCO wire error feedback (needs a policy: "
+                         "raises on --mesh host, as in the reference)")
+    for flag in ("--overlap", "--chaos"):
         ap.add_argument(flag, action="store_true", default=None,
                         help="not ported")
-    for flag in ("--wire-dtype", "--staleness", "--stale-quantile",
+    for flag in ("--staleness", "--stale-quantile",
                  "--population", "--cohort-seed", "--store-root",
                  "--chaos-dropout", "--chaos-partition", "--chaos-coord-fail",
                  "--chaos-seed", "--ckpt-dir"):
@@ -100,7 +117,7 @@ def main(argv=None):
         if getattr(args, dest) is not None:
             ap.error(f"--{dest.replace('_', '-')} is not ported yet: {where}")
     if args.mesh != "host":
-        ap.error(f"--mesh {args.mesh} is not ported yet: {_MESH}")
+        ap.error(f"--mesh {args.mesh} is not ported yet: {MULTI_RANK}")
     bundle = get_config(args.arch)
     cfg = smoke_model(bundle.model) if args.smoke else bundle.model
     if cfg.family != "ssm":
@@ -109,6 +126,11 @@ def main(argv=None):
                  f"kernel (ROADMAP.md, kernel item 1, and the LM round of "
                  f"modules to port)")
     hcef = bundle.hcef
+    if args.sparse_gossip or args.wire_dtype or args.wire_ef:
+        hcef = dataclasses.replace(
+            hcef, sparse_gossip=hcef.sparse_gossip or args.sparse_gossip,
+            wire_dtype=args.wire_dtype or hcef.wire_dtype,
+            wire_ef=hcef.wire_ef or args.wire_ef)
     dev = resolve(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference is f32
 
@@ -135,6 +157,9 @@ def main(argv=None):
                               seq_len=args.seq + 1, n_devices=R, beta=0.5)
     rng = np.random.default_rng(0)
     b_per_dev = hcef.tau * 2
+    # dense_bits=16: het's model_bits above is n_params * 16 (bf16)
+    wire_kw = (dict(wire_dtype=hcef.wire_dtype, wire_block=hcef.wire_block,
+                    dense_bits=16) if hcef.sparse_gossip else {})
 
     print(f"arch={args.arch} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}) mesh=host R={R} controller={args.controller} "
@@ -151,15 +176,17 @@ def main(argv=None):
         reports = het.sample_round(rnd)
         rho, theta = controller.controls(reports, budget)
         gossip = (rnd + 1) % hcef.q == 0
+        if hcef.sparse_gossip:  # the wire ships grid levels only
+            theta = quantize_theta(theta, hcef.theta_levels)
         idx = rng.integers(0, N_SEQ, (R, b_per_dev))
         tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
         state, m = steps[gossip](state, {"tokens": torch.from_numpy(tokens)},
                                  rho, theta, 1000 + rnd, timings=timings)
         t, _ = round_time(rho, theta, reports.mu, reports.nu, hcef.tau,
                           cluster_of, gossip=gossip,
-                          backhaul=het.backhaul_time())
+                          backhaul=het.backhaul_time(), **wire_kw)
         e = round_energy(rho, theta, reports.mu, reports.nu, reports.alpha,
-                         reports.p, hcef.tau)
+                         reports.p, hcef.tau, **wire_kw)
         budget.charge(t, e, gossip)
         loss = float(m["loss"].mean())  # waits for the round
         round_ms.append((time.perf_counter() - t0) * 1e3)

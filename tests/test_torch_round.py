@@ -184,10 +184,12 @@ def test_final_state_matches_reference(histories, field):
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    for kw in (dict(sparse_gossip=True), dict(wire_ef=True),
-               dict(overlap=True), dict(staleness=1)):
+    for kw in (dict(overlap=True), dict(staleness=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             HCEFConfig(**kw)
+    # the wire options are ported, with the reference's own checks
+    with pytest.raises(ValueError, match="sparse_gossip"):
+        HCEFConfig(wire_ef=True)
     cfg = smoke_model(get_config("smollm_135m").model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tround.make_round_step(cfg, HCEFConfig(), FLTopology(2, 2))

@@ -29,8 +29,8 @@ def test_launcher_runs_the_smoke_round_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sparse-gossip"], ["--wire-dtype", "int4"], ["--wire-ef"],
-    ["--overlap"], ["--staleness", "0"], ["--population", "8"],
+    ["--stale-quantile", "0.5"], ["--cohort-seed", "1"],
+    ["--chaos-partition", "0.1"], ["--overlap"], ["--staleness", "0"], ["--population", "8"],
     ["--chaos"], ["--chaos-dropout", "0.1"], ["--ckpt-dir", "x"],
     ["--mesh", "single"], ["--mesh", "multi"],
     ["--arch", "smollm_135m"], ["--arch", "qwen2_7b"]])
