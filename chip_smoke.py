@@ -7,13 +7,23 @@ Phases (any failure ends the run with a non-zero exit):
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time;
-2. flash-attention prefill kernel vs its plain version at the qwen2-7b
-   shapes (B=1, H=28, KH=4, Dh=128, bf16, causal, S in {144, 512, 2048} and
-   the serve trace's padded prompt length), plus an f32 case and a
-   window/q_offset case at Dh=64;
-3. paged-decode kernel vs its plain version at the serve shapes (B=8,
-   ps=16, KH=4, G=7, Dh=128, bf16; a permuted page table and ragged
-   kv_len including 0 and a length that is not a page multiple);
+2. flash-attention prefill kernels vs their plain version: bf16 runs
+   ``flash_fwd_tc`` (tensor cores), f32 ``flash_fwd_simt``.  The qwen2-7b
+   shapes (B=1, H=28, KH=4, Dh=128, bf16, causal, S in {144, 512, 2048}
+   and the serve trace's padded prompt length), an f32 case, a
+   window/q_offset case with a ragged Skv at Dh=64 in f32 and in bf16,
+   bf16 with S not a multiple of 64 at Dh 64 (smollm's heads) and 16, and
+   a window case at Dh=64;
+3. the split paged decode (bf16 ``paged_decode_tc`` on the tensor cores,
+   f32 ``paged_decode_simt``; the last live split of each request and KV
+   head merges the others) vs its plain version at the serve shapes (B=8,
+   ps=16, KH=4, G=7, Dh=128, bf16 and f32; a permuted page table and
+   ragged kv_len including 0 and a length that is not a page multiple),
+   at smollm's shape (KH=3, G=3, Dh=64), with kv_len on the edges of the
+   splits, and over a long context (8 slots at 4096 positions, 67 MB of
+   live KV), where the share of the memory rate is printed.  Phases 2
+   and 3 time each kernel with the host out of the way (``time_ms``) and
+   also at the host's pace (``call_ms``);
 4. the serving path: first a small f32 model's prefill and decode steps on
    the card (kernels) must give the CPU's logits (plain versions) within
    1e-4; then qwen2-7b at full width (bf16, seeded random weights)
@@ -86,7 +96,9 @@ F32_TOL = dict(atol=2e-5, rtol=2e-5)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM
 PEAK_BYTES = 3.35e12
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+HOST_LEAD_CYCLES = 1_000_000  # about 0.5 ms of device spin before a timing
 SLOTS, PAGE = 8, 16  # the engine's decode slots and page size in phase 4
+LONG_CONTEXT = 4096  # phase 3's long-context decode: positions a slot
 TOPK_GRID = [(1, 2048, 256), (4, 4096, 512), (3, 1024, 1024)]  # test_kernels
 # phase 6: card vs CPU histories of the same small FedSim.  Both are f32;
 # sums run in other orders, and a coordinate at a top-k threshold may be
@@ -170,10 +182,16 @@ def fail(msg):
 _flush_buf = None
 
 
-def time_ms(fn, iters=10, warmup=2):
+def time_ms(fn, iters=10, warmup=2, host_paced=False):
     """Mean device time of ``fn`` over ``iters`` runs, each after an L2
     flush (the serve path finds its KV and activations cold: every decode
-    step streams all weights through the cache)."""
+    step streams all weights through the cache).  Between the flush and
+    the timed call the device spins for HOST_LEAD_CYCLES, so the host has
+    queued the whole call before the device reaches it: the events then
+    time the device's work, not the Python around the launches.  With
+    ``host_paced`` the spin is left out, and a call whose host side is
+    slower than the flush is timed at the host's pace (how every kernel
+    was timed before the two attention kernels were redesigned)."""
     global _flush_buf
     if _flush_buf is None:
         _flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
@@ -184,6 +202,8 @@ def time_ms(fn, iters=10, warmup=2):
     evs = []
     for _ in range(iters):
         _flush_buf.zero_()
+        if not host_paced:
+            torch.cuda._sleep(HOST_LEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -241,6 +261,8 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     err, ok = max_err(out, ref, tol)
     ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
+    call_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                      host_paced=True)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                        iters=3, warmup=1)
     library_ms = None
@@ -255,10 +277,12 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
     flops = 4 * Dh * H * pairs  # q.k and p.v, 2 ops per multiply-add
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    row = dict(S=S, Skv=Skv, H=H, KH=KH, Dh=Dh, dtype=str(dtype)[6:],
-               window=window, q_offset=q_offset, max_abs_err=err,
-               tol=tol["atol"], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=library_ms)
+    kernel = "flash_fwd_tc" if dtype == torch.bfloat16 else "flash_fwd_simt"
+    row = dict(kernel=kernel, S=S, Skv=Skv, H=H, KH=KH, Dh=Dh,
+               dtype=str(dtype)[6:], window=window, q_offset=q_offset,
+               max_abs_err=err,
+               tol=tol["atol"], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     print("prefill " + json.dumps(row))
     if not ok:
         fail(f"flash-attention kernel disagrees with the plain version: {row}")
@@ -289,6 +313,9 @@ def decode_case(fa, gen, *, B, P, ps, KH, G, Dh, dtype, kv_len):
     ok_empty = all(bool((o[b] == 0).all()) and bool((m[b] == -1e30).all())
                    and bool((l[b] == 1e-20).all()) for b in empty)
     ms = time_ms(lambda: fa.paged_decode_attention_cuda(q, kp, vp, table, kl))
+    call_ms = time_ms(
+        lambda: fa.paged_decode_attention_cuda(q, kp, vp, table, kl),
+        host_paced=True)
     plain_ms = time_ms(
         lambda: fa.paged_decode_attention_plain(q, kp, vp, table, kl))
 
@@ -313,10 +340,13 @@ def decode_case(fa, gen, *, B, P, ps, KH, G, Dh, dtype, kv_len):
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     # max_abs_err is the output's; m and l are held to the same atol+rtol
     # (l is a sum of up to kv_len terms, so its absolute error scales).
+    cps, n_split = fa.decode_split(B, KH, P, ps, fa._sm_count(0))
     row = dict(B=B, P=P, ps=ps, KH=KH, G=G, Dh=Dh, dtype=str(dtype)[6:],
-               kv_len=list(kv_len), max_abs_err=err_o, err_m=err_m,
-               err_l=err_l, tol=tol["atol"], ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               kv_len=list(kv_len), n_split=n_split,
+               split_positions=cps * fa.DECODE_CHUNK, max_abs_err=err_o,
+               err_m=err_m, err_l=err_l, tol=tol["atol"], ms=ms,
+               call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / ms,
                library_ms=library_ms)
     print("decode " + json.dumps(row))
     if not (ok_o and ok_m and ok_l and ok_empty):
@@ -1399,8 +1429,13 @@ def main():
         if S == S_pad:
             main_prefill = row
     prefill_case(fa, gen, S=512, dtype=torch.float32, **qwen)
-    prefill_case(fa, gen, S=200, Skv=328, H=8, KH=2, Dh=64,
-                 dtype=torch.float32, window=96, q_offset=128)
+    for dtype in (torch.float32, torch.bfloat16):  # q_offset, ragged Skv
+        prefill_case(fa, gen, S=200, Skv=328, H=8, KH=2, Dh=64, dtype=dtype,
+                     window=96, q_offset=128)
+    smollm = configs.get_config("smollm_135m").model
+    prefill_case(fa, gen, S=144, H=smollm.num_heads, KH=smollm.num_kv_heads,
+                 Dh=smollm.head_dim, dtype=torch.bfloat16)
+    prefill_case(fa, gen, S=100, H=4, KH=2, Dh=16, dtype=torch.bfloat16)
     prefill_case(fa, gen, S=256, H=8, KH=2, Dh=64, dtype=torch.bfloat16,
                  window=64)
 
@@ -1411,6 +1446,19 @@ def main():
                  kv_len=kv_len)
     main_decode = decode_case(fa, gen, dtype=torch.bfloat16, **shape)
     decode_case(fa, gen, dtype=torch.float32, **shape)
+    decode_case(fa, gen, dtype=torch.bfloat16,
+                **dict(shape, KH=smollm.num_kv_heads, Dh=smollm.head_dim,
+                       G=smollm.num_heads // smollm.num_kv_heads))
+    cps, _ = fa.decode_split(SLOTS, cfg.num_kv_heads, width, PAGE,
+                             fa._sm_count(0))
+    span = cps * fa.DECODE_CHUNK  # positions a split owns
+    edges = [span, span - 1, span + 1, 2 * span, 2 * span + 1, 3 * span - 1,
+             PAGE, 0]
+    decode_case(fa, gen, dtype=torch.bfloat16,
+                **dict(shape, kv_len=[min(n, width * PAGE) for n in edges]))
+    decode_case(fa, gen, dtype=torch.bfloat16,  # 67 MB of live K and V
+                **dict(shape, P=LONG_CONTEXT // PAGE,
+                       kv_len=[LONG_CONTEXT] * SLOTS))
 
     # -- phase 4 -------------------------------------------------------------
     small_path_agrees(lm, configs)

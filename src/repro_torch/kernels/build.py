@@ -29,8 +29,7 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "repro_flash_attention_fwd":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "repro_paged_decode_attention_fwd":
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "repro_paged_decode_attention_fwd": [_P] * 12 + [_I] * 9 + [_F, _P],
     "repro_topk_compress": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P],
     "repro_ssd_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "repro_ssd_bwd": [_P] * 15 + [_I] * 8 + [_P],

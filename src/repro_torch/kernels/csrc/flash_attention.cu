@@ -9,25 +9,606 @@
 // Unlike the TPU kernel it takes any Sq and Skv: the ragged last tile is
 // masked here, so a prefill padded only to the page size (S = 144) works.
 //
-// What bounds it on the card: operations.  A causal prefill of S tokens does
-// about 2 * S^2 * H * Dh multiply-adds against 2 * S * (2H + 2KH) * Dh bytes
-// of q, k, v and out, hundreds of operations per byte, far above the H100's
-// ridge of about 295 bf16 operations per byte.
+// Two kernels sit behind the one C entry, chosen by the element type:
 //
-// What the design does about it: one block owns 64 query rows of one head;
-// each 32-key K/V tile is staged once in shared memory (as f32, rows padded
-// by one word so column reads hit distinct banks) and used by all 64 rows;
-// each thread holds a 4 x 2 tile of scores and a 4 x Dh/16 tile of the
-// output in registers, so one shared-memory read feeds several multiply-adds;
-// masked-out tiles issue no work.  The products run on the f32 pipes, not
-// the tensor cores (no wgmma, no TMA yet): simple and exact first, so the
-// kernel sits well below the bf16 tensor-core bound.
+// flash_fwd_tc (bf16).  What bounds it: at the serve's prompt lengths
+// (S ~ 500, qwen2-7b's 28 heads of 128) the bytes of q, k, v and out
+// (8.4 MB, 2.4 us at 3.35 TB/s) against 1.9 GFLOP of masked work (1.9 us
+// at 989 TFLOP/s); from S ~ 1000 on the operations, which grow as S^2
+// (30 GFLOP at S = 2048).  On the card the first limit met is neither: it
+// is moving K/V tiles from L2 into shared memory, which every query block
+// of every head repeats.  The design puts both products on the tensor
+// cores and cuts and hides that traffic.  One CTA owns a 64-row query
+// block of two query heads of one KV group, one consumer warpgroup a head
+// (one warpgroup where a KV group has one head; an odd group's last CTA
+// leaves its second warpgroup idle), so each K/V tile serves 128 query
+// rows; a producer warp fills a ring of four stages by TMA (128B swizzle
+// for head dims >= 64, 64B and 32B below; rows past the sequence end read
+// as zeros), full and empty mbarriers a stage, so up to three tiles are in
+// flight behind the one in use; Q goes in by TMA once.  S = Q K^T is wgmma
+// m64n64k16 with Q and K read from shared memory by descriptor, f32
+// accumulators in registers; the online softmax runs on the accumulator
+// fragments (row max and sum over the four threads of a row by shuffles,
+// exp2f with the scale folded into log2 e, the row sum kept per thread and
+// reduced once at the end); P is rounded to bf16 in registers and is the
+// register A operand of the second wgmma, with V read from shared memory
+// as a transposed (MN-major) B; O stays in f32 registers.  Only tiles that
+// cross the causal diagonal, the window's edge or a ragged Skv edge compute
+// a mask; the epilogue divides by l and stores bf16.  Still to come: the
+// overlap of one tile's softmax with the next tile's products (two score
+// buffers, or two warpgroups taking turns).
+//
+// flash_fwd_simt (f32).  TF32 tensor cores would miss the f32 tolerance of
+// 2e-5, so f32 keeps the exact kernel on the f32 pipes: one block of 256
+// threads owns 64 query rows of one head; each 32-key K/V tile is staged
+// once in shared memory (as f32, rows padded by one word so column reads
+// hit distinct banks) and used by all 64 rows; each thread holds a 4 x 2
+// tile of scores and a 4 x Dh/16 tile of the output in registers.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace repro {
 namespace {
+
+// ---------------------------------------------------------------------------
+// flash_fwd_tc: bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;      // query rows of a consumer warpgroup: wgmma's M
+constexpr int kBKV = 64;     // keys per K/V tile
+constexpr int kStages = 4;   // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A 64-row tile in shared memory is what TMA writes for boxes of kBox
+// head-dim columns x 64 rows with the matching swizzle: DH / kBox regions
+// one after another, each 64 rows of kW = 2 kBox bytes, swizzled in atoms
+// of 8 rows x kW bytes (128B, 64B or 32B swizzle for DH >= 64, 32, 16).
+template <int DH>
+struct Tile {
+  static constexpr int kBox = DH < 64 ? DH : 64;  // columns of a TMA box
+  static constexpr int kW = 2 * kBox;             // bytes of a region's row
+  static constexpr int kRegion = 64 * kW;         // bytes of a region
+  static constexpr int kBytes = 64 * DH * 2;      // bytes of a tile
+  // wgmma descriptor layout code of that swizzle
+  static constexpr uint64_t kLayout = kW == 128 ? 1 : (kW == 64 ? 2 : 3);
+};
+
+template <int DH, int NWG>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // Q of each warpgroup, K and V of each stage, 2 kStages + 1 mbarriers,
+  // and slack to align the tiles to 1024 bytes (the 128B swizzle's period)
+  return static_cast<size_t>(Tile<DH>::kBytes) * (NWG + 2 * kStages) +
+         8 * (2 * kStages + 1) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Shared-memory matrix descriptor of wgmma: start, leading and stride byte
+// offsets (16-byte units), swizzle layout code in bits 62-63.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+// K-major operand (Q or K: rows x head dim, contraction over the head dim)
+// at k-step kk (columns 16 kk .. 16 kk + 15): the 32 bytes of the step lie
+// in region 32 kk / kW; 8-row groups are 8 kW bytes apart.
+template <int DH>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  using T = Tile<DH>;
+  const uint32_t at = tile + (32 * kk / T::kW) * T::kRegion + (32 * kk) % T::kW;
+  return make_desc(at, 16, 8 * T::kW, T::kLayout);
+}
+
+// MN-major V (keys x head dim, contraction over the keys) at k-step kk
+// (keys 16 kk .. 16 kk + 15): the head dim runs along the regions (leading
+// offset one region), 8-key groups are 8 kW bytes apart (stride offset).
+template <int DH>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  using T = Tile<DH>;
+  return make_desc(tile + 16 * kk * T::kW, T::kRegion, 8 * T::kW,
+                   T::kLayout);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// TMA: the box at coordinates (c0 head-dim column, c1 head, c2 row, c3
+// batch) of `map` into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin accumulator registers at this point of the program, so no use of
+// them moves above a wgmma wait, nor a write below a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16) * B (16 x 64), A and B in shared
+// memory, both K-major, read through descriptors; scale_d = 0 zeroes D.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, f32) += A (64 x 16, bf16 fragments in registers) * B
+// (16 x 16), B in shared memory MN-major (transposed), by descriptor.
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 fragments in registers) * B
+// (16 x 32), B in shared memory MN-major (transposed), by descriptor.
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 fragments in registers) * B
+// (16 x 64), B in shared memory MN-major (transposed), by descriptor.
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 fragments in registers) * B
+// (16 x 128), B in shared memory MN-major (transposed), by descriptor.
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DH == 16) wgmma_rs_m64n16(o, a, db);
+  if constexpr (DH == 32) wgmma_rs_m64n32(o, a, db);
+  if constexpr (DH == 64) wgmma_rs_m64n64(o, a, db);
+  if constexpr (DH == 128) wgmma_rs_m64n128(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// One CTA: a 64-row query block of NWG heads of one KV group (one consumer
+// warpgroup a head, sharing every K/V tile), plus one producer warp whose
+// lane 0 fills the K/V ring by TMA.  Tiles t_lo .. t_hi (the live run) go
+// through kStages stages: full[st] completes when a tile has landed,
+// empty[st] when every consumer warp is done with it.
+template <int DH, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+    flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ out, int Sq, int Skv, int H, int KH,
+                 int causal, int window, int q_offset, float scale_log2) {
+  static_assert(DH % 16 == 0 && DH <= 128, "head_dim in {16, 32, 64, 128}");
+  using T = Tile<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;                        // + w * T::kBytes
+  const uint32_t sK = base + NWG * T::kBytes;      // + st * T::kBytes
+  const uint32_t sV = sK + kStages * T::kBytes;    // + st * T::kBytes
+  const uint32_t full = sV + kStages * T::kBytes;  // + 8 st
+  const uint32_t empty = full + 8 * kStages;       // + 8 st
+  const uint32_t qbar = empty + 8 * kStages;
+
+  // the longest causal rows first: the last query block gets block 0
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int G = H / KH;
+  const int groups = (G + NWG - 1) / NWG;  // CTAs a KV head's query heads
+  const int kh = blockIdx.y / groups;
+  const int h0 = kh * G + (blockIdx.y % groups) * NWG;
+  const int n_act = min(NWG, kh * G + G - h0);  // heads this CTA owns
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const int qfirst = q_offset + q0;
+  const int qlast = qfirst + kBQ - 1;
+  // live tiles are one contiguous run [t_lo, t_hi]
+  int t_hi = (Skv + kBKV - 1) / kBKV - 1;
+  if (causal) t_hi = min(t_hi, qlast >= 0 ? qlast / kBKV : -1);
+  int t_lo = 0;
+  if (window)
+    while (t_lo <= t_hi && t_lo * kBKV + kBKV - 1 <= qfirst - window) ++t_lo;
+  const int n_tiles = t_hi - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 4 * n_act);  // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {  // the producer warp
+    if (lane == 0 && n_tiles > 0) {
+      mbar_arrive_tx(qbar, n_act * T::kBytes);
+      for (int w = 0; w < n_act; ++w)
+        for (int r = 0; r < DH / T::kBox; ++r)
+          tma_load(sQ + w * T::kBytes + r * T::kRegion, &tq, r * T::kBox,
+                   h0 + w, q0, b, qbar);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty + 8 * st, (it / kStages - 1) & 1);
+        mbar_arrive_tx(full + 8 * st, 2 * T::kBytes);
+        const int k0 = (t_lo + it) * kBKV;
+        for (int r = 0; r < DH / T::kBox; ++r) {
+          tma_load(sK + st * T::kBytes + r * T::kRegion, &tk, r * T::kBox,
+                   kh, k0, b, full + 8 * st);
+          tma_load(sV + st * T::kBytes + r * T::kRegion, &tv, r * T::kBox,
+                   kh, k0, b, full + 8 * st);
+        }
+      }
+    }
+    return;
+  }
+
+  const int w = warp >> 2;  // this consumer warpgroup
+  if (w >= n_act) return;   // the group has no head left for it
+  const int h = h0 + w;
+  // this thread's two rows of every accumulator fragment, and its columns
+  const int row0 = (warp & 3) * 16 + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  const int qpos0 = qfirst + row0;
+  const int qpos1 = qpos0 + 8;
+  const uint32_t sQw = sQ + w * T::kBytes;
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // running max, log2 units
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    mbar_wait(full + 8 * st, (it / kStages) & 1);
+    const uint32_t tK = sK + st * T::kBytes;
+    const uint32_t tV = sV + st * T::kBytes;
+
+    // S = Q K^T over the head dim, 16 columns a step
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_m64n64(s, desc_kmajor<DH>(sQw, kk), desc_kmajor<DH>(tK, kk),
+                      kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // fragment j of s: rows row0 / row0 + 8, keys k0 + 8 j + col + {0, 1}
+    const int k0 = (t_lo + it) * kBKV;
+    const bool masked = k0 + kBKV > Skv ||
+                        (causal && k0 + kBKV - 1 > qfirst) ||
+                        (window && k0 <= qlast - window);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& s0 = s[4 * j + c];
+        float& s1 = s[4 * j + 2 + c];
+        s0 *= scale_log2;
+        s1 *= scale_log2;
+        if (masked) {
+          const int kpos = k0 + 8 * j + col + c;
+          const bool in = kpos < Skv;
+          if (!(in && (!causal || kpos <= qpos0) &&
+                (!window || kpos > qpos0 - window)))
+            s0 = -INFINITY;
+          if (!(in && (!causal || kpos <= qpos1) &&
+                (!window || kpos > qpos1 - window)))
+            s1 = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, s0);
+        mx1 = fmaxf(mx1, s1);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    // m starts at the finite -1e30, so a row with nothing live yet keeps
+    // corr = 1 and p = exp2(-inf) = 0, never NaN
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[4 * j + c] = exp2f(s[4 * j + c] - mn0);
+        s[4 * j + 2 + c] = exp2f(s[4 * j + 2 + c] - mn1);
+        rs0 += s[4 * j + c];
+        rs1 += s[4 * j + 2 + c];
+      }
+    }
+    l0 = l0 * corr0 + rs0;
+    l1 = l1 * corr1 + rs1;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+    // P in bf16: the accumulator fragments of keys 16 kk .. 16 kk + 15 are
+    // the A fragment of k-step kk
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P V over the keys, 16 keys a step
+    wgmma_fence();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<DH>(o, pa[kk], desc_mnmajor<DH>(tV, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * st);  // this warp is done with st
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+  const int sr0 = q0 + row0, sr1 = sr0 + 8;
+  bf16* o0 = out + ((size_t)(b * Sq + sr0) * H + h) * DH + col;
+  bf16* o1 = out + ((size_t)(b * Sq + sr1) * H + h) * DH + col;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    if (sr0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    if (sr1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
+// against libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The TMA map of x (B, S, NH, DH) bf16: boxes of kBox head-dim columns of
+// one head, 64 rows, one batch entry; rows past S read as zeros.
+template <int DH>
+bool encode(PFN_cuTensorMapEncodeTiled_v12000 enc, CUtensorMap* map,
+            const void* x, int B, int S, int NH) {
+  using T = Tile<DH>;
+  const cuuint64_t dims[4] = {DH, (cuuint64_t)NH, (cuuint64_t)(S > 0 ? S : 1),
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2, (cuuint64_t)NH * DH * 2,
+                                 (cuuint64_t)S * NH * DH * 2};
+  const cuuint32_t box[4] = {T::kBox, 1, kBKV, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : (T::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                  : CU_TENSOR_MAP_SWIZZLE_32B);
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH, int NWG>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Skv, int H, int KH, int causal,
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  PFN_cuTensorMapEncodeTiled_v12000 enc = tensor_map_encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!encode<DH>(enc, &mq, q, B, Sq, H) ||
+      !encode<DH>(enc, &mk, k, B, Skv, KH) ||
+      !encode<DH>(enc, &mv, v, B, Skv, KH))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<DH, NWG>();
+  auto kernel = flash_fwd_tc<DH, NWG>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int G = H / KH;
+  const dim3 grid((Sq + kBQ - 1) / kBQ, KH * ((G + NWG - 1) / NWG), B);
+  kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KH, causal, window,
+      q_offset, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// Two consumer warpgroups (two query heads on every K/V tile) where the
+// KV group has two heads or more, else one.
+template <int DH>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      int B, int Sq, int Skv, int H, int KH, int causal,
+                      int window, int q_offset, float scale,
+                      cudaStream_t stream) {
+  if (H / KH >= 2)
+    return launch<DH, 2>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
+                         q_offset, scale, stream);
+  return launch<DH, 1>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
+                       q_offset, scale, stream);
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// flash_fwd_simt: f32 on the f32 pipes
+// ---------------------------------------------------------------------------
+namespace simt {
 
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBKV = 32;         // keys per K/V tile
@@ -43,10 +624,10 @@ constexpr size_t flash_smem_bytes() {
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int Sq,
-                     int Skv, int H, int KH, int causal, int window,
-                     int q_offset, float scale) {
+    flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ out, int Sq,
+                   int Skv, int H, int KH, int causal, int window,
+                   int q_offset, float scale) {
   static_assert(DH % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = DH + 1;    // padded row strides
   constexpr int KS = DH + 1;
@@ -188,51 +769,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DH>
+
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int KH, int causal,
+                   int B, int Sq, int Skv, int H, int KH, int Dh, int causal,
                    int window, int q_offset, float scale,
                    cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<DH>();
-  auto kernel = flash_fwd_kernel<T, DH>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, KH, causal,
-      window, q_offset, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Skv, int H, int KH,
-                        int causal, int window, int q_offset, float scale,
-                        cudaStream_t stream) {
+  auto go = [&](auto kernel, size_t smem) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
+        KH, causal, window, q_offset, scale);
+    return cudaGetLastError();
+  };
   switch (Dh) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                           q_offset, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                           q_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                           q_offset, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                            q_offset, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return go(flash_fwd_simt<float, 16>, flash_smem_bytes<16>());
+    case 32: return go(flash_fwd_simt<float, 32>, flash_smem_bytes<32>());
+    case 64: return go(flash_fwd_simt<float, 64>, flash_smem_bytes<64>());
+    case 128: return go(flash_fwd_simt<float, 128>, flash_smem_bytes<128>());
+    default: return cudaErrorInvalidValue;
   }
 }
 
+}  // namespace simt
 }  // namespace
 }  // namespace repro
 
 // q (B, Sq, H, Dh), k and v (B, Skv, KH, Dh), out (B, Sq, H, Dh): contiguous,
-// one element type (dtype: 0 = f32, 1 = bf16).  Launches on `stream` and
+// one element type (dtype: 0 = f32, 1 = bf16), 16-byte aligned for bf16.
+// bf16 runs flash_fwd_tc, f32 flash_fwd_simt.  Launches on `stream` and
 // returns cudaGetLastError() of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* out, int dtype,
@@ -245,10 +812,23 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   if (KH <= 0 || H % KH != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch_dh<float>(Dh, q, k, v, out, B, Sq, Skv, H, KH, causal,
-                              window, q_offset, scale, s);
-  if (dtype == kBFloat16)
-    return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, out, B, Sq, Skv, H, KH,
-                                      causal, window, q_offset, scale, s);
-  return cudaErrorInvalidValue;
+    return simt::launch(q, k, v, out, B, Sq, Skv, H, KH, Dh, causal, window,
+                        q_offset, scale, s);
+  if (dtype != kBFloat16) return cudaErrorInvalidValue;
+  switch (Dh) {
+    case 16:
+      return tc::launch_tc<16>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
+                            q_offset, scale, s);
+    case 32:
+      return tc::launch_tc<32>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
+                            q_offset, scale, s);
+    case 64:
+      return tc::launch_tc<64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
+                            q_offset, scale, s);
+    case 128:
+      return tc::launch_tc<128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
+                             q_offset, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

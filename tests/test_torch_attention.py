@@ -112,6 +112,69 @@ def test_paged_decode_plain_matches_reference(KH, G, dtype):
     assert bool((o[3] == 0).all())
 
 
+# (KH, G, pages per split): splits of span = pages per split * ps positions
+SPLIT_CASES = [(1, 7, 1), (1, 7, 2), (2, 7, 3), (3, 1, 1), (2, 1, 2)]
+
+
+@pytest.mark.parametrize("KH,G,pps", SPLIT_CASES,
+                         ids=lambda c: str(c))
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_decode_split_merge_matches_direct(KH, G, pps, dtype):
+    """The split decode's plain versions (per-split partials, then the
+    merge) against the direct form: lengths on page and split edges, one
+    past and one short of them, splits wholly past kv_len, and kv_len 0
+    (out 0, m -1e30 and l 1e-20 exactly)."""
+    B, P, ps, Dh = 8, 6, 8, 16
+    span = pps * ps
+    rng = np.random.default_rng(5)
+    j_in, (tq, tk, tv, tt) = _paged_inputs(rng, B, P, ps, KH, G, Dh, dtype)
+    kv_len = np.array([0, ps, span, span + 1, 2 * span - 1, 3, P * ps,
+                       P * ps - 1], np.int32)
+    acc, m, l = tfa.paged_decode_split_plain(tq, tk, tv, tt,
+                                             torch.from_numpy(kv_len),
+                                             span=span)
+    n_split = -(-P * ps // span)
+    assert acc.shape == (B, KH, n_split, G, Dh)
+    assert m.shape == l.shape == (B, KH, n_split, G)
+    first = np.arange(n_split) * span  # each split's first position
+    past = torch.from_numpy(first[None, :] >= kv_len[:, None])  # (B, NS)
+    assert bool((m.permute(0, 2, 1, 3)[past] == -1e30).all())
+    assert bool((l.permute(0, 2, 1, 3)[past] == 0).all())
+    assert bool((acc.permute(0, 2, 1, 3, 4)[past] == 0).all())
+
+    o, mm, ll = tfa.paged_decode_merge_plain(acc, m, l, tq.dtype)
+    assert o.dtype == tq.dtype and o.shape == tq.shape
+    k = ref.gather_kv_pages(tk, tt)
+    v = ref.gather_kv_pages(tv, tt)
+    ro, rm, rl = ref.decode_attention_direct(tq, k, v,
+                                             kv_len=torch.from_numpy(kv_len),
+                                             return_stats=True)
+    jq, jk, jv, jt = j_in
+    jo, jm, jl = jref.decode_attention_jnp(
+        jq, j_gather(jk, jt), j_gather(jv, jt), kv_len=jnp.asarray(kv_len),
+        return_stats=True)
+    for got, want, jwant in ((o, ro, jo), (mm, rm, jm), (ll, rl, jl)):
+        np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+        np.testing.assert_allclose(_np(got), _np(jwant), **TOL[dtype])
+    assert bool((o[0] == 0).all()) and bool((mm[0] == -1e30).all())
+    assert bool((ll[0] == 1e-20).all())
+
+
+@pytest.mark.parametrize("B,KH,P,ps", [(8, 4, 35, 16), (8, 4, 256, 16),
+                                        (8, 3, 35, 16), (1, 1, 4, 8),
+                                        (64, 8, 3, 16), (2, 2, 1000, 16)])
+def test_decode_split_covers_the_table(B, KH, P, ps):
+    """The split plan comes from shapes alone: its splits cover the
+    table's P * ps positions with no split wholly past them, and it aims
+    at DECODE_CTAS_PER_SM CTAs a streaming multiprocessor."""
+    cps, n_split = tfa.decode_split(B, KH, P, ps, sms=132)
+    span = cps * tfa.DECODE_CHUNK
+    assert n_split * span >= P * ps > (n_split - 1) * span
+    want = -(-tfa.DECODE_CTAS_PER_SM * 132 // (B * KH))
+    assert n_split <= want
+
+
 def test_decode_attention_combine_matches_reference():
     rng = np.random.default_rng(1)
     B, H, KH, Dh, S = 3, 6, 2, 16, 24
