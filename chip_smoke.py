@@ -45,10 +45,14 @@ Phases (any failure ends the run with a non-zero exit):
    through it evaluated in f64): the reference's test grid in f32 and
    bf16; the inputs the
    first layer of mamba2-1.3B at full width gives ``ops.ssd`` (b=2, s=512,
-   h=64, p=64, g=8, n=128, chunk 256, bf16; both kernels timed there);
+   h=64, p=64, g=8, n=128, chunk 256, bf16; both kernels timed there), and
+   the same inputs at chunk 128 (four chunks);
    at that shape in bf16 and f32, dt and A drawn as the test grid draws
    them and as mamba2's init gives them (dt about 0.7, A = -1: the decays
-   underflow), and a padded length (s=300); an all-zero x;
+   underflow), and a padded length (s=300); an all-zero x.  Each row names
+   the kernels it ran (bf16: the tensor-core kernels, "tc"; f32: the SIMT
+   kernels) and their launches a call, and a bf16 y must also be within
+   SSD_PLAIN_FACTOR times the plain bf16 version's distance from f64;
 9. the HCEF round step on mamba2: first a smoke-config round on the card
    (kernels) against the same round on the CPU (plain versions), then the
    train launcher's entry point on mamba2-1.3B at full width
@@ -212,6 +216,25 @@ def time_ms(fn, iters=10, warmup=2, host_paced=False):
         evs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+
+def kernel_split(fn, iters=5):
+    """{kernel: mean device us a call} over ``iters`` calls of ``fn``, by
+    torch.profiler (warm L2): which of a call's launches takes the time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"::([A-Za-z_]\w*)(?:<[^()]*>)?\(", e.key)
+        if m and e.device_time_total > 0:
+            name = m.group(1)
+            out[name] = out.get(name, 0.0) + e.device_time_total / iters
+    return out
 
 
 def max_err(a, b, tol):
@@ -766,27 +789,32 @@ def layer_inputs(configs, mamba2, gen):
     return [t.contiguous() for t in (xs, dt, A, Bm, Cm)], cfg.ssm_chunk
 
 
-def ssd_work(*, b, s, h, p, g, n, chunk, dtype):
+def ssd_work(*, b, s, h, p, g, n, chunk, dtype, f32_pipes=False):
     """(forward, backward), each ({type: operations}, bytes), that the
     inputs need: the causal half of each chunk's L x L products, 2
     operations per multiply-add.  G = C Bt is formed once per (b, group,
-    chunk) and shared by the group's heads; on bf16 inputs it is exact on
-    the bf16 tensor cores with f32 accumulation, so it counts at the bf16
-    peak.  The backward forms G again, and dC = dG B and dB = dGt C once
-    per group (dG summed over the group's heads first); those take an f32
-    dG, so they count at the f32 peak with the rest.  Bytes: each input
-    read once, each output written once (the forward's chunk states
-    included, the backward's per-head scratch not)."""
+    chunk) and shared by the group's heads; the backward forms G again, and
+    dC = dG B and dB = dGt C once per group (dG summed over the group's
+    heads first).  bf16 inputs run every product on the tensor cores (bf16
+    in, f32 accumulation; an f32 operand as a bf16 pair is two products of
+    the same size, which the count leaves out), so all of it counts at the
+    bf16 peak; with ``f32_pipes`` they count as before the tensor-core
+    kernels: G at the bf16 peak (exact there), the rest at the f32 peak.
+    f32 inputs count everything at the f32 peak.  Bytes: each input read
+    once, each output written once (the forward's chunk states included,
+    the backward's scratch not)."""
     nc = -(-s // chunk)
     tri = sum(min(chunk, s - c * chunk) * (min(chunk, s - c * chunk) + 1)
               // 2 for c in range(nc))          # (l, s) pairs with s <= l
     state = 2 * s * n * p                       # y_off and S_new per step
     cb = 2 * b * g * tri * n                    # G = C Bt, per group
 
-    def ops(f32):
-        out = {torch.float32: f32}
-        out[dtype] = out.get(dtype, 0) + cb
-        return out
+    def ops(rest):
+        if dtype == torch.float32:
+            return {torch.float32: rest + cb}
+        if f32_pipes:
+            return {torch.float32: rest, torch.bfloat16: cb}
+        return {torch.bfloat16: rest + cb}
     fwd = ops(2 * b * h * (tri * p + state))
     bwd = ops(2 * b * g * tri * 2 * n + 2 * b * h * (2 * tri * p
                                                      + 2 * state))
@@ -804,6 +832,13 @@ def ssd_case(ss, gen, args, *, label, chunk, zero_x=False, timed=False):
     b, s, h, p = args[0].shape
     g, n = args[3].shape[2:]
     shape = dict(b=b, s=s, h=h, p=p, g=g, n=n)
+    plans = [ss.plan(dtype, b, s, h, p, g, n, chunk, backward=bwd)
+             for bwd in (False, True)]
+    route = plans[0].route
+    if route != plans[1].route or route != (
+            "tc" if dtype == torch.bfloat16 else "simt"):
+        fail(f"SSD kernels: {dtype} ran {[q.route for q in plans]} "
+             f"({label}); bf16 runs the tensor-core kernels, f32 the SIMT")
     y, states = ss.ssd_fwd_cuda(*args, chunk=chunk)
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
@@ -822,6 +857,8 @@ def ssd_case(ss, gen, args, *, label, chunk, zero_x=False, timed=False):
     plain_ok, err_fp = meets(y_p)
     if not plain_ok:
         ok_f = err_f <= SSD_PLAIN_FACTOR * err_fp
+    if dtype == torch.bfloat16:  # and within the plain bf16 version's reach
+        ok_f &= err_f <= SSD_PLAIN_FACTOR * err_fp
     if not bool(torch.isfinite(y.float()).all()):
         fail(f"SSD forward kernel: non-finite y ({label})")
     if zero_x and not bool((y == 0).all()):
@@ -856,7 +893,9 @@ def ssd_case(ss, gen, args, *, label, chunk, zero_x=False, timed=False):
         ok_b &= e <= (tol_g if e_plain <= tol_g
                       else SSD_PLAIN_FACTOR * e_plain)
     row = dict(case=label, dtype=str(dtype)[6:], chunk=chunk, **shape,
-               max_abs_err=err_f, tol=tol["atol"],
+               kernel=route,
+               launches_per_call=[q.launches for q in plans],
+               max_abs_err=err_f, plain_max_abs_err=err_fp, tol=tol["atol"],
                fwd_err_of_max=err_f / scale_f,
                fwd_plain_err_of_max=err_fp / scale_f,
                bwd_max_abs_err=abs_b, bwd_err_of_max=err_b,
@@ -875,8 +914,18 @@ def ssd_case(ss, gen, args, *, label, chunk, zero_x=False, timed=False):
                 dy, *args, states, chunk=chunk))
         row["bwd_plain_ms"] = time_ms(lambda: torch.autograd.grad(
             y_pg, leaves_p, dy, retain_graph=True), iters=3, warmup=1)
+        with torch.no_grad():
+            row["fwd_split_us"] = kernel_split(
+                lambda: ss.ssd_fwd_cuda(*args, chunk=chunk))
+            row["bwd_split_us"] = kernel_split(
+                lambda: ss.ssd_bwd_cuda(dy, *args, states, chunk=chunk))
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound(f_ops, f_bytes)
         row["bwd_bound_ms"], row["bwd_bound_by"] = bound(b_ops, b_bytes)
+        if dtype == torch.bfloat16:  # what the f32 pipes would allow
+            (f32_f, _), (f32_b, _) = ssd_work(chunk=chunk, dtype=dtype,
+                                              f32_pipes=True, **shape)
+            row["fwd_bound_f32_pipes_ms"] = bound(f32_f, f_bytes)[0]
+            row["bwd_bound_f32_pipes_ms"] = bound(f32_b, b_bytes)[0]
         gflop = lambda ops: {str(d)[6:]: v / 1e9 for d, v in ops.items()}
         row.update(fwd_gflop=gflop(f_ops), fwd_mb=f_bytes / 1e6,
                    bwd_gflop=gflop(b_ops), bwd_mb=b_bytes / 1e6)
@@ -899,8 +948,11 @@ def ssd_phase(ss, configs, mamba2):
                 ss, gen, ssd_inputs(gen, b=b, s=s, h=h, p=p, g=g, n=n,
                                     dtype=dtype), label="grid", chunk=c))
     # the main path's own inputs: one full-width layer's activations
-    main = ssd_case(ss, gen, layer_inputs(configs, mamba2, gen)[0],
-                    label="mamba2 layer 0", chunk=chunk, timed=True)
+    layer = layer_inputs(configs, mamba2, gen)[0]
+    main = ssd_case(ss, gen, layer, label="mamba2 layer 0", chunk=chunk,
+                    timed=True)
+    rows.append(ssd_case(ss, gen, layer, chunk=chunk // 2,  # nc = 4
+                         label="mamba2 layer 0, chunk 128"))
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(ssd_case(ss, gen, drawn(dtype), chunk=chunk,
                              label="main shape"))

@@ -31,8 +31,9 @@ SIGNATURES = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_paged_decode_attention_fwd": [_P] * 12 + [_I] * 9 + [_F, _P],
     "repro_topk_compress": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P],
-    "repro_ssd_fwd": [_P] * 7 + [_I] * 8 + [_P],
-    "repro_ssd_bwd": [_P] * 15 + [_I] * 8 + [_P],
+    "repro_ssd_plan": [_I] * 9 + [_P],
+    "repro_ssd_fwd": [_P] * 8 + [_LL] + [_I] * 8 + [_P],
+    "repro_ssd_bwd": [_P] * 13 + [_LL] + [_I] * 8 + [_P],
     "repro_wire_encode": [_P, _P, _P, _P, _I, _LL, _I, _I, _P],
     "repro_wire_pack_p4": [_P, _P, _LL, _I, _I, _P],
     "repro_wire_unpack_p4": [_P, _P, _LL, _I, _I, _P],

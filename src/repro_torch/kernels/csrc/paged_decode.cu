@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace repro {
 namespace {
@@ -115,21 +116,6 @@ __device__ inline Smem carve(unsigned char* smem, int G, int Dh, int esz) {
   const size_t q_at = reinterpret_cast<size_t>(s.wl + gridDim.z * G);
   s.qs = reinterpret_cast<float*>((q_at + 15) & ~size_t(15));
   return s;
-}
-
-// 16 bytes from global to shared memory; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -276,35 +262,6 @@ __device__ void finish_split(const DecodeArgs& a, const Range& r, size_t bk,
 // ---------------------------------------------------------------------------
 // paged_decode_tc: bf16 on the tensor cores
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// D (16 x 8, f32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col).
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 blocks, transposed, from the rows whose addresses lanes
-// 0-7, 8-15, 16-23 and 24-31 give.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads)

@@ -275,10 +275,14 @@ def _segsum(x):
     """x: (..., L) -> (..., L, L) with out[..., i, j] = cs_i - cs_j for
     i >= j (cs the inclusive cumsum of x) and -inf above the diagonal
     (ref.py:211)."""
-    L = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
+    return _seg(torch.cumsum(x, dim=-1))
+
+
+def _seg(cs):
+    """cs: (..., L) -> (..., L, L), cs_i - cs_j for i >= j, -inf above."""
+    L = cs.shape[-1]
     seg = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=cs.device))
     return seg.masked_fill(~mask, float("-inf"))
 
 
@@ -340,6 +344,202 @@ def ssd_chunked(x, dt, A, B, C, *, chunk=64, initial_state=None):
 
     y = (y_diag + y_off).reshape(b, s, h, p).to(x.dtype)
     return y, prev
+
+
+# ---------------------------------------------------------------------------
+# The chunked scan in the stages the bf16 kernels run (csrc/ssd_scan.cu):
+# (a) G = C B^T per (b, chunk, group); (b) each chunk's own state terms;
+# (c) the pass over chunks; (d) y.  The backward mirrors them.  Plain torch
+# for the tests: composed, they give ssd_chunked's y and chunk states and
+# its autograd gradients.  ``op`` is applied to every f32 operand that the
+# kernels feed the tensor cores as a bf16 hi + lo pair (``bf16_pair``), so
+# the tests can emulate that rounding; by default it is the identity.
+# ---------------------------------------------------------------------------
+
+def bf16_pair(v):
+    """v as the tensor cores see a bf16 hi + lo pair: hi = bf16(v), lo =
+    bf16(v - hi), summed back in v's type (about 16 mantissa bits)."""
+    hi = v.to(torch.bfloat16).to(v.dtype)
+    return hi + (v - hi).to(torch.bfloat16).to(v.dtype)
+
+
+def _same(v):
+    return v
+
+
+def _chunked(t, chunk):
+    """(b, s, ...) -> (b, nc, L, ...), zero-padded to whole chunks."""
+    pad = (-t.shape[1]) % chunk
+    if pad:
+        t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+    return t.reshape(t.shape[0], -1, chunk, *t.shape[2:])
+
+
+def ssd_stage_cs(dt, A, chunk):
+    """cs (b, h, nc, L): the cumsum of dt A within each chunk; steps past
+    the sequence add 0."""
+    dA = _chunked(dt * A[None, None, :], chunk)  # (b, nc, L, h)
+    return torch.cumsum(dA, dim=2).permute(0, 3, 1, 2)
+
+
+def ssd_stage_gram(B, C, chunk):
+    """(a) G[b, c, g, l, s] = C[l] . B[s], once per group (K = n)."""
+    wt = _work_dtype(B)
+    return torch.einsum("bclgn,bcsgn->bcgls", _chunked(C, chunk).to(wt),
+                        _chunked(B, chunk).to(wt))
+
+
+def _decay(cs):
+    """exp(cs[l] - cs[s]) for s <= l, else 0: (b, h, nc, L, L), always
+    formed from the difference (exp(cs) alone underflows, exp(-cs) would
+    overflow)."""
+    return torch.exp(_seg(cs))
+
+
+def ssd_stage_chunk_states(x, dt, B, cs, *, op=_same):
+    """(b) each chunk's own contribution to the state it hands on,
+    sum_s exp(cs[L-1] - cs[s]) dt[s] x[s] B[s]^T: (b, nc, h, p, n).  The
+    f32 operand is x[s] times that factor."""
+    L = cs.shape[-1]
+    wt = _work_dtype(x)
+    rep = x.shape[2] // B.shape[2]
+    w = _chunked(dt, L).to(wt) * torch.exp(
+        cs[..., -1:] - cs).permute(0, 2, 3, 1)        # (b, nc, L, h)
+    xw = op(_chunked(x, L).to(wt) * w[..., None])
+    return torch.einsum("bcshp,bcshn->bchpn", xw,
+                        _chunked(_heads(B, rep), L))
+
+
+def ssd_stage_pass(contrib, cs):
+    """(c) the state at the start of every chunk, S[c + 1] = exp(cs[L-1]
+    of c) S[c] + contrib[c] from S[0] = 0: (b, h, nc, p, n).  Elementwise
+    over (p, n), in order over the chunks."""
+    S = torch.zeros_like(contrib[:, 0])
+    out = []
+    for c in range(contrib.shape[1]):
+        out.append(S)
+        S = torch.exp(cs[:, :, c, -1])[..., None, None] * S + contrib[:, c]
+    return torch.stack(out, dim=2)
+
+
+def ssd_stage_y(x, dt, C, G, cs, states, *, op=_same):
+    """(d) y[l] = exp(cs[l]) C[l] S^T + sum_{s <= l} G[l, s] exp(cs[l] -
+    cs[s]) dt[s] x[s], with S the chunk's start state: (b, nc, L, h, p)
+    in the work type.  The f32 operands are S and W = G o decay o dt."""
+    L = cs.shape[-1]
+    wt = _work_dtype(x)
+    rep = x.shape[2] // C.shape[2]
+    Gh = torch.repeat_interleave(G, rep, dim=2)       # (b, nc, h, L, L)
+    dtc = _chunked(dt, L).to(wt).permute(0, 1, 3, 2)  # (b, nc, h, L)
+    W = op(Gh * _decay(cs).transpose(1, 2) * dtc[..., None, :])
+    y_diag = torch.einsum("bchls,bcshp->bclhp", W, _chunked(x, L).to(wt))
+    Ch = _chunked(_heads(C, rep), L)
+    y_off = torch.einsum("bclhn,bhcpn->bclhp", Ch, op(states))
+    return y_diag + y_off * torch.exp(cs).permute(0, 2, 3, 1)[..., None]
+
+
+def ssd_fwd_stages(x, dt, A, B, C, *, chunk=64, op=_same):
+    """The forward in stages (a)-(d): y (x's type) and the state at the
+    start of every chunk, (b, h, nc, p, n) in the work type, as the
+    forward kernel writes them."""
+    cs = ssd_stage_cs(dt, A, chunk)
+    states = ssd_stage_pass(ssd_stage_chunk_states(x, dt, B, cs, op=op), cs)
+    y = ssd_stage_y(x, dt, C, ssd_stage_gram(B, C, chunk), cs, states, op=op)
+    b, s, h, p = x.shape
+    return y.reshape(b, -1, h, p)[:, :s].to(x.dtype), states
+
+
+def ssd_stage_dstates(dy, C, cs):
+    """The gradient that each chunk's y sends to its start state,
+    sum_l exp(cs[l]) dy[l]^T C[l]: (b, nc, h, p, n)."""
+    L = cs.shape[-1]
+    wt = _work_dtype(dy)
+    rep = dy.shape[2] // C.shape[2]
+    dyw = _chunked(dy, L).to(wt) * torch.exp(cs).permute(0, 2, 3, 1)[..., None]
+    return torch.einsum("bclhp,bclhn->bchpn", dyw,
+                        _chunked(_heads(C, rep), L))
+
+
+def ssd_stage_dpass(dcontrib, cs):
+    """The gradient of each chunk's final state, passed in reverse:
+    dS[nc-1] = 0, dS[c] = exp(cs[L-1] of c + 1) dS[c + 1] + dcontrib[c +
+    1]: (b, h, nc, p, n)."""
+    nc = dcontrib.shape[1]
+    D = torch.zeros_like(dcontrib[:, 0])
+    out = [D]
+    for c in range(nc - 2, -1, -1):
+        D = (torch.exp(cs[:, :, c + 1, -1])[..., None, None] * D
+             + dcontrib[:, c + 1])
+        out.append(D)
+    return torch.stack(out[::-1], dim=2)
+
+
+def ssd_stage_chunk_grads(dy, x, dt, B, C, cs, states, dS):
+    """dx, dB, dC and dcs (the gradient of cs, (b, h, nc, L)) of every
+    chunk, given its start state and the gradient of its final state."""
+    L = cs.shape[-1]
+    wt = _work_dtype(x)
+    b, s, h, p = x.shape
+    g = B.shape[2]
+    rep = h // g
+    Bh = _chunked(_heads(B, rep), L)                  # (b, nc, L, h, n)
+    Ch = _chunked(_heads(C, rep), L)
+    xc = _chunked(x, L).to(wt)                        # (b, nc, L, h, p)
+    dyc = _chunked(dy, L).to(wt)
+    dtc = _chunked(dt, L).to(wt)                      # (b, nc, L, h)
+    csc = cs.permute(0, 2, 3, 1)                      # (b, nc, L, h)
+    S = states.transpose(1, 2)                        # (b, nc, h, p, n)
+    D = dS.transpose(1, 2)
+    Lm = _decay(cs).transpose(1, 2)                   # (b, nc, h, L, L)
+    W = torch.einsum("bclhn,bcshn->bchls", Ch, Bh) * Lm
+    dW = (torch.einsum("bclhp,bcshp->bchls", dyc, xc)
+          * dtc.permute(0, 1, 3, 2)[..., None, :])
+    dG = dW * Lm
+    Q = dW * W
+    dec = torch.exp(csc[:, :, -1:] - csc)             # (b, nc, L, h)
+    DB = torch.einsum("bchpn,bcshn->bcshp", D, Bh)    # dS B[s]
+    dxdt = torch.einsum("bchls,bclhp->bcshp", W, dyc) + dec[..., None] * DB
+    dx = dxdt * dtc[..., None]
+    ein = torch.exp(csc)
+    dyS = torch.einsum("bclhp,bchpn->bclhn", dyc, S)  # dy[l] S
+    dCh = torch.einsum("bchls,bcshn->bclhn", dG, Bh) + ein[..., None] * dyS
+    dBh = (torch.einsum("bchls,bclhn->bcshn", dG, Ch)
+           + (dec * dtc)[..., None] * torch.einsum("bcshp,bchpn->bcshn", xc,
+                                                   D))
+    u = dec * dtc * (xc * DB).sum(-1)                 # (b, nc, L, h)
+    off = ein * (Ch * dyS).sum(-1)
+    dcs = (Q.sum(-1) - Q.sum(-2)).permute(0, 1, 3, 2) + off - u
+    last = torch.exp(csc[:, :, -1]) * (D * S).sum((-1, -2)) + u.sum(2)
+    dcs = torch.cat([dcs[:, :, :-1], dcs[:, :, -1:] + last[:, :, None]], 2)
+    ddx = (dxdt * xc).sum(-1)                         # (b, nc, L, h)
+    group = lambda t: t.reshape(b, -1, g, rep, t.shape[-1]).sum(3)
+    dB = group(dBh.reshape(b, -1, h, dBh.shape[-1]))[:, :s]
+    dC = group(dCh.reshape(b, -1, h, dCh.shape[-1]))[:, :s]
+    return (dx.reshape(b, -1, h, p)[:, :s], dB, dC,
+            dcs.permute(0, 3, 1, 2), ddx.permute(0, 3, 1, 2))
+
+
+def ssd_stage_dcs(dcs, ddx, dt, A):
+    """ddt and dA from dcs: d(dt A) is the reverse cumsum of dcs within
+    each chunk; ddt = d(dt A) A + the x dt term ``ddx``, dA = sum d(dt A)
+    dt."""
+    b, s, h = dt.shape
+    dda = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    dda = dda.permute(0, 2, 3, 1).reshape(b, -1, h)[:, :s]
+    ddx = ddx.permute(0, 2, 3, 1).reshape(b, -1, h)[:, :s]
+    return dda * A + ddx, (dda * dt).sum((0, 1))
+
+
+def ssd_bwd_stages(dy, x, dt, A, B, C, states, *, chunk=64):
+    """The backward in stages, from the start states ``ssd_fwd_stages``
+    returned: (dx, ddt, dA, dB, dC) in the inputs' types."""
+    cs = ssd_stage_cs(dt, A, chunk)
+    dS = ssd_stage_dpass(ssd_stage_dstates(dy, C, cs), cs)
+    dx, dB, dC, dcs, ddx = ssd_stage_chunk_grads(dy, x, dt, B, C, cs,
+                                                 states, dS)
+    ddt, dA = ssd_stage_dcs(dcs, ddx, dt, A)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype))
 
 
 # ---------------------------------------------------------------------------
