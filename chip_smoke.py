@@ -58,24 +58,37 @@ Phases (any failure ends the run with a non-zero exit):
    train launcher's entry point on mamba2-1.3B at full width
    and depth (MAMBA2_ROUNDS rounds, gossip in the last), with every SSD
    and top-k launch counted;
-10. the gossip wire's kernels (encode, p4 pack, p4 unpack) vs their plain
-   versions, bit for bit: every wire dtype, wire blocks 128, 1000, 1024
-   and 2048, k_b from 1 to wb, blocks with planted threshold ties,
-   all-zero blocks and zero payloads; then the inputs a column chunk of
-   mamba2-1.3B's largest leaf (w_in) hands the encode at theta 0.05,
-   0.1, 0.2, 0.6 and 1 (int4), each kernel timed there;
+10. the gossip wire's kernels vs their plain versions, bit for bit: the
+   encode (the warp-per-block kernel up to wb 1024, the CTA-per-block one
+   above; each wire block size prints which ran), p4 pack and p4 unpack
+   on every wire dtype, wire blocks 1, 31, 33, 64, 128, 1000, 1024 and
+   2048, k_b from 1 to wb, blocks with planted threshold ties, all-zero
+   blocks and zero payloads; the encode of rows read in place (row
+   subsets of a strided matrix, ragged last blocks, wb = L < 32); the
+   decode-and-mix on MIX_CASES in every dtype (u8 and p4 offsets,
+   partial senders, dense plans, more steps than a launch takes, y of
+   -0); then the inputs a column chunk of mamba2-1.3B's largest leaf
+   (w_in) hands the encode at theta 0.05, 0.1, 0.2, 0.6 and 1 (int4),
+   each kernel timed there, the decode-and-mix timed on the main chunk
+   (C = 2, levels (0.1, 0.6)) against its plain version and the chain it
+   replaced, and one chunk through ``sparse_exchange_``: bit for bit its
+   plain route, no host synchronisation inside it (sync debug mode
+   "error"), its card and host-paced times and its launches;
 11. the fused round step (a policy: the sparse gossip over the int4 wire,
    per-cluster levels, the CHOCO wire error feedback) on the smoke
    mamba2, 4 rounds on the card (kernels) against the CPU (plain
    versions): at eta 0 everything within ROUND_RTOL / ROUND_ATOL; at
    eta 0.1, round by round from the card's state, the statistics within
    ROUND_RTOL and the state within ROUND_ATOL but for top-k threshold
-   flips (at most Q_FLIP_SHARE of the entries);
+   flips (at most Q_FLIP_SHARE of the entries); every wire kernel must
+   run (the p4 unpack only runs here: the wire EF decodes each cluster's
+   own payload);
 12. the fused round step on mamba2-1.3B at full width and depth (R = 4,
    bf16), the launcher's corpus and batch draw, the int4 wire at the
    per-device theta (0.05, 0.1, 0.4, 0.6), so cluster levels (0.1, 0.6),
    SPARSE_ROUNDS rounds with gossip in rounds 2 and 4, every launch of
-   every kernel counted.
+   every kernel counted (one decode-and-mix a column chunk, no
+   standalone unpack).
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -131,9 +144,18 @@ SSD_PLAIN_FACTOR = 4.0
 ROUND_RTOL, ROUND_ATOL = 1e-4, 1e-4
 MAMBA2_ROUNDS = 4  # q = 4: round 4 gossips
 WIRE_DTYPES = ("f32", "bf16", "int8", "int4", "fp8")
-WIRE_BLOCKS = (128, 1000, 1024, 2048)
+WIRE_BLOCKS = (1, 31, 33, 64, 128, 1000, 1024, 2048)
 WIRE_LEVELS = (0.05, 0.1, 0.2, 0.6, 1.0)  # phase 10's w_in chunk
 WIRE_MAIN_LEVEL = 0.6  # the kernels line: the main path's larger level
+# phase 10's decode-and-mix grid (tests/test_torch_wire_decode.py:CASES):
+# (hkind, C, wire block, L, per-cluster levels, dense rows' type)
+MIX_CASES = (
+    ("ring", 2, 1024, 3000, (0.1, 0.6), torch.bfloat16),
+    ("ring", 4, 1000, 2600, (0.05, 1.0, 0.25, 0.05), torch.float32),
+    ("complete", 4, 2048, 5000, (1e-4, 1.0, 0.3, 1e-4), torch.bfloat16),
+    ("erdos_renyi", 8, 128, 700, (0.02, 0.5, 0.02, 0.03, 0.5, 1.0, 0.02,
+                                  0.3), torch.bfloat16))
+GOSSIP_LEVELS = (0.1, 0.6)  # phase 12's cluster levels, the main chunk's
 SPARSE_ROUNDS, SPARSE_Q = 4, 2  # phase 12: rounds 2 and 4 gossip
 SPARSE_THETA = (0.05, 0.1, 0.4, 0.6)  # per device; cluster levels 0.1, 0.6
 PEAK_LIMIT_GB = 72.0
@@ -156,8 +178,9 @@ def _demangled_name(mangled):
 
 
 def ptxas_summary(log):
-    """{kernel: (most registers, most spill-store bytes, instantiations)}
-    from ``nvcc -Xptxas -v`` output, template instantiations merged."""
+    """{kernel: (most registers, most spill-store bytes, most stack-frame
+    bytes, instantiations)} from ``nvcc -Xptxas -v`` output, template
+    instantiations merged."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(_ZN\w+)'", line)
@@ -166,10 +189,12 @@ def ptxas_summary(log):
             continue
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if name and (regs or spill):
-            r, sp, n = out.get(name, (0, 0, 0))
+        stack = re.search(r"(\d+) bytes stack frame", line)
+        if name and (regs or spill or stack):
+            r, sp, st, n = out.get(name, (0, 0, 0, 0))
             out[name] = (max(r, int(regs.group(1))) if regs else r,
                          max(sp, int(spill.group(1))) if spill else sp,
+                         max(st, int(stack.group(1))) if stack else st,
                          n + bool(regs))
     return out
 
@@ -184,18 +209,41 @@ def fail(msg):
 # ---------------------------------------------------------------------------
 
 _flush_buf = None
+_spin_ms = None  # device ms of HOST_LEAD_CYCLES, measured at first use
+# the last time_ms call: the host's ms to queue one call (the most over
+# the timed calls), the device ms of the spin that led it, and whether
+# the spin had to be lengthened
+last_timing = {}
+
+
+def _spin_device_ms():
+    global _spin_ms
+    if _spin_ms is None:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_LEAD_CYCLES)  # warm
+        s.record()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
+        e.record()
+        torch.cuda.synchronize()
+        _spin_ms = s.elapsed_time(e)
+    return _spin_ms
 
 
 def time_ms(fn, iters=10, warmup=2, host_paced=False):
     """Mean device time of ``fn`` over ``iters`` runs, each after an L2
     flush (the serve path finds its KV and activations cold: every decode
     step streams all weights through the cache).  Between the flush and
-    the timed call the device spins for HOST_LEAD_CYCLES, so the host has
-    queued the whole call before the device reaches it: the events then
-    time the device's work, not the Python around the launches.  With
-    ``host_paced`` the spin is left out, and a call whose host side is
-    slower than the flush is timed at the host's pace (how every kernel
-    was timed before the two attention kernels were redesigned)."""
+    the timed call the device spins, so the host has queued the whole
+    call before the device reaches it: the events then time the device's
+    work, not the Python around the launches.  The spin is
+    HOST_LEAD_CYCLES (about 0.5 ms); where the host took longer than that
+    to queue a call (a call of many launches), the timing is taken again
+    with a spin of 1.5 times the host's time.  With ``host_paced`` there
+    is no spin, and a call whose host side is slower than the flush is
+    timed at the host's pace (how every kernel was timed before the two
+    attention kernels were redesigned).  ``last_timing`` keeps the host's
+    queueing time and the spin."""
     global _flush_buf
     if _flush_buf is None:
         _flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
@@ -203,28 +251,41 @@ def time_ms(fn, iters=10, warmup=2, host_paced=False):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    evs = []
-    for _ in range(iters):
-        _flush_buf.zero_()
-        if not host_paced:
-            torch.cuda._sleep(HOST_LEAD_CYCLES)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        evs.append((s, e))
-    torch.cuda.synchronize()
+    cycles = 0 if host_paced else HOST_LEAD_CYCLES
+    for attempt in (0, 1):
+        evs, host = [], []
+        for _ in range(iters):
+            _flush_buf.zero_()
+            if cycles:
+                torch.cuda._sleep(cycles)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            e.record()
+            evs.append((s, e))
+        torch.cuda.synchronize()
+        lead = cycles / HOST_LEAD_CYCLES * _spin_device_ms() if cycles \
+            else 0.0
+        if host_paced or attempt or max(host) <= lead:
+            break
+        cycles = int(HOST_LEAD_CYCLES * 1.5 * max(host) / _spin_device_ms())
+    last_timing.update(host_queue_ms=max(host), lead_ms=lead,
+                       lengthened=attempt == 1)
     return sum(s.elapsed_time(e) for s, e in evs) / iters
 
 
-def kernel_split(fn, iters=5):
-    """{kernel: mean device us a call} over ``iters`` calls of ``fn``, by
-    torch.profiler (warm L2): which of a call's launches takes the time."""
+def kernel_profile(fn, iters=5):
+    """{kernel: (launches a call, mean device us a call)} over ``iters``
+    calls of ``fn``, by torch.profiler (warm L2; CPU activity on too, so
+    that each kernel is tied to its launch)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -232,9 +293,16 @@ def kernel_split(fn, iters=5):
     for e in prof.key_averages():
         m = re.search(r"::([A-Za-z_]\w*)(?:<[^()]*>)?\(", e.key)
         if m and e.device_time_total > 0:
-            name = m.group(1)
-            out[name] = out.get(name, 0.0) + e.device_time_total / iters
+            n, us = out.get(m.group(1), (0.0, 0.0))
+            out[m.group(1)] = (n + e.count / iters,
+                               us + e.device_time_total / iters)
     return out
+
+
+def kernel_split(fn, iters=5):
+    """{kernel: mean device us a call}: which of a call's launches takes
+    the time."""
+    return {k: us for k, (_, us) in kernel_profile(fn, iters).items()}
 
 
 def max_err(a, b, tol):
@@ -637,12 +705,16 @@ def topk_phase(tk, leaf_shapes, femnist_fc1):
     round_p = lambda: [tk.topk_compress_plain(x, theta, ef=e, block=block)
                        for x, e in zip(xs, efs)]
     nbytes = sum(topk_bytes(x, e) for x, e in zip(xs, efs))
-    ms = time_ms(round_k)
+    ms = time_ms(round_k)  # card time: the spin outlasts the 59 launches
+    lead = dict(last_timing)
+    call_ms = time_ms(round_k, host_paced=True)
     plain_ms = time_ms(round_p, iters=3, warmup=1)
     bound_ms, bound_by = bound(0, nbytes, torch.float32)
     main = dict(case="resnet20 round: 59 leaves, R=64, block 256, f32 x/ef",
                 elements=sum(x.numel() for x in xs), bytes=nbytes,
                 launches_timed=len(xs), max_abs_err=worst, ms=ms,
+                call_ms=call_ms, host_queue_ms=lead["host_queue_ms"],
+                lead_ms=lead["lead_ms"], lead_lengthened=lead["lengthened"],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
     print("topk " + json.dumps(main))
@@ -1137,23 +1209,230 @@ def wire_check(wp, xb, k_b, wd, label, zero_payload=False):
     return packed, off
 
 
+def encode_rows_check(wp, x, rows, k_b, wd, wb, label):
+    """The encode kernel on rows of x read in place against
+    ``encode_rows_plain`` (index_select, zero pad, encode), bit for
+    bit."""
+    got = wp.encode_rows_cuda(x, rows, k_b, wb=wb, wire_dtype=wd)
+    torch.cuda.synchronize()
+    want = wp.encode_rows_plain(x, rows, k_b, wb=wb, wire_dtype=wd)
+    for name, a, b in zip(("vals", "off", "scale"), got, want):
+        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
+            fail(f"wire encode of rows {rows} differs from its plain "
+                 f"version in {name} ({label} L={x.shape[1]} wb={wb} "
+                 f"k_b={k_b} {wd})")
+
+
+def mix_means(gen, C, L):
+    """(C, L) f32 on the card with zeros of both signs and tied
+    magnitudes (tests/test_torch_wire_decode.py:cluster_means)."""
+    x = torch.randn((C, L), generator=gen, device="cuda")
+    x[:, ::7] = -0.0
+    x[:, 3::11] = 0.0
+    x[:, 5::13] = torch.sign(x[:, 5::13]) * 0.75
+    return x
+
+
+def mix_steps(col, wp, means, case, wd):
+    """(steps, layout, wb) of one chunk's gossip of ``means``, the plans
+    encoded on the card as the gossip encodes them."""
+    hkind, C, wbk, L, levels, dense = case
+    wb = col.wf.wire_block_of(L, wbk)
+    plans = col._wire_plans(levels, L, wbk, wd,
+                            torch.empty((), dtype=dense).element_size())
+    layout = col._gossip_layout(hkind, C, 0.4, 0, tuple(plans))
+    steps = []
+    for o, coef in layout.bands:
+        for key, rows, senders in layout.plans:
+            if key[0] == "dense":
+                sub = means if rows is None else means[list(rows)]
+                payload, k_b = (sub.to(dense).contiguous(),), None
+            else:
+                payload, k_b = tuple(col._encode(means, rows, key[1], wb,
+                                                 wd)), key[1]
+            steps.append(wp.MixStep(o, tuple(coef), payload, k_b, senders))
+    return steps, layout, wb
+
+
+def decode_mix_check(wp, y, steps, wb, wd, diag, label):
+    """The decode-and-mix kernel against ``decode_mix_plain`` on the card,
+    bit for bit (-0 and +0 apart), and its launches a call."""
+    before = wp.LAUNCHES["wire_decode_mix"]
+    got = wp.decode_mix_cuda(y, steps, wb=wb, wire_dtype=wd, diag=diag)
+    torch.cuda.synchronize()
+    launches = wp.LAUNCHES["wire_decode_mix"] - before
+    want = wp.decode_mix_plain(y, steps, wb=wb, wire_dtype=wd, diag=diag)
+    if not torch.equal(_bits(got), _bits(want)):
+        bad = int((_bits(got) != _bits(want)).sum())
+        fail(f"decode-and-mix kernel differs from its plain version in "
+             f"{bad} entries ({label} {wd}, {len(steps)} steps, diag "
+             f"{diag is not None}): max |diff| "
+             f"{float((got - want).abs().max())}")
+    if launches != max(1, -(-len(steps) // wp.MIX_STEPS)) * -(
+            -y.shape[0] // wp.MIX_ROWS):
+        fail(f"decode-and-mix: {launches} launches for {len(steps)} steps")
+    return launches
+
+
+def payload_bytes(steps):
+    """Bytes of the distinct payloads of ``steps``, each read once."""
+    seen = {}
+    for st in steps:
+        for t in st.payload:
+            if t is not None:
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def decode_mix_main(wp, col, means, agg_cols):
+    """Phase 10's main chunk: the gossip of C = 2 cluster means of a w_in
+    column chunk over a ring at levels GOSSIP_LEVELS (k_b 103 and 615,
+    one sender row a plan): the decode-and-mix timed against its plain
+    version and against the chain it replaced (the same ops with the p4
+    unpack kernel), and the encode of each plan's sender row."""
+    case = ("ring", 2, 1024, means.shape[1], GOSSIP_LEVELS, torch.bfloat16)
+    steps, layout, wb = mix_steps(col, wp, means, case, "int4")
+    decode_mix_check(wp, means, steps, wb, "int4", layout.diag,
+                     "main chunk")
+    kern = lambda: wp.decode_mix_cuda(means, steps, wb=wb, wire_dtype="int4",
+                                      diag=layout.diag)
+    plain = lambda: wp.decode_mix_plain(means, steps, wb=wb,
+                                        wire_dtype="int4", diag=layout.diag)
+    chain = lambda: wp.decode_mix_plain(
+        means, steps, wb=wb, wire_dtype="int4", diag=layout.diag,
+        unpack=lambda p, wb, k_b, mode: wp.unpack_offsets_cuda(p, wb=wb,
+                                                               k_b=k_b))
+    nbytes = 2 * means.numel() * 4 + payload_bytes(steps)
+    bound_ms, bound_by = bound(0, nbytes, torch.float32)
+    k_bs = [key[1] for key, _, _ in layout.plans]
+    row = dict(kernel="wire_decode_mix", case=f"main chunk: C=2 ring, Lc "
+               f"{means.shape[1]}, int4, k_b {k_bs}, one sender a plan",
+               steps=len(steps), bytes=nbytes, ms=time_ms(kern),
+               call_ms=time_ms(kern, host_paced=True),
+               plain_ms=time_ms(plain, iters=3, warmup=1),
+               old_chain_ms=time_ms(chain, iters=3, warmup=1),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               max_abs_err=0.0, launches_per_call=1,
+               kernel_split_us=kernel_split(kern))
+    print("wire " + json.dumps(row))
+    for (key, rows, _), lvl in zip(layout.plans, GOSSIP_LEVELS):
+        k_b = key[1]
+        encode_rows_check(wp, means, rows, k_b, "int4", wb, "main chunk")
+        enc = lambda: wp.encode_rows_cuda(means, rows, k_b, wb=wb,
+                                          wire_dtype="int4")
+        nb = -(-means.shape[1] // wb)
+        eb = means.shape[1] * 4 * len(rows) + len(rows) * nb * (
+            -(-k_b // 2) + 4 * k_b + 4)
+        b_ms, b_by = bound(0, eb, torch.float32)
+        print("wire " + json.dumps(dict(
+            kernel="wire_encode", case=f"main chunk row {rows}, level "
+            f"{lvl}, k_b {k_b}, read in place", route=wp.encode_route(wb),
+            ms=time_ms(enc), bound_ms=b_ms, bound_by=b_by,
+            kernel_split_us=kernel_split(enc))))
+    return row
+
+
+def gossip_chunk(wp, col, means, agg_cols):
+    """One column chunk of the gossip through ``sparse_exchange_`` on the
+    card (R = 4 bf16 rows, 2 clusters, levels GOSSIP_LEVELS, int4): bit
+    for bit its plain route; no host synchronisation inside it
+    (``torch.cuda.set_sync_debug_mode("error")``); its card time, its
+    host-paced time and its launches by kernel (torch.profiler)."""
+    C, Dev = 2, 2
+    x = means.repeat_interleave(Dev, dim=0).to(torch.bfloat16)
+    kw = dict(clusters=C, dev=Dev, hkind="ring", wire_dtype="int4",
+              wire_block=1024, cluster_theta=GOSSIP_LEVELS,
+              chunk_cols=agg_cols)
+    want = x.clone()
+    col.sparse_exchange_(want, impl="plain", **kw)
+    got = x.clone()
+    col.sparse_exchange_(got, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(got), _bits(want)):
+        fail("a gossip chunk on the card differs from its plain route")
+    checked = x.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        col.sparse_exchange_(checked, **kw)
+    except RuntimeError as e:
+        fail(f"a gossip chunk synchronised the host with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(checked), _bits(got)):
+        fail("a gossip chunk under the sync check gave another result")
+    wp.reset_launches()
+    col.sparse_exchange_(x.clone(), **kw)
+    launches = dict(wp.LAUNCHES)
+    scratch = x.clone()
+    run = lambda: col.sparse_exchange_(scratch, **kw)
+    names = {k: n for k, (n, _) in kernel_profile(run).items()}
+    row = dict(case=f"one chunk: sparse_exchange_ on (4, {x.shape[1]}) "
+               f"bf16, C=2 ring, int4 levels {GOSSIP_LEVELS}",
+               ms=time_ms(run), call_ms=time_ms(run, host_paced=True),
+               launches=sum(names.values()), launches_by_kernel=names,
+               wire_launches=launches, host_syncs=0)
+    print("gossip_chunk " + json.dumps(row))
+    return row
+
+
 def wire_phase(wp, configs, mamba2, agg_cols):
-    """Phase 10.  Returns {kernel: row} at WIRE_MAIN_LEVEL on w_in."""
+    """Phase 10.  Returns {kernel: row}: the encode, pack and unpack at
+    WIRE_MAIN_LEVEL on w_in, the decode-and-mix at the main chunk."""
+    from repro_torch.dist import collectives as col
     gen = torch.Generator(device="cuda").manual_seed(10)
     n = 0
     for wb in WIRE_BLOCKS:
-        for k_b in sorted({1, 2, 7, wb // 10, wb // 2 - 1, wb - 1, wb}):
+        ks = sorted({k for k in (1, 2, 7, wb // 10, wb // 2 - 1, wb - 1, wb)
+                     if 1 <= k <= wb})
+        for k_b in ks:
             xb = wire_blocks(gen, 2, 6, wb, k_b)
             for wd in WIRE_DTYPES:
                 wire_check(wp, xb, k_b, wd, "grid", zero_payload=True)
                 n += 1
+        print(f"wire encode wb={wb}: the {wp.encode_route(wb)} kernel, "
+              f"k_b {ks}, {len(ks) * len(WIRE_DTYPES)} cases")
+    # rows read in place: row subsets of a strided (4, L) view, the last
+    # block ragged, and wb = L < 32 (a leaf shorter than its wire block)
+    nrows = 0
+    for wb, L in [(wb, 3 * wb + wb // 2 + 1) for wb in WIRE_BLOCKS] + [
+            (20, 20), (31, 31)]:
+        x = mix_means(gen, 8, L).view(4, 2, L)[:, 0]
+        for rows in (None, (1, 3), (2,)):
+            for k_b in sorted({1, max(1, wb // 10), wb}):
+                for wd in WIRE_DTYPES:
+                    encode_rows_check(wp, x, rows, k_b, wd, wb, "rows")
+                    nrows += 1
+    print(f"wire encode of rows in place: {nrows} cases (wb "
+          f"{list(WIRE_BLOCKS) + [20, 31]}, ragged rows, row subsets, "
+          f"row stride 2L), each on the kernel encode_route names")
+    # the decode-and-mix against its plain version
+    nmix = 0
+    for case in MIX_CASES:
+        for wd in WIRE_DTYPES:
+            means = mix_means(gen, case[1], case[3])
+            steps, layout, wb = mix_steps(col, wp, means, case, wd)
+            for diag in (layout.diag, None):
+                decode_mix_check(wp, means, steps, wb, wd, diag,
+                                 f"{case[0]} C={case[1]} wb={case[2]}")
+                nmix += 1
+            decode_mix_check(wp, torch.full_like(means, -0.0), steps, wb,
+                             wd, None, f"{case[0]} y=-0")
+            nmix += 1
+        print(f"wire decode-and-mix {case[0]} C={case[1]} wb={case[2]} "
+              f"L={case[3]}: {len(steps)} steps, "
+              f"{-(-len(steps) // wp.MIX_STEPS)} launches a call, bit for "
+              f"bit in every dtype")
     # the main path's inputs: a column chunk of w_in's first layer (bf16
     # weights, so many exactly tied magnitudes), one sender row in f32
     cfg = configs.get_config("mamba2_1p3b").model.replace(num_layers=1)
     w_in = mamba2.init(cfg, seed=12, device="cuda")["layers"]["w_in"]
     wb = 1024
-    xb = w_in.reshape(-1)[:agg_cols].float().reshape(1, -1, wb).contiguous()
-    del w_in
+    flat = w_in.reshape(-1)
+    xb = flat[:agg_cols].float().reshape(1, -1, wb).contiguous()
+    means = flat[:2 * agg_cols].float().reshape(2, agg_cols)
+    del w_in, flat
     rows = {}
     for theta in WIRE_LEVELS:
         k_b = max(1, min(wb, int(np.ceil(theta * wb))))
@@ -1185,11 +1464,18 @@ def wire_phase(wp, configs, mamba2, agg_cols):
                        plain_ms=time_ms(plain, iters=3, warmup=1),
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None, max_abs_err=0.0)
-            print("wire " + json.dumps(row))
+            if name == "wire_encode":
+                row["route"] = wp.encode_route(wb)
             if theta == WIRE_MAIN_LEVEL:
+                row["kernel_split_us"] = kernel_split(kern)
                 rows[name] = row
-    print(f"wire: {n} cases bit for bit equal to the plain versions "
-          f"(encode, p4 pack, p4 unpack, zero payloads)")
+            print("wire " + json.dumps(row))
+    rows["wire_decode_mix"] = decode_mix_main(wp, col, means, agg_cols)
+    gossip_chunk(wp, col, means, agg_cols)
+    print(f"wire: {n} cases of encode, p4 pack and p4 unpack (zero "
+          f"payloads), {nrows} of the encode of rows in place and {nmix + 1} "
+          f"of the decode-and-mix bit for bit equal to the plain versions")
+    del xb, means
     torch.cuda.empty_cache()
     return rows
 
@@ -1270,10 +1556,12 @@ def small_sparse_round_agrees(configs, mamba2, rnd_mod, base, compression,
       and the wire then carries it from that side only; without lockstep
       such a flip spreads through the next rounds' training."""
     import dataclasses
+    from repro_torch.kernels import wire_pack as wp
     cfg, hcef, topo, policy, theta, levels = sparse_setup(
         configs, base, compression, policies, full=False)
     params0 = mamba2.init(cfg, torch.Generator().manual_seed(11),
                           device="cpu")
+    wp.reset_launches()
     rng = np.random.default_rng(11)
     tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (16, 40)))
               for _ in range(SPARSE_ROUNDS)]
@@ -1309,25 +1597,41 @@ def small_sparse_round_agrees(configs, mamba2, rnd_mod, base, compression,
               f"{total} (allowed {allowed}); estimates moved {moved:.3e}")
         if not (worst <= ROUND_RTOL and flips <= allowed and moved > 0):
             fail("the fused round on the card disagrees with the CPU")
+    # the wire-EF path: each cluster decodes its own payload with the p4
+    # unpack kernel, the neighbours' through the decode-and-mix kernel
+    launches = dict(wp.LAUNCHES)
+    print(f"mamba2 small sparse round: wire launches on the card {launches}")
+    if not all(launches.values()):
+        fail(f"a wire kernel did not run on the wire-EF path: {launches}")
+    return launches
 
 
-def predicted_wire_launches(cfg_params, levels, hcef, wf, agg_cols, bands):
-    """Launches of each wire kernel in one gossip round: per leaf and per
-    wire plan (a level whose int4 encoding stays below the bf16 row), one
-    encode and one p4 pack a column chunk, and one unpack a chunk and a
-    band of H."""
-    want = {"wire_encode": 0, "wire_pack": 0, "wire_unpack": 0}
+def predicted_wire_launches(cfg_params, levels, hcef, wf, agg_cols, bands,
+                            clusters, mix_steps, mix_rows):
+    """Launches of each wire kernel in one gossip round without wire EF:
+    per leaf and per wire plan (a level whose int4 encoding stays below
+    the bf16 row), one encode and one p4 pack a column chunk; one
+    decode-and-mix a chunk per ``mix_steps`` steps (a step is a band of H
+    and a plan, the dense plans included) and ``mix_rows`` clusters; no
+    standalone unpack."""
+    want = {"wire_encode": 0, "wire_pack": 0, "wire_unpack": 0,
+            "wire_decode_mix": 0}
     for L in cfg_params:
         wb = wf.wire_block_of(L, hcef.wire_block)
         chunks = -(-L // max(wb, agg_cols // wb * wb))
+        keys = set()
         for k_b in sorted({wf.wire_k(t, L, hcef.wire_block)
                            for t in levels}):
             if wf.encoding_reaches_dense(k_b, L, hcef.wire_block, "int4", 2):
+                keys.add("dense")
                 continue
+            keys.add(k_b)
             want["wire_encode"] += chunks
             if wf.offset_mode(wb, k_b, "int4") == "p4":
                 want["wire_pack"] += chunks
-                want["wire_unpack"] += chunks * bands
+        want["wire_decode_mix"] += chunks * max(1, -(-bands * len(keys)
+                                                     // mix_steps)) * -(
+            -clusters // mix_rows)
     return want
 
 
@@ -1383,8 +1687,10 @@ def mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
     launches = dict(wp.LAUNCHES, **ss.LAUNCHES, **tk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_gossip = sum(h["gossip"] for h in hist)
-    per_round = predicted_wire_launches(sizes, levels, hcef, wf, rnd_mod.
-                                        AGG_COLS, bands=1)  # C = 2 ring
+    per_round = predicted_wire_launches(
+        sizes, levels, hcef, wf, rnd_mod.AGG_COLS, bands=1,  # C = 2 ring
+        clusters=topo.clusters, mix_steps=wp.MIX_STEPS,
+        mix_rows=wp.MIX_ROWS)
     steps_run = SPARSE_ROUNDS * R * hcef.tau
     want = {k: v * n_gossip for k, v in per_round.items()}
     want.update(ssd_scan_fwd=steps_run * cfg.num_layers * (2 if cfg.remat
@@ -1460,9 +1766,11 @@ def main():
     build.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc wall {build.build_seconds})")
-    for name, (regs, spills, n) in ptxas_summary(build.build_log).items():
+    for name, (regs, spills, stack, n) in ptxas_summary(
+            build.build_log).items():
         print(f"  ptxas: {name}: up to {regs} registers, {spills} bytes of "
-              f"spill stores, over {n} instantiations")
+              f"spill stores, {stack} bytes of stack, over {n} "
+              f"instantiations")
 
     # the served stream fixes the main path's prefill and decode shapes:
     # every prefill runs at S_pad, every decode over `width` pages per slot
@@ -1540,11 +1848,14 @@ def main():
     main_wire = wire_phase(wp, configs, mamba2, rnd_mod.AGG_COLS)
 
     # -- phases 11 and 12 ----------------------------------------------------
-    small_sparse_round_agrees(configs, mamba2, rnd_mod, base, compression,
-                              policies)
+    m11 = small_sparse_round_agrees(configs, mamba2, rnd_mod, base,
+                                    compression, policies)
     m12 = mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
                              policies, wf, train, synthetic, wp, ss, tk)
     launches.update({k: m12[k] for k in main_wire})
+    # the unpack kernel's path is the wire EF's own decode (phase 11):
+    # phase 12's gossip decodes in the decode-and-mix kernel
+    launches["wire_unpack"] = m11["wire_unpack"]
 
     # -- report --------------------------------------------------------------
     kernels = []
@@ -1568,7 +1879,10 @@ def main():
              "src/repro/kernels/wire_pack.py:244", main_wire["wire_pack"]),
             ("wire_unpack", "src/repro_torch/kernels/csrc/wire_pack.cu",
              "src/repro/kernels/wire_pack.py:264",
-             main_wire["wire_unpack"])):
+             main_wire["wire_unpack"]),
+            ("wire_decode_mix", "src/repro_torch/kernels/csrc/wire_pack.cu",
+             "src/repro/kernels/wire_pack.py:264",
+             main_wire["wire_decode_mix"])):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=row["max_abs_err"],
@@ -1577,6 +1891,13 @@ def main():
     kernels[4]["note"] = ("the backward has no TPU counterpart: jax.grad "
                           "through ssd_pallas fails; held to jax.grad of "
                           "ref.ssd_chunked_jnp through the plain version")
+    kernels[7]["note"] = ("launches from phase 11 (the wire EF's own "
+                          "decode); phase 12's gossip decodes in "
+                          "wire_decode_mix")
+    kernels[8]["note"] = ("no TPU counterpart: the reference decodes in "
+                          "jnp (dist/collectives.py:642 wire_decode); it "
+                          "holds unpack_offsets_pallas's p4 unpack and "
+                          "replaces the gossip's decode chain")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

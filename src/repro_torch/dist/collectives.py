@@ -18,7 +18,13 @@ rotation are zero (a zero payload, which decodes to zero), and a level
 whose encoding would reach the dense row ships the dense row instead.
 ``wire_encode`` / ``wire_decode`` are the five wire formats
 (``core/wire_format.py``); int4 and fp8 go through the wire kernels
-(``ops.encode_blocks``, ``ops.pack_offsets``, ``ops.unpack_offsets``).
+(``ops.encode_rows``, ``ops.pack_offsets``, ``ops.unpack_offsets``).  The
+gossip decodes and mixes every band and plan of a chunk in one
+``ops.wire_decode_mix`` (one kernel launch on the card, every wire
+format), and its host tables (H's bands, the plans' sender rows) reach
+the kernels as launch parameters or as tensors made once per device: the
+chunk loop copies nothing from the host to the card, so the host never
+waits for the card inside it.
 
 Every step of the wire is local to one wire block and the mix is linear
 in each column, so ``sparse_exchange_`` runs a leaf in column chunks of
@@ -39,12 +45,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import wire_format as wf
 from repro_torch.core.mixing import make_mixing
 from repro_torch.kernels import ops
-from repro_torch.kernels.wire_pack import dequantize_vals
+from repro_torch.kernels.wire_pack import MixStep, decode_rows, pad_rows
 
 WIRE_DTYPES = wf.WIRE_DTYPES
 MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path, "
@@ -172,25 +177,36 @@ def _wire_plans(sender_levels, L: int, wire_block: int, wire_dtype: str,
              else frozenset(groups[key])) for key in sorted(groups)]
 
 
-def _encode(rows, k_b: int, wb: int, wire_dtype: str, impl=None) -> Wire:
-    """(m, L) rows -> Wire at wire block ``wb``; rows are zero-padded to a
-    multiple of it.  The v1 formats select with a stable descending sort,
-    which breaks ties toward the lower index as ``lax.top_k`` does."""
-    m, L = rows.shape
+@functools.lru_cache(maxsize=64)
+def _on_device(values: tuple, dtype: torch.dtype, device: torch.device):
+    """A small host table as a tensor on ``device``, made once: a copy
+    from the host to the card waits for the card, so none runs per
+    chunk."""
+    return torch.as_tensor(values, dtype=dtype, device=device)
+
+
+def _encode(x, rows, k_b: int, wb: int, wire_dtype: str, impl=None) -> Wire:
+    """Rows ``rows`` (None: all) of x (C, L) -> Wire at wire block ``wb``;
+    the rows are zero-padded to a multiple of it.  The v2 formats go
+    through ``ops.encode_rows`` (on the card the kernel reads the rows in
+    place) and the offset pack; the v1 formats select with a stable
+    descending sort, which breaks ties toward the lower index as
+    ``lax.top_k`` does."""
     if wire_dtype == "int8" and wb > 32768:
         raise ValueError(  # int16 offsets wrap past 2^15 - 1
             f"int8 wire needs wire_block <= 32768, got {wb}")
-    pad = (-L) % wb
-    xb = F.pad(rows.float(), (0, pad)).reshape(m, (L + pad) // wb, wb)
     k_b = max(1, min(int(k_b), wb))
+    x = x.float()
     if wire_dtype in ("int4", "fp8"):
-        vals, off, scale = ops.encode_blocks(xb.contiguous(), k_b,
-                                             wire_dtype=wire_dtype,
-                                             impl=impl)
+        vals, off, scale = ops.encode_rows(x, rows, k_b, wb=wb,
+                                           wire_dtype=wire_dtype, impl=impl)
         packed = ops.pack_offsets(off, wb=wb,
                                   mode=wf.offset_mode(wb, k_b, wire_dtype),
                                   impl=impl)
         return Wire(vals, packed, scale)
+    if rows is not None:
+        x = x.index_select(0, _on_device(tuple(rows), torch.long, x.device))
+    xb = pad_rows(x, None, wb)
     off = torch.sort(xb.abs(), dim=-1, descending=True,
                      stable=True).indices[..., :k_b]
     vals = torch.gather(xb, -1, off)
@@ -203,21 +219,12 @@ def _encode(rows, k_b: int, wb: int, wire_dtype: str, impl=None) -> Wire:
     return Wire(q.to(torch.int8), off.to(torch.int16), scale)
 
 
-def _decode(wire: Wire, L: int, wb: int, wire_dtype: str, k_b, impl=None):
-    vals, off, scale = wire
-    m, nb = vals.shape[:2]
-    if wire_dtype in ("int4", "fp8"):
-        off = ops.unpack_offsets(off, wb=wb, k_b=k_b,
-                                 mode=wf.offset_mode(wb, k_b, wire_dtype),
-                                 impl=impl)
-        v = dequantize_vals(vals, scale, k_b, wire_dtype=wire_dtype)
-    else:
-        v = vals.float()
-        if scale is not None:
-            v = v * (scale / 127.0)[..., None]
-    dense = torch.zeros((m, nb, wb), dtype=torch.float32, device=v.device)
-    dense.scatter_(-1, off.long(), v)
-    return dense.reshape(m, nb * wb)[:, :L]
+def _decode(payload, L: int, wb: int, wire_dtype, k_b, impl=None):
+    """A Wire (or a dense plan's ``(rows,)``) -> dense (m, L) f32; the
+    p4 offsets through ``ops.unpack_offsets``."""
+    return decode_rows(tuple(payload), L, wb, wire_dtype, k_b,
+                       unpack=functools.partial(ops.unpack_offsets,
+                                                impl=impl))
 
 
 def wire_encode(rows, k_b: int, *, wire_block: int = 1024,
@@ -228,8 +235,9 @@ def wire_encode(rows, k_b: int, *, wire_block: int = 1024,
     on the CPU; "ref" = the exact top-k, the reference's CPU route)."""
     if wire_dtype not in WIRE_DTYPES:
         raise ValueError(f"wire_dtype {wire_dtype!r} not in {WIRE_DTYPES}")
-    return _encode(rows, k_b, wf.wire_block_of(rows.shape[1], wire_block),
-                   wire_dtype, impl)
+    return _encode(rows, None, k_b,
+                   wf.wire_block_of(rows.shape[1], wire_block), wire_dtype,
+                   impl)
 
 
 def wire_decode(wire: Wire, L: int, *, wire_block: int = 1024,
@@ -248,13 +256,33 @@ def wire_decode(wire: Wire, L: int, *, wire_block: int = 1024,
 # sparse neighbor exchange
 # ---------------------------------------------------------------------------
 
-def _sparse_mix_rows(means, C, hkind, p_edge, seed, *, plans, wb,
-                     wire_dtype, dense_dtype, wire_ef=None,
-                     wire_ef_gamma=1.0, impl=None):
+class _Layout(NamedTuple):
+    """A gossip's host-side tables: ``diag`` (C,) and ``bands`` ((o,
+    coef), ...) of H, and per wire plan (key, its sender rows ascending or
+    None for all, senders: the payload row of each cluster or -1)."""
+    diag: np.ndarray
+    bands: tuple
+    plans: tuple
+
+
+def _gossip_layout(hkind: str, C: int, p_edge: float, seed: int,
+                   plans: tuple) -> _Layout:
+    diag, bands, _ = _mixing_cached(hkind, C, p_edge, seed)
+    out = []
+    for key, src in plans:
+        rows = None if src is None else tuple(sorted(src))
+        senders = tuple(range(C)) if rows is None else tuple(
+            rows.index(c) if c in src else -1 for c in range(C))
+        out.append((key, rows, senders))
+    return _Layout(diag, tuple(sorted(bands.items())), tuple(out))
+
+
+def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
+                     wire_ef=None, wire_ef_gamma=1.0, impl=None):
     """The gossip on (C, L) f32 cluster means: encode each plan's sender
-    rows, per band roll the zero-filled C-row payload and decode it, and
-    add coef * decode to diag * means, band by band and plan by plan in
-    the reference's order.
+    rows, then y = diag * means plus, band by band and plan by plan in the
+    reference's order, coef * the decoded payload of each row's source
+    cluster (``ops.wire_decode_mix``: one launch on the card).
 
     ``wire_ef = (est_self, est_wsum)``, (C, L) f32: the CHOCO wire error
     feedback.  The payload is ``means - est_self``; each row decodes its
@@ -265,54 +293,35 @@ def _sparse_mix_rows(means, C, hkind, p_edge, seed, *, plans, wb,
     Returns y, or (y, est_self+, est_wsum+)."""
     L = means.shape[1]
     dev = means.device
-    diag, bands, _ = _mixing_cached(hkind, C, p_edge, seed)
-    col = lambda v: torch.as_tensor(v, dtype=torch.float32,
-                                    device=dev)[:, None]
     send = means if wire_ef is None else means - wire_ef[0]
-    payloads = []  # (payload, k_b or None for a dense plan, sender rows)
-    for key, src in plans:
-        rows = None if src is None else torch.as_tensor(
-            sorted(src), dtype=torch.long, device=dev)
-        sub = send if rows is None else send.index_select(0, rows)
+    payloads = []  # (payload, k_b or None for a dense plan)
+    for key, rows, _ in layout.plans:
         if key[0] == "dense":
-            payloads.append(((sub.to(dense_dtype),), None, rows))
+            sub = send if rows is None else send.index_select(
+                0, _on_device(rows, torch.long, dev))
+            payloads.append(((sub.to(dense_dtype).contiguous(),), None))
         else:
-            payloads.append((tuple(_encode(sub, key[1], wb, wire_dtype,
-                                           impl)), key[1], rows))
-
-    def dec(payload, k_b):
-        if k_b is None:
-            return payload[0].float()
-        return _decode(Wire(*payload), L, wb, wire_dtype, k_b, impl)
-
-    def zero_filled(payload, rows):
-        """The C-row payload: the senders' rows, zeros elsewhere."""
+            payloads.append((tuple(_encode(send, rows, key[1], wb,
+                                           wire_dtype, impl)), key[1]))
+    steps = [MixStep(o, tuple(coef), payload, k_b, senders)
+             for o, coef in layout.bands
+             for (payload, k_b), (_, _, senders) in zip(payloads,
+                                                        layout.plans)]
+    mix = functools.partial(ops.wire_decode_mix, steps=steps, wb=wb,
+                            wire_dtype=wire_dtype, impl=impl)
+    if wire_ef is None:
+        return mix(means, diag=layout.diag)
+    est_self, est_wsum = wire_ef
+    dec_self = torch.zeros_like(means)
+    for (payload, k_b), (_, rows, _) in zip(payloads, layout.plans):
+        d = _decode(payload, L, wb, wire_dtype, k_b, impl)
         if rows is None:
-            return payload
-        return tuple(None if p is None else torch.zeros(
-            (C,) + tuple(p.shape[1:]), dtype=p.dtype,
-            device=dev).index_copy_(0, rows, p) for p in payload)
-
-    if wire_ef is None:
-        y = col(diag) * means
-    else:
-        est_self, est_wsum = wire_ef
-        dec_self = torch.zeros_like(means)
-        for payload, k_b, rows in payloads:
-            d = dec(payload, k_b)
-            if rows is None:
-                dec_self = dec_self + d
-            else:
-                dec_self.index_add_(0, rows, d)
-        est_self = est_self + dec_self
-        y = est_wsum + col(diag) * dec_self
-    for o, coef in sorted(bands.items()):
-        for payload, k_b, rows in payloads:
-            rolled = tuple(None if p is None else torch.roll(p, o, dims=0)
-                           for p in zero_filled(payload, rows))
-            y = y + col(coef) * dec(rolled, k_b)
-    if wire_ef is None:
-        return y
+            dec_self = dec_self + d
+        else:
+            dec_self.index_add_(0, _on_device(rows, torch.long, dev), d)
+    est_self = est_self + dec_self
+    diag = _on_device(tuple(layout.diag.tolist()), torch.float32, dev)
+    y = mix(est_wsum + diag[:, None] * dec_self)
     return means + wire_ef_gamma * (y - est_self), est_self, y
 
 
@@ -373,13 +382,13 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
                          cluster_theta=cluster_theta, wire_block=wire_block,
                          wire_dtype=wire_dtype)
     wb = wf.wire_block_of(L, wire_block)
+    layout = _gossip_layout(hkind, C, p_edge, seed, tuple(plans))
     xv = x.view(C, Dev, L)
     ev = None if wire_ef is None else [e.view(C, Dev, L) for e in wire_ef]
     for c0, c1 in _col_chunks(L, wb, chunk_cols):
         means = xv[:, 0, c0:c1].float()
         ef_rows = None if ev is None else tuple(e[:, 0, c0:c1] for e in ev)
-        out = _sparse_mix_rows(means, C, hkind, p_edge, seed, plans=plans,
-                               wb=wb, wire_dtype=wire_dtype,
+        out = _sparse_mix_rows(means, layout, wb=wb, wire_dtype=wire_dtype,
                                dense_dtype=dense_dtype, wire_ef=ef_rows,
                                wire_ef_gamma=wire_ef_gamma, impl=impl)
         if ev is not None:

@@ -2,7 +2,7 @@
 tensors (port of ``repro/kernels/ops.py``).
 
 Every op takes ``impl`` in {None, "kernel", "plain"} (plus "ref" for
-flash attention, top-k, the SSD scan and the wire encode); None picks by the device of the first
+flash attention, top-k, the SSD scan and the wire encodes); None picks by the device of the first
 tensor, as the reference's ``_route`` picks by backend.  ``impl="plain"`` runs the plain
 version on any device (the card-side comparison uses it); ``impl="kernel"``
 on a CPU tensor raises.  Nothing catches a kernel's failure and falls back.
@@ -20,8 +20,10 @@ from repro_torch.kernels.topk_compress import (compress_with,
                                                topk_compress_cuda,
                                                topk_compress_plain)
 from repro_torch.kernels.wire_pack import (
-    encode_blocks_cuda, encode_blocks_plain, pack_offsets_cuda,
-    pack_offsets_plain, unpack_offsets_cuda, unpack_offsets_plain)
+    decode_mix_cuda, decode_mix_plain, encode_blocks_cuda,
+    encode_blocks_plain, encode_rows_cuda, encode_rows_plain,
+    pack_offsets_cuda, pack_offsets_plain, pad_rows, unpack_offsets_cuda,
+    unpack_offsets_plain)
 
 
 def _route(impl, x):
@@ -124,6 +126,36 @@ def encode_blocks(xb, k_b, *, wire_dtype, impl=None):
     if r == "ref":
         return ref.encode_blocks_topk(xb, k_b, wire_dtype=wire_dtype)
     return encode_blocks_plain(xb, k_b, wire_dtype=wire_dtype)
+
+
+def encode_rows(x, rows, k_b, *, wb, wire_dtype, impl=None):
+    """The wire encode of rows ``rows`` (None: all) of x (C, L) f32 in
+    wire blocks of ``wb``, the last one zero-padded: (vals, off, scale) of
+    ``encode_blocks`` on those rows.  The kernel reads the rows where they
+    lie; the plain version and ``impl="ref"`` (the exact top-k) select and
+    pad them first."""
+    r = _route(impl, x)
+    if r == "kernel":
+        return encode_rows_cuda(x, rows, k_b, wb=wb, wire_dtype=wire_dtype)
+    if r == "ref":
+        return ref.encode_blocks_topk(pad_rows(x, rows, wb), k_b,
+                                      wire_dtype=wire_dtype)
+    return encode_rows_plain(x, rows, k_b, wb=wb, wire_dtype=wire_dtype)
+
+
+def wire_decode_mix(y, steps, *, wb, wire_dtype, diag=None, impl=None):
+    """The gossip's decode and mix of one column chunk (no reference
+    counterpart: the reference's ``wire_decode`` and adds in jnp): y (C,
+    Lc) f32, times ``diag`` first where given, plus coef * decode of each
+    ``wire_pack.MixStep`` in order; y itself is not written.  The kernel
+    on the card (one launch per ``MIX_STEPS`` steps), its plain version
+    (the zero fill, roll, decode and add chain) on the CPU; "ref" is
+    "plain"."""
+    if _route(impl, y) == "kernel":
+        return decode_mix_cuda(y, steps, wb=wb, wire_dtype=wire_dtype,
+                               diag=diag)
+    return decode_mix_plain(y, steps, wb=wb, wire_dtype=wire_dtype,
+                            diag=diag)
 
 
 def pack_offsets(off, *, wb, mode, impl=None):

@@ -302,5 +302,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ops.unpack_offsets(torch.zeros(1, 2, sum(twp._p4_sizes(128, 4)),
                                        dtype=torch.uint8),
                            wb=128, k_b=4, mode="p4", impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.encode_rows(torch.zeros(3, 300), (0, 2), 4, wb=128,
+                        wire_dtype="int4", impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.wire_decode_mix(torch.zeros(2, 256), [], wb=128,
+                            wire_dtype="int4", impl="kernel")
     assert twp.LAUNCHES == {"wire_encode": 0, "wire_pack": 0,
-                            "wire_unpack": 0}
+                            "wire_unpack": 0, "wire_decode_mix": 0}
