@@ -31,15 +31,25 @@ Phases (any failure ends the run with a non-zero exit):
 5. top-k compression kernel vs its plain version, bit for bit (int32 /
    int16 views): the reference's test grid in f32 and bf16 with ef absent,
    of x's type and f32; an all-zero block, tied magnitudes, theta = 1 and
-   k = 1; every ResNet-20 leaf at R = 64, block 256 (the round's 59
-   launches, timed together); FEMNIST's fc1_w at R = 64 (timed);
+   k = 1; then the kernel over a table of leaves (one launch per type pair
+   and MAX_LEAVES leaves) against the per-leaf plain version, padded as
+   the reference pads: the 59 ResNet-20 leaves at R = 64, block 256, at
+   their own lengths (the round's one launch, timed, beside the 59
+   one-leaf launches on padded leaves that the round ran before), a
+   table of mixed f32 / bf16 leaves and efs, ragged leaves (L = 1, 31,
+   257, ...) at three blocks, the in-place form and a table longer than
+   one launch takes; FEMNIST's fc1_w at R = 64 (timed); and a mamba2-1.3B
+   round's table at R = 4, block 1024, in place: its w_in leaf (bf16,
+   more than 2^31 entries in all, so that offsets pass 32 bits) beside a
+   small f32 leaf, once with bf16 EF at w_in's length and once with f32
+   EF at a ragged length, two launches each (timed);
 6. the FedSim path: a small MLP FedSim runs 3 rounds on the card (kernel)
    and on the CPU (plain version) from the same parameters and bits; the
    histories agree within FEDSIM_RTOL;
 7. the HCEF round at full width: ResNet-20 on the synthetic CIFAR-10
    stand-in, 64 devices in 8 clusters, the configuration's budgets,
    FEDSIM_ROUNDS rounds (two of them gossip rounds), then the averaged
-   model's accuracy, with every top-k launch counted;
+   model's accuracy, with every top-k launch counted (one a round);
 8. the SSD scan kernels (forward, and backward through the autograd
    Function) vs their plain versions (``ref.ssd_chunked``, and autograd
    through it evaluated in f64): the reference's test grid in f32 and
@@ -57,38 +67,45 @@ Phases (any failure ends the run with a non-zero exit):
    (kernels) against the same round on the CPU (plain versions), then the
    train launcher's entry point on mamba2-1.3B at full width
    and depth (MAMBA2_ROUNDS rounds, gossip in the last), with every SSD
-   and top-k launch counted;
+   and top-k launch counted (top-k: one a round per type pair of the
+   leaves);
 10. the gossip wire's kernels vs their plain versions, bit for bit: the
    encode (the warp-per-block kernel up to wb 1024, the CTA-per-block one
-   above; each wire block size prints which ran), p4 pack and p4 unpack
-   on every wire dtype, wire blocks 1, 31, 33, 64, 128, 1000, 1024 and
-   2048, k_b from 1 to wb, blocks with planted threshold ties, all-zero
-   blocks and zero payloads; the encode of rows read in place (row
-   subsets of a strided matrix, ragged last blocks, wb = L < 32); the
+   above; each wire block size prints which ran) with int32 offsets and
+   with the packed forms it writes itself (p4, and u8 up to wb 256,
+   against ``pack_offsets_plain`` of the plain encode's offsets), the
+   standalone p4 pack and p4 unpack on every wire dtype, wire blocks 1,
+   31, 33, 64, 128, 1000, 1024 and 2048, k_b from 1 to wb, blocks with
+   planted threshold ties, all-zero blocks and zero payloads; the encode
+   of rows read in place in every offset form (row subsets of a strided
+   matrix, ragged last blocks, wb = L < 32); the
    decode-and-mix on MIX_CASES in every dtype (u8 and p4 offsets,
    partial senders, dense plans, more steps than a launch takes, y of
-   -0); then the inputs a column chunk of mamba2-1.3B's largest leaf
-   (w_in) hands the encode at theta 0.05, 0.1, 0.2, 0.6 and 1 (int4),
-   each kernel timed there, the decode-and-mix timed on the main chunk
+   -0); then the inputs a gossip column chunk of mamba2-1.3B's largest
+   leaf (w_in) hands the encode at theta 0.05, 0.1, 0.2, 0.6 and 1 (int4),
+   each kernel timed there (the fused p4 encode beside the int32 encode
+   and the pack it replaced), the decode-and-mix timed on the main chunk
    (C = 2, levels (0.1, 0.6)) against its plain version and the chain it
    replaced, and one chunk through ``sparse_exchange_``: bit for bit its
    plain route, no host synchronisation inside it (sync debug mode
-   "error"), its card and host-paced times and its launches;
+   "error"), its card and host-paced times and its device launches
+   (GOSSIP_CHUNK_LAUNCHES: two encodes, one decode-and-mix, two copies);
 11. the fused round step (a policy: the sparse gossip over the int4 wire,
    per-cluster levels, the CHOCO wire error feedback) on the smoke
    mamba2, 4 rounds on the card (kernels) against the CPU (plain
    versions): at eta 0 everything within ROUND_RTOL / ROUND_ATOL; at
    eta 0.1, round by round from the card's state, the statistics within
    ROUND_RTOL and the state within ROUND_ATOL but for top-k threshold
-   flips (at most Q_FLIP_SHARE of the entries); every wire kernel must
-   run (the p4 unpack only runs here: the wire EF decodes each cluster's
-   own payload);
+   flips (at most Q_FLIP_SHARE of the entries); the encode, the p4 unpack
+   (it only runs here: the wire EF decodes each cluster's own payload) and
+   the decode-and-mix must run, the standalone p4 pack must not (the
+   encode packs);
 12. the fused round step on mamba2-1.3B at full width and depth (R = 4,
    bf16), the launcher's corpus and batch draw, the int4 wire at the
    per-device theta (0.05, 0.1, 0.4, 0.6), so cluster levels (0.1, 0.6),
    SPARSE_ROUNDS rounds with gossip in rounds 2 and 4, every launch of
-   every kernel counted (one decode-and-mix a column chunk, no
-   standalone unpack).
+   every kernel counted (a column chunk of ``GOSSIP_COLS``: one fused
+   encode a plan and one decode-and-mix; no standalone pack or unpack).
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -159,6 +176,13 @@ GOSSIP_LEVELS = (0.1, 0.6)  # phase 12's cluster levels, the main chunk's
 SPARSE_ROUNDS, SPARSE_Q = 4, 2  # phase 12: rounds 2 and 4 gossip
 SPARSE_THETA = (0.05, 0.1, 0.4, 0.6)  # per device; cluster levels 0.1, 0.6
 PEAK_LIMIT_GB = 72.0
+# phase 10: the device launches of one gossip chunk (two plans): the
+# encode of each plan's sender row, the decode-and-mix, the bf16 -> f32
+# copy of the cluster means and the copy of the result back to the rows
+GOSSIP_CHUNK_LAUNCHES = 5
+# phase 5: the grouped top-k's ragged leaves, a table per block
+TOPK_RAGGED = {blk: sorted({1, 31, blk - 1, blk, blk + 1, 2 * blk + 1,
+                            1000}) for blk in (32, 256, 1024)}
 # phase 11 in lockstep: the share of parameter and estimate entries that
 # may sit beyond ROUND_ATOL after a round (top-k threshold flips; the card
 # has shown 2 of the smoke model's 1,069,632 entries in a round)
@@ -179,8 +203,8 @@ def _demangled_name(mangled):
 
 def ptxas_summary(log):
     """{kernel: (most registers, most spill-store bytes, most stack-frame
-    bytes, instantiations)} from ``nvcc -Xptxas -v`` output, template
-    instantiations merged."""
+    bytes, most static shared-memory bytes, instantiations)} from ``nvcc
+    -Xptxas -v`` output, template instantiations merged."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(_ZN\w+)'", line)
@@ -190,11 +214,13 @@ def ptxas_summary(log):
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
         stack = re.search(r"(\d+) bytes stack frame", line)
+        smem = re.search(r"(\d+) bytes smem", line) if regs else None
         if name and (regs or spill or stack):
-            r, sp, st, n = out.get(name, (0, 0, 0, 0))
+            r, sp, st, sm, n = out.get(name, (0, 0, 0, 0, 0))
             out[name] = (max(r, int(regs.group(1))) if regs else r,
                          max(sp, int(spill.group(1))) if spill else sp,
                          max(st, int(stack.group(1))) if stack else st,
+                         max(sm, int(smem.group(1))) if smem else sm,
                          n + bool(regs))
     return out
 
@@ -656,6 +682,48 @@ def topk_bytes(x, ef):
     return x.numel() * (reads + writes)
 
 
+def topk_launches(xs, efs, tk):
+    """Launches of one grouped top-k call over these leaves: one per (x
+    type, ef type) pair and MAX_LEAVES leaves."""
+    groups = {}
+    for i, x in enumerate(xs):
+        key = (x.dtype, None if efs is None else efs[i].dtype)
+        groups[key] = groups.get(key, 0) + 1
+    return sum(-(-n // tk.MAX_LEAVES) for n in groups.values())
+
+
+def topk_leaves_case(tk, xs, efs, theta, block, label, inplace=False):
+    """The grouped kernel against the per-leaf plain version (padded as
+    the reference pads) on the same leaves, bit for bit, and its launches;
+    with ``inplace`` the kernel writes over the leaves and their efs."""
+    want = tk.topk_compress_leaves_plain(xs, theta, block=block, efs=efs)
+    before = tk.LAUNCHES["topk_compress"]
+    if inplace:
+        xs = [x.clone() for x in xs]
+        efs = [e.clone() for e in efs]
+        outs = list(zip(xs, efs))
+        got = tk.topk_compress_leaves_cuda(xs, theta, block=block, efs=efs,
+                                           outs=outs)
+        if any(g[0] is not x or g[1] is not e
+               for g, x, e in zip(got, xs, efs)):
+            fail(f"top-k in place did not return its outputs ({label})")
+    else:
+        got = tk.topk_compress_leaves_cuda(xs, theta, block=block, efs=efs)
+    torch.cuda.synchronize()
+    launches = tk.LAUNCHES["topk_compress"] - before
+    if launches != topk_launches(xs, efs, tk):
+        fail(f"grouped top-k: {launches} launches for {len(xs)} leaves "
+             f"({label}), expected {topk_launches(xs, efs, tk)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not all(a.dtype == b.dtype and torch.equal(_raw(a), _raw(b))
+                   for a, b in zip(g, w)):
+            fail(f"grouped top-k differs from the per-leaf plain version "
+                 f"({label}, leaf {i} of shape {tuple(xs[i].shape)} "
+                 f"{xs[i].dtype}, ef "
+                 f"{None if efs is None else efs[i].dtype}, block {block})")
+    return launches
+
+
 def topk_phase(tk, leaf_shapes, femnist_fc1):
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
@@ -685,36 +753,92 @@ def topk_phase(tk, leaf_shapes, femnist_fc1):
                                  block=256)[0][0, :256].any():
             fail("top-k kernel kept a nonzero in an all-zero block")
 
-    # the main path: every ResNet-20 leaf, padded to the block, at R = 64,
-    # f32 delta and f32 EF, theta as the controller hands it over (f32)
-    R, block = 64, 256
-    xs, efs = [], []
-    for shape in leaf_shapes:
-        L = int(np.prod(shape))
-        Lp = L + (-L) % block
-        xs.append(torch.randn((R, Lp), generator=gen, device="cuda"))
-        efs.append(0.3 * torch.randn((R, Lp), generator=gen, device="cuda"))
+    # the grouped kernel: a table per type pair, ragged leaves, in place
+    R = 64
     theta = 0.05 + 0.95 * torch.rand((R,), generator=gen, device="cuda")
-    for x, ef in zip(xs, efs):
-        worst = max(worst, topk_case(tk, gen, R=R, L=x.shape[1], block=block,
-                                     dtype=torch.float32, x=x, ef=ef,
-                                     theta=theta, label="resnet20 leaf"))
-        n_cases += 1
-    round_k = lambda: [tk.topk_compress_cuda(x, theta, ef=e, block=block)
-                       for x, e in zip(xs, efs)]
-    round_p = lambda: [tk.topk_compress_plain(x, theta, ef=e, block=block)
-                       for x, e in zip(xs, efs)]
+    rn = lambda L, dt, sc=1.0: (sc * torch.randn(
+        (R, L), generator=gen, device="cuda")).to(dt)
+    f32, bf16 = torch.float32, torch.bfloat16
+    n_tables, n_leaves = 0, 0
+    for block, Ls in TOPK_RAGGED.items():
+        for xd, ed in ((f32, f32), (bf16, bf16), (bf16, f32), (f32, None)):
+            xs = [rn(L, xd) for L in Ls]
+            xs[0].zero_()  # an all-zero leaf
+            xs[-1][:, :block] = 1.5  # a block of tied magnitudes
+            efs = None if ed is None else [rn(L, ed, 0.3) for L in Ls]
+            if efs is not None:
+                efs[0].zero_()
+            topk_leaves_case(tk, xs, efs, theta, block,
+                             f"ragged block {block}")
+            n_tables += 1
+            n_leaves += len(xs)
+    mixed = [(300, f32, f32), (1000, bf16, bf16), (257, bf16, f32),
+             (64, f32, f32), (5000, bf16, bf16), (1, bf16, f32),
+             (768, f32, f32)]
+    xs = [rn(L, xd) for L, xd, _ in mixed]
+    efs = [rn(L, ed, 0.3) for L, _, ed in mixed]
+    if topk_leaves_case(tk, xs, efs, theta, 256, "mixed types") != 3:
+        fail("a table of three type pairs did not take three launches")
+    topk_leaves_case(tk, xs, efs, theta, 256, "mixed types, in place",
+                     inplace=True)
+    many = [rn(int(L), f32) for L in
+            torch.randint(1, 700, (2 * tk.MAX_LEAVES + 5,), generator=gen,
+                          device="cuda").tolist()]
+    efs = [rn(x.shape[1], f32, 0.3) for x in many]
+    if topk_leaves_case(tk, many, efs, theta, 256, "long table") != 3:
+        fail(f"{len(many)} leaves of one type pair did not take three "
+             f"launches")
+    n_tables += 3
+    n_leaves += 2 * len(mixed) + len(many)
+    print(f"topk grouped: {n_tables} tables of {n_leaves} leaves bit for "
+          f"bit equal to the per-leaf plain version (ragged L "
+          f"{TOPK_RAGGED}, blocks 32/256/1024, f32/bf16 mixed, in place, "
+          f"{len(many)} leaves in three launches)")
+
+    # the main path: every ResNet-20 leaf at its own length, R = 64, f32
+    # delta and f32 EF, theta as the controller hands it over (f32)
+    block = 256
+    xs = [rn(int(np.prod(shape)), f32) for shape in leaf_shapes]
+    efs = [rn(x.shape[1], f32, 0.3) for x in xs]
+    if topk_leaves_case(tk, xs, efs, theta, block, "resnet20 leaves") != 1:
+        fail("the ResNet-20 leaves did not take one launch")
+    for x, e, (m, r) in zip(xs, efs, tk.topk_compress_leaves_cuda(
+            xs, theta, block=block, efs=efs)):
+        if not torch.equal(m + r, x + e):
+            fail("masked + residual != x + ef (resnet20 leaves)")
+    # timed as the round calls it: in place (the data do not change the
+    # work: 16 bisection steps a block whatever the values)
+    xs_w, efs_w = [x.clone() for x in xs], [e.clone() for e in efs]
+    round_k = lambda: tk.topk_compress_leaves_cuda(
+        xs_w, theta, block=block, efs=efs_w, outs=list(zip(xs_w, efs_w)))
+    round_p = lambda: tk.topk_compress_leaves_plain(xs, theta, block=block,
+                                                    efs=efs)
+    # how the round ran before: a one-leaf launch per leaf, padded to the
+    # block (F.pad of x and ef, results copied back) where L is ragged
+    pads = [(-x.shape[1]) % block for x in xs]
+    per_leaf = lambda: [
+        tk.topk_compress_cuda(x, theta, ef=e, block=block) if not p else
+        [t[:, :x.shape[1]].clone() for t in tk.topk_compress_cuda(
+            torch.nn.functional.pad(x, (0, p)), theta, block=block,
+            ef=torch.nn.functional.pad(e, (0, p)))]
+        for x, e, p in zip(xs, efs, pads)]
     nbytes = sum(topk_bytes(x, e) for x, e in zip(xs, efs))
-    ms = time_ms(round_k)  # card time: the spin outlasts the 59 launches
+    ms = time_ms(round_k)
     lead = dict(last_timing)
     call_ms = time_ms(round_k, host_paced=True)
+    old_ms = time_ms(per_leaf)
+    old_lead = dict(last_timing)
     plain_ms = time_ms(round_p, iters=3, warmup=1)
     bound_ms, bound_by = bound(0, nbytes, torch.float32)
-    main = dict(case="resnet20 round: 59 leaves, R=64, block 256, f32 x/ef",
+    main = dict(case=f"resnet20 round: {len(xs)} leaves at their own "
+                f"lengths, R=64, block 256, f32 x/ef, in place, one launch",
                 elements=sum(x.numel() for x in xs), bytes=nbytes,
-                launches_timed=len(xs), max_abs_err=worst, ms=ms,
+                launches_per_call=1, max_abs_err=worst, ms=ms,
                 call_ms=call_ms, host_queue_ms=lead["host_queue_ms"],
                 lead_ms=lead["lead_ms"], lead_lengthened=lead["lengthened"],
+                per_leaf_ms=old_ms,
+                per_leaf_host_queue_ms=old_lead["host_queue_ms"],
+                per_leaf_launches=len(xs), ragged_leaves=sum(map(bool, pads)),
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
     print("topk " + json.dumps(main))
@@ -736,11 +860,105 @@ def topk_phase(tk, leaf_shapes, femnist_fc1):
                    x, theta, ef=ef, block=block), iters=3, warmup=1),
                bound_ms=bound_f, bound_by=by_f, library_ms=None)
     print("topk " + json.dumps(big))
-    print(f"topk: {n_cases + 1} cases bitwise equal to the plain version")
-    del x, ef, xs, efs
+    print(f"topk: {n_cases + 1} one-leaf cases bitwise equal to the plain "
+          f"version")
+    del x, ef, xs, efs, xs_w, efs_w, many
     torch.cuda.empty_cache()
     main["max_abs_err"] = max(worst, err)
     return main
+
+
+def topk_wide_case(tk, R, L, xd, ed, small_L, theta, label):
+    """The grouped kernel in place on a table of an (R, L) leaf of x
+    type ``xd`` and EF type ``ed`` and a small f32 leaf with f32 EF: two
+    type pairs, two launches, held bit for bit to the plain version.  The
+    large leaf's inputs are drawn in column chunks of whole blocks from
+    seeds of their own and drawn again after the launch, and the plain
+    version runs chunk by chunk on them: blocks are independent and only
+    the last one is padded, so that is the plain version on the leaf,
+    with no second copy of it on the card.  Returns the case's numbers."""
+    block, W = 1024, 1 << 26
+    chunks = [(a, min(a + W, L)) for a in range(0, L, W)]
+
+    def draw(i):
+        a, b = chunks[i]
+        g = torch.Generator(device="cuda").manual_seed(1000 + i)
+        x = torch.randn((R, b - a), generator=g, device="cuda")
+        ef = 0.3 * torch.randn((R, b - a), generator=g, device="cuda")
+        if b == L:  # an all-zero block past 2^31, then the ragged tail
+            x[-1, -(block + L % block):] = 0.0
+            ef[-1, -(block + L % block):] = 0.0
+        return x.to(xd), ef.to(ed)
+
+    x = torch.empty((R, L), dtype=xd, device="cuda")
+    ef = torch.empty((R, L), dtype=ed, device="cuda")
+    for i, (a, b) in enumerate(chunks):
+        x[:, a:b], ef[:, a:b] = draw(i)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    xs = torch.randn((R, small_L), generator=g, device="cuda")
+    es = 0.3 * torch.randn((R, small_L), generator=g, device="cuda")
+    want_s = tk.topk_compress_leaves_plain([xs], theta, block=block,
+                                           efs=[es])[0]
+    before = tk.LAUNCHES["topk_compress"]
+    table = lambda: tk.topk_compress_leaves_cuda(
+        [x, xs], theta, block=block, efs=[ef, es],
+        outs=[(x, ef), (xs, es)])
+    table()
+    torch.cuda.synchronize()
+    launches = tk.LAUNCHES["topk_compress"] - before
+    if launches != 2:
+        fail(f"grouped top-k: {launches} launches for two type pairs "
+             f"({label})")
+    if not all(torch.equal(_raw(a), _raw(b))
+               for a, b in zip((xs, es), want_s)):
+        fail(f"grouped top-k differs from the plain version on the small "
+             f"f32 leaf ({label})")
+    for i, (a, b) in enumerate(chunks):
+        xc, ec = draw(i)
+        m, r = tk.topk_compress_leaves_plain([xc], theta, block=block,
+                                             efs=[ec])[0]
+        if not (torch.equal(_raw(x[:, a:b]), _raw(m))
+                and torch.equal(_raw(ef[:, a:b]), _raw(r))):
+            fail(f"grouped top-k differs from the plain version ({label}, "
+                 f"columns {a}:{b} of ({R}, {L}) {xd}, ef {ed})")
+        del xc, ec, m, r
+    nbytes = topk_bytes(x, ef) + topk_bytes(xs, es)
+    bound_ms, bound_by = bound(0, nbytes, torch.float32)
+    out = dict(case=f"mamba2-1.3b round: ({R}, {L}) {str(xd)[6:]} x, "
+               f"{str(ed)[6:]} EF, + ({R}, {small_L}) f32, block {block}, "
+               f"in place", elements=R * (L + small_L), bytes=nbytes,
+               launches_per_call=launches, max_abs_err=0.0,
+               ms=time_ms(table, iters=3, warmup=1), bound_ms=bound_ms,
+               bound_by=bound_by)
+    print("topk " + json.dumps(out))
+    del x, ef, xs, es
+    torch.cuda.empty_cache()
+    return out
+
+
+def topk_mamba2_cases(tk, configs, mamba2):
+    """The grouped kernel at a mamba2-1.3B round's shapes: R = 4 replicas,
+    block 1024, its largest leaf (w_in, bf16, num_layers x d_model x
+    proj_in per replica).  With the round's own EF (the parameters' type)
+    beside the f32 A_log leaf, and with f32 EF at w_in's length + 300
+    (ragged) beside a ragged f32 leaf."""
+    from repro_torch.tree import flatten
+    cfg = configs.get_config("mamba2_1p3b").model
+    one = flatten(mamba2.init(cfg.replace(num_layers=1, vocab_size=256),
+                              seed=0, device="cpu"))
+    per_replica = lambda name: one[name].numel() * cfg.num_layers
+    L_in, L_a = per_replica("layers/w_in"), per_replica("layers/A_log")
+    R = 4
+    print(f"topk mamba2 cases: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated before")
+    if R * L_in <= 2**31:
+        fail(f"w_in's {R} x {L_in} entries do not pass 2^31")
+    theta = torch.tensor(SPARSE_THETA, device="cuda")  # phase 12's
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [topk_wide_case(tk, R, L_in, bf16, bf16, L_a, theta,
+                           "mamba2 w_in, bf16 EF"),
+            topk_wide_case(tk, R, L_in + 300, bf16, f32, 1000, theta,
+                           "mamba2 w_in + 300, f32 EF")]
 
 
 # ---------------------------------------------------------------------------
@@ -771,12 +989,15 @@ def fedsim_agrees(fedsim):
 
 def fedsim_full(fedsim, tk):
     """ResNet-20 at the paper's topology: FEDSIM_ROUNDS rounds of
-    ``FedSim.run`` as the launcher drives it, every top-k launch counted."""
+    ``FedSim.run`` as the launcher drives it, every top-k launch counted:
+    one a round (all 59 leaves and their efs are f32)."""
     t0 = time.perf_counter()
     sim = fedsim.make_sim("hcef", model="resnet20", device="cuda")
     torch.cuda.synchronize()
     n_leaves = len(sim.params)
     n_params = sum(p[0].numel() for p in sim.params.values())
+    per_round = topk_launches(list(sim.params.values()),
+                              list(sim.ef.values()), tk)
     print(f"fedsim resnet20: {n_params} params in {n_leaves} leaves, "
           f"{sim.cfg.n_devices} devices in {sim.cfg.n_clusters} clusters, "
           f"set up in {time.perf_counter() - t0:.1f} s")
@@ -793,9 +1014,9 @@ def fedsim_full(fedsim, tk):
         fail(f"non-finite loss: {[h['loss'] for h in hist]}")
     if not min(h["theta_mean"] for h in hist) < 1.0:
         fail("theta_mean is 1 in every round: Q dropped nothing")
-    if launches != n_leaves * FEDSIM_ROUNDS:
-        fail(f"{launches} top-k launches, expected {n_leaves} leaves x "
-             f"{FEDSIM_ROUNDS} rounds")
+    if per_round != 1 or launches != per_round * FEDSIM_ROUNDS:
+        fail(f"{launches} top-k launches, expected one a round for the "
+             f"{n_leaves} leaves ({per_round}) x {FEDSIM_ROUNDS} rounds")
     if sim.budget.l < 2:
         fail(f"{sim.budget.l} gossip rounds, expected 2")
     if any(b["time"] < a["time"] or b["energy"] < a["energy"]
@@ -1097,9 +1318,25 @@ def small_round_agrees(configs, mamba2, rnd_mod, base):
         fail("the mamba2 round step on the card disagrees with the CPU")
 
 
-def mamba2_full(train, ss, tk):
+def mamba2_topk_launches(configs, mamba2, tk):
+    """Top-k launches a round of mamba2-1.3B: one per (parameter type, EF
+    type) pair of its leaves (EF holds the parameters' type).  The leaves
+    and their types do not depend on the depth, so one layer tells."""
+    from repro_torch.tree import flatten
+    cfg = configs.get_config("mamba2_1p3b").model.replace(num_layers=1)
+    leaves = list(flatten(mamba2.init(cfg, seed=0, device="cuda")).values())
+    n = topk_launches(leaves, leaves, tk)
+    print(f"mamba2 top-k: {len(leaves)} leaves of types "
+          f"{sorted({str(x.dtype) for x in leaves})}: {n} launches a round")
+    del leaves
+    torch.cuda.empty_cache()
+    return n
+
+
+def mamba2_full(train, ss, tk, topk_per_round):
     """The launcher's entry point on mamba2-1.3B at full width: every SSD
-    and top-k launch of the run counted, the run's numbers checked."""
+    and top-k launch of the run counted (top-k: ``topk_per_round`` a
+    round), the run's numbers checked."""
     argv = ["--arch", "mamba2_1p3b", "--full", "--rounds",
             str(MAMBA2_ROUNDS), "--seq", "511"]
     print("python -m repro_torch.launch.train " + " ".join(argv))
@@ -1114,7 +1351,7 @@ def mamba2_full(train, ss, tk):
     steps = MAMBA2_ROUNDS * R * tau
     want = {"ssd_scan_fwd": steps * cfg.num_layers * (2 if cfg.remat else 1),
             "ssd_scan_bwd": steps * cfg.num_layers,
-            "topk_compress": MAMBA2_ROUNDS * 11}  # one per leaf
+            "topk_compress": MAMBA2_ROUNDS * topk_per_round}
     if len(hist) != MAMBA2_ROUNDS:
         fail(f"the launcher ran {len(hist)} of {MAMBA2_ROUNDS} rounds")
     if not all(np.isfinite(h["loss"]) for h in hist):
@@ -1175,19 +1412,37 @@ def wire_blocks(gen, m, nb, wb, k_b):
     return (x * sign).contiguous()
 
 
-def wire_check(wp, xb, k_b, wd, label, zero_payload=False):
-    """encode, p4 pack and p4 unpack against their plain versions on xb,
-    bit for bit; the unpack also gives back the offsets, and an all-zero
-    payload decodes to offset 0.  Returns (payload, off)."""
-    wb = xb.shape[-1]
-    got = wp.encode_blocks_cuda(xb, k_b, wire_dtype=wd)
-    torch.cuda.synchronize()
-    want = wp.encode_blocks_plain(xb, k_b, wire_dtype=wd)
+def offset_forms(wb):
+    """The offset forms the encode writes at wire block wb."""
+    return ("i32", "p4") + (("u8",) if wb <= 256 else ())
+
+
+def encoded_same(wp, got, want, omode, wb, what):
+    """The encode kernel's (vals, offsets, scale) in form ``omode``
+    against the plain encode's, its int32 offsets packed by
+    ``pack_offsets_plain``, bit for bit."""
+    if omode != "i32":
+        want = (want[0], wp.pack_offsets_plain(want[1], wb=wb, mode=omode),
+                want[2])
     for name, a, b in zip(("vals", "off", "scale"), got, want):
         if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
-            fail(f"wire encode kernel differs from its plain version in "
-                 f"{name} ({label} wb={wb} k_b={k_b} {wd})")
-    off = got[1]
+            fail(f"wire encode kernel ({omode} offsets) differs from its "
+                 f"plain version in {name} ({what})")
+
+
+def wire_check(wp, xb, k_b, wd, label, zero_payload=False):
+    """encode (every offset form), p4 pack and p4 unpack against their
+    plain versions on xb, bit for bit; the unpack also gives back the
+    offsets, and an all-zero payload decodes to offset 0.  Returns
+    (payload, off)."""
+    wb = xb.shape[-1]
+    want = wp.encode_blocks_plain(xb, k_b, wire_dtype=wd)
+    for omode in offset_forms(wb):
+        got = wp.encode_blocks_cuda(xb, k_b, wire_dtype=wd, omode=omode)
+        torch.cuda.synchronize()
+        encoded_same(wp, got, want, omode, wb,
+                     f"{label} wb={wb} k_b={k_b} {wd}")
+    off = want[1]
     packed = wp.pack_offsets_cuda(off, wb=wb)
     torch.cuda.synchronize()
     if not torch.equal(packed, wp.pack_offsets_plain(off, wb=wb,
@@ -1210,17 +1465,17 @@ def wire_check(wp, xb, k_b, wd, label, zero_payload=False):
 
 
 def encode_rows_check(wp, x, rows, k_b, wd, wb, label):
-    """The encode kernel on rows of x read in place against
-    ``encode_rows_plain`` (index_select, zero pad, encode), bit for
-    bit."""
-    got = wp.encode_rows_cuda(x, rows, k_b, wb=wb, wire_dtype=wd)
-    torch.cuda.synchronize()
+    """The encode kernel on rows of x read in place, in every offset
+    form, against ``encode_rows_plain`` (index_select, zero pad, encode)
+    and ``pack_offsets_plain``, bit for bit.  Returns the cases run."""
     want = wp.encode_rows_plain(x, rows, k_b, wb=wb, wire_dtype=wd)
-    for name, a, b in zip(("vals", "off", "scale"), got, want):
-        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
-            fail(f"wire encode of rows {rows} differs from its plain "
-                 f"version in {name} ({label} L={x.shape[1]} wb={wb} "
-                 f"k_b={k_b} {wd})")
+    for omode in offset_forms(wb):
+        got = wp.encode_rows_cuda(x, rows, k_b, wb=wb, wire_dtype=wd,
+                                  omode=omode)
+        torch.cuda.synchronize()
+        encoded_same(wp, got, want, omode, wb, f"rows {rows}, {label} "
+                     f"L={x.shape[1]} wb={wb} k_b={k_b} {wd}")
+    return len(offset_forms(wb))
 
 
 def mix_means(gen, C, L):
@@ -1284,7 +1539,7 @@ def payload_bytes(steps):
     return sum(seen.values())
 
 
-def decode_mix_main(wp, col, means, agg_cols):
+def decode_mix_main(wp, col, means):
     """Phase 10's main chunk: the gossip of C = 2 cluster means of a w_in
     column chunk over a ring at levels GOSSIP_LEVELS (k_b 103 and 615,
     one sender row a plan): the decode-and-mix timed against its plain
@@ -1319,30 +1574,54 @@ def decode_mix_main(wp, col, means, agg_cols):
         k_b = key[1]
         encode_rows_check(wp, means, rows, k_b, "int4", wb, "main chunk")
         enc = lambda: wp.encode_rows_cuda(means, rows, k_b, wb=wb,
-                                          wire_dtype="int4")
+                                          wire_dtype="int4", omode="p4")
         nb = -(-means.shape[1] // wb)
         eb = means.shape[1] * 4 * len(rows) + len(rows) * nb * (
-            -(-k_b // 2) + 4 * k_b + 4)
+            -(-k_b // 2) + sum(wp._p4_sizes(wb, k_b)) + 4)
         b_ms, b_by = bound(0, eb, torch.float32)
         print("wire " + json.dumps(dict(
             kernel="wire_encode", case=f"main chunk row {rows}, level "
-            f"{lvl}, k_b {k_b}, read in place", route=wp.encode_route(wb),
-            ms=time_ms(enc), bound_ms=b_ms, bound_by=b_by,
-            kernel_split_us=kernel_split(enc))))
+            f"{lvl}, k_b {k_b}, read in place, p4 offsets",
+            route=wp.encode_route(wb), ms=time_ms(enc), bound_ms=b_ms,
+            bound_by=b_by, kernel_split_us=kernel_split(enc))))
     return row
 
 
-def gossip_chunk(wp, col, means, agg_cols):
+def aten_kernel_ops(fn):
+    """The PyTorch operators one call of ``fn`` runs that launch a device
+    kernel (all but views and allocations), by name, in order.  Torch's
+    dispatcher sees every operator; torch.profiler has dropped device
+    events late in a run of this script (a chunk's 5 launches seen as 2),
+    so launches are counted here and by the wrappers' counters."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    no_kernel = (aten.empty, aten.empty_like, aten.empty_strided)
+    ops = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (func.is_view or func.overloadpacket in no_kernel):
+                ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Log():
+        fn()
+    return ops
+
+
+def gossip_chunk(wp, col, means, cols):
     """One column chunk of the gossip through ``sparse_exchange_`` on the
     card (R = 4 bf16 rows, 2 clusters, levels GOSSIP_LEVELS, int4): bit
     for bit its plain route; no host synchronisation inside it
-    (``torch.cuda.set_sync_debug_mode("error")``); its card time, its
-    host-paced time and its launches by kernel (torch.profiler)."""
+    (``torch.cuda.set_sync_debug_mode("error")``); GOSSIP_CHUNK_LAUNCHES
+    device launches (the wire kernels' counters and the PyTorch operators
+    that launch a kernel); its card time, its host-paced time and its
+    launches by kernel as torch.profiler sees them (not gated)."""
     C, Dev = 2, 2
     x = means.repeat_interleave(Dev, dim=0).to(torch.bfloat16)
     kw = dict(clusters=C, dev=Dev, hkind="ring", wire_dtype="int4",
               wire_block=1024, cluster_theta=GOSSIP_LEVELS,
-              chunk_cols=agg_cols)
+              chunk_cols=cols)
     want = x.clone()
     col.sparse_exchange_(want, impl="plain", **kw)
     got = x.clone()
@@ -1362,8 +1641,9 @@ def gossip_chunk(wp, col, means, agg_cols):
     torch.cuda.synchronize()
     if not torch.equal(_bits(checked), _bits(got)):
         fail("a gossip chunk under the sync check gave another result")
+    counted = x.clone()
     wp.reset_launches()
-    col.sparse_exchange_(x.clone(), **kw)
+    ops = aten_kernel_ops(lambda: col.sparse_exchange_(counted, **kw))
     launches = dict(wp.LAUNCHES)
     scratch = x.clone()
     run = lambda: col.sparse_exchange_(scratch, **kw)
@@ -1371,15 +1651,25 @@ def gossip_chunk(wp, col, means, agg_cols):
     row = dict(case=f"one chunk: sparse_exchange_ on (4, {x.shape[1]}) "
                f"bf16, C=2 ring, int4 levels {GOSSIP_LEVELS}",
                ms=time_ms(run), call_ms=time_ms(run, host_paced=True),
-               launches=sum(names.values()), launches_by_kernel=names,
-               wire_launches=launches, host_syncs=0)
+               device_launches=sum(launches.values()) + len(ops),
+               wire_launches=launches, torch_kernel_ops=ops,
+               profiler_launches_by_kernel=names, host_syncs=0)
     print("gossip_chunk " + json.dumps(row))
+    want_wire = {"wire_encode": 2, "wire_pack": 0, "wire_unpack": 0,
+                 "wire_decode_mix": 1}
+    if (launches != want_wire
+            or row["device_launches"] != GOSSIP_CHUNK_LAUNCHES):
+        fail(f"a gossip chunk ran {row['device_launches']} device "
+             f"launches (wire {launches}, PyTorch {ops}), expected "
+             f"{GOSSIP_CHUNK_LAUNCHES} (wire {want_wire})")
     return row
 
 
-def wire_phase(wp, configs, mamba2, agg_cols):
-    """Phase 10.  Returns {kernel: row}: the encode, pack and unpack at
-    WIRE_MAIN_LEVEL on w_in, the decode-and-mix at the main chunk."""
+def wire_phase(wp, configs, mamba2, cols):
+    """Phase 10 at the gossip's column chunk of ``cols`` columns.  Returns
+    {kernel: row}: the encode (p4 offsets, the gossip's form), pack and
+    unpack at WIRE_MAIN_LEVEL on w_in, the decode-and-mix at the main
+    chunk."""
     from repro_torch.dist import collectives as col
     gen = torch.Generator(device="cuda").manual_seed(10)
     n = 0
@@ -1402,8 +1692,8 @@ def wire_phase(wp, configs, mamba2, agg_cols):
         for rows in (None, (1, 3), (2,)):
             for k_b in sorted({1, max(1, wb // 10), wb}):
                 for wd in WIRE_DTYPES:
-                    encode_rows_check(wp, x, rows, k_b, wd, wb, "rows")
-                    nrows += 1
+                    nrows += encode_rows_check(wp, x, rows, k_b, wd, wb,
+                                               "rows")
     print(f"wire encode of rows in place: {nrows} cases (wb "
           f"{list(WIRE_BLOCKS) + [20, 31]}, ragged rows, row subsets, "
           f"row stride 2L), each on the kernel encode_route names")
@@ -1424,14 +1714,17 @@ def wire_phase(wp, configs, mamba2, agg_cols):
               f"L={case[3]}: {len(steps)} steps, "
               f"{-(-len(steps) // wp.MIX_STEPS)} launches a call, bit for "
               f"bit in every dtype")
-    # the main path's inputs: a column chunk of w_in's first layer (bf16
-    # weights, so many exactly tied magnitudes), one sender row in f32
-    cfg = configs.get_config("mamba2_1p3b").model.replace(num_layers=1)
+    # the main path's inputs: a column chunk of w_in (bf16 weights, so
+    # many exactly tied magnitudes), one sender row in f32
+    cfg = configs.get_config("mamba2_1p3b").model
+    din, _, _, heads, conv_ch = mamba2._dims(cfg)
+    per_layer = cfg.d_model * (din + conv_ch + heads)
+    cfg = cfg.replace(num_layers=-(-2 * cols // per_layer))
     w_in = mamba2.init(cfg, seed=12, device="cuda")["layers"]["w_in"]
     wb = 1024
     flat = w_in.reshape(-1)
-    xb = flat[:agg_cols].float().reshape(1, -1, wb).contiguous()
-    means = flat[:2 * agg_cols].float().reshape(2, agg_cols)
+    xb = flat[:cols].float().reshape(1, -1, wb).contiguous()
+    means = flat[:2 * cols].float().reshape(2, cols)
     del w_in, flat
     rows = {}
     for theta in WIRE_LEVELS:
@@ -1442,11 +1735,19 @@ def wire_phase(wp, configs, mamba2, agg_cols):
         nb = xb.shape[1]
         lo_b, bm_b = wp._p4_sizes(wb, k_b)
         nbytes = lo_b + bm_b
+        vals_b = -(-k_b // 2)
+
+        def encode_plain():
+            vals, o, scale = wp.encode_blocks_plain(xb, k_b,
+                                                    wire_dtype="int4")
+            return vals, wp.pack_offsets_plain(o, wb=wb, mode="p4"), scale
+
         works = {  # (bytes read once + written once, launch, plain)
-            "wire_encode": (
-                xb.numel() * 4 + nb * (-(-k_b // 2) + 4 * k_b + 4),
-                lambda: wp.encode_blocks_cuda(xb, k_b, wire_dtype="int4"),
-                lambda: wp.encode_blocks_plain(xb, k_b, wire_dtype="int4")),
+            "wire_encode": (  # p4 offsets: the gossip's encode
+                xb.numel() * 4 + nb * (vals_b + nbytes + 4),
+                lambda: wp.encode_blocks_cuda(xb, k_b, wire_dtype="int4",
+                                              omode="p4"),
+                encode_plain),
             "wire_pack": (
                 nb * (4 * k_b + nbytes),
                 lambda: wp.pack_offsets_cuda(off, wb=wb),
@@ -1465,16 +1766,27 @@ def wire_phase(wp, configs, mamba2, agg_cols):
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None, max_abs_err=0.0)
             if name == "wire_encode":
-                row["route"] = wp.encode_route(wb)
+                # the encode as the gossip ran it before the fused pack:
+                # int32 offsets, then the pack kernel
+                i32 = lambda: wp.encode_blocks_cuda(xb, k_b,
+                                                    wire_dtype="int4")
+                row.update(
+                    offsets="p4", route=wp.encode_route(wb),
+                    i32_ms=time_ms(i32),
+                    i32_then_pack_ms=time_ms(
+                        lambda: wp.pack_offsets_cuda(i32()[1], wb=wb)),
+                    i32_bound_ms=bound(0, xb.numel() * 4 + nb * (
+                        vals_b + 4 * k_b + 4), torch.float32)[0])
             if theta == WIRE_MAIN_LEVEL:
                 row["kernel_split_us"] = kernel_split(kern)
                 rows[name] = row
             print("wire " + json.dumps(row))
-    rows["wire_decode_mix"] = decode_mix_main(wp, col, means, agg_cols)
-    gossip_chunk(wp, col, means, agg_cols)
-    print(f"wire: {n} cases of encode, p4 pack and p4 unpack (zero "
-          f"payloads), {nrows} of the encode of rows in place and {nmix + 1} "
-          f"of the decode-and-mix bit for bit equal to the plain versions")
+    rows["wire_decode_mix"] = decode_mix_main(wp, col, means)
+    gossip_chunk(wp, col, means, cols)
+    print(f"wire: {n} cases of the encode (in every offset form), p4 pack "
+          f"and p4 unpack (zero payloads), {nrows} of the encode of rows "
+          f"in place and {nmix + 1} of the decode-and-mix bit for bit equal "
+          f"to the plain versions")
     del xb, means
     torch.cuda.empty_cache()
     return rows
@@ -1598,27 +1910,31 @@ def small_sparse_round_agrees(configs, mamba2, rnd_mod, base, compression,
         if not (worst <= ROUND_RTOL and flips <= allowed and moved > 0):
             fail("the fused round on the card disagrees with the CPU")
     # the wire-EF path: each cluster decodes its own payload with the p4
-    # unpack kernel, the neighbours' through the decode-and-mix kernel
+    # unpack kernel, the neighbours' through the decode-and-mix kernel;
+    # the encode packs the offsets itself
     launches = dict(wp.LAUNCHES)
     print(f"mamba2 small sparse round: wire launches on the card {launches}")
-    if not all(launches.values()):
-        fail(f"a wire kernel did not run on the wire-EF path: {launches}")
+    if launches["wire_pack"] or not all(
+            v for k, v in launches.items() if k != "wire_pack"):
+        fail(f"on the wire-EF path the encode, the unpack and the "
+             f"decode-and-mix must run and the standalone pack must not: "
+             f"{launches}")
     return launches
 
 
-def predicted_wire_launches(cfg_params, levels, hcef, wf, agg_cols, bands,
+def predicted_wire_launches(cfg_params, levels, hcef, wf, cols, bands,
                             clusters, mix_steps, mix_rows):
     """Launches of each wire kernel in one gossip round without wire EF:
     per leaf and per wire plan (a level whose int4 encoding stays below
-    the bf16 row), one encode and one p4 pack a column chunk; one
-    decode-and-mix a chunk per ``mix_steps`` steps (a step is a band of H
-    and a plan, the dense plans included) and ``mix_rows`` clusters; no
-    standalone unpack."""
+    the bf16 row), one encode a column chunk of ``cols`` (it writes the
+    packed offsets: no standalone pack); one decode-and-mix a chunk per
+    ``mix_steps`` steps (a step is a band of H and a plan, the dense
+    plans included) and ``mix_rows`` clusters; no standalone unpack."""
     want = {"wire_encode": 0, "wire_pack": 0, "wire_unpack": 0,
             "wire_decode_mix": 0}
     for L in cfg_params:
         wb = wf.wire_block_of(L, hcef.wire_block)
-        chunks = -(-L // max(wb, agg_cols // wb * wb))
+        chunks = -(-L // max(wb, cols // wb * wb))
         keys = set()
         for k_b in sorted({wf.wire_k(t, L, hcef.wire_block)
                            for t in levels}):
@@ -1627,8 +1943,6 @@ def predicted_wire_launches(cfg_params, levels, hcef, wf, agg_cols, bands,
                 continue
             keys.add(k_b)
             want["wire_encode"] += chunks
-            if wf.offset_mode(wb, k_b, "int4") == "p4":
-                want["wire_pack"] += chunks
         want["wire_decode_mix"] += chunks * max(1, -(-bands * len(keys)
                                                      // mix_steps)) * -(
             -clusters // mix_rows)
@@ -1688,7 +2002,7 @@ def mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_gossip = sum(h["gossip"] for h in hist)
     per_round = predicted_wire_launches(
-        sizes, levels, hcef, wf, rnd_mod.AGG_COLS, bands=1,  # C = 2 ring
+        sizes, levels, hcef, wf, rnd_mod.GOSSIP_COLS, bands=1,  # C = 2 ring
         clusters=topo.clusters, mix_steps=wp.MIX_STEPS,
         mix_rows=wp.MIX_ROWS)
     steps_run = SPARSE_ROUNDS * R * hcef.tau
@@ -1696,7 +2010,9 @@ def mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
     want.update(ssd_scan_fwd=steps_run * cfg.num_layers * (2 if cfg.remat
                                                             else 1),
                 ssd_scan_bwd=steps_run * cfg.num_layers,
-                topk_compress=SPARSE_ROUNDS * len(sizes))
+                topk_compress=SPARSE_ROUNDS * topk_launches(
+                    list(flatten(state.params).values()),
+                    list(flatten(state.ef).values()), tk))
     if not all(np.isfinite(h["loss"]) for h in hist):
         fail(f"non-finite loss: {[h['loss'] for h in hist]}")
     if n_gossip != 2 or any(h["theta_wire"] != (np.float32(0.6) if
@@ -1766,11 +2082,11 @@ def main():
     build.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc wall {build.build_seconds})")
-    for name, (regs, spills, stack, n) in ptxas_summary(
+    for name, (regs, spills, stack, smem, n) in ptxas_summary(
             build.build_log).items():
         print(f"  ptxas: {name}: up to {regs} registers, {spills} bytes of "
-              f"spill stores, {stack} bytes of stack, over {n} "
-              f"instantiations")
+              f"spill stores, {stack} bytes of stack, {smem} bytes of "
+              f"static shared memory, over {n} instantiations")
 
     # the served stream fixes the main path's prefill and decode shapes:
     # every prefill runs at S_pad, every decode over `width` pages per slot
@@ -1830,6 +2146,7 @@ def main():
     leaf_shapes = [tuple(p.shape) for p in init("resnet20").values()]
     fc1 = tuple(init("femnist_cnn")["fc1_w"].shape)
     main_topk = topk_phase(tk, leaf_shapes, fc1)
+    topk_mamba2_cases(tk, configs, mamba2)
 
     # -- phases 6 and 7 ------------------------------------------------------
     fedsim_agrees(fedsim)
@@ -1840,12 +2157,13 @@ def main():
 
     # -- phase 9 -------------------------------------------------------------
     small_round_agrees(configs, mamba2, rnd_mod, base)
-    m2 = mamba2_full(train, ss, tk)
+    m2 = mamba2_full(train, ss, tk,
+                     mamba2_topk_launches(configs, mamba2, tk))
     launches.update(ssd_scan_fwd=m2["ssd_scan_fwd"],
                     ssd_scan_bwd=m2["ssd_scan_bwd"])
 
     # -- phase 10 ------------------------------------------------------------
-    main_wire = wire_phase(wp, configs, mamba2, rnd_mod.AGG_COLS)
+    main_wire = wire_phase(wp, configs, mamba2, rnd_mod.GOSSIP_COLS)
 
     # -- phases 11 and 12 ----------------------------------------------------
     m11 = small_sparse_round_agrees(configs, mamba2, rnd_mod, base,
@@ -1888,9 +2206,18 @@ def main():
             launches=launches[name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    kernels[2]["note"] = ("one launch over every leaf of a (delta type, "
+                          "EF type) pair: one a ResNet-20 round, ragged "
+                          "leaves handled in the kernel")
     kernels[4]["note"] = ("the backward has no TPU counterpart: jax.grad "
                           "through ssd_pallas fails; held to jax.grad of "
                           "ref.ssd_chunked_jnp through the plain version")
+    kernels[5]["note"] = ("times and bound with p4 offsets, the gossip's "
+                          "form: the encode writes the p4 bytes itself "
+                          "(pack_offsets_pallas's work, wire_pack.py:244)")
+    kernels[6]["note"] = ("off the gossip path: the encode writes the p4 "
+                          "bytes; this kernel serves ops.pack_offsets on "
+                          "int32 offsets, which no main path calls")
     kernels[7]["note"] = ("launches from phase 11 (the wire EF's own "
                           "decode); phase 12's gossip decodes in "
                           "wire_decode_mix")

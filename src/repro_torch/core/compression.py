@@ -1,13 +1,15 @@
 """The paper's compression operator Q on stacked-replica parameter dicts
 (port of ``repro/core/compression.py``, its plain branch).
 
-Each leaf of the per-replica delta (R, *shape) is flattened to (R, L)
-and compressed with the block-local top-k kernel with fused error feedback
-(``ops.topk_compress``: the CUDA kernel for CUDA tensors, its plain version
-on the CPU), the compressed delta written over the delta and the residual
+Each leaf of the per-replica delta (R, *shape) is flattened to (R, L),
+and all of them are compressed together with the block-local top-k kernel
+with fused error feedback (``ops.topk_compress_leaves``: on the card one
+launch per (delta type, EF type) pair of the leaves, its plain version on
+the CPU), the compressed delta written over the delta and the residual
 over the EF buffer.  A leaf whose L is not a multiple of the block is
-padded with zeros and copied back.  The reference's per-shard ``shard_map`` branch waits for the
-multi-GPU slice (ROADMAP.md, multi-GPU mesh path).
+compressed as if zero-padded to it, as the reference pads it.  The
+reference's per-shard ``shard_map`` branch waits for the multi-GPU slice
+(ROADMAP.md, multi-GPU mesh path).
 """
 from __future__ import annotations
 
@@ -15,30 +17,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-
-
-def _leaf(d, e, theta, block, error_feedback, impl):
-    """d, e: (R, *shape), contiguous; theta: (R,) float32.  Q over the
-    flattened (R, L) rows, masked written over d and the residual over e.
-    A pad to the block goes through the kernel like any other data and is
-    sliced off after it (:32)."""
-    R = d.shape[0]
-    flat, res = d.view(R, -1), e.view(R, -1)
-    ef = res if error_feedback else None
-    L = flat.shape[1]
-    pad = (-L) % block
-    if not pad:
-        ops.topk_compress(flat, theta, block=block, ef=ef, out=(flat, res),
-                          impl=impl)
-        return
-    masked, resid = ops.topk_compress(
-        F.pad(flat, (0, pad)), theta, block=block,
-        ef=None if ef is None else F.pad(ef, (0, pad)), impl=impl)
-    flat.copy_(masked[:, :L])
-    res.copy_(resid[:, :L])
 
 
 def compress_delta(delta: Dict[str, torch.Tensor],
@@ -54,9 +34,12 @@ def compress_delta(delta: Dict[str, torch.Tensor],
     new EF buffer even with ``error_feedback=False`` (then ef is not
     added).  ef holds delta's type, or float32 with error feedback on; the
     round step's memory at full width has no room for a second copy of
-    either.  ``impl`` routes the top-k (``ops.topk_compress``)."""
-    for name, d in delta.items():
-        _leaf(d, ef[name], theta, block, error_feedback, impl)
+    either.  ``impl`` routes the top-k (``ops.topk_compress_leaves``)."""
+    flat = [d.view(d.shape[0], -1) for d in delta.values()]
+    res = [ef[name].view(d.shape[0], -1) for name, d in delta.items()]
+    ops.topk_compress_leaves(flat, theta, block=block,
+                             efs=res if error_feedback else None,
+                             outs=list(zip(flat, res)), impl=impl)
     return delta, ef
 
 

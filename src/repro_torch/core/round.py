@@ -7,7 +7,7 @@ Stacked-replica layout: every leaf of the state holds the R devices' copies
 on a leading dim.  One call is one edge round:
   tau masked local SGD steps per device  ->  delta = x_tau - x_0
   -> Q(delta + ef) block top-k with error feedback (theta per device),
-     one top-k kernel launch per leaf over the R rows
+     one top-k kernel launch over every leaf of a type pair
   -> the aggregation, by one of two branches:
      off the mesh (no policy): the intra-cluster mean, or on gossip rounds
        the (C, R) GEMM M = H diag(1/Dev) B that folds the mean and the H
@@ -55,7 +55,22 @@ from repro_torch.models.registry import get_model
 from repro_torch.optim.sgd import sgd_update_
 from repro_torch.tree import flatten, tree_map
 
-AGG_COLS = 1 << 22  # columns of a leaf per aggregation or gossip chunk
+AGG_COLS = 1 << 22  # columns of a leaf per aggregation chunk
+# columns of a leaf per gossip chunk, at most: the gossip's chunk loop is
+# host-bound below this width (tools/gossip_bench.py on an H100,
+# mamba2-1.3B with C = 2 clusters: a gossip round in 151-157 ms at 2^22
+# columns, 65-88 ms at 2^23, 63-64 ms at 2^24, the gossip adding 0.42 GB
+# at 2^24, about three (C, cols) f32 rows)
+GOSSIP_COLS = 1 << 24
+# the chunk's scratch that every backhaul keeps to: GOSSIP_COLS at C = 2
+GOSSIP_SCRATCH_BYTES = 3 * 2 * 4 * GOSSIP_COLS
+
+
+def gossip_cols(clusters: int) -> int:
+    """Columns of a leaf per gossip chunk with ``clusters`` clusters:
+    GOSSIP_COLS, narrowed so that three (clusters, cols) f32 rows stay
+    within GOSSIP_SCRATCH_BYTES.  The mixed rows do not depend on it."""
+    return min(GOSSIP_COLS, GOSSIP_SCRATCH_BYTES // (3 * 4 * clusters))
 
 
 class FLState(NamedTuple):
@@ -214,7 +229,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     wire_kw = dict(clusters=C, dev=Dev, hkind=topo.backhaul,
                    wire_dtype=hcef.wire_dtype, wire_block=hcef.wire_block,
                    wire_ef_gamma=hcef.wire_ef_gamma, impl=impl,
-                   chunk_cols=AGG_COLS)
+                   chunk_cols=gossip_cols(C))
     H = torch.as_tensor(make_mixing(topo.backhaul, C), dtype=torch.float32)
     M = torch.repeat_interleave(H / Dev, Dev, dim=1)  # (C, R)
     bits_fn = bits_fn or functools.partial(bernoulli_bits, tau=hcef.tau)

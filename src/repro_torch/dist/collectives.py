@@ -18,7 +18,8 @@ rotation are zero (a zero payload, which decodes to zero), and a level
 whose encoding would reach the dense row ships the dense row instead.
 ``wire_encode`` / ``wire_decode`` are the five wire formats
 (``core/wire_format.py``); int4 and fp8 go through the wire kernels
-(``ops.encode_rows``, ``ops.pack_offsets``, ``ops.unpack_offsets``).  The
+(``ops.encode_rows``, which writes the packed offsets itself, and
+``ops.unpack_offsets``).  The
 gossip decodes and mixes every band and plan of a chunk in one
 ``ops.wire_decode_mix`` (one kernel launch on the card, every wire
 format), and its host tables (H's bands, the plans' sender rows) reach
@@ -188,9 +189,9 @@ def _on_device(values: tuple, dtype: torch.dtype, device: torch.device):
 def _encode(x, rows, k_b: int, wb: int, wire_dtype: str, impl=None) -> Wire:
     """Rows ``rows`` (None: all) of x (C, L) -> Wire at wire block ``wb``;
     the rows are zero-padded to a multiple of it.  The v2 formats go
-    through ``ops.encode_rows`` (on the card the kernel reads the rows in
-    place) and the offset pack; the v1 formats select with a stable
-    descending sort, which breaks ties toward the lower index as
+    through ``ops.encode_rows`` (on the card one kernel reads the rows in
+    place and writes the packed offsets); the v1 formats select with a
+    stable descending sort, which breaks ties toward the lower index as
     ``lax.top_k`` does."""
     if wire_dtype == "int8" and wb > 32768:
         raise ValueError(  # int16 offsets wrap past 2^15 - 1
@@ -198,12 +199,9 @@ def _encode(x, rows, k_b: int, wb: int, wire_dtype: str, impl=None) -> Wire:
     k_b = max(1, min(int(k_b), wb))
     x = x.float()
     if wire_dtype in ("int4", "fp8"):
-        vals, off, scale = ops.encode_rows(x, rows, k_b, wb=wb,
-                                           wire_dtype=wire_dtype, impl=impl)
-        packed = ops.pack_offsets(off, wb=wb,
-                                  mode=wf.offset_mode(wb, k_b, wire_dtype),
-                                  impl=impl)
-        return Wire(vals, packed, scale)
+        return Wire(*ops.encode_rows(
+            x, rows, k_b, wb=wb, wire_dtype=wire_dtype,
+            omode=wf.offset_mode(wb, k_b, wire_dtype), impl=impl))
     if rows is not None:
         x = x.index_select(0, _on_device(tuple(rows), torch.long, x.device))
     xb = pad_rows(x, None, wb)

@@ -30,12 +30,12 @@ SIGNATURES = {
     "repro_flash_attention_fwd":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_paged_decode_attention_fwd": [_P] * 12 + [_I] * 9 + [_F, _P],
-    "repro_topk_compress": [_P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P],
+    "repro_topk_compress_leaves": [_P, _I, _I, _I, _P],
     "repro_ssd_plan": [_I] * 9 + [_P],
     "repro_ssd_fwd": [_P] * 8 + [_LL] + [_I] * 8 + [_P],
     "repro_ssd_bwd": [_P] * 13 + [_LL] + [_I] * 8 + [_P],
-    "repro_wire_encode_rows": [_P, _LL, _P, _I, _LL, _P, _P, _P, _I, _I, _I,
-                               _I, _P],
+    "repro_wire_encode_rows": [_P, _LL, _P, _I, _LL, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _P],
     "repro_wire_pack_p4": [_P, _P, _LL, _I, _I, _P],
     "repro_wire_unpack_p4": [_P, _P, _LL, _I, _I, _P],
     "repro_wire_decode_mix": [_P, _I, _P],

@@ -4,7 +4,9 @@
 // Replaces src/repro/kernels/wire_pack.py:
 //   encode_blocks_pallas (:343, _encode_kernel) -> encode_warp_kernel
 //                                                   (wb <= 1024), encode_kernel
-//   pack_offsets_pallas (:244, _pack_p4_kernel)  -> pack_p4_kernel
+//   pack_offsets_pallas (:244, _pack_p4_kernel)  -> the encodes' p4 epilogue
+//                                                   (on the gossip path), and
+//                                                   pack_p4_kernel
 //   unpack_offsets_pallas (:264, _unpack_p4_kernel) -> unpack_p4_kernel
 // bit for bit as kernels/wire_pack.py's plain versions compute them.
 // decode_mix_kernel has no TPU counterpart: the reference decodes in jnp
@@ -24,6 +26,10 @@
 //            (round to nearest even, saturating)
 // It reads its sender rows where they lie (row indices by value); entries
 // past the row's length L read as +0, as the zero pad of the plain version.
+// It writes the offsets in one of three forms (kOff*): int32, uint8 (wb <=
+// 256), or the p4 bytes pack_p4_kernel makes of them, with no int32
+// offsets in device memory (the CTA-per-block encode keeps them in a
+// scratch row and packs them after its last barrier; it writes no u8).
 // pack_p4_kernel, per block of k_b ascending offsets: the low nibbles two
 // per byte, then a bitmap with bit (off_i >> 4) + i set (bit b of byte j is
 // position 8j + b).  unpack_p4_kernel inverts it: the i-th set bit at
@@ -45,7 +51,14 @@
 // the band fill and the compaction are __ballot_sync and popcounts over
 // the rounds in ascending order, so the offsets come out ascending without
 // a scan, and each kept value is quantized in the same pass (int4 pairs
-// its nibbles through the warp's share of shared memory).  Blocks beyond
+// its nibbles through the warp's share of shared memory).  In p4 form the
+// same pass puts each kept offset's low nibble into the warp's shared
+// bytes and sets its bit (off >> 4) + pos of the warp's shared bitmap
+// (the bits rise strictly, so none collide; a word's bits are ORed by
+// shared atomics); after a __syncwarp the warp writes the block's p4
+// bytes: the pack costs no launch, and no int32 offset goes through device
+// memory (at k_b 615 a block's 2460 offset bytes written and read again
+// become its 393 p4 bytes written once).  Blocks beyond
 // the registers (wb > 1024) keep the CTA-per-block encode_kernel, whose 16
 // bisection steps are block reductions.  The decode-and-mix replaces the
 // chain of zero fills, rolls, unpack, dequantize, scatter and mix (about
@@ -79,6 +92,8 @@ constexpr int kMaxWarps = 32;
 // (kernels/wire_pack.py:WARP_ENCODE_MAX), kEncodeWarps blocks a CTA.
 constexpr int kWarpRounds = 32;
 constexpr int kWarpEncodeMax = 32 * kWarpRounds;
+// words of a p4 bitmap at wb <= kWarpEncodeMax: k_b + ceil(wb / 16) bits
+constexpr int kP4Words = (kWarpEncodeMax + kWarpEncodeMax / 16 + 31) / 32;
 constexpr int kEncodeWarps = 8;
 constexpr int kMaxEncodeRows = 32;  // sender rows a launch (wire_pack.py)
 
@@ -141,6 +156,13 @@ __device__ int block_exclusive_scan(int v, int* red, int* total) {
   return before + incl - v;
 }
 
+// Bytes of a block's p4 offsets: the low nibbles, then the bitmap.
+__host__ __device__ inline void p4_sizes(int wb, int k_b, int* lo_bytes,
+                                         int* bm_bytes) {
+  *lo_bytes = (k_b + 1) / 2;
+  *bm_bytes = (k_b + (wb + 15) / 16 + 7) / 8;
+}
+
 __device__ __forceinline__ int quant_int(float v, float s, float levels) {
   return static_cast<int>(rintf(__fmul_rn(__fdiv_rn(v, s), levels)));
 }
@@ -179,15 +201,22 @@ struct EncodeRows {
 };
 
 // At most 64 registers a thread, so that 4 CTAs (32 warps) fit an SM and
-// the main path's 4096 blocks run in one wave.
-template <int kDtype>
+// the main path's 4096 blocks run in one wave.  Offsets go to off (int32,
+// kOffI32) or to packed (uint8 kOffU8, or the p4 bytes kOffP4).
+template <int kDtype, int kOmode>
 __global__ void __launch_bounds__(kEncodeWarps * 32, 4)
 encode_warp_kernel(const float* __restrict__ x, const EncodeRows rows,
                    void* __restrict__ vals, int* __restrict__ off,
-                   float* __restrict__ scale, int wb, int k_b) {
+                   uint8_t* __restrict__ packed, float* __restrict__ scale,
+                   int wb, int k_b) {
   // int4: the kept nibbles of each warp's block, paired after the fill
   __shared__ uint8_t nib_all[kDtype == kWireInt4 ? kEncodeWarps : 1]
                             [kWarpEncodeMax];
+  // p4: the kept offsets' low nibbles and the bitmap of each warp's block
+  __shared__ uint8_t onib_all[kOmode == kOffP4 ? kEncodeWarps : 1]
+                             [kWarpEncodeMax];
+  __shared__ unsigned int bm_all[kOmode == kOffP4 ? kEncodeWarps : 1]
+                                [kP4Words];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kEncodeWarps + warp;
   if (g >= static_cast<int64_t>(rows.n) * rows.nb) return;  // whole warps
@@ -211,6 +240,7 @@ encode_warp_kernel(const float* __restrict__ x, const EncodeRows rows,
   for (int o = 16; o > 0; o >>= 1)
     vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
   const float hi0 = vmax;
+  if (lane == 0) scale[g] = hi0;  // written now: one pointer less live
 
   // mid >= 0 and hi >= 0, so the empty lanes' zeros never count: the
   // counts need no guard
@@ -236,7 +266,12 @@ encode_warp_kernel(const float* __restrict__ x, const EncodeRows rows,
   const float s = fmaxf(hi0, 1e-30f);
   const unsigned int below = (1u << lane) - 1u;
   uint8_t* nib = nib_all[kDtype == kWireInt4 ? warp : 0];
-  int* orow = off + g * k_b;
+  uint8_t* onib = onib_all[kOmode == kOffP4 ? warp : 0];
+  unsigned int* bm = bm_all[kOmode == kOffP4 ? warp : 0];
+  if (kOmode == kOffP4) {
+    for (int w = lane; w < kP4Words; w += 32) bm[w] = 0u;
+    __syncwarp();
+  }
   int nband = 0, nkept = 0;  // band members and kept entries so far
 #pragma unroll
   for (int r = 0; r < kWarpRounds; ++r) {
@@ -251,14 +286,22 @@ encode_warp_kernel(const float* __restrict__ x, const EncodeRows rows,
     const unsigned int kmask = __ballot_sync(0xffffffffu, keep);
     const int pos = nkept + __popc(kmask & below);
     if (keep && pos < k_b) {
-      orow[pos] = e;
+      if (kOmode == kOffI32) {
+        off[g * k_b + pos] = e;
+      } else if (kOmode == kOffU8) {
+        packed[g * k_b + pos] = static_cast<uint8_t>(e);
+      } else {  // p4: e < wb and pos < k_b, so the bit is in the bitmap
+        onib[pos] = static_cast<uint8_t>(e & 15);
+        const int bit = (e >> 4) + pos;
+        atomicOr(&bm[bit >> 5], 1u << (bit & 31));
+      }
       put_value<kDtype>(vals, g, k_b, pos, __fadd_rn(v[r], 0.0f), s, nib);
     }
     nband += __popc(bmask);
     nkept += __popc(kmask);
   }
+  if (kDtype == kWireInt4 || kOmode == kOffP4) __syncwarp();
   if (kDtype == kWireInt4) {
-    __syncwarp();
     const int pairs = (k_b + 1) / 2;
     uint8_t* vr = static_cast<uint8_t*>(vals) + g * pairs;
     for (int p = lane; p < pairs; p += 32) {
@@ -267,16 +310,33 @@ encode_warp_kernel(const float* __restrict__ x, const EncodeRows rows,
       vr[p] = static_cast<uint8_t>(q0 | (q1 << 4));
     }
   }
-  if (lane == 0) scale[g] = hi0;
+  if (kOmode == kOffP4) {
+    int lo_bytes, bm_bytes;
+    p4_sizes(wb, k_b, &lo_bytes, &bm_bytes);
+    uint8_t* dst = packed + g * (lo_bytes + bm_bytes);
+    for (int p = lane; p < lo_bytes; p += 32) {
+      const int n0 = onib[2 * p];
+      const int n1 = 2 * p + 1 < k_b ? onib[2 * p + 1] : 0;
+      dst[p] = static_cast<uint8_t>(n0 | (n1 << 4));
+    }
+    for (int j = lane; j < bm_bytes; j += 32)
+      dst[lo_bytes + j] = static_cast<uint8_t>(bm[j >> 2] >> (8 * (j & 3)));
+  }
 }
 
 // The encode for blocks beyond a warp's registers: one CTA a block, the
-// entries in shared memory, each bisection step a block reduction.
-template <int kDtype>
+// entries in shared memory, each bisection step a block reduction.  The
+// int32 offsets always go to off (in p4 form a scratch row), and packed
+// gets their p4 form after the last barrier.  Its blocks are wider than
+// u8 offsets reach (wb <= 256), so it has no u8 form.
+template <int kDtype, int kOmode>
 __global__ void __launch_bounds__(kEncodeThreads)
 encode_kernel(const float* __restrict__ x, const EncodeRows rows,
               void* __restrict__ vals, int* __restrict__ off,
-              float* __restrict__ scale, int wb, int k_b) {
+              uint8_t* __restrict__ packed, float* __restrict__ scale, int wb,
+              int k_b) {
+  static_assert(kOmode == kOffI32 || kOmode == kOffP4,
+                "the CTA-per-block encode writes int32 or p4 offsets");
   extern __shared__ float xs[];  // the block's wb entries
   __shared__ int red[kMaxWarps];
   __shared__ float redf[kMaxWarps];
@@ -362,11 +422,33 @@ encode_kernel(const float* __restrict__ x, const EncodeRows rows,
               : 0;
       vr[p] = static_cast<uint8_t>((q0 & 15) | ((q1 & 15) << 4));
     }
-    return;
+  } else {
+    for (int j = tid; j < k_b; j += kEncodeThreads)
+      put_value<kDtype>(vals, blk, k_b, j, __fadd_rn(xs[orow[j]], 0.0f), s,
+                        nullptr);
   }
-  for (int j = tid; j < k_b; j += kEncodeThreads)
-    put_value<kDtype>(vals, blk, k_b, j, __fadd_rn(xs[orow[j]], 0.0f), s,
-                      nullptr);
+  if (kOmode != kOffP4) return;
+  // p4: the bitmap goes into xs's first words, which nothing reads now
+  // (ceil(bm_bytes / 4) <= wb)
+  int lo_bytes, bm_bytes;
+  p4_sizes(wb, k_b, &lo_bytes, &bm_bytes);
+  unsigned int* bm = reinterpret_cast<unsigned int*>(xs);
+  __syncthreads();  // every value is read out of xs
+  for (int w = tid; w < (bm_bytes + 3) / 4; w += kEncodeThreads) bm[w] = 0u;
+  __syncthreads();
+  uint8_t* dst = packed + blk * (lo_bytes + bm_bytes);
+  for (int p = tid; p < lo_bytes; p += kEncodeThreads) {
+    const int n0 = orow[2 * p] & 15;
+    const int n1 = 2 * p + 1 < k_b ? (orow[2 * p + 1] & 15) : 0;
+    dst[p] = static_cast<uint8_t>(n0 | (n1 << 4));
+  }
+  for (int i = tid; i < k_b; i += kEncodeThreads) {
+    const int bit = (orow[i] >> 4) + i;
+    atomicOr(&bm[bit >> 5], 1u << (bit & 31));
+  }
+  __syncthreads();
+  for (int j = tid; j < bm_bytes; j += kEncodeThreads)
+    dst[lo_bytes + j] = static_cast<uint8_t>(bm[j >> 2] >> (8 * (j & 3)));
 }
 
 __global__ void __launch_bounds__(kPackThreads)
@@ -715,29 +797,58 @@ decode_mix_kernel(const MixArgs a) {
   }
 }
 
-void p4_sizes(int wb, int k_b, int* lo_bytes, int* bm_bytes) {
-  *lo_bytes = (k_b + 1) / 2;
-  *bm_bytes = (k_b + (wb + 15) / 16 + 7) / 8;
-}
+// Where one encode launch writes.
+struct EncodeOut {
+  void* vals;
+  int* off;
+  uint8_t* packed;
+  float* scale;
+};
 
-template <int kDtype>
+template <int kDtype, int kOmode>
 cudaError_t launch_encode(const float* x, const EncodeRows& rows,
-                          void* vals, int* off, float* scale, int wb,
-                          int k_b, bool warp, cudaStream_t stream) {
+                          const EncodeOut& o, int wb, int k_b, bool warp,
+                          cudaStream_t stream) {
   const long long blocks = static_cast<long long>(rows.n) * rows.nb;
   if (warp) {
     const long long ctas = (blocks + kEncodeWarps - 1) / kEncodeWarps;
-    encode_warp_kernel<kDtype>
+    encode_warp_kernel<kDtype, kOmode>
         <<<static_cast<unsigned>(ctas), kEncodeWarps * 32, 0, stream>>>(
-            x, rows, vals, off, scale, wb, k_b);
+            x, rows, o.vals, o.off, o.packed, o.scale, wb, k_b);
     return cudaGetLastError();
   }
-  const size_t smem = static_cast<size_t>(wb) * sizeof(float);
-  cudaError_t err = allow_smem(encode_kernel<kDtype>, smem);
-  if (err != cudaSuccess) return err;
-  encode_kernel<kDtype><<<static_cast<unsigned>(blocks), kEncodeThreads,
-                          smem, stream>>>(x, rows, vals, off, scale, wb, k_b);
-  return cudaGetLastError();
+  if constexpr (kOmode == kOffU8) {
+    return cudaErrorInvalidValue;  // u8 takes the warp route only
+  } else {
+    const size_t smem = static_cast<size_t>(wb) * sizeof(float);
+    cudaError_t err = allow_smem(encode_kernel<kDtype, kOmode>, smem);
+    if (err != cudaSuccess) return err;
+    encode_kernel<kDtype, kOmode>
+        <<<static_cast<unsigned>(blocks), kEncodeThreads, smem, stream>>>(
+            x, rows, o.vals, o.off, o.packed, o.scale, wb, k_b);
+    return cudaGetLastError();
+  }
+}
+
+template <int kOmode>
+cudaError_t launch_encode_dtype(int wire_dtype, const float* x,
+                                const EncodeRows& rows, const EncodeOut& o,
+                                int wb, int k_b, bool warp,
+                                cudaStream_t st) {
+  switch (wire_dtype) {
+    case kWireF32:
+      return launch_encode<kWireF32, kOmode>(x, rows, o, wb, k_b, warp, st);
+    case kWireBF16:
+      return launch_encode<kWireBF16, kOmode>(x, rows, o, wb, k_b, warp, st);
+    case kWireInt8:
+      return launch_encode<kWireInt8, kOmode>(x, rows, o, wb, k_b, warp, st);
+    case kWireInt4:
+      return launch_encode<kWireInt4, kOmode>(x, rows, o, wb, k_b, warp, st);
+    case kWireFp8:
+      return launch_encode<kWireFp8, kOmode>(x, rows, o, wb, k_b, warp, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -748,20 +859,29 @@ cudaError_t launch_encode(const float* x, const EncodeRows& rows,
 // most 32) row indices; each row has L entries, encoded in nb = ceil(L /
 // wb) wire blocks (the last one padded with +0).  vals: (n_rows, nb, k_b),
 // or (n_rows, nb, ceil(k_b / 2)) for int4, in the wire dtype's storage
-// type; off: (n_rows, nb, k_b) int32; scale: (n_rows, nb) f32.
-// wire_dtype: 0 f32, 1 bf16, 2 int8, 3 int4, 4 fp8.  warp: 1 runs the
-// warp-per-block kernel (wb <= 1024), 0 the CTA-per-block one.  Returns a
-// cudaError_t (cudaErrorInvalidValue for arguments the kernels do not
-// take).
+// type; scale: (n_rows, nb) f32.  The offsets, by omode: 0 (int32) off
+// (n_rows, nb, k_b) int32; 2 (u8, wb <= 256, warp 1 only) packed
+// (n_rows, nb, k_b) uint8; 3 (p4) packed (n_rows, nb, ceil(k_b / 2) +
+// ceil((k_b + ceil(wb / 16)) / 8)) uint8.  The CTA-per-block kernel (warp
+// 0) also needs off in p4 form, as scratch.  wire_dtype: 0 f32, 1 bf16, 2
+// int8, 3 int4, 4 fp8.  warp: 1 runs the warp-per-block kernel (wb <=
+// 1024), 0 the CTA-per-block one.  Returns a cudaError_t
+// (cudaErrorInvalidValue for arguments the kernels do not take).
 extern "C" int repro_wire_encode_rows(const void* x, long long row_stride,
                                       const void* rows, int n_rows,
                                       long long L, void* vals, void* off,
-                                      void* scale, int wire_dtype, int wb,
+                                      void* packed, void* scale,
+                                      int wire_dtype, int omode, int wb,
                                       int k_b, int warp, void* stream) {
   using namespace repro;
   if (wb < 1 || k_b < 1 || k_b > wb || n_rows < 1 ||
       n_rows > kMaxEncodeRows || L < 1 || row_stride < 0 ||
       (warp && wb > kWarpEncodeMax))
+    return cudaErrorInvalidValue;
+  if ((omode != kOffI32 && omode != kOffU8 && omode != kOffP4) ||
+      (omode == kOffU8 && (wb > 256 || !warp)) ||
+      ((omode == kOffI32 || !warp) && off == nullptr) ||
+      (omode != kOffI32 && packed == nullptr))
     return cudaErrorInvalidValue;
   EncodeRows r;
   r.L = L;
@@ -776,23 +896,18 @@ extern "C" int repro_wire_encode_rows(const void* x, long long row_stride,
     if (r.idx[i] < 0) return cudaErrorInvalidValue;
   }
   const float* xf = static_cast<const float*>(x);
-  int* o = static_cast<int*>(off);
-  float* s = static_cast<float*>(scale);
+  const EncodeOut o{vals, static_cast<int*>(off),
+                    static_cast<uint8_t*>(packed),
+                    static_cast<float*>(scale)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (wire_dtype) {
-    case kWireF32:
-      return launch_encode<kWireF32>(xf, r, vals, o, s, wb, k_b, warp, st);
-    case kWireBF16:
-      return launch_encode<kWireBF16>(xf, r, vals, o, s, wb, k_b, warp, st);
-    case kWireInt8:
-      return launch_encode<kWireInt8>(xf, r, vals, o, s, wb, k_b, warp, st);
-    case kWireInt4:
-      return launch_encode<kWireInt4>(xf, r, vals, o, s, wb, k_b, warp, st);
-    case kWireFp8:
-      return launch_encode<kWireFp8>(xf, r, vals, o, s, wb, k_b, warp, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (omode == kOffU8)
+    return launch_encode_dtype<kOffU8>(wire_dtype, xf, r, o, wb, k_b, warp,
+                                       st);
+  if (omode == kOffP4)
+    return launch_encode_dtype<kOffP4>(wire_dtype, xf, r, o, wb, k_b, warp,
+                                       st);
+  return launch_encode_dtype<kOffI32>(wire_dtype, xf, r, o, wb, k_b, warp,
+                                      st);
 }
 
 // off: (blocks, k_b) int32 ascending offsets below wb -> out: (blocks,

@@ -9,6 +9,8 @@ on a CPU tensor raises.  Nothing catches a kernel's failure and falls back.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ref
@@ -16,9 +18,9 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_plain, paged_decode_attention_cuda,
     paged_decode_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
-from repro_torch.kernels.topk_compress import (compress_with,
-                                               topk_compress_cuda,
-                                               topk_compress_plain)
+from repro_torch.kernels.topk_compress import (
+    compress_with, leaves_with, topk_compress_cuda, topk_compress_leaves_cuda,
+    topk_compress_leaves_plain, topk_compress_plain)
 from repro_torch.kernels.wire_pack import (
     decode_mix_cuda, decode_mix_plain, encode_blocks_cuda,
     encode_blocks_plain, encode_rows_cuda, encode_rows_plain,
@@ -114,6 +116,36 @@ def topk_compress(x, theta, *, block=1024, impl=None, ef=None, out=None):
     return out
 
 
+def topk_compress_leaves(xs, theta, *, block=1024, efs=None, outs=None,
+                         impl=None):
+    """``topk_compress`` on every leaf of ``xs`` ((R, L_i), any L_i; a
+    leaf whose L_i is not a multiple of the block compressed as the
+    reference's ``compress_delta`` pads it).  The kernel on the card, one
+    launch per (x type, ef type) pair of the table; its plain version (the
+    per-leaf loop, padded) on the CPU; ``impl="ref"`` the exact-sort
+    oracle leaf by leaf.  ``efs``: None or one tensor a leaf; ``outs``:
+    each leaf's (masked, residual), which may be the leaf and its ef.
+    Returns [(masked, residual)]."""
+    if not xs:
+        return []
+    r = _route(impl, xs[0])
+    if r == "kernel":
+        return topk_compress_leaves_cuda(xs, theta, block=block, efs=efs,
+                                         outs=outs)
+    if r == "plain":
+        res = topk_compress_leaves_plain(xs, theta, block=block, efs=efs)
+    else:
+        res = leaves_with(functools.partial(compress_with,
+                                            ref.topk_mask_exact),
+                          xs, theta, block=block, efs=efs)
+    if outs is None:
+        return res
+    for out, got in zip(outs, res):
+        for o, v in zip(out, got):
+            o.copy_(v)
+    return list(outs)
+
+
 def encode_blocks(xb, k_b, *, wire_dtype, impl=None):
     """The fused wire encode (port of ``ops.py:155``): (m, nb, wb) f32 ->
     (vals, off, scale) with ascending offsets and the values quantized for
@@ -128,19 +160,27 @@ def encode_blocks(xb, k_b, *, wire_dtype, impl=None):
     return encode_blocks_plain(xb, k_b, wire_dtype=wire_dtype)
 
 
-def encode_rows(x, rows, k_b, *, wb, wire_dtype, impl=None):
+def encode_rows(x, rows, k_b, *, wb, wire_dtype, omode="i32", impl=None):
     """The wire encode of rows ``rows`` (None: all) of x (C, L) f32 in
     wire blocks of ``wb``, the last one zero-padded: (vals, off, scale) of
-    ``encode_blocks`` on those rows.  The kernel reads the rows where they
-    lie; the plain version and ``impl="ref"`` (the exact top-k) select and
-    pad them first."""
+    ``encode_blocks`` on those rows, the offsets in the form ``omode``:
+    int32 ("i32"), or ``pack_offsets`` of them ("u8", "p4").  The kernel
+    reads the rows where they lie and writes the packed form itself (one
+    launch); the plain version and ``impl="ref"`` (the exact top-k) select
+    and pad the rows first and pack after."""
     r = _route(impl, x)
     if r == "kernel":
-        return encode_rows_cuda(x, rows, k_b, wb=wb, wire_dtype=wire_dtype)
+        return encode_rows_cuda(x, rows, k_b, wb=wb, wire_dtype=wire_dtype,
+                                omode=omode)
     if r == "ref":
-        return ref.encode_blocks_topk(pad_rows(x, rows, wb), k_b,
-                                      wire_dtype=wire_dtype)
-    return encode_rows_plain(x, rows, k_b, wb=wb, wire_dtype=wire_dtype)
+        vals, off, scale = ref.encode_blocks_topk(
+            pad_rows(x, rows, wb), k_b, wire_dtype=wire_dtype)
+    else:
+        vals, off, scale = encode_rows_plain(x, rows, k_b, wb=wb,
+                                             wire_dtype=wire_dtype)
+    if omode != "i32":
+        off = pack_offsets_plain(off, wb=wb, mode=omode)
+    return vals, off, scale
 
 
 def wire_decode_mix(y, steps, *, wb, wire_dtype, diag=None, impl=None):

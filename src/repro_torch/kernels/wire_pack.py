@@ -18,7 +18,10 @@ plain PyTorch version:
   encodes some rows of a (C, L) matrix where they lie, the last block
   zero-padded; a wire block of at most ``WARP_ENCODE_MAX`` entries runs
   the warp-per-block kernel, a larger one the CTA-per-block kernel
-  (``encode_route``).
+  (``encode_route``).  Both write the offsets in the form ``omode`` asks:
+  int32 ("i32"), or the wire's packed forms "u8" and "p4", which are
+  ``pack_offsets_plain`` of the int32 offsets, bit for bit, with no second
+  launch (the p4 pack fused into the encode).
 ``pack_offsets`` / ``unpack_offsets``
   ascending block-local offsets <-> the p4 bytes: the low nibbles two per
   byte, then the delta-unary bitmap with bit (off_i >> 4) + i set for kept
@@ -26,7 +29,9 @@ plain PyTorch version:
   ``pack_offsets_pallas`` / ``unpack_offsets_pallas``; the plain versions
   are the reference's ``pack_offsets_jnp`` / ``unpack_offsets_jnp``.  Both
   are lossless, and an all-zero payload (the zero fill of a partial
-  rotation) decodes to offset 0.  The u8 mode is a cast, no kernel.
+  rotation) decodes to offset 0.  The u8 mode is a cast, no kernel.  The
+  gossip packs inside the encode; the pack kernel serves offsets that
+  are already int32 (``ops.pack_offsets``).
 ``decode_mix``
   the gossip's decode and mix of one column chunk: for each ``MixStep``
   (a band offset o of H and one wire plan's payload) in order, y[c] +=
@@ -344,56 +349,76 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _encode_launch(x, rows, L, k_b, wb, wire_dtype, out):
+def _encode_launch(x, rows, L, k_b, wb, wire_dtype, omode, out):
     """Encode rows ``rows`` of x (row stride x.stride(0)) into ``out``
-    (vals, off, scale) with leading dim len(rows): one launch per
-    MAX_ENCODE_ROWS rows."""
+    (vals, off, packed, scale) with leading dim len(rows): one launch per
+    MAX_ENCODE_ROWS rows.  Returns (vals, the offsets in form ``omode``,
+    scale)."""
+    vals, off, packed, scale = out
+    warp = int(encode_route(wb) == "warp")
+    ptr = lambda t, i: None if t is None else t[i].data_ptr()
+    for i0 in range(0, len(rows), MAX_ENCODE_ROWS):
+        part = rows[i0:i0 + MAX_ENCODE_ROWS]
+        idx = (ctypes.c_int * len(part))(*part)
+        err = build.lib().repro_wire_encode_rows(
+            x.data_ptr(), x.stride(0), idx, len(part), L,
+            vals[i0].data_ptr(), ptr(off, i0), ptr(packed, i0),
+            scale[i0].data_ptr(), _WIRE_CODE[wire_dtype], _OFF_CODE[omode],
+            wb, k_b, warp, _stream(x))
+        _launched("wire_encode", err)
+    return _encoded(out, omode)
+
+
+def _encode_outputs(m, nb, k_b, wb, wire_dtype, omode, device):
+    """(vals, int32 offsets or None, packed offsets or None, scale) of an
+    encode; the CTA-per-block kernel keeps int32 offsets in every form."""
     if wire_dtype not in _WIRE_CODE:
         raise ValueError(f"wire_encode: wire_dtype {wire_dtype!r} not in "
                          f"{WIRE_DTYPES}")
     if not 1 <= k_b <= wb or wb > MAX_ENCODE_BLOCK:
         raise ValueError(f"wire_encode: k_b {k_b}, wb {wb}: need 1 <= k_b "
                          f"<= wb <= {MAX_ENCODE_BLOCK}")
-    vals, off, scale = out
-    warp = int(encode_route(wb) == "warp")
-    for i0 in range(0, len(rows), MAX_ENCODE_ROWS):
-        part = rows[i0:i0 + MAX_ENCODE_ROWS]
-        idx = (ctypes.c_int * len(part))(*part)
-        err = build.lib().repro_wire_encode_rows(
-            x.data_ptr(), x.stride(0), idx, len(part), L,
-            vals[i0].data_ptr(), off[i0].data_ptr(), scale[i0].data_ptr(),
-            _WIRE_CODE[wire_dtype], wb, k_b, warp, _stream(x))
-        _launched("wire_encode", err)
-    return vals, off, scale
-
-
-def _encode_outputs(m, nb, k_b, wire_dtype, device):
+    if omode not in ("i32", "u8", "p4") or (omode == "u8" and wb > 256):
+        raise ValueError(f"wire_encode: offset form {omode!r} at wb {wb}: "
+                         f"need i32, p4, or u8 with wb <= 256")
+    empty = lambda n, dt: torch.empty((m, nb, n), dtype=dt, device=device)
     k_out = -(-k_b // 2) if wire_dtype == "int4" else k_b
-    return (torch.empty((m, nb, k_out), dtype=_VAL_DTYPE[wire_dtype],
-                        device=device),
-            torch.empty((m, nb, k_b), dtype=torch.int32, device=device),
+    off = (empty(k_b, torch.int32)
+           if omode == "i32" or encode_route(wb) == "block" else None)
+    packed = None if omode == "i32" else empty(
+        k_b if omode == "u8" else sum(_p4_sizes(wb, k_b)), torch.uint8)
+    return (empty(k_out, _VAL_DTYPE[wire_dtype]), off, packed,
             torch.empty((m, nb), dtype=torch.float32, device=device))
 
 
-def encode_blocks_cuda(xb, k_b: int, *, wire_dtype: str):
+def _encoded(out, omode):
+    """An encode's (vals, the offsets in form ``omode``, scale)."""
+    vals, off, packed, scale = out
+    return vals, off if omode == "i32" else packed, scale
+
+
+def encode_blocks_cuda(xb, k_b: int, *, wire_dtype: str, omode: str = "i32"):
     """The encode kernel.  xb: (m, nb, wb) f32 contiguous on the card, wb
     up to MAX_ENCODE_BLOCK; 1 <= k_b <= wb.  Returns (vals, off, scale) as
-    ``encode_blocks_plain`` does, bit for bit."""
+    ``encode_blocks_plain`` does, bit for bit, the offsets in the form
+    ``omode`` ("i32"; "u8" or "p4": ``pack_offsets_plain`` of them)."""
     _check("wire_encode", [xb], [torch.float32])
     m, nb, wb = xb.shape
-    out = _encode_outputs(m, nb, k_b, wire_dtype, xb.device)
+    out = _encode_outputs(m, nb, k_b, wb, wire_dtype, omode, xb.device)
     if m * nb == 0:
-        return out
+        return _encoded(out, omode)
     # the blocks as one row of m * nb * wb entries
     return _encode_launch(xb.view(1, -1), [0], m * nb * wb, k_b, wb,
-                          wire_dtype, out)
+                          wire_dtype, omode, out)
 
 
-def encode_rows_cuda(x, rows, k_b: int, *, wb: int, wire_dtype: str):
+def encode_rows_cuda(x, rows, k_b: int, *, wb: int, wire_dtype: str,
+                     omode: str = "i32"):
     """The encode kernel on rows ``rows`` (None: all) of x (C, L) f32 on
     the card, read where they lie (unit column stride, any row stride):
-    ``encode_rows_plain``'s result, bit for bit, with no copy of the
-    rows."""
+    ``encode_rows_plain``'s result, bit for bit, with no copy of the rows,
+    and the offsets in the form ``omode`` as ``encode_blocks_cuda``
+    gives them."""
     name = "wire_encode"
     if not x.is_cuda:
         raise ValueError(f"{name}: CUDA kernel given a tensor on "
@@ -408,10 +433,11 @@ def encode_rows_cuda(x, rows, k_b: int, *, wb: int, wire_dtype: str):
     if any(not 0 <= r < C for r in rows):
         raise ValueError(f"{name}: rows {rows} outside [0, {C})")
     nb = -(-L // wb)
-    out = _encode_outputs(len(rows), nb, k_b, wire_dtype, x.device)
+    out = _encode_outputs(len(rows), nb, k_b, wb, wire_dtype, omode,
+                          x.device)
     if not rows or L == 0:
-        return out
-    return _encode_launch(x, rows, L, k_b, wb, wire_dtype, out)
+        return _encoded(out, omode)
+    return _encode_launch(x, rows, L, k_b, wb, wire_dtype, omode, out)
 
 
 def pack_offsets_cuda(off, *, wb: int):

@@ -153,6 +153,39 @@ def test_chunked_exchange_equals_unchunked(wd):
                 assert torch.equal(a, b), (impl, chunk)
 
 
+@pytest.mark.parametrize("wd", ("int4", "fp8"))
+def test_gossip_chunk_width_does_not_change_the_bits(wd):
+    """The round's gossip configuration (bf16 rows, C = 2 on a ring,
+    cluster levels (0.1, 0.6), wire block 1024, no wire EF) gives the
+    same bits at every column chunk width: one wire block, four, a width
+    that rounds down to whole blocks, and the whole row."""
+    rng = np.random.default_rng(12)
+    L = 5 * 1024 + 300
+    means = rng.standard_normal((2, L)).astype(np.float32)
+    x = torch.from_numpy(np.repeat(means, 2, axis=0)).to(torch.bfloat16)
+    kw = dict(clusters=2, dev=2, hkind="ring", wire_dtype=wd,
+              wire_block=1024, cluster_theta=(0.1, 0.6))
+    outs = []
+    for chunk in (1024, 4096, 3000, None):
+        y = x.clone()
+        tcol.sparse_exchange_(y, chunk_cols=chunk, **kw)
+        outs.append(y.view(torch.int16))
+    assert not torch.equal(outs[0], x.view(torch.int16))
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0])
+
+
+@pytest.mark.parametrize("clusters", (2, 4, 8, 16))
+def test_gossip_cols_keeps_the_scratch_budget(clusters):
+    """The round's gossip chunk width: GOSSIP_COLS at C = 2, narrower with
+    more clusters, so that three (C, cols) f32 rows stay in the budget."""
+    from repro_torch.core import round as rnd
+    cols = rnd.gossip_cols(clusters)
+    assert 3 * clusters * cols * 4 <= rnd.GOSSIP_SCRATCH_BYTES
+    assert cols == rnd.GOSSIP_COLS * 2 // clusters
+    assert cols >= 1024  # whole wire blocks at the largest wire block
+
+
 def test_sparse_exchange_in_place_matches_functional():
     tx = torch.from_numpy(rows(9, intra_done=True)).to(torch.bfloat16)
     kw = dict(clusters=C, dev=DEV, hkind="ring", wire_dtype="int4",

@@ -4,7 +4,11 @@ Same numpy inputs through both: the port's plain bisection (what its ops
 route CPU tensors to, and what the CUDA kernel is held to on the card)
 against the reference's jnp oracle and its Pallas kernel in interpret
 mode, bit for bit; the exact-sort oracles; ``compress_delta`` on leaves
-that are not block multiples; and the theta level grid.
+that are not block multiples; the grouped top-k (``ops.topk_compress_leaves``,
+one kernel launch a type pair of a table of leaves on the card; on the
+CPU the per-leaf plain version, padded as the reference pads) against the
+reference's ``compress_delta`` on ResNet-20's real leaf shapes, most of
+them ragged against the block; and the theta level grid.
 """
 import numpy as np
 import pytest
@@ -15,10 +19,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import compression as jcomp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.configs.vision import RESNET20_CIFAR10  # noqa: E402
 from repro_torch.core import compression as tcomp  # noqa: E402
 from repro_torch.device import from_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import topk_compress as tk  # noqa: E402
+from repro_torch.models.vision import make_vision_model  # noqa: E402
 
 GRID = [(1, 2048, 256), (4, 4096, 512), (3, 1024, 1024)]  # test_kernels:144
 DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -174,6 +180,88 @@ def test_compress_delta_matches_reference(error_feedback):
         np.testing.assert_array_equal(_bits(tne[k]), _bits(je[k]))
         # Eq. 7's conservation, exact in f32
         assert torch.equal(tc[k] + tne[k], total[k])
+
+
+RESNET20_SHAPES = {
+    k: tuple(v.shape) for k, v in make_vision_model(RESNET20_CIFAR10.vision)
+    [0](torch.Generator().manual_seed(0)).items()}
+F32_TOL = dict(atol=2e-5, rtol=2e-5)  # tests/test_kernels.py:12
+
+
+def test_resnet20_leaves_are_mostly_ragged():
+    ragged = [k for k, s in RESNET20_SHAPES.items()
+              if int(np.prod(s)) % 256]
+    assert len(RESNET20_SHAPES) == 59 and len(ragged) > 30
+
+
+@pytest.mark.parametrize("error_feedback", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_leaves_match_reference_compress_delta(dtype, error_feedback):
+    """ResNet-20's 59 leaves (and an all-zero ragged one) at R = 4, block
+    256: the masked delta and the residual bit for bit the reference's
+    ``compress_delta``, and in f32 the residual within 2e-5 of delta + ef
+    - masked (exact, as Eq. 7 asks)."""
+    R, block = 4, 256
+    rng = np.random.default_rng(3 if error_feedback else 4)
+    shapes = dict(RESNET20_SHAPES, zero=(7,))
+    delta = {k: rng.normal(size=(R,) + s).astype(np.float32)
+             for k, s in shapes.items()}
+    ef = {k: 0.2 * rng.normal(size=(R,) + s).astype(np.float32)
+          for k, s in shapes.items()}
+    delta["zero"][:] = 0.0
+    ef["zero"][:] = 0.0
+    theta = rng.uniform(0.05, 1.0, R).astype(np.float32)
+    jd = {k: jnp.asarray(v, DTYPES[dtype]) for k, v in delta.items()}
+    je = {k: jnp.asarray(v, DTYPES[dtype]) for k, v in ef.items()}
+    jc, jne = jcomp.compress_delta(jd, je, jnp.asarray(theta), block=block,
+                                   error_feedback=error_feedback)
+    xs = [from_numpy(np.asarray(jd[k]), "cpu").reshape(R, -1) for k in jd]
+    efs = [from_numpy(np.asarray(je[k]), "cpu").reshape(R, -1) for k in jd]
+    got = ops.topk_compress_leaves(xs, torch.from_numpy(theta), block=block,
+                                   efs=efs if error_feedback else None)
+    for k, x, e, (masked, resid) in zip(jd, xs, efs, got):
+        assert masked.dtype == x.dtype and resid.dtype == x.dtype
+        np.testing.assert_array_equal(_bits(masked),
+                                      _bits(jc[k]).reshape(R, -1), k)
+        np.testing.assert_array_equal(_bits(resid),
+                                      _bits(jne[k]).reshape(R, -1), k)
+        if dtype == "f32":
+            total = x + e if error_feedback else x
+            np.testing.assert_allclose(resid.numpy(),
+                                       (total - masked).numpy(), **F32_TOL)
+
+
+def test_leaves_mixed_table_in_place_matches_per_leaf_plain():
+    """A table of f32 and bf16 leaves with f32 and own-type efs, written
+    in place (masked over the leaf, residual over its ef), is the
+    per-leaf plain version's result, bit for bit."""
+    R = 3
+    rng = np.random.default_rng(9)
+    spec = [(1, torch.float32, torch.float32),
+            (31, torch.bfloat16, torch.float32),
+            (257, torch.bfloat16, torch.bfloat16),
+            (512, torch.float32, torch.float32),
+            (1000, torch.bfloat16, torch.float32)]
+    mk = lambda L, dt, sc: torch.from_numpy(
+        sc * rng.normal(size=(R, L)).astype(np.float32)).to(dt)
+    xs = [mk(L, xd, 1.0) for L, xd, _ in spec]
+    efs = [mk(L, ed, 0.3) for L, _, ed in spec]
+    theta = torch.from_numpy(rng.uniform(0.05, 1.0, R).astype(np.float32))
+    want = tk.topk_compress_leaves_plain(xs, theta, block=256, efs=efs)
+    got = ops.topk_compress_leaves(xs, theta, block=256, efs=efs,
+                                   outs=list(zip(xs, efs)))
+    for (m, r), (wm, wr), x, e in zip(got, want, xs, efs):
+        assert m is x and r is e
+        _check_bitwise((m, r), (wm, wr))
+
+
+def test_leaves_kernel_wrapper_refuses_cpu_tensors():
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ops.topk_compress_leaves([torch.zeros(2, 300)], torch.ones(2),
+                                 block=256, impl="kernel")
+    assert tk.LAUNCHES["topk_compress"] == 0
+    assert ops.topk_compress_leaves([], torch.ones(2)) == []
 
 
 def test_quantize_theta_and_cluster_levels_match_reference():

@@ -5,11 +5,16 @@ The p4 offset pack and unpack bit for bit against ``pack_offsets_jnp`` /
 payload included); the encode's plain version (the kernel's bisection) bit
 for bit against ``encode_blocks_pallas(interpret=True)`` on blocks with
 planted threshold ties, all-zero blocks and every k_b regime, and the
-exact oracle against ``encode_blocks_jnp``; the int8 / int4 / fp8 value
+exact oracle against ``encode_blocks_jnp``; the encode of rows with the
+offsets in their packed wire forms (what the fused encode kernel writes)
+against the reference's pack of the reference encode's offsets, Pallas in
+interpret mode included; the int8 / int4 / fp8 value
 quantization bit for bit over a grid of ratios with half-ulp ties; and
 ``wire_encode`` / ``wire_decode`` round trips against the reference for
 each wire dtype, and the wire's byte tables.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -156,6 +161,48 @@ def test_exact_oracle_matches_encode_jnp(wd, wb, k_b):
     got_ops = ops.encode_blocks(t(x), k_b, wire_dtype=wd, impl="ref")
     for g, w in zip(got_ops, got):
         assert torch.equal(g, w)
+
+
+# (wb, k_b, offset form): the forms offset_mode picks on the gossip path,
+# and p4 at small blocks too; L = 2 wb + wb // 3 + 1 (a ragged last block)
+PACKED_CASES = [(128, 7, "u8"), (256, 200, "p4"), (1000, 333, "p4"),
+                (1024, 615, "p4"), (2048, 103, "p4")]
+
+
+@pytest.mark.parametrize("wd", V2)
+@pytest.mark.parametrize("wb,k_b,omode", PACKED_CASES)
+def test_encode_rows_packed_offsets_match_reference(wb, k_b, omode, wd):
+    """``ops.encode_rows(..., omode=)`` on rows (0, 2) of a (3, L) matrix:
+    with ``impl="ref"`` (the exact top-k) the reference's
+    ``encode_blocks_jnp`` then ``pack_offsets_jnp``; with the plain route
+    (the kernels' bisection) ``encode_blocks_pallas`` then
+    ``pack_offsets_pallas``, both in interpret mode (int4 only: the
+    offsets do not depend on the value type, and interpret mode compiles
+    per shape), bit for bit."""
+    rng = np.random.default_rng(wb + k_b)
+    L = 2 * wb + wb // 3 + 1
+    x = rng.standard_normal((3, L)).astype(np.float32)
+    x[0, :wb] = 0.0  # an all-zero block
+    x[2, wb:wb + 9] = 0.75  # tied magnitudes
+    xb = np.pad(x[[0, 2]], ((0, 0), (0, (-L) % wb))).reshape(2, -1, wb)
+    routes = [("ref", jwp.encode_blocks_jnp, jwp.pack_offsets_jnp)]
+    if wd == "int4":
+        routes.append(("plain", functools.partial(jwp.encode_blocks_pallas,
+                                                  interpret=True),
+                       functools.partial(jwp.pack_offsets_pallas,
+                                         interpret=True)))
+    for impl, encode, pack in routes:
+        vals, off, scale = encode(jnp.asarray(xb), k_b, wire_dtype=wd)
+        got = ops.encode_rows(t(x), (0, 2), k_b, wb=wb, wire_dtype=wd,
+                              omode=omode, impl=impl)
+        same(got[0], vals)
+        same(got[1], pack(off, wb=wb, mode=omode))
+        same(got[2], scale)
+        # int32 offsets are the unpacked form
+        i32 = ops.encode_rows(t(x), (0, 2), k_b, wb=wb, wire_dtype=wd,
+                              impl=impl)[1]
+        same(twp.unpack_offsets_plain(got[1], wb=wb, k_b=k_b, mode=omode),
+             i32.numpy())
 
 
 def test_bisection_and_exact_topk_differ_only_inside_the_band():
