@@ -76,7 +76,12 @@ Phases (any failure ends the run with a non-zero exit):
    against ``pack_offsets_plain`` of the plain encode's offsets), the
    standalone p4 pack and p4 unpack on every wire dtype, wire blocks 1,
    31, 33, 64, 128, 1000, 1024 and 2048, k_b from 1 to wb, blocks with
-   planted threshold ties, all-zero blocks and zero payloads; the encode
+   planted threshold ties, all-zero blocks and zero payloads; the p4 pack
+   and unpack on both routes (a warp a block up to wb 1024, a CTA a
+   block at any wb) over P4_BLOCKS and k_b 1, 7, wb / 10, wb / 2 - 1,
+   wb - 1, wb, on valid, all-zero, short, over-full and random bitmaps at
+   two byte phases, and the unpack once over more than 2^31 entries (held
+   to the plain version chunk by chunk); the encode
    of rows read in place in every offset form (row subsets of a strided
    matrix, ragged last blocks, wb = L < 32); the
    decode-and-mix on MIX_CASES in every dtype (u8 and p4 offsets,
@@ -84,7 +89,8 @@ Phases (any failure ends the run with a non-zero exit):
    -0); then the inputs a gossip column chunk of mamba2-1.3B's largest
    leaf (w_in) hands the encode at theta 0.05, 0.1, 0.2, 0.6 and 1 (int4),
    each kernel timed there (the fused p4 encode beside the int32 encode
-   and the pack it replaced), the decode-and-mix timed on the main chunk
+   and the pack it replaced; the pack and unpack on their route beside
+   the CTA-per-block kernels), the decode-and-mix timed on the main chunk
    (C = 2, levels (0.1, 0.6)) against its plain version and the chain it
    replaced, and one chunk through ``sparse_exchange_``: bit for bit its
    plain route, no host synchronisation inside it (sync debug mode
@@ -96,16 +102,28 @@ Phases (any failure ends the run with a non-zero exit):
    versions): at eta 0 everything within ROUND_RTOL / ROUND_ATOL; at
    eta 0.1, round by round from the card's state, the statistics within
    ROUND_RTOL and the state within ROUND_ATOL but for top-k threshold
-   flips (at most Q_FLIP_SHARE of the entries); the encode, the p4 unpack
-   (it only runs here: the wire EF decodes each cluster's own payload) and
-   the decode-and-mix must run, the standalone p4 pack must not (the
-   encode packs);
+   flips (at most Q_FLIP_SHARE of the entries); the encode and the
+   decode-and-mix must run, the standalone p4 pack and unpack must not
+   (the encode packs; the wire EF's own payload is decoded in the
+   decode-and-mix);
 12. the fused round step on mamba2-1.3B at full width and depth (R = 4,
    bf16), the launcher's corpus and batch draw, the int4 wire at the
    per-device theta (0.05, 0.1, 0.4, 0.6), so cluster levels (0.1, 0.6),
    SPARSE_ROUNDS rounds with gossip in rounds 2 and 4, every launch of
    every kernel counted (a column chunk of ``GOSSIP_COLS``: one fused
-   encode a plan and one decode-and-mix; no standalone pack or unpack).
+   encode a plan and one decode-and-mix; no standalone pack or unpack);
+13. the gossip with the CHOCO wire EF on mamba2-1.3B at full width
+   (``tools/gossip_bench.py``'s leaves: 48 layers, bf16, R = 4 in 2
+   clusters on a ring, int4 at levels (0.1, 0.6), wire block 1024, with
+   (R, L) f32 estimates for every leaf, 60.9 GB in all), EF_ROUNDS
+   rounds through ``sparse_exchange_(..., wire_ef=...)`` in column chunks
+   of ``gossip_cols(2)``: finite leaves and estimates, the
+   estimates moved, two decode-and-mix launches a chunk and no standalone
+   unpack or pack, peak <= PEAK_LIMIT_GB, and the first w_in chunk of the
+   second round bit for bit ``_sparse_mix_rows(..., impl="plain")`` on
+   the card from the same inputs; then that chunk alone, its card time
+   beside the chunk's without the EF, and its kernels' device time by
+   name.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -162,6 +180,8 @@ ROUND_RTOL, ROUND_ATOL = 1e-4, 1e-4
 MAMBA2_ROUNDS = 4  # q = 4: round 4 gossips
 WIRE_DTYPES = ("f32", "bf16", "int8", "int4", "fp8")
 WIRE_BLOCKS = (1, 31, 33, 64, 128, 1000, 1024, 2048)
+P4_BLOCKS = tuple(sorted(set(WIRE_BLOCKS) | {257, 4096}))  # phase 10's p4
+P4_WIDE_BLOCKS = 1 << 22  # phase 10: at k_b 615, over 2^31 offsets out
 WIRE_LEVELS = (0.05, 0.1, 0.2, 0.6, 1.0)  # phase 10's w_in chunk
 WIRE_MAIN_LEVEL = 0.6  # the kernels line: the main path's larger level
 # phase 10's decode-and-mix grid (tests/test_torch_wire_decode.py:CASES):
@@ -176,6 +196,7 @@ GOSSIP_LEVELS = (0.1, 0.6)  # phase 12's cluster levels, the main chunk's
 SPARSE_ROUNDS, SPARSE_Q = 4, 2  # phase 12: rounds 2 and 4 gossip
 SPARSE_THETA = (0.05, 0.1, 0.4, 0.6)  # per device; cluster levels 0.1, 0.6
 PEAK_LIMIT_GB = 72.0
+EF_ROUNDS = 2  # phase 13: the second round starts from nonzero estimates
 # phase 10: the device launches of one gossip chunk (two plans): the
 # encode of each plan's sender row, the decode-and-mix, the bf16 -> f32
 # copy of the cluster means and the copy of the result back to the rows
@@ -1464,6 +1485,130 @@ def wire_check(wp, xb, k_b, wd, label, zero_payload=False):
     return packed, off
 
 
+def _bitmap_bits(packed, lo_bytes):
+    """(n, nbytes) p4 bytes -> (n, 8 bm_bytes) int32 bits of the bitmap."""
+    bm = packed[:, lo_bytes:].to(torch.int32)
+    sh = torch.arange(8, dtype=torch.int32, device=packed.device)
+    return ((bm[..., None] >> sh) & 1).reshape(bm.shape[0], -1)
+
+
+def _with_bits(packed, lo_bytes, bits):
+    sh = torch.arange(8, dtype=torch.int32, device=packed.device)
+    out = packed.clone()
+    out[:, lo_bytes:] = (bits.reshape(bits.shape[0], -1, 8) << sh).sum(
+        -1).to(torch.uint8)
+    return out
+
+
+def p4_payloads(wp, gen, wb, k_b, n=3):
+    """(packed, off) on the card: n valid p4 blocks (off: their int32
+    offsets, (n, k_b)), n all-zero ones, n with fewer than k_b set bits
+    (the first r < k_b kept), n with more (the last clear bit and about
+    half the others set) and n of random bytes."""
+    off = torch.rand((n, wb), generator=gen, device="cuda").argsort(
+        dim=1)[:, :k_b].sort(dim=1).values.to(torch.int32)
+    valid = wp.pack_offsets_plain(off, wb=wb, mode="p4")
+    lo_bytes, _ = wp._p4_sizes(wb, k_b)
+    bits = _bitmap_bits(valid, lo_bytes)
+    keep = torch.randint(0, k_b, (n, 1), generator=gen, device="cuda")
+    short = _with_bits(valid, lo_bytes, bits * (bits.cumsum(1) <= keep))
+    clear = 1 - bits
+    last = clear * (clear.flip(1).cumsum(1).flip(1) == 1)
+    half = (torch.rand(bits.shape, generator=gen, device="cuda") < 0.5).int()
+    full = _with_bits(valid, lo_bytes, bits | last | half)
+    rand = torch.randint(0, 256, valid.shape, generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    packed = torch.cat([valid, torch.zeros_like(valid), short, full, rand])
+    nset = _bitmap_bits(packed, lo_bytes).sum(1)
+    if not ((nset[2 * n:3 * n] < k_b).all() and (nset[3 * n:4 * n] > k_b)
+            .all() and not nset[n:2 * n].any()):
+        fail(f"p4 payloads at wb {wb}, k_b {k_b}: set bits {nset.tolist()}")
+    return packed, off
+
+
+def _at_phase(t, phase):
+    """A copy of t whose data starts ``phase`` bytes past a 16-byte
+    boundary."""
+    n = t.numel() * t.element_size()
+    buf = torch.empty(n + 32, dtype=torch.uint8, device=t.device)
+    base = (-buf.data_ptr()) % 16 + phase
+    view = buf[base:base + n].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def p4_grid(wp, gen):
+    """The p4 pack and unpack kernels, both routes, against their plain
+    versions bit for bit over P4_BLOCKS and k_b 1, 7, wb / 10, wb / 2 -
+    1, wb - 1, wb: the pack on valid offsets, the unpack on p4_payloads
+    at input byte phases 0 and 7.  Returns the cases run."""
+    n = 0
+    for wb in P4_BLOCKS:
+        ks = sorted({k for k in (1, 7, wb // 10, wb // 2 - 1, wb - 1, wb)
+                     if 1 <= k <= wb})
+        routes = sorted({wp.encode_route(wb), "block"})
+        for k_b in ks:
+            packed, off = p4_payloads(wp, gen, wb, k_b)
+            want_p = wp.pack_offsets_plain(off, wb=wb, mode="p4")
+            want_u = wp.unpack_offsets_plain(packed, wb=wb, k_b=k_b,
+                                             mode="p4")
+            for route in routes:
+                got = wp.pack_offsets_cuda(off[None], wb=wb,
+                                           _force_block=route == "block")
+                torch.cuda.synchronize()
+                if not torch.equal(got[0], want_p):
+                    fail(f"p4 pack kernel ({route}) differs from its plain "
+                         f"version (wb={wb} k_b={k_b})")
+                for phase in (0, 7):
+                    got = wp.unpack_offsets_cuda(
+                        _at_phase(packed[None], phase), wb=wb, k_b=k_b,
+                        _force_block=route == "block")
+                    torch.cuda.synchronize()
+                    if not torch.equal(got[0], want_u):
+                        bad = (got[0] != want_u).any(1).nonzero()[:, 0]
+                        fail(f"p4 unpack kernel ({route}) differs from its "
+                             f"plain version (wb={wb} k_b={k_b} byte phase "
+                             f"{phase}, blocks {bad.tolist()} of 5 kinds x "
+                             f"{packed.shape[0] // 5})")
+                    n += 1
+        print(f"wire p4 wb={wb}: pack and unpack on routes {routes}, k_b "
+              f"{ks}, valid / zero / short / over-full / random bitmaps")
+    return n
+
+
+def p4_wide_case(wp, gen, packed_tile, wb, k_b):
+    """The unpack kernel once over P4_WIDE_BLOCKS blocks (more than 2^31
+    int32 offsets out at k_b 615): every other block a valid block of
+    ``packed_tile`` (the w_in chunk's), the others random bytes; held to
+    the plain version chunk by chunk."""
+    blocks = P4_WIDE_BLOCKS
+    if blocks * k_b <= 2 ** 31:
+        fail(f"the wide unpack case has {blocks * k_b} offsets, not > 2^31")
+    nbytes = sum(wp._p4_sizes(wb, k_b))
+    packed = torch.randint(0, 256, (blocks, nbytes), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    tile = packed_tile.reshape(-1, nbytes)
+    reps = -(-(blocks // 2) // tile.shape[0])
+    packed[::2] = tile.repeat(reps, 1)[:blocks // 2]
+    t0 = time.perf_counter()
+    out = wp.unpack_offsets_cuda(packed[None], wb=wb, k_b=k_b)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    step = 1 << 17
+    for i in range(0, blocks, step):
+        want = wp.unpack_offsets_plain(packed[i:i + step], wb=wb, k_b=k_b,
+                                       mode="p4")
+        if not torch.equal(out[i:i + step], want):
+            fail(f"p4 unpack kernel over {blocks} blocks differs from its "
+                 f"plain version in blocks {i}..{i + step}")
+    print(f"wire p4 unpack over {blocks} blocks, wb {wb}, k_b {k_b} "
+          f"({blocks * k_b} offsets, {packed.numel()} bytes in): bit for "
+          f"bit the plain version by {-(-blocks // step)} chunks; one launch, "
+          f"{ms:.1f} ms host wall")
+    del packed, out
+    torch.cuda.empty_cache()
+
+
 def encode_rows_check(wp, x, rows, k_b, wd, wb, label):
     """The encode kernel on rows of x read in place, in every offset
     form, against ``encode_rows_plain`` (index_select, zero pad, encode)
@@ -1671,6 +1816,11 @@ def wire_phase(wp, configs, mamba2, cols):
     unpack at WIRE_MAIN_LEVEL on w_in, the decode-and-mix at the main
     chunk."""
     from repro_torch.dist import collectives as col
+    from repro_torch.kernels import build
+    # {kernel: (registers, spill bytes, stack, static smem, instances)}
+    ptx = {k: dict(zip(("registers", "spill_store_bytes", "stack_bytes",
+                        "static_smem_bytes", "instantiations"), v))
+           for k, v in ptxas_summary(build.build_log).items()}
     gen = torch.Generator(device="cuda").manual_seed(10)
     n = 0
     for wb in WIRE_BLOCKS:
@@ -1694,6 +1844,7 @@ def wire_phase(wp, configs, mamba2, cols):
                 for wd in WIRE_DTYPES:
                     nrows += encode_rows_check(wp, x, rows, k_b, wd, wb,
                                                "rows")
+    n_p4 = p4_grid(wp, gen)
     print(f"wire encode of rows in place: {nrows} cases (wb "
           f"{list(WIRE_BLOCKS) + [20, 31]}, ragged rows, row subsets, "
           f"row stride 2L), each on the kernel encode_route names")
@@ -1757,6 +1908,11 @@ def wire_phase(wp, configs, mamba2, cols):
                 lambda: wp.unpack_offsets_cuda(packed, wb=wb, k_b=k_b),
                 lambda: wp.unpack_offsets_plain(packed, wb=wb, k_b=k_b,
                                                 mode="p4"))}
+        blocks_route = {  # the CTA-per-block kernels at the same shape
+            "wire_pack": lambda: wp.pack_offsets_cuda(off, wb=wb,
+                                                      _force_block=True),
+            "wire_unpack": lambda: wp.unpack_offsets_cuda(
+                packed, wb=wb, k_b=k_b, _force_block=True)}
         for name, (nbytes_io, kern, plain) in works.items():
             bound_ms, bound_by = bound(0, nbytes_io, torch.float32)
             row = dict(kernel=name, case=f"w_in chunk (1, {nb}, {wb}) f32, "
@@ -1765,6 +1921,12 @@ def wire_phase(wp, configs, mamba2, cols):
                        plain_ms=time_ms(plain, iters=3, warmup=1),
                        bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=None, max_abs_err=0.0)
+            if name in blocks_route:
+                warp_kernel = ("pack" if name == "wire_pack" else
+                               "unpack") + "_p4_warp_kernel"
+                row.update(route=wp.encode_route(wb),
+                           block_route_ms=time_ms(blocks_route[name]),
+                           ptxas=ptx.get(warp_kernel))
             if name == "wire_encode":
                 # the encode as the gossip ran it before the fused pack:
                 # int32 offsets, then the pack kernel
@@ -1781,12 +1943,15 @@ def wire_phase(wp, configs, mamba2, cols):
                 row["kernel_split_us"] = kernel_split(kern)
                 rows[name] = row
             print("wire " + json.dumps(row))
+        if theta == WIRE_MAIN_LEVEL:
+            p4_wide_case(wp, gen, packed[0], wb, k_b)
     rows["wire_decode_mix"] = decode_mix_main(wp, col, means)
     gossip_chunk(wp, col, means, cols)
     print(f"wire: {n} cases of the encode (in every offset form), p4 pack "
-          f"and p4 unpack (zero payloads), {nrows} of the encode of rows "
-          f"in place and {nmix + 1} of the decode-and-mix bit for bit equal "
-          f"to the plain versions")
+          f"and p4 unpack (zero payloads), {n_p4} of the p4 pack and unpack "
+          f"on both routes, {nrows} of the encode of rows in place and "
+          f"{nmix + 1} of the decode-and-mix bit for bit equal to the plain "
+          f"versions")
     del xb, means
     torch.cuda.empty_cache()
     return rows
@@ -1909,43 +2074,47 @@ def small_sparse_round_agrees(configs, mamba2, rnd_mod, base, compression,
               f"{total} (allowed {allowed}); estimates moved {moved:.3e}")
         if not (worst <= ROUND_RTOL and flips <= allowed and moved > 0):
             fail("the fused round on the card disagrees with the CPU")
-    # the wire-EF path: each cluster decodes its own payload with the p4
-    # unpack kernel, the neighbours' through the decode-and-mix kernel;
-    # the encode packs the offsets itself
+    # the wire-EF path: each cluster's own payload and the neighbours'
+    # are decoded in the decode-and-mix kernel; the encode packs the
+    # offsets itself
     launches = dict(wp.LAUNCHES)
     print(f"mamba2 small sparse round: wire launches on the card {launches}")
-    if launches["wire_pack"] or not all(
-            v for k, v in launches.items() if k != "wire_pack"):
-        fail(f"on the wire-EF path the encode, the unpack and the "
-             f"decode-and-mix must run and the standalone pack must not: "
-             f"{launches}")
+    if (launches["wire_pack"] or launches["wire_unpack"]
+            or not launches["wire_encode"]
+            or not launches["wire_decode_mix"]):
+        fail(f"on the wire-EF path the encode and the decode-and-mix must "
+             f"run and the standalone pack and unpack must not: {launches}")
     return launches
 
 
-def predicted_wire_launches(cfg_params, levels, hcef, wf, cols, bands,
-                            clusters, mix_steps, mix_rows):
-    """Launches of each wire kernel in one gossip round without wire EF:
-    per leaf and per wire plan (a level whose int4 encoding stays below
-    the bf16 row), one encode a column chunk of ``cols`` (it writes the
-    packed offsets: no standalone pack); one decode-and-mix a chunk per
-    ``mix_steps`` steps (a step is a band of H and a plan, the dense
-    plans included) and ``mix_rows`` clusters; no standalone unpack."""
+def predicted_wire_launches(cfg_params, levels, wire_block, wf, cols, bands,
+                            clusters, mix_steps, mix_rows, wire_ef=False):
+    """Launches of each wire kernel in one gossip round: per leaf and per
+    wire plan (a level whose int4 encoding stays below the bf16 row), one
+    encode a column chunk of ``cols`` (it writes the packed offsets: no
+    standalone pack); a chunk's decode-and-mix per ``mix_steps`` steps (a
+    step is a band of H and a plan, the dense plans included) and
+    ``mix_rows`` clusters; no standalone unpack.  With ``wire_ef`` the
+    estimates take two decode-and-mix calls a chunk: a step a plan (two
+    with one plan), and those steps before the bands' steps."""
     want = {"wire_encode": 0, "wire_pack": 0, "wire_unpack": 0,
             "wire_decode_mix": 0}
     for L in cfg_params:
-        wb = wf.wire_block_of(L, hcef.wire_block)
+        wb = wf.wire_block_of(L, wire_block)
         chunks = -(-L // max(wb, cols // wb * wb))
         keys = set()
-        for k_b in sorted({wf.wire_k(t, L, hcef.wire_block)
-                           for t in levels}):
-            if wf.encoding_reaches_dense(k_b, L, hcef.wire_block, "int4", 2):
+        for k_b in sorted({wf.wire_k(t, L, wire_block) for t in levels}):
+            if wf.encoding_reaches_dense(k_b, L, wire_block, "int4", 2):
                 keys.add("dense")
                 continue
             keys.add(k_b)
             want["wire_encode"] += chunks
-        want["wire_decode_mix"] += chunks * max(1, -(-bands * len(keys)
-                                                     // mix_steps)) * -(
+        launches = lambda steps: max(1, -(-steps // mix_steps)) * -(
             -clusters // mix_rows)
+        own = len(keys) + (len(keys) == 1)
+        want["wire_decode_mix"] += chunks * (
+            launches(own) + launches(own + bands * len(keys)) if wire_ef
+            else launches(bands * len(keys)))
     return want
 
 
@@ -2002,7 +2171,8 @@ def mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_gossip = sum(h["gossip"] for h in hist)
     per_round = predicted_wire_launches(
-        sizes, levels, hcef, wf, rnd_mod.GOSSIP_COLS, bands=1,  # C = 2 ring
+        sizes, levels, hcef.wire_block, wf, rnd_mod.gossip_cols(
+            topo.clusters), bands=1,  # C = 2 ring
         clusters=topo.clusters, mix_steps=wp.MIX_STEPS,
         mix_rows=wp.MIX_ROWS)
     steps_run = SPARSE_ROUNDS * R * hcef.tau
@@ -2040,6 +2210,157 @@ def mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the gossip with the wire EF at full width
+# ---------------------------------------------------------------------------
+
+def wire_ef_full(gb, col, wp, rnd_mod, wf):
+    """Phase 13: EF_ROUNDS gossip rounds with the CHOCO wire EF over
+    mamba2-1.3B's leaves (``tools/gossip_bench.py``'s), every leaf's
+    estimates (R, L) f32 from zero.  Gates: the first w_in chunk of the
+    last round bit for bit ``_sparse_mix_rows(..., impl="plain")`` from
+    the same inputs; finite leaves and estimates; the estimates moved;
+    the wire launches as the leaves predict (two decode-and-mix calls a
+    chunk, no standalone pack or unpack); peak <= PEAK_LIMIT_GB."""
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    leaves = gb.make_leaves()
+    est = gb.zero_estimates(leaves)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    C, Dev, R = gb.C, gb.DEV, gb.C * gb.DEV
+    cols = rnd_mod.gossip_cols(C)
+    kw = gb.exchange_kw(cols)
+    sizes = [x.shape[1] for x in leaves.values()]
+    chunks = sum(len(col._col_chunks(L, wf.wire_block_of(L, 1024), cols))
+                 for L in sizes)
+    want_launches = predicted_wire_launches(
+        sizes, gb.LEVELS, 1024, wf, cols, bands=1, clusters=C,
+        mix_steps=wp.MIX_STEPS, mix_rows=wp.MIX_ROWS, wire_ef=True)
+    est_gb = sum(e.numel() * e.element_size() for p in est.values()
+                 for e in p) / 1e9
+    print(f"mamba2 wire-EF gossip at full width: {len(leaves)} leaves, "
+          f"{sum(sizes)} params, R={R} in {C} clusters, int4 levels "
+          f"{gb.LEVELS}, estimates {est_gb:.2f} GB, chunks of {cols} "
+          f"columns ({chunks} a round), set up in {setup_s:.1f} s")
+    name = "layers/w_in"
+    x = leaves[name]
+    L = x.shape[1]
+    wb = wf.wire_block_of(L, 1024)
+    c1 = col._col_chunks(L, wb, cols)[0][1]
+    plans = col._level_plans(L, x.element_size(), C, k=None, theta=None,
+                             cluster_theta=gb.LEVELS, wire_block=1024,
+                             wire_dtype="int4")
+    layout = col._gossip_layout("ring", C, 0.4, 0, tuple(plans))
+    walls, peaks, launches, want = [], [], [], None
+    for r in range(EF_ROUNDS):
+        if r == EF_ROUNDS - 1:  # the check's inputs, before the round
+            rows = lambda t: t.view(C, Dev, L)[:, 0, :c1]
+            want = col._sparse_mix_rows(
+                rows(x).float(), layout, wb=wb, wire_dtype="int4",
+                dense_dtype=x.dtype,
+                wire_ef=tuple(rows(e).clone() for e in est[name]),
+                impl="plain")
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wp.reset_launches()
+        t0 = time.perf_counter()
+        gb.gossip_round(leaves, cols, est)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        launches.append(dict(wp.LAUNCHES))
+        print(f"wire-EF gossip round {r}: {walls[-1]:.1f} ms, wire launches "
+              f"{launches[-1]}", flush=True)
+    xv = x.view(C, Dev, L)[:, :, :c1]
+    got = (xv, *(e.view(C, Dev, L)[:, :, :c1] for e in est[name]))
+    for what, g, w in zip(("rows", "est_self", "est_wsum"), got, want):
+        w = w.to(g.dtype)[:, None].expand_as(g)
+        if not torch.equal(_bits(g), _bits(w)):
+            fail(f"wire-EF gossip: the first {name} chunk's {what} differ "
+                 f"from _sparse_mix_rows(impl='plain') in "
+                 f"{int((_bits(g) != _bits(w)).sum())} entries")
+    # checks by column slices: a whole leaf's temporaries would not fit
+    slices = lambda t: (t[:, c:c + (1 << 24)] for c in range(0, t.shape[1],
+                                                            1 << 24))
+    finite = all(bool(torch.isfinite(sl).all()) for k in leaves
+                 for t in (leaves[k], *est[k]) for sl in slices(t))
+    moved = max(float(sl.abs().max()) for k in est
+                for sl in slices(est[k][0]))
+    peak = max(peaks)
+    stats = dict(rounds=EF_ROUNDS, leaves=len(leaves), params=sum(sizes),
+                 cols=cols, chunks_per_round=chunks, levels=gb.LEVELS,
+                 estimates_gb=est_gb, round_ms=walls,
+                 wire_launches=launches,
+                 predicted_launches_per_round=want_launches,
+                 decode_mix_launches_per_round=[
+                     m["wire_decode_mix"] for m in launches],
+                 peak_mem_gb=peak, est_self_max=moved, finite=finite,
+                 first_w_in_chunk_columns=c1, setup_s=setup_s,
+                 allocated_before_gb=before_gb)
+    print("mamba2_wire_ef " + json.dumps(stats))
+    if not finite:
+        fail("wire-EF gossip: non-finite leaves or estimates")
+    if not moved > 0:
+        fail("wire-EF gossip: the estimates did not move")
+    if any(m != want_launches for m in launches):
+        fail(f"wire-EF gossip launches {launches}, expected "
+             f"{want_launches} a round ({chunks} chunks)")
+    if want_launches["wire_decode_mix"] != 2 * chunks:
+        fail(f"wire-EF gossip: {want_launches['wire_decode_mix']} "
+             f"decode-and-mix launches for {chunks} chunks, not two a chunk")
+    if not peak <= PEAK_LIMIT_GB:
+        fail(f"wire-EF gossip: peak device memory {peak:.2f} GB above "
+             f"{PEAK_LIMIT_GB} GB")
+    x_chunk = x[:, :c1].clone()
+    est_chunk = tuple(e[:, :c1].clone() for e in est[name])
+    del leaves, est, x, xv, got, want
+    torch.cuda.empty_cache()
+    wire_ef_chunk(col, wp, gb, x_chunk, est_chunk, cols)
+    return launches[-1]
+
+
+def wire_ef_chunk(col, wp, gb, x, est, cols):
+    """One wire-EF gossip chunk (phase 13's first w_in chunk after its
+    rounds: (R, Lc) bf16 rows and their two (R, Lc) f32 estimates, one
+    chunk of ``cols``) through ``sparse_exchange_`` on the card: its card
+    time (L2 flushed) beside the same chunk's without the EF in the same
+    call, its host-paced time, its device launches (the wire kernels'
+    counters and the PyTorch operators that launch a kernel) and each
+    kernel's device time (torch.profiler, warm L2).  Gated: one chunk's
+    wire launches (two encodes, two decode-and-mix, no pack or unpack)."""
+    kw = gb.exchange_kw(cols)
+    run = lambda: col.sparse_exchange_(x, wire_ef=est, **kw)
+    no_ef = x.clone()
+    run()
+    torch.cuda.synchronize()
+    wp.reset_launches()
+    ops = aten_kernel_ops(run)
+    launches = dict(wp.LAUNCHES)
+    prof = kernel_profile(run)
+    row = dict(case=f"one wire-EF chunk: sparse_exchange_ on "
+               f"{tuple(x.shape)} bf16 and two f32 estimates, C={gb.C} "
+               f"ring, int4 levels {gb.LEVELS}",
+               ms=time_ms(run), call_ms=time_ms(run, host_paced=True),
+               no_ef_ms=time_ms(lambda: col.sparse_exchange_(no_ef, **kw)),
+               device_launches=sum(launches.values()) + len(ops),
+               wire_launches=launches, torch_kernel_ops=ops,
+               profiler_launches_by_kernel={k: n for k, (n, _) in
+                                            prof.items()},
+               kernel_split_us={k: us for k, (_, us) in prof.items()},
+               profiled_us=sum(us for _, us in prof.values()))
+    print("wire_ef_chunk " + json.dumps(row))
+    want = {"wire_encode": 2, "wire_pack": 0, "wire_unpack": 0,
+            "wire_decode_mix": 2}
+    if launches != want:
+        fail(f"a wire-EF chunk ran wire launches {launches}, expected "
+             f"{want}")
+    del x, est, no_ef
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -2058,6 +2379,7 @@ def main():
     from repro_torch.core import compression
     from repro_torch.core import wire_format as wf
     from repro_torch.data import synthetic
+    from repro_torch.dist import collectives as col
     from repro_torch.dist import policies
     from repro_torch.launch import fedsim, train
     from repro_torch.models import mamba2
@@ -2171,9 +2493,15 @@ def main():
     m12 = mamba2_sparse_full(configs, mamba2, rnd_mod, base, compression,
                              policies, wf, train, synthetic, wp, ss, tk)
     launches.update({k: m12[k] for k in main_wire})
-    # the unpack kernel's path is the wire EF's own decode (phase 11):
-    # phase 12's gossip decodes in the decode-and-mix kernel
-    launches["wire_unpack"] = m11["wire_unpack"]
+
+    # -- phase 13 ------------------------------------------------------------
+    sys.path.insert(0, str(ROOT / "tools"))
+    import gossip_bench
+    m13 = wire_ef_full(gossip_bench, col, wp, rnd_mod, wf)
+    # the standalone pack and unpack run on no main path: phases 11-13
+    # decode every payload in the decode-and-mix kernel
+    for k in ("wire_pack", "wire_unpack"):
+        launches[k] = m11[k] + m12[k] + m13[k]
 
     # -- report --------------------------------------------------------------
     kernels = []
@@ -2216,11 +2544,13 @@ def main():
                           "form: the encode writes the p4 bytes itself "
                           "(pack_offsets_pallas's work, wire_pack.py:244)")
     kernels[6]["note"] = ("off the gossip path: the encode writes the p4 "
-                          "bytes; this kernel serves ops.pack_offsets on "
-                          "int32 offsets, which no main path calls")
-    kernels[7]["note"] = ("launches from phase 11 (the wire EF's own "
-                          "decode); phase 12's gossip decodes in "
-                          "wire_decode_mix")
+                          "bytes; this kernel (a warp a block up to wb "
+                          "1024) serves ops.pack_offsets on int32 offsets, "
+                          "which no main path calls")
+    kernels[7]["note"] = ("off the gossip path, the wire EF's included "
+                          "(phases 11-13 decode in wire_decode_mix); this "
+                          "kernel (a warp a block up to wb 1024) serves "
+                          "ops.unpack_offsets and wire_decode")
     kernels[8]["note"] = ("no TPU counterpart: the reference decodes in "
                           "jnp (dist/collectives.py:642 wire_decode); it "
                           "holds unpack_offsets_pallas's p4 unpack and "

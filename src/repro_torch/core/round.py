@@ -62,15 +62,17 @@ AGG_COLS = 1 << 22  # columns of a leaf per aggregation chunk
 # columns, 65-88 ms at 2^23, 63-64 ms at 2^24, the gossip adding 0.42 GB
 # at 2^24, about three (C, cols) f32 rows)
 GOSSIP_COLS = 1 << 24
-# the chunk's scratch that every backhaul keeps to: GOSSIP_COLS at C = 2
-GOSSIP_SCRATCH_BYTES = 3 * 2 * 4 * GOSSIP_COLS
+# the chunk's scratch that every backhaul keeps to: four (C, cols) f32
+# rows, GOSSIP_COLS at C = 2.  The gossip holds the cluster means and the
+# mixed rows at once, with the wire EF also the two new estimates
+GOSSIP_SCRATCH_BYTES = 4 * 2 * 4 * GOSSIP_COLS
 
 
 def gossip_cols(clusters: int) -> int:
     """Columns of a leaf per gossip chunk with ``clusters`` clusters:
-    GOSSIP_COLS, narrowed so that three (clusters, cols) f32 rows stay
+    GOSSIP_COLS, narrowed so that four (clusters, cols) f32 rows stay
     within GOSSIP_SCRATCH_BYTES.  The mixed rows do not depend on it."""
-    return min(GOSSIP_COLS, GOSSIP_SCRATCH_BYTES // (3 * 4 * clusters))
+    return min(GOSSIP_COLS, GOSSIP_SCRATCH_BYTES // (4 * 4 * clusters))
 
 
 class FLState(NamedTuple):

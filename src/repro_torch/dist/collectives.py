@@ -22,10 +22,11 @@ whose encoding would reach the dense row ships the dense row instead.
 ``ops.unpack_offsets``).  The
 gossip decodes and mixes every band and plan of a chunk in one
 ``ops.wire_decode_mix`` (one kernel launch on the card, every wire
-format), and its host tables (H's bands, the plans' sender rows) reach
-the kernels as launch parameters or as tensors made once per device: the
-chunk loop copies nothing from the host to the card, so the host never
-waits for the card inside it.
+format; with the wire EF a second one decodes each cluster's own
+payload into its estimate), and its host tables (H's bands, the plans'
+sender rows) reach the kernels as launch parameters or as tensors made
+once per device: the chunk loop copies nothing from the host to the card,
+so the host never waits for the card inside it.
 
 Every step of the wire is local to one wire block and the mix is linear
 in each column, so ``sparse_exchange_`` runs a leaf in column chunks of
@@ -288,8 +289,15 @@ def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
         est_self+ = est_self + dec_self
         est_wsum+ = est_wsum + diag * dec_self + sum_o coef_o * dec_o
         y         = means + gamma * (est_wsum+ - est_self+)
+    with dec_self each row's own payload decoded, as a sum from +0.  Each
+    estimate is one ``wire_decode_mix`` call (one launch on the card):
+    a step at band offset 0 a plan, coefficient 1 (est_self) or diag
+    (est_wsum, then the bands' steps).  A row outside a plan adds coef *
+    +0 there, which turns a -0 into +0 as the sum from +0 did; with one
+    plan a zero payload's step does it.  Bit for bit the sums in that
+    order, but where est_wsum holds -0 and diag times a nonzero decoded
+    value rounds to -0 (a value below 2^-149 / diag): +0 here, -0 there.
     Returns y, or (y, est_self+, est_wsum+)."""
-    L = means.shape[1]
     dev = means.device
     send = means if wire_ef is None else means - wire_ef[0]
     payloads = []  # (payload, k_b or None for a dense plan)
@@ -301,26 +309,30 @@ def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
         else:
             payloads.append((tuple(_encode(send, rows, key[1], wb,
                                            wire_dtype, impl)), key[1]))
+    del send  # the chunk's scratch: core/round.py:gossip_cols
     steps = [MixStep(o, tuple(coef), payload, k_b, senders)
              for o, coef in layout.bands
              for (payload, k_b), (_, _, senders) in zip(payloads,
                                                         layout.plans)]
-    mix = functools.partial(ops.wire_decode_mix, steps=steps, wb=wb,
+    mix = functools.partial(ops.wire_decode_mix, wb=wb,
                             wire_dtype=wire_dtype, impl=impl)
     if wire_ef is None:
-        return mix(means, diag=layout.diag)
-    est_self, est_wsum = wire_ef
-    dec_self = torch.zeros_like(means)
-    for (payload, k_b), (_, rows, _) in zip(payloads, layout.plans):
-        d = _decode(payload, L, wb, wire_dtype, k_b, impl)
-        if rows is None:
-            dec_self = dec_self + d
-        else:
-            dec_self.index_add_(0, _on_device(rows, torch.long, dev), d)
-    est_self = est_self + dec_self
-    diag = _on_device(tuple(layout.diag.tolist()), torch.float32, dev)
-    y = mix(est_wsum + diag[:, None] * dec_self)
-    return means + wire_ef_gamma * (y - est_self), est_self, y
+        return mix(means, steps, diag=layout.diag)
+    C = means.shape[0]
+
+    def own(coef):
+        out = [MixStep(0, coef, payload, k_b, senders)
+               for (payload, k_b), (_, _, senders) in zip(payloads,
+                                                          layout.plans)]
+        if len(out) == 1:
+            out.append(out[0]._replace(senders=(-1,) * C))
+        return out
+
+    est_self = mix(wire_ef[0], own((1.0,) * C))
+    est_wsum = mix(wire_ef[1], own(tuple(layout.diag.tolist())) + steps)
+    # means + gamma * (est_wsum - est_self), the same bits in one row
+    y = torch.sub(est_wsum, est_self)
+    return y.mul_(wire_ef_gamma).add_(means), est_self, est_wsum
 
 
 def _level_plans(L: int, dense_itemsize: int, C: int, *, k, theta,
@@ -393,7 +405,9 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
             out, es, ew = out
             ev[0][:, :, c0:c1].copy_(es[:, None])
             ev[1][:, :, c0:c1].copy_(ew[:, None])
+            del es, ew
         xv[:, :, c0:c1].copy_(out[:, None])
+        del means, out  # free before the next chunk's rows
 
 
 def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),

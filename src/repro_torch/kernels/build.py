@@ -36,8 +36,8 @@ SIGNATURES = {
     "repro_ssd_bwd": [_P] * 13 + [_LL] + [_I] * 8 + [_P],
     "repro_wire_encode_rows": [_P, _LL, _P, _I, _LL, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _P],
-    "repro_wire_pack_p4": [_P, _P, _LL, _I, _I, _P],
-    "repro_wire_unpack_p4": [_P, _P, _LL, _I, _I, _P],
+    "repro_wire_pack_p4": [_P, _P, _LL, _I, _I, _I, _P],
+    "repro_wire_unpack_p4": [_P, _P, _LL, _I, _I, _I, _P],
     "repro_wire_decode_mix": [_P, _I, _P],
 }
 

@@ -6,8 +6,11 @@
 //                                                   (wb <= 1024), encode_kernel
 //   pack_offsets_pallas (:244, _pack_p4_kernel)  -> the encodes' p4 epilogue
 //                                                   (on the gossip path), and
-//                                                   pack_p4_kernel
-//   unpack_offsets_pallas (:264, _unpack_p4_kernel) -> unpack_p4_kernel
+//                                                   pack_p4_warp_kernel
+//                                                   (wb <= 1024), pack_p4_kernel
+//   unpack_offsets_pallas (:264, _unpack_p4_kernel) -> unpack_p4_warp_kernel
+//                                                   (wb <= 1024),
+//                                                   unpack_p4_kernel
 // bit for bit as kernels/wire_pack.py's plain versions compute them.
 // decode_mix_kernel has no TPU counterpart: the reference decodes in jnp
 // (dist/collectives.py:642 wire_decode, kernels/wire_pack.py:143
@@ -27,14 +30,15 @@
 // It reads its sender rows where they lie (row indices by value); entries
 // past the row's length L read as +0, as the zero pad of the plain version.
 // It writes the offsets in one of three forms (kOff*): int32, uint8 (wb <=
-// 256), or the p4 bytes pack_p4_kernel makes of them, with no int32
-// offsets in device memory (the CTA-per-block encode keeps them in a
-// scratch row and packs them after its last barrier; it writes no u8).
-// pack_p4_kernel, per block of k_b ascending offsets: the low nibbles two
-// per byte, then a bitmap with bit (off_i >> 4) + i set (bit b of byte j is
-// position 8j + b).  unpack_p4_kernel inverts it: the i-th set bit at
-// position p gives off_i = 16 (p - i) + lo_i; ranks past the set bits
-// (an all-zero payload) decode to hi = 0, as the Pallas kernel clamps.
+// 256), or the p4 bytes the pack makes of them, with no int32 offsets in
+// device memory (the CTA-per-block encode keeps them in a scratch row and
+// packs them after its last barrier; it writes no u8).
+// The p4 pack, per block of k_b ascending offsets: the low nibbles two per
+// byte, then a bitmap with bit (off_i >> 4) + i set (bit b of byte j is
+// position 8j + b).  The unpack inverts it: the i-th set bit at position p
+// gives off_i = 16 (p - i) + lo_i; ranks past the set bits (an all-zero
+// payload, or a bitmap with fewer than k_b set bits) decode to hi = 0, as
+// the Pallas kernel clamps; set bits past the k_b-th are not read.
 // decode_mix_kernel, per destination row c and wire block, for each step
 // (a band offset o and one plan's payload) in order:
 //   y_c <- y_c + coef_c * decode(payload row of cluster (c - o) mod C)
@@ -43,7 +47,9 @@
 // Bound: bytes.  The encode reads each f32 entry once and writes k_b
 // values, k_b offsets and a scale (at the main path's chunk, 16.8 MB read
 // for 4096 blocks: 5 us at 3.35 TB/s).  The decode-and-mix reads y (or the
-// means) once, the payloads once, and writes y once.  Design: the encode
+// means) once, the payloads once, and writes y once.  The unpack reads a
+// block's p4 bytes and writes its k_b int32 offsets (at k_b 615, 393 bytes
+// in and 2460 out), the pack the other way round.  Design: the encode
 // gives each wire block one warp, eight blocks a CTA, with the block's
 // entries in registers (lane l holds entries 32 r + l, so loads coalesce
 // and the rounds run in index order); max |x| and the 16 bisection counts
@@ -56,21 +62,33 @@
 // bytes and sets its bit (off >> 4) + pos of the warp's shared bitmap
 // (the bits rise strictly, so none collide; a word's bits are ORed by
 // shared atomics); after a __syncwarp the warp writes the block's p4
-// bytes: the pack costs no launch, and no int32 offset goes through device
-// memory (at k_b 615 a block's 2460 offset bytes written and read again
-// become its 393 p4 bytes written once).  Blocks beyond
+// bytes (p4_store): the pack costs no launch, and no int32 offset goes
+// through device memory (at k_b 615 a block's 2460 offset bytes written
+// and read again become its 393 p4 bytes written once).  Blocks beyond
 // the registers (wb > 1024) keep the CTA-per-block encode_kernel, whose 16
-// bisection steps are block reductions.  The decode-and-mix replaces the
+// bisection steps are block reductions.  The standalone pack and unpack
+// also give a wire block of wb <= 1024 one warp, eight blocks a CTA, and
+// no CTA barrier.  The pack reads the block's int32 offsets coalesced,
+// builds the nibbles and the bitmap in the warp's shared memory as the
+// encode's epilogue does, and writes them with the same p4_store.  The
+// unpack copies the block's p4 bytes into the warp's shared memory with
+// the 16-byte loads that cover them (a block starts at any byte), gives
+// each lane a contiguous run of the bitmap's 32-bit words, ranks the set
+// bits by a popcount and a 5-step __shfl_up_sync scan, and lets each lane
+// walk its own bits (__ffs), writing each rank's offset into a row in
+// shared memory laid out at the output's 16-byte phase; after a
+// __syncwarp the warp stores the row with 16-byte stores (scalar ones at
+// its two ends).  Wider blocks keep one CTA a block: the pack ORs the
+// bitmap together in shared memory, the unpack ranks the set bits with a
+// block-wide popcount prefix sum.  The decode-and-mix replaces the
 // chain of zero fills, rolls, unpack, dequantize, scatter and mix (about
 // 30 launches and 7 dense passes a step): one CTA per (row, block) keeps
 // y's tile in shared memory, scatters each step's decoded values into a
 // zeroed tile (the p4 ranks by a popcount prefix sum) and adds coef * tile
 // to every entry, as the dense add of the plain version does.  Its steps
 // and coefficients are kernel parameters, so a chunk copies nothing from
-// the host.  Pack and unpack take one thread block per wire block: pack
-// ORs the bitmap together in shared memory (bits never collide, bytes do),
-// unpack ranks the set bits with a popcount prefix sum.  f32 arithmetic
-// goes through the _rn intrinsics: no FMA contraction, IEEE division.
+// the host.  f32 arithmetic goes through the _rn intrinsics: no FMA
+// contraction, IEEE division.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -96,6 +114,18 @@ constexpr int kWarpEncodeMax = 32 * kWarpRounds;
 constexpr int kP4Words = (kWarpEncodeMax + kWarpEncodeMax / 16 + 31) / 32;
 constexpr int kEncodeWarps = 8;
 constexpr int kMaxEncodeRows = 32;  // sender rows a launch (wire_pack.py)
+
+// The warp pack and unpack (wb <= kWarpEncodeMax): kP4Warps blocks a CTA.
+constexpr int kP4Warps = 8;
+// p4 bytes of a block at most, and the 16-byte chunks that cover them
+// from any starting byte
+constexpr int kP4MaxBytes =
+    kWarpEncodeMax / 2 + (kWarpEncodeMax + kWarpEncodeMax / 16 + 7) / 8;
+constexpr int kP4StageChunks = (kP4MaxBytes + 30) / 16 + 1;
+// the unpack's row of k_b int32 offsets at any 16-byte phase, in chunks
+constexpr int kP4RowChunks = (kWarpEncodeMax + 3 + 3) / 4;
+// bitmap words a lane walks at most: a contiguous run of kP4Words / 32
+constexpr int kP4LaneWords = (kP4Words + 31) / 32;
 
 // The decode-and-mix (kernels/wire_pack.py:_MixArgs).
 constexpr int kMixThreads = 128;
@@ -161,6 +191,22 @@ __host__ __device__ inline void p4_sizes(int wb, int k_b, int* lo_bytes,
                                          int* bm_bytes) {
   *lo_bytes = (k_b + 1) / 2;
   *bm_bytes = (k_b + (wb + 15) / 16 + 7) / 8;
+}
+
+// Writes a block's p4 bytes from the warp's shared nibbles (one byte an
+// offset, k_b of them) and bitmap words: the whole warp calls it, after a
+// __syncwarp.  Consecutive lanes write consecutive bytes.
+__device__ __forceinline__ void p4_store(const uint8_t* onib,
+                                         const unsigned int* bm, int k_b,
+                                         int lo_bytes, int bm_bytes,
+                                         uint8_t* dst, int lane) {
+  for (int p = lane; p < lo_bytes; p += 32) {
+    const int n0 = onib[2 * p];
+    const int n1 = 2 * p + 1 < k_b ? onib[2 * p + 1] : 0;
+    dst[p] = static_cast<uint8_t>(n0 | (n1 << 4));
+  }
+  for (int j = lane; j < bm_bytes; j += 32)
+    dst[lo_bytes + j] = static_cast<uint8_t>(bm[j >> 2] >> (8 * (j & 3)));
 }
 
 __device__ __forceinline__ int quant_int(float v, float s, float levels) {
@@ -313,14 +359,8 @@ encode_warp_kernel(const float* __restrict__ x, const EncodeRows rows,
   if (kOmode == kOffP4) {
     int lo_bytes, bm_bytes;
     p4_sizes(wb, k_b, &lo_bytes, &bm_bytes);
-    uint8_t* dst = packed + g * (lo_bytes + bm_bytes);
-    for (int p = lane; p < lo_bytes; p += 32) {
-      const int n0 = onib[2 * p];
-      const int n1 = 2 * p + 1 < k_b ? onib[2 * p + 1] : 0;
-      dst[p] = static_cast<uint8_t>(n0 | (n1 << 4));
-    }
-    for (int j = lane; j < bm_bytes; j += 32)
-      dst[lo_bytes + j] = static_cast<uint8_t>(bm[j >> 2] >> (8 * (j & 3)));
+    p4_store(onib, bm, k_b, lo_bytes, bm_bytes,
+             packed + g * (lo_bytes + bm_bytes), lane);
   }
 }
 
@@ -479,6 +519,142 @@ pack_p4_kernel(const int* __restrict__ off, uint8_t* __restrict__ out,
 
 __device__ __forceinline__ int lo_nibble(const uint8_t* src, int i) {
   return (src[i >> 1] >> (4 * (i & 1))) & 15;
+}
+
+// The warp pack: one warp a block of k_b <= wb <= kWarpEncodeMax
+// offsets, kP4Warps blocks a CTA, a round of 32 offsets at a time.  The
+// lanes of a round whose bits fall in one bitmap word OR them together
+// (__match_any_sync, __reduce_or_sync; a valid block's bits rise
+// strictly, so a round's 32 bits fill two or three words) and the
+// lowest of them ORs the result into the warp's shared word by one
+// atomic; any input is ORed as the plain version's scatter of ones does,
+// a position outside the bitmap is dropped, and p4_store writes the
+// bytes.
+__global__ void __launch_bounds__(kP4Warps * 32)
+pack_p4_warp_kernel(const int* __restrict__ off, uint8_t* __restrict__ out,
+                    int blocks, int k_b, int lo_bytes, int bm_bytes) {
+  __shared__ uint8_t onib_all[kP4Warps][kWarpEncodeMax];
+  __shared__ unsigned int bm_all[kP4Warps][kP4Words];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // blockIdx.x < 2^28, so the block index fits 32 bits
+  const unsigned int blk = blockIdx.x * kP4Warps + warp;
+  if (blk >= static_cast<unsigned int>(blocks)) return;  // whole warps
+  const int* o = off + static_cast<int64_t>(blk) * k_b;
+  uint8_t* onib = onib_all[warp];
+  unsigned int* bm = bm_all[warp];
+  for (int w = lane; w < kP4Words; w += 32) bm[w] = 0u;
+  __syncwarp();
+  const int nbits = 8 * bm_bytes;
+  // every load first, so that they are in flight together: lane l holds
+  // offsets 32 r + l, as the encode holds its entries
+  int v[kWarpRounds];
+#pragma unroll
+  for (int r = 0; r < kWarpRounds; ++r)
+    v[r] = 32 * r + lane < k_b ? o[32 * r + lane] : 0;
+#pragma unroll
+  for (int r = 0; r < kWarpRounds; ++r) {  // whole warps: the lanes vote
+    if (32 * r >= k_b) break;
+    const int i = 32 * r + lane;
+    const int pos = (v[r] >> 4) + i;
+    const bool in = i < k_b && pos >= 0 && pos < nbits;
+    if (i < k_b) onib[i] = static_cast<uint8_t>(v[r] & 15);
+    const int word = in ? pos >> 5 : -1;
+    const unsigned int same = __match_any_sync(0xffffffffu, word);
+    const unsigned int bits =
+        __reduce_or_sync(same, in ? 1u << (pos & 31) : 0u);
+    if (in && lane == __ffs(same) - 1) atomicOr(&bm[word], bits);
+  }
+  __syncwarp();
+  p4_store(onib, bm, k_b, lo_bytes, bm_bytes,
+           out + static_cast<int64_t>(blk) * (lo_bytes + bm_bytes), lane);
+}
+
+// Word w of a bitmap of bm_bytes bytes (little-endian; bytes past the end
+// read 0).
+__device__ __forceinline__ unsigned int bm_word(const uint8_t* bits,
+                                                int bm_bytes, int w) {
+  unsigned int v = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (4 * w + j < bm_bytes)
+      v |= static_cast<unsigned int>(bits[4 * w + j]) << (8 * j);
+  return v;
+}
+
+// The warp unpack: one warp a block of k_b <= wb <= kWarpEncodeMax,
+// kP4Warps blocks a CTA.  The block's bytes start anywhere (blk * nbytes):
+// the warp copies the 16-byte chunks that hold them into its stage, which
+// reads at most 15 bytes either side of the block; a 16-byte aligned
+// chunk never crosses a page, and the page holds the block's own bytes.
+// Lane l walks the bitmap words [l nwords / 32, (l + 1) nwords / 32).  The
+// warp's row holds entry i at int (a + i), a the output row's int32 phase
+// in its 16 bytes, so that chunk q of the row is the aligned 16 bytes at
+// out_row - a + 4 q.
+__global__ void __launch_bounds__(kP4Warps * 32)
+unpack_p4_warp_kernel(const uint8_t* __restrict__ packed,
+                      int* __restrict__ off, int blocks, int k_b,
+                      int lo_bytes, int bm_bytes) {
+  __shared__ uint4 stage_all[kP4Warps][kP4StageChunks];
+  __shared__ int4 row_all[kP4Warps][kP4RowChunks];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned int blk = blockIdx.x * kP4Warps + warp;
+  if (blk >= static_cast<unsigned int>(blocks)) return;  // whole warps
+  const int nbytes = lo_bytes + bm_bytes;
+  const uint8_t* src = packed + static_cast<int64_t>(blk) * nbytes;
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(src);
+  const uint4* gsrc = reinterpret_cast<const uint4*>(sa & ~uintptr_t(15));
+  const int head = static_cast<int>(sa & 15);
+  uint4* stage = stage_all[warp];
+  for (int q = lane; q < (head + nbytes + 15) >> 4; q += 32)
+    stage[q] = __ldg(gsrc + q);
+  int* out = off + static_cast<int64_t>(blk) * k_b;
+  const int a = static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3);
+  int* row = reinterpret_cast<int*>(row_all[warp]) + a;
+  __syncwarp();
+
+  const uint8_t* lo = reinterpret_cast<const uint8_t*>(stage) + head;
+  const uint8_t* bits = lo + lo_bytes;
+  const int nwords = (bm_bytes + 3) >> 2;  // <= kP4Words
+  const int w0 = (lane * nwords) >> 5, nw = (((lane + 1) * nwords) >> 5) - w0;
+  unsigned int words[kP4LaneWords];
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < kP4LaneWords; ++j) {
+    words[j] = j < nw ? bm_word(bits, bm_bytes, w0 + j) : 0u;
+    c += __popc(words[j]);
+  }
+  int incl = c;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += n;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  int rank = incl - c;
+#pragma unroll
+  for (int j = 0; j < kP4LaneWords; ++j) {
+    unsigned int b = words[j];
+    while (b != 0u && rank < k_b) {
+      const int pos = 32 * (w0 + j) + __ffs(b) - 1;
+      b &= b - 1u;
+      row[rank] = 16 * max(pos - rank, 0) + lo_nibble(lo, rank);
+      ++rank;
+    }
+  }
+  for (int i = total + lane; i < k_b; i += 32)
+    row[i] = lo_nibble(lo, i);  // no set bit of this rank: hi = 0
+  __syncwarp();
+
+  const int4* rows = row_all[warp];
+  int4* gout = reinterpret_cast<int4*>(out - a);
+  for (int q = lane; q < (a + k_b + 3) >> 2; q += 32) {
+    const int e0 = 4 * q - a;  // the entry of the chunk's first int
+    if (e0 >= 0 && e0 + 4 <= k_b) {
+      gout[q] = rows[q];
+    } else {
+      for (int e = max(e0, 0); e < min(e0 + 4, k_b); ++e) out[e] = row[e];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kPackThreads)
@@ -911,39 +1087,59 @@ extern "C" int repro_wire_encode_rows(const void* x, long long row_stride,
 }
 
 // off: (blocks, k_b) int32 ascending offsets below wb -> out: (blocks,
-// ceil(k_b / 2) + ceil((k_b + ceil(wb / 16)) / 8)) uint8.
+// ceil(k_b / 2) + ceil((k_b + ceil(wb / 16)) / 8)) uint8.  warp: 1 runs
+// the warp-per-block kernel (wb <= 1024), 0 the CTA-per-block one.
 extern "C" int repro_wire_pack_p4(const void* off, void* out,
                                   long long blocks, int wb, int k_b,
-                                  void* stream) {
+                                  int warp, void* stream) {
   using namespace repro;
-  if (wb < 1 || k_b < 1 || blocks < 0 || blocks > 0x7fffffffLL)
+  if (wb < 1 || k_b < 1 || k_b > wb || blocks < 0 ||
+      blocks > 0x7fffffffLL || (warp && wb > kWarpEncodeMax))
     return cudaErrorInvalidValue;
   if (blocks == 0) return cudaSuccess;
   int lo_bytes, bm_bytes;
   p4_sizes(wb, k_b, &lo_bytes, &bm_bytes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (warp) {
+    pack_p4_warp_kernel<<<static_cast<unsigned>(
+                              (blocks + kP4Warps - 1) / kP4Warps),
+                          kP4Warps * 32, 0, st>>>(
+        static_cast<const int*>(off), static_cast<uint8_t*>(out),
+        static_cast<int>(blocks), k_b, lo_bytes, bm_bytes);
+    return cudaGetLastError();
+  }
   const size_t smem = ((bm_bytes + 3) / 4) * sizeof(unsigned int);
   cudaError_t err = allow_smem(pack_p4_kernel, smem);
   if (err != cudaSuccess) return err;
-  pack_p4_kernel<<<static_cast<unsigned>(blocks), kPackThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  pack_p4_kernel<<<static_cast<unsigned>(blocks), kPackThreads, smem, st>>>(
       static_cast<const int*>(off), static_cast<uint8_t*>(out), k_b,
       lo_bytes, bm_bytes);
   return cudaGetLastError();
 }
 
 // packed: (blocks, nbytes) uint8 as repro_wire_pack_p4 writes it -> off:
-// (blocks, k_b) int32.
+// (blocks, k_b) int32 (4-byte aligned).  warp: as for the pack.
 extern "C" int repro_wire_unpack_p4(const void* packed, void* off,
                                     long long blocks, int wb, int k_b,
-                                    void* stream) {
+                                    int warp, void* stream) {
   using namespace repro;
-  if (wb < 1 || k_b < 1 || blocks < 0 || blocks > 0x7fffffffLL)
+  if (wb < 1 || k_b < 1 || k_b > wb || blocks < 0 ||
+      blocks > 0x7fffffffLL || (warp && wb > kWarpEncodeMax) ||
+      (reinterpret_cast<uintptr_t>(off) & 3) != 0)
     return cudaErrorInvalidValue;
   if (blocks == 0) return cudaSuccess;
   int lo_bytes, bm_bytes;
   p4_sizes(wb, k_b, &lo_bytes, &bm_bytes);
-  unpack_p4_kernel<<<static_cast<unsigned>(blocks), kPackThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (warp) {
+    unpack_p4_warp_kernel<<<static_cast<unsigned>(
+                                (blocks + kP4Warps - 1) / kP4Warps),
+                            kP4Warps * 32, 0, st>>>(
+        static_cast<const uint8_t*>(packed), static_cast<int*>(off),
+        static_cast<int>(blocks), k_b, lo_bytes, bm_bytes);
+    return cudaGetLastError();
+  }
+  unpack_p4_kernel<<<static_cast<unsigned>(blocks), kPackThreads, 0, st>>>(
       static_cast<const uint8_t*>(packed), static_cast<int*>(off), k_b,
       lo_bytes, bm_bytes);
   return cudaGetLastError();

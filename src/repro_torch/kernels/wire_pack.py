@@ -27,11 +27,16 @@ plain PyTorch version:
   byte, then the delta-unary bitmap with bit (off_i >> 4) + i set for kept
   entry i (bit b of byte j is position 8j + b).  Ports of
   ``pack_offsets_pallas`` / ``unpack_offsets_pallas``; the plain versions
-  are the reference's ``pack_offsets_jnp`` / ``unpack_offsets_jnp``.  Both
-  are lossless, and an all-zero payload (the zero fill of a partial
-  rotation) decodes to offset 0.  The u8 mode is a cast, no kernel.  The
-  gossip packs inside the encode; the pack kernel serves offsets that
-  are already int32 (``ops.pack_offsets``).
+  compute the reference's ``pack_offsets_jnp`` / ``unpack_offsets_jnp``,
+  except that a rank past the bitmap's set bits decodes to hi = 0 (its
+  low nibble), as the Pallas kernel clamps (the jnp version takes the
+  position of a clear bit there): so an all-zero payload (the zero fill of
+  a partial rotation) decodes to offset 0 in all four.  Both are lossless.
+  A wire block of at most ``WARP_ENCODE_MAX`` entries runs a warp-per-block
+  kernel, a larger one a CTA-per-block kernel (``encode_route``, as the
+  encode).  The u8 mode is a cast, no kernel.  The gossip packs inside the
+  encode and unpacks inside the decode-and-mix; these kernels serve
+  ``ops.pack_offsets`` / ``ops.unpack_offsets`` and ``wire_decode``.
 ``decode_mix``
   the gossip's decode and mix of one column chunk: for each ``MixStep``
   (a band offset o of H and one wire plan's payload) in order, y[c] +=
@@ -160,11 +165,13 @@ def unpack_offsets_plain(packed, *, wb: int, k_b: int, mode: str):
     shifts = torch.arange(8, dtype=torch.int32, device=packed.device)
     bits = ((bm[..., None] >> shifts) & 1).reshape(
         bm.shape[:-1] + (bm_bytes * 8,))
-    # positions of the k_b set bits in ascending order: a stable sort
-    # puts the one-bits first, in index order
+    # positions of the first k_b set bits in ascending order: a stable
+    # sort puts the one-bits first, in index order; a rank past the set
+    # bits takes hi = 0
     pos = torch.argsort(1 - bits, dim=-1, stable=True)[..., :k_b]
-    hi = pos.to(torch.int32) - torch.arange(k_b, dtype=torch.int32,
-                                            device=packed.device)
+    rank = torch.arange(k_b, dtype=torch.int32, device=packed.device)
+    hi = torch.where(rank < bits.sum(dim=-1, keepdim=True),
+                     pos.to(torch.int32) - rank, 0)
     return hi * 16 + lo
 
 
@@ -440,31 +447,48 @@ def encode_rows_cuda(x, rows, k_b: int, *, wb: int, wire_dtype: str,
     return _encode_launch(x, rows, L, k_b, wb, wire_dtype, omode, out)
 
 
-def pack_offsets_cuda(off, *, wb: int):
+def _p4_warp(name, wb, k_b, force_block):
+    """The C entries' ``warp`` argument: the route by shape
+    (``encode_route``), or the CTA-per-block kernel with ``force_block``
+    (it runs on any wb)."""
+    if not 1 <= k_b <= wb:
+        raise ValueError(f"{name}: k_b {k_b}, wb {wb}: need 1 <= k_b <= wb")
+    return int(not force_block and encode_route(wb) == "warp")
+
+
+def pack_offsets_cuda(off, *, wb: int, _force_block: bool = False):
     """The p4 pack kernel.  off: (m, nb, k_b) int32 ascending block-local
-    offsets (< wb) on the card -> (m, nb, nbytes) uint8."""
+    offsets (< wb) on the card -> (m, nb, nbytes) uint8.
+    ``_force_block`` runs the CTA-per-block kernel at any wb (a test hook:
+    it checks and times that kernel beside the warp one)."""
     _check("wire_pack", [off], [torch.int32])
     m, nb, k_b = off.shape
+    warp = _p4_warp("wire_pack", wb, k_b, _force_block)
     lo_bytes, bm_bytes = _p4_sizes(wb, k_b)
     out = torch.empty((m, nb, lo_bytes + bm_bytes), dtype=torch.uint8,
                       device=off.device)
     err = build.lib().repro_wire_pack_p4(
-        off.data_ptr(), out.data_ptr(), m * nb, wb, k_b, _stream(off))
+        off.data_ptr(), out.data_ptr(), m * nb, wb, k_b, warp, _stream(off))
     _launched("wire_pack", err)
     return out
 
 
-def unpack_offsets_cuda(packed, *, wb: int, k_b: int):
+def unpack_offsets_cuda(packed, *, wb: int, k_b: int,
+                        _force_block: bool = False):
     """The p4 unpack kernel.  packed: (m, nb, nbytes) uint8 on the card ->
-    (m, nb, k_b) int32; an all-zero payload decodes to offset 0."""
+    (m, nb, k_b) int32, ``unpack_offsets_plain``'s result bit for bit on
+    any bytes; an all-zero payload decodes to offset 0.  ``_force_block``
+    as for ``pack_offsets_cuda``."""
     _check("wire_unpack", [packed], [torch.uint8])
     m, nb, nbytes = packed.shape
+    warp = _p4_warp("wire_unpack", wb, k_b, _force_block)
     if nbytes != sum(_p4_sizes(wb, k_b)):
         raise ValueError(f"wire_unpack: {nbytes} bytes a block, expected "
                          f"{sum(_p4_sizes(wb, k_b))} for wb {wb}, k_b {k_b}")
     off = torch.empty((m, nb, k_b), dtype=torch.int32, device=packed.device)
     err = build.lib().repro_wire_unpack_p4(
-        packed.data_ptr(), off.data_ptr(), m * nb, wb, k_b, _stream(packed))
+        packed.data_ptr(), off.data_ptr(), m * nb, wb, k_b, warp,
+        _stream(packed))
     _launched("wire_unpack", err)
     return off
 

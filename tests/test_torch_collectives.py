@@ -186,6 +186,16 @@ def test_gossip_cols_keeps_the_scratch_budget(clusters):
     assert cols >= 1024  # whole wire blocks at the largest wire block
 
 
+@pytest.mark.parametrize("clusters", (2, 4, 8, 16))
+def test_gossip_cols_with_wire_ef_keeps_the_scratch_budget(clusters):
+    """With the wire EF a chunk holds the two new estimates too: four
+    (C, cols) f32 rows, inside the budget at the one chunk width."""
+    from repro_torch.core import round as rnd
+    cols = rnd.gossip_cols(clusters)
+    assert 4 * clusters * cols * 4 <= rnd.GOSSIP_SCRATCH_BYTES
+    assert cols % 1024 == 0  # whole wire blocks at the largest wire block
+
+
 def test_sparse_exchange_in_place_matches_functional():
     tx = torch.from_numpy(rows(9, intra_done=True)).to(torch.bfloat16)
     kw = dict(clusters=C, dev=DEV, hkind="ring", wire_dtype="int4",
