@@ -13,7 +13,9 @@ Phases (any failure ends the run with a non-zero exit):
    and the serve trace's padded prompt length), an f32 case, a
    window/q_offset case with a ragged Skv at Dh=64 in f32 and in bf16,
    bf16 with S not a multiple of 64 at Dh 64 (smollm's heads) and 16, and
-   a window case at Dh=64;
+   a window case at Dh=64; on every case the row log-sum-exp that both
+   kernels write for the training path (``return_lse``), held to the
+   plain version's at the case's tolerance, beside the same out;
 3. the split paged decode (bf16 ``paged_decode_tc`` on the tensor cores,
    f32 ``paged_decode_simt``; the last live split of each request and KV
    head merges the others) vs its plain version at the serve shapes (B=8,
@@ -123,7 +125,26 @@ Phases (any failure ends the run with a non-zero exit):
    second round bit for bit ``_sparse_mix_rows(..., impl="plain")`` on
    the card from the same inputs; then that chunk alone, its card time
    beside the chunk's without the EF, and its kernels' device time by
-   name.
+   name;
+14. the attention backward kernel (``csrc/flash_attention_bwd.cu``: bf16
+   on the tensor cores by mma.sync, f32 the exact SIMT kernels) vs its
+   plain version (``ref.flash_attention_bwd_plain``) on the same seeded
+   inputs, out and lse from the forward kernel: BWD_CASES (G 1, 2 and 3,
+   causal and not, a window, ragged S 65, 130 and 1000, Dh 16-128, both
+   types), each gradient within BWD_TOL_OF_MAX of its largest entry and the
+   same bits on a second run; then smollm-135M's layer (B 2, S 2048, 9
+   heads, 3 KV heads, Dh 64, bf16, causal), timed beside its plain
+   version, SDPA's backward alone and its bound, and split by kernel;
+15. the HCEF round step on the smoke smollm (f32, 2 layers, S 65, 2 x 2,
+   tau 4), 3 rounds on the card (the f32 attention kernels, forward and
+   backward, every launch counted) against the CPU (the plain version
+   under autograd): within ROUND_RTOL / ROUND_ATOL;
+16. the train launcher's entry point on smollm-135M at full width and
+   depth (30 layers, bf16, remat; R = 4 in 2 x 2, tau = q = 4, 2 x 2048
+   tokens a step), LM_ROUNDS rounds: finite losses, two attention
+   forwards and one backward a layer and step, one top-k launch a round
+   per type pair, no serve launch; the round wall p50 against
+   LM_ROUND_LIMIT_MS and the peak against PEAK_LIMIT_GB (gated).
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -196,6 +217,7 @@ GOSSIP_LEVELS = (0.1, 0.6)  # phase 12's cluster levels, the main chunk's
 SPARSE_ROUNDS, SPARSE_Q = 4, 2  # phase 12: rounds 2 and 4 gossip
 SPARSE_THETA = (0.05, 0.1, 0.4, 0.6)  # per device; cluster levels 0.1, 0.6
 PEAK_LIMIT_GB = 72.0
+LM_ROUND_LIMIT_MS = 10_000.0  # phase 16: 1000 edge rounds under 3 hours
 EF_ROUNDS = 2  # phase 13: the second round starts from nonzero estimates
 # phase 10: the device launches of one gossip chunk (two plans): the
 # encode of each plan's sender row, the decode-and-mix, the bf16 -> f32
@@ -394,10 +416,14 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
     v = torch.randn((1, Skv, KH, Dh), generator=gen, device="cuda").to(dtype)
     kw = dict(causal=True, window=window, q_offset=q_offset)
     out = fa.flash_attention_cuda(q, k, v, **kw)
+    out2, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
-    ref = fa.flash_attention_plain(q, k, v, **kw)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     err, ok = max_err(out, ref, tol)
+    # the training forward writes the row log-sum-exp beside the same out
+    lse_err, lse_ok = max_err(lse, ref_lse, tol)
+    ok = ok and lse_ok and torch.equal(out, out2)
     ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
     call_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
                       host_paced=True)
@@ -418,7 +444,7 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
     kernel = "flash_fwd_tc" if dtype == torch.bfloat16 else "flash_fwd_simt"
     row = dict(kernel=kernel, S=S, Skv=Skv, H=H, KH=KH, Dh=Dh,
                dtype=str(dtype)[6:], window=window, q_offset=q_offset,
-               max_abs_err=err,
+               max_abs_err=err, lse_max_abs_err=lse_err,
                tol=tol["atol"], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     print("prefill " + json.dumps(row))
@@ -617,7 +643,7 @@ def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests):
         fail(f"{rec.prefills} prefills for {len(reqs)} requests")
     if not (launches["flash_attention"] == L * rec.prefills > 0
             and launches["paged_decode_attention"] == L * rec.decode_steps
-            > 0):
+            > 0 and launches["flash_attention_bwd"] == 0):
         fail(f"launch counts {launches} != {L} x ({rec.prefills} prefills, "
              f"{rec.decode_steps} decode steps)")
     n_tok = sum(len(o.tokens) for o in outs.values())
@@ -2361,6 +2387,247 @@ def wire_ef_chunk(col, wp, gb, x, est, cols):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the attention backward kernel
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KH, Dh, dtype, causal, window): G 1, 2 and 3, causal and not, a
+# window, ragged S (65, 1000, 130), Dh 16, 32, 64 and 128, in both types;
+# the last is smollm-135M's layer in training (the timed row)
+BWD_CASES = [
+    (1, 65, 3, 3, 16, torch.float32, True, 0),
+    (2, 65, 4, 2, 64, torch.float32, False, 0),
+    (1, 1000, 6, 2, 64, torch.float32, True, 96),
+    (1, 130, 3, 1, 16, torch.float32, False, 16),
+    (1, 200, 4, 2, 128, torch.float32, True, 0),
+    (1, 65, 3, 3, 16, torch.bfloat16, True, 0),
+    (2, 65, 4, 2, 64, torch.bfloat16, False, 0),
+    (1, 1000, 6, 2, 64, torch.bfloat16, True, 96),
+    (1, 1000, 4, 4, 16, torch.bfloat16, True, 0),
+    (1, 130, 3, 1, 64, torch.bfloat16, False, 16),
+    (1, 200, 4, 2, 32, torch.bfloat16, True, 0),
+    (1, 200, 4, 2, 128, torch.bfloat16, True, 0),
+]
+# each gradient within this share of its largest entry (f32: the
+# reference's 2e-5; bf16: 2e-2, the kernel rounds P and dS to bf16)
+BWD_TOL_OF_MAX = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
+               "flash_bwd_dkdv_simt", "flash_bwd_dq_simt")
+
+
+def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
+                       timed=False):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the
+    same inputs (q, k, v, dout seeded; out and lse from the forward
+    kernel), twice for the same bits; at the timed shape also the plain
+    version's and SDPA's backward times."""
+    shape_q, shape_k = (B, S, H, Dh), (B, S, KH, Dh)
+    q, dout = (torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(shape_k, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    share = BWD_TOL_OF_MAX[dtype]
+    errs, of_max, ok = {}, {}, True
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = float(b.float().abs().max())
+        errs[name] = float((a.float() - b.float()).abs().max())
+        of_max[name] = errs[name] / scale
+        ok = ok and errs[name] <= share * scale
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    row = dict(B=B, S=S, H=H, KH=KH, Dh=Dh, dtype=str(dtype)[6:],
+               causal=causal, window=window, max_abs_err=max(errs.values()),
+               errs=errs, err_of_max=of_max, tol_of_max=share,
+               deterministic=same)
+    if timed:
+        args = (q, k, v, out, lse, dout)
+        row["ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(*args, **kw))
+        row["call_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_cuda(*args, **kw),
+            host_paced=True)
+        row["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_plain(*args, **kw), iters=3,
+            warmup=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        gt = dout.transpose(1, 2)
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), gt, retain_graph=True))
+        # which of the three launches takes the time (warm L2)
+        row["split_us"] = kernel_split(
+            lambda: fa.flash_attention_bwd_cuda(*args, **kw))
+        pairs = B * live_pairs(S, S, causal, window, 0)
+        flops = 5 * 2 * Dh * H * pairs  # S, dP, dV, dQ, dK: 5 products
+        nbytes = (sum(t.numel() for t in (q, k, v, out, dout)) +
+                  sum(t.numel() for t in got)) * q.element_size() + \
+            lse.numel() * 4
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+        row["gflop"] = flops / 1e9
+        row["mbytes"] = nbytes / 1e6
+    print("attention_bwd " + json.dumps(row))
+    if not ok:
+        fail(f"the attention backward kernel disagrees with its plain "
+             f"version: {row}")
+    if not same:
+        fail(f"the attention backward kernel gave other bits on a second "
+             f"run: {row}")
+    return row
+
+
+def attention_bwd_phase(fa, build):
+    """Phase 14: every case of BWD_CASES, then smollm-135M's layer (B 2, S
+    2048, 9 heads, 3 KV heads, Dh 64, bf16, causal), timed."""
+    ptx = ptxas_summary(build.build_log)
+    for name in BWD_KERNELS:
+        regs, spills, stack, smem, n = ptx.get(name, (0, 0, 0, 0, 0))
+        print(f"  ptxas: {name}: up to {regs} registers, {spills} bytes of "
+              f"spill stores, {stack} bytes of stack, over {n} "
+              f"instantiations")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for case in BWD_CASES:
+        attention_bwd_case(fa, gen, *case)
+    return attention_bwd_case(fa, gen, 2, 2048, 9, 3, 64, torch.bfloat16,
+                              True, 0, timed=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the HCEF round step on the dense LM
+# ---------------------------------------------------------------------------
+
+LM_ROUNDS = 4  # phase 16: q = 4, round 4 gossips
+
+
+def small_lm_round_agrees(configs, lm, rnd_mod, base, fa):
+    """Three rounds (the last a gossip round) of the smoke smollm's round
+    step (f32, 2 layers, S 65, 2 x 2, tau 4) on the card (the f32
+    attention kernels, forward and backward) and on the CPU (the plain
+    version under autograd), from the same parameters, tokens, controls
+    and bits: losses, statistics and parameters within ROUND_RTOL /
+    ROUND_ATOL."""
+    from repro_torch.tree import flatten
+    cfg = configs.smoke_model(configs.get_config("smollm_135m").model)
+    hcef = base.HCEFConfig(tau=4, q=3, eta=0.1)
+    topo = base.FLTopology(2, 2)
+    params0 = lm.init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    rng = np.random.default_rng(5)
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 65)))
+              for _ in range(3)]
+    rho = np.array([0.9, 0.6, 0.8, 0.7])
+    theta = np.array([0.5, 0.25, 1.0, 0.1])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        fa.reset_launches()
+        state = rnd_mod.init_state(cfg, hcef, topo, params0, device=dev)
+        hist = []
+        for r in range(3):
+            step = rnd_mod.make_round_step(cfg, hcef, topo, gossip=r == 2)
+            state, m = step(state, {"tokens": tokens[r]}, rho, theta, 7 + r)
+            hist.append({k: v.cpu().numpy() for k, v in m.items()})
+        runs[dev] = (hist, {k: v.cpu() for k, v in
+                            flatten(state.params).items()},
+                     dict(fa.LAUNCHES))
+    worst = 0.0
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        for k in ("loss", "g2", "sigma2"):
+            worst = max(worst, float(np.max(np.abs(a[k] - b[k])
+                                            / np.abs(b[k]))))
+        if not np.array_equal(a["steps"], b["steps"]):
+            fail("the card's LM round drew other masked-step bits")
+    perr = max(float((runs["cuda"][1][k] - v).abs().max())
+               for k, v in runs["cpu"][1].items())
+    steps = 3 * topo.num_devices * hcef.tau * cfg.num_layers  # no remat
+    want = {"flash_attention": steps, "flash_attention_bwd": steps,
+            "paged_decode_attention": 0}
+    print(f"smollm small round: card vs CPU over 3 rounds, largest relative "
+          f"deviation of loss/g2/sigma2 {worst:.3e} (tolerance {ROUND_RTOL}),"
+          f" largest parameter deviation {perr:.3e} (tolerance "
+          f"{ROUND_ATOL}); card launches {runs['cuda'][2]}, CPU launches "
+          f"{runs['cpu'][2]}")
+    if runs["cuda"][2] != want or any(runs["cpu"][2].values()):
+        fail(f"the LM round's attention launches: card {runs['cuda'][2]} "
+             f"(expected {want}), CPU {runs['cpu'][2]} (expected none)")
+    if not (worst <= ROUND_RTOL and perr <= ROUND_ATOL):
+        fail("the LM round step on the card disagrees with the CPU")
+
+
+def lm_topk_launches(configs, lm, tk):
+    """Top-k launches a round of smollm-135M: one per (parameter type, EF
+    type) pair of its leaves; one layer tells, as for mamba2."""
+    from repro_torch.tree import flatten
+    cfg = configs.get_config("smollm_135m").model.replace(num_layers=1)
+    leaves = list(flatten(lm.init(cfg, seed=0, device="cuda")).values())
+    n = topk_launches(leaves, leaves, tk)
+    print(f"smollm top-k: {len(leaves)} leaves of types "
+          f"{sorted({str(x.dtype) for x in leaves})}: {n} launches a round")
+    del leaves
+    torch.cuda.empty_cache()
+    return n
+
+
+def lm_full(train, fa, tk, topk_per_round):
+    """Phase 16: the launcher's entry point on smollm-135M at full width
+    and depth (30 layers, bf16, remat; R = 4 in 2 x 2, tau = q = 4; 2 x
+    2048 tokens a step): every attention launch, forward and backward, and
+    every top-k launch counted, the run's numbers checked."""
+    argv = ["--arch", "smollm_135m", "--full", "--rounds", str(LM_ROUNDS),
+            "--seq", "2047"]
+    print("python -m repro_torch.launch.train " + " ".join(argv))
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    tk.reset_launches()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"])
+    cfg, hist = out["cfg"], out["history"]
+    tau, R = 4, 4  # the configuration's HCEFConfig and the host topology
+    steps = LM_ROUNDS * R * tau
+    want = {"flash_attention": steps * cfg.num_layers * (2 if cfg.remat
+                                                         else 1),
+            "flash_attention_bwd": steps * cfg.num_layers,
+            "paged_decode_attention": 0,
+            "topk_compress": LM_ROUNDS * topk_per_round}
+    if len(hist) != LM_ROUNDS:
+        fail(f"the launcher ran {len(hist)} of {LM_ROUNDS} rounds")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"non-finite loss: {[h['loss'] for h in hist]}")
+    if launches != want:
+        fail(f"launch counts {launches}, expected {want}")
+    if not hist[-1]["gossip"] or any(h["gossip"] for h in hist[:-1]):
+        fail("expected gossip in the last round only")
+    med = lambda v: float(np.percentile(v, 50))
+    p50 = med(out["round_ms"])
+    stats = dict(rounds=LM_ROUNDS, layers=cfg.num_layers,
+                 d_model=cfg.d_model, heads=cfg.num_heads,
+                 kv_heads=cfg.num_kv_heads, params=out["n_params"],
+                 tokens_per_step=2 * 2048,
+                 round_wall_ms_p50=p50, round_wall_ms=out["round_ms"],
+                 round_limit_ms=LM_ROUND_LIMIT_MS,
+                 phase_ms_p50={k: med(v) for k, v in out["timings"].items()},
+                 phase_ms=out["timings"],
+                 launches_per_round={k: v / LM_ROUNDS
+                                     for k, v in launches.items()},
+                 loss=[h["loss"] for h in hist],
+                 rho_mean=[h["rho_mean"] for h in hist],
+                 theta_mean=[h["theta_mean"] for h in hist],
+                 time_s=hist[-1]["time"], energy_j=hist[-1]["energy"],
+                 peak_mem_gb=out["peak_mem_gb"],
+                 peak_limit_gb=PEAK_LIMIT_GB)
+    print("smollm " + json.dumps(stats))
+    print(f"smollm round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
+          f"({'met' if p50 <= LM_ROUND_LIMIT_MS else 'missed'}); peak "
+          f"{out['peak_mem_gb']:.2f} GB against {PEAK_LIMIT_GB} GB")
+    if out["peak_mem_gb"] > PEAK_LIMIT_GB:
+        fail(f"peak {out['peak_mem_gb']:.2f} GB over {PEAK_LIMIT_GB} GB")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -2503,6 +2770,15 @@ def main():
     for k in ("wire_pack", "wire_unpack"):
         launches[k] = m11[k] + m12[k] + m13[k]
 
+    # -- phase 14 ------------------------------------------------------------
+    main_bwd = attention_bwd_phase(fa, build)
+
+    # -- phases 15 and 16 ----------------------------------------------------
+    small_lm_round_agrees(configs, lm, rnd_mod, base, fa)
+    m16 = lm_full(train, fa, tk, lm_topk_launches(configs, lm, tk))
+    launches["flash_attention"] += m16["flash_attention"]
+    launches["flash_attention_bwd"] = m16["flash_attention_bwd"]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -2528,7 +2804,10 @@ def main():
              main_wire["wire_unpack"]),
             ("wire_decode_mix", "src/repro_torch/kernels/csrc/wire_pack.cu",
              "src/repro/kernels/wire_pack.py:264",
-             main_wire["wire_decode_mix"])):
+             main_wire["wire_decode_mix"]),
+            ("flash_attention_bwd", "src/repro_torch/kernels/csrc/"
+             "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:202", main_bwd)):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=row["max_abs_err"],
@@ -2551,6 +2830,15 @@ def main():
                           "(phases 11-13 decode in wire_decode_mix); this "
                           "kernel (a warp a block up to wb 1024) serves "
                           "ops.unpack_offsets and wire_decode")
+    kernels[0]["note"] = ("launches: the serve's prefills and phase 16's "
+                          "training forwards (two a layer and step: remat)")
+    kernels[9]["note"] = ("the backward has no TPU counterpart: jax.grad "
+                          "through flash_attention_pallas fails; held to "
+                          "jax.grad of the reference's jnp route "
+                          "(ref.flash_attention_jnp) through the plain "
+                          "version; times at smollm-135M's layer (B 2, S "
+                          "2048, 9/3 heads of 64, bf16, causal), library_ms "
+                          "SDPA's backward alone")
     kernels[8]["note"] = ("no TPU counterpart: the reference decodes in "
                           "jnp (dist/collectives.py:642 wire_decode); it "
                           "holds unpack_offsets_pallas's p4 unpack and "

@@ -205,11 +205,11 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     tensors loss, g2, sigma2, steps, and on a sparse gossip round the
     scalar theta_wire.  ``timings`` (a dict) collects the synchronised
     host ms of device_round, compress, aggregate and gossip."""
-    if cfg.family != "ssm":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"the round step trains the ssm family; {cfg.family!r} needs a "
-            f"flash-attention backward kernel (ROADMAP.md, kernel item 1, "
-            f"and the LM round of modules to port)")
+            f"the round step trains the dense and ssm families; "
+            f"{cfg.family!r} is not ported yet (ROADMAP.md, modules to "
+            f"port, item 6)")
     model = get_model(cfg)
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices

@@ -28,7 +28,8 @@ _LL = ctypes.c_longlong
 # name -> argtypes of each C entry point (all return a cudaError_t as int)
 SIGNATURES = {
     "repro_flash_attention_fwd":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P] * 5 + [_I] * 10 + [_F, _P],
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P],
     "repro_paged_decode_attention_fwd": [_P] * 12 + [_I] * 9 + [_F, _P],
     "repro_topk_compress_leaves": [_P, _I, _I, _I, _P],
     "repro_ssd_plan": [_I] * 9 + [_P],

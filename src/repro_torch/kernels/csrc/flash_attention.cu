@@ -44,6 +44,16 @@
 // once in shared memory (as f32, rows padded by one word so column reads
 // hit distinct banks) and used by all 64 rows; each thread holds a 4 x 2
 // tile of scores and a 4 x Dh/16 tile of the output in registers.
+//
+// The row log-sum-exp.  Where the caller passes an `lse` buffer (f32,
+// (B, H, Sq)), both kernels also write, for every query row below Sq,
+// lse = log(sum_j exp(scale * q . k_j)) over the row's live keys, in
+// natural-log units (flash_fwd_tc keeps its running max in log2 units and
+// converts at the store: (m + log2 l) * ln 2).  The backward
+// (flash_attention_bwd.cu) recomputes P = exp(scale * q . k - lse) from
+// it.  A row with no live key stores about -6.9e29 (the finite minus
+// infinity plus log 1e-20); the backward masks such a row's keys anyway.
+// The serve path passes a null `lse`, and nothing is written.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
@@ -64,6 +74,7 @@ constexpr int kBQ = 64;      // query rows of a consumer warpgroup: wgmma's M
 constexpr int kBKV = 64;     // keys per K/V tile
 constexpr int kStages = 4;   // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // A 64-row tile in shared memory is what TMA writes for boxes of kBox
 // head-dim columns x 64 rows with the matching swizzle: DH / kBox regions
@@ -319,8 +330,9 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 bf16* __restrict__ out, int Sq, int Skv, int H, int KH,
-                 int causal, int window, int q_offset, float scale_log2) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int Sq,
+                 int Skv, int H, int KH, int causal, int window,
+                 int q_offset, float scale_log2) {
   static_assert(DH % 16 == 0 && DH <= 128, "head_dim in {16, 32, 64, 128}");
   using T = Tile<DH>;
   extern __shared__ unsigned char smem_raw[];
@@ -521,6 +533,12 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
       *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
+  // the four threads of a row hold the same m and l: one of them stores
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lrow = lse + ((size_t)b * H + h) * Sq;
+    if (sr0 < Sq) lrow[sr0] = (m0 + log2f(fmaxf(l0, 1e-20f))) * kLn2;
+    if (sr1 < Sq) lrow[sr1] = (m1 + log2f(fmaxf(l1, 1e-20f))) * kLn2;
+  }
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
@@ -567,7 +585,8 @@ bool encode(PFN_cuTensorMapEncodeTiled_v12000 enc, CUtensorMap* map,
 
 template <int DH, int NWG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int KH, int causal,
+                   float* lse, int B, int Sq, int Skv, int H, int KH,
+                   int causal,
                    int window, int q_offset, float scale,
                    cudaStream_t stream) {
   PFN_cuTensorMapEncodeTiled_v12000 enc = tensor_map_encoder();
@@ -584,8 +603,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const int G = H / KH;
   const dim3 grid((Sq + kBQ - 1) / kBQ, KH * ((G + NWG - 1) / NWG), B);
   kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), Sq, Skv, H, KH, causal, window,
-      q_offset, scale * kLog2e);
+      mq, mk, mv, static_cast<bf16*>(out), lse, Sq, Skv, H, KH, causal,
+      window, q_offset, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -593,13 +612,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // KV group has two heads or more, else one.
 template <int DH>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int B, int Sq, int Skv, int H, int KH, int causal,
-                      int window, int q_offset, float scale,
+                      float* lse, int B, int Sq, int Skv, int H, int KH,
+                      int causal, int window, int q_offset, float scale,
                       cudaStream_t stream) {
   if (H / KH >= 2)
-    return launch<DH, 2>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                         q_offset, scale, stream);
-  return launch<DH, 1>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
+    return launch<DH, 2>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal,
+                         window, q_offset, scale, stream);
+  return launch<DH, 1>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal, window,
                        q_offset, scale, stream);
 }
 
@@ -625,9 +644,9 @@ constexpr size_t flash_smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out, int Sq,
-                   int Skv, int H, int KH, int causal, int window,
-                   int q_offset, float scale) {
+                   const T* __restrict__ v, T* __restrict__ out,
+                   float* __restrict__ lse, int Sq, int Skv, int H, int KH,
+                   int causal, int window, int q_offset, float scale) {
   static_assert(DH % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = DH + 1;    // padded row strides
   constexpr int KS = DH + 1;
@@ -766,13 +785,16 @@ __global__ void __launch_bounds__(kThreads)
     T* o = out + ((size_t)(b * Sq + s) * H + h) * DH;
 #pragma unroll
     for (int c = 0; c < NC; ++c) o[tx + 16 * c] = from_f32<T>(acc[r][c] / lc);
+    // the 16 threads of a row hold the same m and l: one of them stores
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + s] = m[r] + logf(lc);
   }
 }
 
 
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int KH, int Dh, int causal,
-                   int window, int q_offset, float scale,
+                   float* lse, int B, int Sq, int Skv, int H, int KH, int Dh,
+                   int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
   auto go = [&](auto kernel, size_t smem) {
     cudaError_t err = allow_smem(kernel, smem);
@@ -780,8 +802,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
-        KH, causal, window, q_offset, scale);
+        static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv,
+        H, KH, causal, window, q_offset, scale);
     return cudaGetLastError();
   };
   switch (Dh) {
@@ -799,35 +821,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // q (B, Sq, H, Dh), k and v (B, Skv, KH, Dh), out (B, Sq, H, Dh): contiguous,
 // one element type (dtype: 0 = f32, 1 = bf16), 16-byte aligned for bf16.
+// lse: null, or f32 (B, H, Sq) for the row log-sum-exp (natural log).
 // bf16 runs flash_fwd_tc, f32 flash_fwd_simt.  Launches on `stream` and
 // returns cudaGetLastError() of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* out, int dtype,
-                                         int B, int Sq, int Skv, int H,
-                                         int KH, int Dh, int causal,
+                                         const void* v, void* out, void* lse,
+                                         int dtype, int B, int Sq, int Skv,
+                                         int H, int KH, int Dh, int causal,
                                          int window, int q_offset,
                                          float scale, void* stream) {
   using namespace repro;
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (KH <= 0 || H % KH != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == kFloat32)
-    return simt::launch(q, k, v, out, B, Sq, Skv, H, KH, Dh, causal, window,
-                        q_offset, scale, s);
+    return simt::launch(q, k, v, out, l, B, Sq, Skv, H, KH, Dh, causal,
+                        window, q_offset, scale, s);
   if (dtype != kBFloat16) return cudaErrorInvalidValue;
   switch (Dh) {
     case 16:
-      return tc::launch_tc<16>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                            q_offset, scale, s);
+      return tc::launch_tc<16>(q, k, v, out, l, B, Sq, Skv, H, KH, causal,
+                                 window, q_offset, scale, s);
     case 32:
-      return tc::launch_tc<32>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                            q_offset, scale, s);
+      return tc::launch_tc<32>(q, k, v, out, l, B, Sq, Skv, H, KH, causal,
+                                 window, q_offset, scale, s);
     case 64:
-      return tc::launch_tc<64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                            q_offset, scale, s);
+      return tc::launch_tc<64>(q, k, v, out, l, B, Sq, Skv, H, KH, causal,
+                                 window, q_offset, scale, s);
     case 128:
-      return tc::launch_tc<128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window,
-                             q_offset, scale, s);
+      return tc::launch_tc<128>(q, k, v, out, l, B, Sq, Skv, H, KH, causal,
+                                 window, q_offset, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

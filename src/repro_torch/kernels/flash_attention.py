@@ -3,9 +3,14 @@
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` (the port of
 ``repro/kernels/flash_attention.py:flash_attention_pallas``): bf16 runs
 ``flash_fwd_tc`` (wgmma on the tensor cores), f32 the exact
-``flash_fwd_simt``.  ``paged_decode_attention_cuda`` launches
-``csrc/paged_decode.cu`` (the port of ``paged_decode_attention_pallas``)
-over (KV head, request, split of the KV length): bf16 runs
+``flash_fwd_simt``; with ``return_lse`` both also write the row
+log-sum-exp.  ``flash_attention_bwd_cuda`` launches
+``csrc/flash_attention_bwd.cu`` (no TPU counterpart: the reference cannot
+differentiate its Pallas kernel), and ``FlashAttention`` ties the two
+together as an autograd Function, the training path's attention.
+``paged_decode_attention_cuda`` launches ``csrc/paged_decode.cu`` (the
+port of ``paged_decode_attention_pallas``) over (KV head, request, split
+of the KV length): bf16 runs
 ``paged_decode_tc`` (mma.sync on the tensor cores), f32 and other shapes
 ``paged_decode_simt``, and the last live split of each (request, KV head)
 merges the others.  Each sits beside its plain PyTorch version, which
@@ -27,11 +32,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (NEG_INF, decode_attention_direct,
                                      flash_attention_blockwise,
+                                     flash_attention_bwd_plain,  # noqa: F401
                                      gather_kv_pages)
 
 # Launches of each kernel since the last reset_launches(); a plain integer
-# per kernel, bumped only where the kernel is launched.
-LAUNCHES = {"flash_attention": 0, "paged_decode_attention": 0}
+# per kernel, bumped only where the kernel is launched.  The backward
+# counts one a call (three device launches: D, then dK and dV, then dQ).
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "paged_decode_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh
 FLASH_HEAD_DIMS = (16, 32, 64, 128)  # instantiated in flash_attention.cu
@@ -74,47 +82,125 @@ def _raise_on(err, name):
 # ---------------------------------------------------------------------------
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
-                          softmax_scale=None):
-    """Plain version of the prefill kernel: ``ref.flash_attention_jnp``."""
+                          softmax_scale=None, return_lse=False):
+    """Plain version of the prefill kernel: ``ref.flash_attention_jnp``
+    (with ``return_lse``, also the row log-sum-exp the kernel writes)."""
     return flash_attention_blockwise(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset,
-                                     softmax_scale=softmax_scale)
+                                     softmax_scale=softmax_scale,
+                                     return_lse=return_lse)
+
+
+def _check_qkv(name, q, k, v):
+    """Type, device, layout and shape checks shared by both directions;
+    returns (B, Sq, H, Dh, Skv, KH)."""
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {q.dtype} not in "
+                         f"{tuple(_DTYPE_CODE)}")
+    _check(name, q, k, v, dtype=q.dtype)
+    B, Sq, H, Dh = q.shape
+    Bk, Skv, KH, Dk = k.shape
+    if k.shape != v.shape or Bk != B or Dk != Dh or H % KH:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if Dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {Dh} not in {FLASH_HEAD_DIMS}")
+    return B, Sq, H, Dh, Skv, KH
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
-                         softmax_scale=None):
+                         softmax_scale=None, return_lse=False):
     """Blockwise attention forward on the card.
 
     q: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); f32 or bf16, contiguous
     (bf16: 16-byte aligned, for TMA); Dh in FLASH_HEAD_DIMS.  Any Sq and
     Skv (the ragged edge is masked in the kernel).  bf16 runs
     ``flash_fwd_tc``, f32 ``flash_fwd_simt``.  Returns out (B, Sq, H, Dh)
-    in q's type.
+    in q's type, and with ``return_lse`` (out, lse): lse (B, H, Sq) f32,
+    the row log-sum-exp of the scaled scores in natural-log units.
     """
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention: dtype {q.dtype} not in "
-                         f"{tuple(_DTYPE_CODE)}")
-    _check("flash_attention", q, k, v, dtype=q.dtype)
-    B, Sq, H, Dh = q.shape
-    Bk, Skv, KH, Dk = k.shape
-    if k.shape != v.shape or Bk != B or Dk != Dh or H % KH:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if Dh not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {Dh} not in "
-                         f"{FLASH_HEAD_DIMS}")
+    B, Sq, H, Dh, Skv, KH = _check_qkv("flash_attention", q, k, v)
     if q.dtype == torch.bfloat16:
         _check_aligned("flash_attention", q, k, v)
     scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = build.lib().repro_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, Sq, Skv, H, KH, Dh, int(bool(causal)),
-        int(window), int(q_offset), float(scale),
-        torch._C._cuda_getCurrentRawStream(q.get_device()))
+        None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], B,
+        Sq, Skv, H, KH, Dh, int(bool(causal)), int(window), int(q_offset),
+        float(scale), torch._C._cuda_getCurrentRawStream(q.get_device()))
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------------------
+# flash-attention backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
+                             window=0, softmax_scale=None):
+    """dQ, dK and dV of the attention forward on the card.
+
+    q, out, dout: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); one type (f32 or
+    bf16), contiguous, 16-byte aligned; lse: (B, H, Sq) f32 from
+    ``flash_attention_cuda(..., return_lse=True)``.  bf16 runs the
+    tensor-core kernels (mma.sync), f32 the exact SIMT ones; three device
+    launches a call (D = rowsum(dO o O), then dK and dV, then dQ), counted
+    as one.  Queries start at position 0 (no query offset: training's
+    case).  Returns (dq, dk, dv) in q's type, f32 accumulation, the same
+    bits from run to run.
+    """
+    name = "flash_attention_bwd"
+    B, Sq, H, Dh, Skv, KH = _check_qkv(name, q, k, v)
+    _check(name, out, dout, dtype=q.dtype)
+    _check(name, lse, dtype=torch.float32)
+    if (out.shape != q.shape or dout.shape != q.shape
+            or tuple(lse.shape) != (B, H, Sq) or out.device != q.device
+            or dout.device != q.device or lse.device != q.device):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)}")
+    _check_aligned(name, q, k, v, out, dout)
+    scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = build.lib().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Skv, H,
+        KH, Dh, int(bool(causal)), int(window), float(scale),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    _raise_on(err, name)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention on the card with its hand-written gradient: the forward
+    kernel keeps the row log-sum-exp, the backward kernel recomputes P
+    from it.  apply(q, k, v, causal, window, softmax_scale) -> out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softmax_scale):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window,
+                                        softmax_scale=softmax_scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window,
+                      softmax_scale=softmax_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
+                                              dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
-    flash_attention_cuda, flash_attention_plain, paged_decode_attention_cuda,
-    paged_decode_attention_plain)
+    FlashAttention, flash_attention_cuda, flash_attention_plain,
+    paged_decode_attention_cuda, paged_decode_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_plain
 from repro_torch.kernels.topk_compress import (
     compress_with, leaves_with, topk_compress_cuda, topk_compress_leaves_cuda,
@@ -39,8 +39,23 @@ def _route(impl, x):
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     kv_len=None, softmax_scale=None, impl=None):
+    """Attention forward (port of ``ops.py:31``).  On the card the kernel;
+    where autograd records (a training forward) it goes through
+    ``FlashAttention``, which keeps the row log-sum-exp for the backward
+    kernel, and a forward under ``torch.no_grad`` (the serve) does not pay
+    for it.  On the CPU the plain blockwise version, differentiated by
+    autograd, as ``ssd`` is."""
     r = _route(impl, q)
     if r == "kernel" and kv_len is None:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            if q_offset:
+                raise ValueError("flash_attention: the backward kernel "
+                                 "takes no q_offset (training attends from "
+                                 "position 0)")
+            return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal, window,
+                                        softmax_scale)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset,
                                     softmax_scale=softmax_scale)

@@ -53,9 +53,12 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, kv_len=None,
 
 
 def flash_attention_blockwise(q, k, v, *, causal=True, window=0, q_offset=0,
-                              kv_len=None, softmax_scale=None, block_kv=512):
+                              kv_len=None, softmax_scale=None, block_kv=512,
+                              return_lse=False):
     """Blockwise (flash) attention over KV blocks with f32 accumulators
-    (port of ``ref.flash_attention_jnp``, ref.py:55)."""
+    (port of ``ref.flash_attention_jnp``, ref.py:55).  ``return_lse`` also
+    returns the row log-sum-exp of the scaled scores, (B, H, Sq) f32 in
+    natural-log units: m + log(max(l, 1e-20)), what the kernels write."""
     B, Sq, H, Dh = q.shape
     _, Skv, KH, _ = k.shape
     G = H // KH
@@ -95,7 +98,43 @@ def flash_attention_blockwise(q, k, v, *, causal=True, window=0, q_offset=0,
         acc = acc * corr[..., None] + torch.einsum("bqkgj,bjkd->bqkgd", p, vb)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-20)[..., None]
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    out = out.reshape(B, Sq, H, Dh).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = m + torch.log(torch.clamp_min(l, 1e-20))  # (B, Sq, KH, G)
+    return out, lse.reshape(B, Sq, H).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
+                              window=0, softmax_scale=None):
+    """Plain version of the attention backward kernels
+    (``csrc/flash_attention_bwd.cu``), step by step in f32: D = rowsum(dO
+    o O), P = exp(scale q.k - lse) on the live pairs, dV = P^T dO, dP =
+    dO V^T, dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T Q, dK and
+    dV summed over each KV head's G query heads.  lse: (B, H, Sq) f32, the
+    forward's.  Returns (dq, dk, dv) in q's, k's and v's types."""
+    B, Sq, H, Dh = q.shape
+    _, Skv, KH, _ = k.shape
+    G = H // KH
+    scale = softmax_scale if softmax_scale is not None else Dh ** -0.5
+    qf = q.float().reshape(B, Sq, KH, G, Dh)
+    of = out.float().reshape(B, Sq, KH, G, Dh)
+    gf = dout.float().reshape(B, Sq, KH, G, Dh)
+    kf, vf = k.float(), v.float()
+    mask, _ = _mask(Sq, Skv, 0, causal=causal, window=window, q_offset=0,
+                    device=q.device)
+    maskx = mask[None, :, None, None, :]
+    lsex = lse.float().transpose(1, 2).reshape(B, Sq, KH, G)[..., None]
+    s = torch.einsum("bqkgd,bjkd->bqkgj", qf, kf) * scale
+    p = torch.where(maskx, torch.exp(s - lsex), 0.0)
+    dv = torch.einsum("bqkgj,bqkgd->bjkd", p, gf)
+    dp = torch.einsum("bqkgd,bjkd->bqkgj", gf, vf)
+    dsum = (gf * of).sum(dim=-1)
+    ds = p * (dp - dsum[..., None])
+    dq = torch.einsum("bqkgj,bjkd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bqkgj,bqkgd->bjkd", ds, qf) * scale
+    return (dq.reshape(B, Sq, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_direct(q, k, v, *, kv_len=None, window=0,

@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_1p3b \
         --full --rounds 4 --seq 511
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_135m \
+        --full --rounds 4 --seq 2047
 
 runs the HCEF round step (``core/round.py``) on 2 clusters x 2 devices,
 with the architecture's HCEF configuration, the online controller, the
@@ -28,8 +30,12 @@ weights (``init`` from a seeded ``torch.Generator``) and the masked-step
 bits (``bits_fn(1000 + round, rho)``) cannot be the reference's
 ``jax.random`` draws.
 
-Not ported, each exits naming its ROADMAP.md item: the dense family
-(training it needs a flash-attention backward kernel), ``--mesh
+The dense archs (smollm-135M, qwen2-7b) train through the attention
+kernels, forward and backward; ``--full --arch qwen2_7b`` needs four
+7.6B replicas with f32 momentum, more than one card holds, and the memory
+is the caller's problem, as in the reference.
+
+Not ported, each exits naming its ROADMAP.md item: ``--mesh
 single|multi`` (more than one rank), the overlap engine, population
 mode, fault injection and checkpoints.
 """
@@ -120,11 +126,6 @@ def main(argv=None):
         ap.error(f"--mesh {args.mesh} is not ported yet: {MULTI_RANK}")
     bundle = get_config(args.arch)
     cfg = smoke_model(bundle.model) if args.smoke else bundle.model
-    if cfg.family != "ssm":
-        ap.error(f"--arch {args.arch}: training the {cfg.family} family is "
-                 f"not ported yet: it needs a flash-attention backward "
-                 f"kernel (ROADMAP.md, kernel item 1, and the LM round of "
-                 f"modules to port)")
     hcef = bundle.hcef
     if args.sparse_gossip or args.wire_dtype or args.wire_ef:
         hcef = dataclasses.replace(

@@ -74,3 +74,14 @@ def mask_padded_logits(cfg, logits):
     return torch.where(keep, logits,
                        torch.full((), -1e30, dtype=logits.dtype,
                                   device=logits.device))
+
+
+def layer_list(params):
+    """params["layers"] as a list of per-layer dicts (views of the stacked
+    leaves, or the list itself: the round step differentiates with respect
+    to each layer's slices)."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+    L = next(iter(layers.values())).shape[0]
+    return [{k: v[l] for k, v in layers.items()} for l in range(L)]

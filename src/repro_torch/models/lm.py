@@ -1,22 +1,29 @@
-"""Dense decoder LM: init and the paged serving path (port of the dense
-family of ``repro/models/lm.py``).
+"""Dense decoder LM: init, the training forward and loss, and the paged
+serving path (port of the dense family of ``repro/models/lm.py``).
 
 Parameters are a plain dict with the reference's leaf names and shapes:
 layers stacked on a leading L dim, weights in ``x @ w`` orientation.  The
 reference's ``lax.scan``/``fori_loop`` over layers is a Python loop here,
-and the paged cache is updated in place.
+and the paged cache is updated in place.  ``params["layers"]`` may also be
+a list of per-layer dicts (the round step differentiates each layer's
+slices).  With ``cfg.remat`` each layer of ``forward`` runs under
+``torch.utils.checkpoint``, so its attention forward runs again in the
+backward, as ``jax.checkpoint`` does.  On the card the attention's
+gradient is the hand-written backward kernel (``ops.flash_attention``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
-from repro_torch.models.common import (dense_init, dtype_of, rms_norm, rope,
-                                       softcap)
+from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
+                                       layer_list, rms_norm, rope, softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +134,47 @@ def _logits(cfg, params, x):
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# forward / loss (reference lm.py:293-385, the dense decoder only)
+# ---------------------------------------------------------------------------
+
+def _block(cfg, x, w, positions):
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    attn_out, _ = _attention(cfg, h, w, positions, causal=True,
+                             window=cfg.window)
+    x = x + attn_out
+    h = rms_norm(x, w["ln2"], cfg.norm_eps)
+    return x + _dense_ffn(cfg, h, w)
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Teacher-forced logits (B, S, vocab_padded) of ``batch["tokens"]``
+    (B, S).  The dense decoder only: the reference's MoE FFN, encoder and
+    ViT frontend are other families here, not ported (ROADMAP.md, modules
+    to port, item 6)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"lm.forward runs the dense decoder; family {cfg.family!r} is "
+            f"not ported yet (ROADMAP.md, modules to port, item 6)")
+    x = _embed(cfg, params, batch["tokens"].long())
+    positions = torch.arange(x.shape[1], device=x.device)
+    block = functools.partial(_block, cfg)
+    for w in layer_list(params):
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, w, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block(x, w, positions)
+    return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Mean next-token cross entropy of ``batch["tokens"]`` in f32."""
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, batch)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
-                                       mask_padded_logits, rms_norm)
+                                       layer_list, mask_padded_logits,
+                                       rms_norm)
 
 
 def _dims(cfg: ModelConfig):
@@ -121,16 +122,6 @@ def _block(cfg, x, w):
     y = y.reshape(*x.shape[:2], Din)
     y = rms_norm(y * F.silu(z.float()).to(cd), w["norm_w"], cfg.norm_eps)
     return x + y @ w["w_out"]
-
-
-def layer_list(params):
-    """params["layers"] as a list of per-layer dicts (views of the stacked
-    leaves, or the list itself)."""
-    layers = params["layers"]
-    if isinstance(layers, (list, tuple)):
-        return list(layers)
-    L = next(iter(layers.values())).shape[0]
-    return [{k: v[l] for k, v in layers.items()} for l in range(L)]
 
 
 def forward(cfg: ModelConfig, params, batch):

@@ -1,9 +1,9 @@
 """Family -> model module resolution (port of ``repro/models/registry.py``).
 
-Ported: the dense family (``models/lm.py``: init and the paged serving
-path) and the ssm family (``models/mamba2.py``: init, forward and loss for
-the HCEF round step).  The others raise and name the ROADMAP.md item that
-brings them.
+Ported: the dense family (``models/lm.py``: init, forward and loss for
+the HCEF round step, and the paged serving path) and the ssm family
+(``models/mamba2.py``: init, forward and loss for the HCEF round step).
+The others raise and name the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -19,8 +19,9 @@ _NOT_PORTED = {
 
 
 def get_model(cfg: ModelConfig):
-    """The module of ``cfg.family``: ``lm`` for dense (init, prefill_paged,
-    decode_step_paged), ``mamba2`` for ssm (init, forward, loss_fn)."""
+    """The module of ``cfg.family``: ``lm`` for dense (init, forward,
+    loss_fn, prefill_paged, decode_step_paged), ``mamba2`` for ssm (init,
+    forward, loss_fn)."""
     if cfg.family == "dense":
         return lm
     if cfg.family == "ssm":

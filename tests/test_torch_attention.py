@@ -216,7 +216,7 @@ def test_cpu_tensors_take_the_plain_version():
     tfa.reset_launches()
     ops.flash_attention(tqf, tkf, tkf)
     ops.paged_decode_attention(tq, tk, tv, tt, kv_len)
-    assert tfa.LAUNCHES == {"flash_attention": 0,
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
                             "paged_decode_attention": 0}
 
 
@@ -234,5 +234,5 @@ def test_kernel_impl_on_cpu_raises():
         tfa.flash_attention_cuda(tqf, tkf, tkf)
     with pytest.raises(ValueError):
         tfa.paged_decode_attention_cuda(tq, tk, tv, tt, kv_len)
-    assert tfa.LAUNCHES == {"flash_attention": 0,
+    assert tfa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
                             "paged_decode_attention": 0}
