@@ -127,14 +127,18 @@ Phases (any failure ends the run with a non-zero exit):
    beside the chunk's without the EF, and its kernels' device time by
    name;
 14. the attention backward kernel (``csrc/flash_attention_bwd.cu``: bf16
-   on the tensor cores by mma.sync, f32 the exact SIMT kernels) vs its
-   plain version (``ref.flash_attention_bwd_plain``) on the same seeded
-   inputs, out and lse from the forward kernel: BWD_CASES (G 1, 2 and 3,
-   causal and not, a window, ragged S 65, 130 and 1000, Dh 16-128, both
-   types), each gradient within BWD_TOL_OF_MAX of its largest entry and the
-   same bits on a second run; then smollm-135M's layer (B 2, S 2048, 9
-   heads, 3 KV heads, Dh 64, bf16, causal), timed beside its plain
-   version, SDPA's backward alone and its bound, and split by kernel;
+   by wgmma on TMA-fed tiles, f32 the exact SIMT kernels) vs its plain
+   version (``ref.flash_attention_bwd_plain``) on the same seeded inputs,
+   out and lse from the forward kernel: BWD_CASES (G 1, 2 and 3, causal
+   and not, a window, ragged S 65, 130 and 1000, Dh 16-128, both types,
+   bf16 Dh 128 over 16 query blocks), each gradient within BWD_TOL_OF_MAX
+   of its largest entry and the same bits on a second run; ptxas must
+   report no spill for a bf16 backward kernel; then smollm-135M's layer
+   (B 2, S 2048, 9 heads, 3 KV heads, Dh 64, bf16, causal), timed beside
+   its plain version, SDPA's backward alone and its bound, and split by
+   kernel; and the forward at that shape with its log-sum-exp (the
+   training forward), checked and timed beside SDPA's forward and its
+   bound, printed with its phase-16 launches after phase 16;
 15. the HCEF round step on the smoke smollm (f32, 2 layers, S 65, 2 x 2,
    tau 4), 3 rounds on the card (the f32 attention kernels, forward and
    backward, every launch counted) against the CPU (the plain version
@@ -2406,12 +2410,17 @@ BWD_CASES = [
     (1, 130, 3, 1, 64, torch.bfloat16, False, 16),
     (1, 200, 4, 2, 32, torch.bfloat16, True, 0),
     (1, 200, 4, 2, 128, torch.bfloat16, True, 0),
+    (1, 1024, 8, 2, 128, torch.bfloat16, True, 0),
 ]
 # each gradient within this share of its largest entry (f32: the
 # reference's 2e-5; bf16: 2e-2, the kernel rounds P and dS to bf16)
 BWD_TOL_OF_MAX = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
-               "flash_bwd_dkdv_simt", "flash_bwd_dq_simt")
+# prep, then bf16's one launch of both passes (dK/dV and dQ CTAs), or f32's
+# two SIMT launches
+BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_wgmma", "flash_bwd_dkdv_simt",
+               "flash_bwd_dq_simt")
+# the kernels that run bf16 (prep has a bf16 instantiation): none may spill
+BWD_BF16_KERNELS = BWD_KERNELS[:2]
 
 
 def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
@@ -2459,7 +2468,7 @@ def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
         gt = dout.transpose(1, 2)
         row["library_ms"] = time_ms(lambda: torch.autograd.grad(
             o, (qt, kt, vt), gt, retain_graph=True))
-        # which of the three launches takes the time (warm L2)
+        # which launch takes the time, prep or the passes (warm L2)
         row["split_us"] = kernel_split(
             lambda: fa.flash_attention_bwd_cuda(*args, **kw))
         pairs = B * live_pairs(S, S, causal, window, 0)
@@ -2480,20 +2489,63 @@ def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
     return row
 
 
+def attention_fwd_train(fa, gen, B, S, H, KH, Dh):
+    """The training forward (``return_lse``) at smollm-135M's layer against
+    its plain version, timed beside SDPA's forward (K and V repeated to
+    the query heads outside the timing, as phase 2) and its bound."""
+    q = torch.randn((B, S, H, Dh), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, S, KH, Dh), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    err, ok = max_err(out, ref, BF16_TOL)
+    lse_err, lse_ok = max_err(lse, ref_lse, BF16_TOL)
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, return_lse=True))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                        return_lse=True),
+                       iters=3, warmup=1)
+    G = H // KH
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    flops = 4 * Dh * H * B * live_pairs(S, S, True, 0, 0)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + \
+        lse.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
+    row = dict(kernel="flash_fwd_tc", B=B, S=S, H=H, KH=KH, Dh=Dh,
+               dtype="bfloat16", causal=True, max_abs_err=err,
+               lse_max_abs_err=lse_err, tol=BF16_TOL["atol"], ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, gflop=flops / 1e9,
+               mbytes=nbytes / 1e6)
+    if not ok or not lse_ok:
+        fail(f"the training forward disagrees with its plain version: {row}")
+    return row
+
+
 def attention_bwd_phase(fa, build):
-    """Phase 14: every case of BWD_CASES, then smollm-135M's layer (B 2, S
-    2048, 9 heads, 3 KV heads, Dh 64, bf16, causal), timed."""
+    """Phase 14: every case of BWD_CASES (no bf16 backward kernel may
+    spill), then smollm-135M's layer (B 2, S 2048, 9 heads, 3 KV heads, Dh
+    64, bf16, causal), timed: the backward's row, and the training
+    forward's (printed after phase 16 with its launches)."""
     ptx = ptxas_summary(build.build_log)
     for name in BWD_KERNELS:
         regs, spills, stack, smem, n = ptx.get(name, (0, 0, 0, 0, 0))
         print(f"  ptxas: {name}: up to {regs} registers, {spills} bytes of "
               f"spill stores, {stack} bytes of stack, over {n} "
               f"instantiations")
+        if name in BWD_BF16_KERNELS and (n == 0 or spills):
+            fail(f"ptxas: {name}: {spills} bytes of spill stores over {n} "
+                 f"instantiations (expected a build and no spill)")
     gen = torch.Generator(device="cuda").manual_seed(14)
     for case in BWD_CASES:
         attention_bwd_case(fa, gen, *case)
-    return attention_bwd_case(fa, gen, 2, 2048, 9, 3, 64, torch.bfloat16,
+    main = attention_bwd_case(fa, gen, 2, 2048, 9, 3, 64, torch.bfloat16,
                               True, 0, timed=True)
+    return main, attention_fwd_train(fa, gen, 2, 2048, 9, 3, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -2771,13 +2823,15 @@ def main():
         launches[k] = m11[k] + m12[k] + m13[k]
 
     # -- phase 14 ------------------------------------------------------------
-    main_bwd = attention_bwd_phase(fa, build)
+    main_bwd, fwd_train = attention_bwd_phase(fa, build)
 
     # -- phases 15 and 16 ----------------------------------------------------
     small_lm_round_agrees(configs, lm, rnd_mod, base, fa)
     m16 = lm_full(train, fa, tk, lm_topk_launches(configs, lm, tk))
     launches["flash_attention"] += m16["flash_attention"]
     launches["flash_attention_bwd"] = m16["flash_attention_bwd"]
+    fwd_train["launches"] = m16["flash_attention"]  # all at that shape
+    print("attention_fwd_train " + json.dumps(fwd_train))
 
     # -- report --------------------------------------------------------------
     kernels = []

@@ -91,11 +91,15 @@ def _run_all(cmds):
 
 
 def build() -> Path:
-    """Compile and link the kernels unless this tree's library exists."""
+    """Compile and link the kernels unless this tree's library exists (its
+    nvcc output, kept beside it, is then ``build_log``)."""
     global build_seconds, build_log
     srcs = _sources()
     lib_path = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        if log_path.exists():
+            build_log = log_path.read_text()
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -107,6 +111,9 @@ def build() -> Path:
     tmp = lib_path.with_suffix(f".{tag}.tmp")
     log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
                       "-o", str(tmp)]])
+    tmp_log = log_path.with_suffix(f".{tag}.log.tmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)
     os.replace(tmp, lib_path)  # atomic: a reader sees a whole library
     for o in objs:
         o.unlink()

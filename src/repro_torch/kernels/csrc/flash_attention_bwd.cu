@@ -19,41 +19,49 @@
 // rows past the sequence ends load as zeros and are masked.
 //
 // What bounds it: five products of Sq x Skv x Dh per (b, head), halved by
-// a causal mask.  At smollm-135M's layer (B 2, S 2048, 9 heads of 64, 3
-// KV heads, bf16, causal) that is 24.2 GFLOP, 0.0245 ms at 989 TFLOP/s,
-// against about 25 MB of inputs and outputs (0.0075 ms at 3.35 TB/s): the
-// operations.  The design is the simple deterministic one, with no
-// atomics, so a gradient has the same bits from run to run; three
-// launches a call:
-//   flash_bwd_prep   D = rowsum(dO o O) in f32, a warp a row;
-//   flash_bwd_dkdv   a CTA per (b, KV head, 64-key block) walks the G
-//                    query heads of its group and the live 64-row query
-//                    blocks (from the causal diagonal to the window's
-//                    edge), recomputes S^T and P^T, adds P^T dO into dV,
-//                    computes dP^T and dS^T, adds dS^T Q into dK; dK and
-//                    dV stay in registers across the group, so the GQA sum
-//                    needs no second pass; dK is scaled once at the store;
-//   flash_bwd_dq     a CTA per (b, head, 64-row query block) walks the live
-//                    key blocks, recomputes P and dS, adds dS K into dQ.
-// S and P are recomputed in both passes.  Still to come: wgmma and a TMA
-// ring as flash_fwd_tc has, and K/V (or Q/dO) tiles double-buffered.
+// a causal mask, seven with S and dP recomputed for dQ.  At smollm-135M's
+// layer (B 2, S 2048, 9 heads of 64, 3 KV heads, bf16, causal) the five
+// are 24.2 GFLOP, 0.0245 ms at 989 TFLOP/s, against about 25 MB of inputs
+// and outputs (0.0075 ms at 3.35 TB/s): the operations.  No atomics, so a
+// gradient has the same bits from run to run.
 //
-// Two routes, chosen by the element type:
-//   bf16: every product on the tensor cores, mma.sync m16n8k16 through
-//     mma.cuh (tiles staged by cp.async, rows padded by 16 bytes so the
-//     ldmatrix rows hit distinct banks); each of 4 warps owns 16 rows of
-//     the CTA's 64 (keys in dkdv, queries in dq).  P and dS are rounded to
-//     bf16 as the A operands of the second products, as flash_fwd_tc rounds
-//     P before P V (flash_attention.cu); the reference differentiates in
-//     f32, so chip_smoke.py holds this route to the plain version at bf16
-//     2e-2 of each gradient's largest entry.
+// First flash_bwd_prep, D = rowsum(dO o O) in f32, a warp a row; then two
+// routes, chosen by the element type:
+//   bf16: one launch, flash_bwd_wgmma, of two kinds of CTA, each in its
+//     own longest-first order (key block 0, the last query block), the
+//     dK/dV CTAs before the dQ CTAs, which so fill the SMs that the short
+//     dK/dV CTAs leave idle:
+//     - a dK/dV CTA per (b, KV head, 64-key block) keeps K and V and walks
+//       the (query head, 64-row query block) items of its group that hold
+//       live rows (from the causal diagonal to the window's edge); its two
+//       consumer warpgroups take the items in turn and sum their dK and dV
+//       once at the end, in a fixed order (the GQA sum stays on chip);
+//     - a dQ CTA per two (query head, 64-row query block) units of a (b,
+//       KV head) keeps their Q, dO, lse and D, one consumer warpgroup a
+//       unit, and streams the K/V tiles of their live key blocks.
+//     Every product is wgmma on tiles that TMA brings into shared memory
+//     behind mbarriers, with the pieces flash_fwd_tc is built from
+//     (hopper.cuh): swizzled 64-row tiles, K-major and MN-major
+//     descriptors, a ring of stages that a producer fills.  A CTA has
+//     three warpgroups, two consumers and a producer whose first warp
+//     loads, and setmaxnreg gives the producer's registers to the
+//     consumers (240 each: at Dh 128 dK and dV alone take 64 + 64 f32 a
+//     thread).  S (S^T) and dP (dP^T) are SS wgmma; P and dS are rounded
+//     to bf16 and are the register A operands of the second products (RS
+//     wgmma, dO, Q and K MN-major), as flash_fwd_tc rounds P before P V.
+//     Within a warpgroup a tile's products run while it works on the
+//     tile before, and P = 2^x comes from ex2.approx.ftz.  The reference
+//     differentiates in f32, so chip_smoke.py holds this route to the
+//     plain version at bf16 2e-2 of each gradient's largest entry.
 //   f32: exact SIMT kernels on the f32 pipes (TF32 would miss 2e-5), as
-//     flash_fwd_simt: 256 threads in a 16 x 16 grid over 32 x 32 tiles,
-//     the tiles staged in shared memory as f32 with rows padded by a word.
+//     flash_fwd_simt, in two launches: a dK/dV CTA per (b, KV head,
+//     32-key block), a dQ CTA per (b, head, 32-row query block); 256
+//     threads in a 16 x 16 grid over 32 x 32 tiles, the tiles staged in
+//     shared memory as f32 with rows padded by a word.
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -110,286 +118,571 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync)
+// bf16: wgmma on TMA-fed tiles
 // ---------------------------------------------------------------------------
 namespace tcb {
 
-using bf16 = __nv_bfloat16;
-constexpr int kB = 64;        // query rows and keys of a tile
-constexpr int kThreads = 128; // four warps, 16 rows of the tile each
+using namespace hopper;
 
-template <int DH>
-constexpr size_t smem_bytes() {
-  // four bf16 tiles of 64 rows (padded by 8 elements), lse and D of 64 rows
-  return sizeof(bf16) * 4 * kB * (DH + 8) + sizeof(float) * 2 * kB;
+constexpr int kB = 64;             // keys and query rows of a tile
+constexpr int kStages = 4;         // depth of each role's ring
+constexpr int kLse = kB * 4;       // bytes of a tile's lse (or D) rows
+constexpr int kConsumerRegs = 240; // registers of a consumer's thread
+constexpr int kProducerRegs = 24;  // ... and of the producer's
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (such a P is under 2^-126, far below what its bf16 rounding keeps).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Rows r0 .. r0 + 63 of head hh of x (B, S, NH, DH) into sX (row stride
-// DH + 8) by cp.async, rows past S as zeros.
-template <int DH>
-__device__ __forceinline__ void load_tile(bf16* sX, const bf16* x, int b,
-                                          int r0, int S, int NH, int hh) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks of a row
-  for (int e = threadIdx.x; e < kB * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = e % kChunks, s = r0 + r;
-    const bool in = s < S;
-    const bf16* src =
-        x + (((size_t)b * S + (in ? s : 0)) * NH + hh) * DH + 8 * c;
-    cp_async16(sX + r * (DH + 8) + 8 * c, src, in ? 16 : 0);
-  }
+// 4 bytes from global to shared memory at `dst` (zeros unless `in`).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+// An arrival on `bar` once this thread's earlier cp.async copies are done
+// (counted in the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
 }
 
-// The A fragment of k-step kk from accumulator fragments c[8][4] of a 16 x
-// 64 tile: n-tiles 2 kk and 2 kk + 1, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         float (&c)[8][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Two 16 x 64 score-shaped products of one warp: x1 = A1 B1^T and x2 = A2
-// B2^T over the head dim, A (rows a_row0 .. + 15 of sA1 / sA2) and B (the
-// 64 rows of sB1 / sB2) both row-major over the head dim.
-template <int DH>
-__device__ __forceinline__ void scores2(float (&x1)[8][4], float (&x2)[8][4],
-                                        const bf16* sA1, const bf16* sA2,
-                                        const bf16* sB1, const bf16* sB2,
-                                        int a_row0, int lane) {
-  constexpr int LD = DH + 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x1[nt][e] = x2[nt][e] = 0.f;
-  const int ar = a_row0 + (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int br = (lane & 7) + 8 * (lane >> 4);
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a1[4], a2[4];
-    const int ac = 16 * kk + 8 * (lane >> 4);
-    ldmatrix_x4(a1, sA1 + ar * LD + ac);
-    ldmatrix_x4(a2, sA2 + ar * LD + ac);
-    const int bc = 16 * kk + 8 * ((lane >> 3) & 1);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b1[4], b2[4];
-      ldmatrix_x4(b1, sB1 + (16 * np + br) * LD + bc);
-      ldmatrix_x4(b2, sB2 + (16 * np + br) * LD + bc);
-      mma16816(x1[2 * np], a1, b1[0], b1[1]);
-      mma16816(x1[2 * np + 1], a1, b1[2], b1[3]);
-      mma16816(x2[2 * np], a2, b2[0], b2[1]);
-      mma16816(x2[2 * np + 1], a2, b2[2], b2[3]);
-    }
-  }
-}
-
-// acc (16 x DH) += A (16 x 64, fragments c) times sB (64 rows x DH,
-// row-major: the k dim is sB's rows), B by ldmatrix.trans.
-template <int DH>
-__device__ __forceinline__ void acc_product(float (&acc)[DH / 8][4],
-                                            float (&c)[8][4],
-                                            const bf16* sB, int lane) {
-  constexpr int LD = DH + 8;
-  const int br = (lane & 7) + 8 * ((lane >> 3) & 1);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    acc_to_a(a, c, kk);
-#pragma unroll
-    for (int nd = 0; nd < DH / 16; ++nd) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, sB + (16 * kk + br) * LD + 16 * nd +
-                               8 * (lane >> 4));
-      mma16816(acc[2 * nd], a, b[0], b[1]);
-      mma16816(acc[2 * nd + 1], a, b[2], b[3]);
-    }
-  }
+// Whether any (query, key) pair of the 64 x 64 tile at (q0, k0) is dead:
+// past an end, above the causal diagonal or beyond the window.
+__device__ __forceinline__ bool tile_masked(int q0, int k0, int Sq, int Skv,
+                                            int causal, int window) {
+  return k0 + kB > Skv || q0 + kB > Sq || (causal && k0 + kB - 1 > q0) ||
+         (window && k0 <= q0 + kB - 1 - window);
 }
 
 template <int DH>
-__device__ __forceinline__ void store_rows(bf16* x,
-                                           float (&acc)[DH / 8][4],
-                                           float mul, int b, int r0, int S,
-                                           int NH, int hh, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + g + 8 * half;
-    if (r >= S) continue;
-    bf16* row = x + (((size_t)b * S + r) * NH + hh) * DH + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * half] * mul,
-                                acc[n][2 * half + 1] * mul);
-  }
+__host__ __device__ constexpr size_t dkdv_smem_bytes() {
+  // K and V, Q and dO of each stage, lse and D of each stage, two
+  // mbarriers a stage and one, and slack to align the tiles to 1024 bytes
+  return static_cast<size_t>(Tile<DH>::kBytes) * (2 + 2 * kStages) +
+         2 * kLse * kStages + 8 * (2 * kStages + 1) + 1024;
 }
 
-// One CTA: 64 keys of KV head kh; warp w owns keys k0 + 16 w .. + 15.
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ dsum, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int Sq, int Skv, int H, int KH,
-                      int causal, int window, float scale,
-                      float scale_log2) {
-  constexpr int LD = DH + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kB * LD;
-  bf16* sQ = sV + kB * LD;
-  bf16* sO = sQ + kB * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + kB * LD);  // lse * log2 e
-  float* sD = sL + kB;
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  // Q and dO of each of two warpgroups, K and V of each stage, two
+  // mbarriers a stage and one, and slack to align the tiles to 1024 bytes
+  return static_cast<size_t>(Tile<DH>::kBytes) * (4 + 2 * kStages) +
+         8 * (2 * kStages + 1) + 1024;
+}
 
-  const int k0 = blockIdx.x * kB;  // key block 0, the longest causal run,
-  const int kh = blockIdx.y;       // goes first
-  const int b = blockIdx.z;
+// The dK/dV CTA `cta`: dK and dV of 64 keys of KV head kh.  Its two
+// consumer warpgroups take its (query head, 64-row query block) items in
+// turn, item it going to warpgroup it % 2, over the G heads of the group
+// and the live query blocks; each keeps its own f32 dK and dV, and at the
+// end warpgroup 0 stores dV = dV_0 + dV_1 and warpgroup 1 dK = dK_0 + dK_1
+// (one f32 add, the same order every run).  The producer warpgroup's
+// first warp loads K and V once by TMA, then fills a ring of kStages
+// stages with each item's Q and dO tiles (TMA) and its 64 rows' lse and D
+// (its 32 lanes, by cp.async: a row of (B, H, Sq) f32 may start at any
+// 4-byte boundary, which TMA does not take).  Per item: S^T = K Q^T and
+// dP^T = V dO^T (SS wgmma), then P^T = exp2(S^T scale log2 e - lse log2
+// e) and dS^T = P^T o (dP^T - D) on the fragments, then dV += P^T dO and
+// dK += dS^T Q (RS wgmma, P^T and dS^T rounded to bf16, dO and Q
+// MN-major).
+template <int DH>
+__device__ __forceinline__ void dkdv_cta(
+    int cta, const CUtensorMap& tq, const CUtensorMap& tk,
+    const CUtensorMap& tv, const CUtensorMap& tdo,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int Sq, int Skv,
+    int H, int KH, int causal, int window, float scale, float scale_log2) {
+  static_assert(DH % 16 == 0 && DH <= 128, "head_dim in {16, 32, 64, 128}");
+  using T = Tile<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // base, as a pointer
+  const uint32_t sK = base;
+  const uint32_t sV = sK + T::kBytes;
+  const uint32_t sQ = sV + T::kBytes;               // + st * T::kBytes
+  const uint32_t sO = sQ + kStages * T::kBytes;     // + st * T::kBytes
+  const uint32_t sL = sO + kStages * T::kBytes;     // + st * kLse
+  const uint32_t sD = sL + kStages * kLse;          // + st * kLse
+  const uint32_t full = sD + kStages * kLse;        // + 8 st
+  const uint32_t empty = full + 8 * kStages;        // + 8 st
+  const uint32_t kvbar = empty + 8 * kStages;
+
+  // key block 0, the longest causal run, first over the whole grid
+  const int b = cta % B;
+  const int kh = (cta / B) % KH;
+  const int k0 = cta / (B * KH) * kB;
   const int G = H / KH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int key0 = k0 + 16 * warp + (lane >> 2);  // this thread's keys:
-                                                   // key0 and key0 + 8
-  load_tile<DH>(sK, k, b, k0, Skv, KH, kh);
-  load_tile<DH>(sV, v, b, k0, Skv, KH, kh);
-  cp_async_commit();
-
   int i_lo, i_hi;
-  live_rows(k0, kB, Sq, causal, window, i_lo, i_hi);
+  live_rows(k0, min(kB, Skv - k0), Sq, causal, window, i_lo, i_hi);
   const int qb_lo = i_lo / kB;
-  const int qb_hi = i_lo <= i_hi ? i_hi / kB : qb_lo - 1;
+  const int n_qb = i_lo <= i_hi ? i_hi / kB - qb_lo + 1 : 0;
+  const int n_items = G * n_qb;  // item it: head kh G + it / n_qb, query
+                                 // block qb_lo + it % n_qb
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  float adk[DH / 8][4], adv[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1 + 32);  // the TMA's, and each lane's
+      mbar_init(empty + 8 * st, 4);  // the four warps of the item's group
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int hg = 0; hg < G; ++hg) {
-    const int h = kh * G + hg;
-    const float* lrow = lse + ((size_t)b * H + h) * Sq;
-    const float* drow = dsum + ((size_t)b * H + h) * Sq;
-    for (int qb = qb_lo; qb <= qb_hi; ++qb) {
-      const int q0 = qb * kB;
-      __syncthreads();  // the last tile's Q, dO, lse and D are consumed
-      load_tile<DH>(sQ, q, b, q0, Sq, H, h);
-      load_tile<DH>(sO, dout, b, q0, Sq, H, h);
-      cp_async_commit();
-      for (int r = threadIdx.x; r < kB; r += kThreads) {
-        const bool in = q0 + r < Sq;
-        sL[r] = in ? lrow[q0 + r] * kLog2eBwd : 0.f;
-        sD[r] = in ? drow[q0 + r] : 0.f;
-      }
-      cp_async_wait0();
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-      float s[8][4], dp[8][4];
-      scores2<DH>(s, dp, sK, sV, sQ, sO, 16 * warp, lane);
-      // fragment (nt, e): key key0 + 8 (e / 2), query q0 + 8 nt + 2 t +
-      // e % 2; P^T into s, dS^T into dp
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * nt + 2 * t + (e & 1);
-          const bool ok = pair_live(q0 + c, key0 + 8 * (e >> 1), Sq, Skv,
-                                    causal, window);
-          const float p = ok ? exp2f(s[nt][e] * scale_log2 - sL[c]) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - sD[c]);
+  if (warp >= 8) {  // the producer warpgroup: its first warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 8 && n_items > 0) {
+      if (lane == 0) {
+        mbar_arrive_tx(kvbar, 2 * T::kBytes);
+        for (int r = 0; r < DH / T::kBox; ++r) {
+          tma_load(sK + r * T::kRegion, &tk, r * T::kBox, kh, k0, b, kvbar);
+          tma_load(sV + r * T::kRegion, &tv, r * T::kBox, kh, k0, b, kvbar);
         }
-      // dV += P^T dO and dK += dS^T Q over this tile's 64 queries
-      acc_product<DH>(adv, s, sO, lane);
-      acc_product<DH>(adk, dp, sQ, lane);
+      }
+      for (int it = 0; it < n_items; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty + 8 * st, (it / kStages - 1) & 1);
+        const int h = kh * G + it / n_qb;
+        const int q0 = (qb_lo + it % n_qb) * kB;
+        const uint32_t bar = full + 8 * st;
+        if (lane == 0) {
+          mbar_arrive_tx(bar, 2 * T::kBytes);
+          for (int r = 0; r < DH / T::kBox; ++r) {
+            tma_load(sQ + st * T::kBytes + r * T::kRegion, &tq, r * T::kBox,
+                     h, q0, b, bar);
+            tma_load(sO + st * T::kBytes + r * T::kRegion, &tdo,
+                     r * T::kBox, h, q0, b, bar);
+          }
+        }
+        // the rows' lse and D by cp.async, rows past Sq as zeros: each
+        // lane copies two of each, and the barrier counts its copies done
+        const size_t at = ((size_t)b * H + h) * Sq + q0;
+        for (int r = lane; r < kB; r += 32) {
+          const bool in = q0 + r < Sq;
+          cp_async4(sL + st * kLse + 4 * r, lse + at + (in ? r : 0), in);
+          cp_async4(sD + st * kLse + 4 * r, dsum + at + (in ? r : 0), in);
+        }
+        cp_async_mbar_arrive(bar);
+      }
+    }
+  } else {  // the two consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = warp >> 2;
+    // this thread's two keys (rows of every accumulator fragment) and its
+    // query columns 8 j + col + {0, 1}
+    const int row0 = (warp & 3) * 16 + (lane >> 2);
+    const int col = 2 * (lane & 3);
+    const int key0 = k0 + row0, key1 = key0 + 8;
+
+    float adk[DH / 2], adv[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) adk[i] = adv[i] = 0.f;
+
+    // Each item's products run while this warpgroup works on the one
+    // before: S^T and dP^T go out together, P^T is computed while dP^T
+    // runs, dS^T while dV's product runs, and the dK product is still
+    // running when the next item's S^T and dP^T go out.  P^T and dS^T are
+    // the second products' A operands in registers (through shared
+    // memory, with the stores, a proxy fence and a barrier, the pass ran
+    // slower).  A stage is handed back once the products that read it are
+    // done (at the next item's first wait, or at the end).
+    uint32_t pa[4][4] = {}, da[4][4] = {};  // P^T, dS^T as A fragments
+    int prev_st = -1;
+    if (w < n_items) mbar_wait(kvbar, 0);
+    for (int it = w; it < n_items; it += 2) {
+      const int st = it % kStages;
+      mbar_wait(full + 8 * st, (it / kStages) & 1);
+      const uint32_t tQ = sQ + st * T::kBytes;
+      const uint32_t tO = sO + st * T::kBytes;
+      const float* ls = reinterpret_cast<const float*>(gbase + (sL - base) +
+                                                       st * kLse);
+      const float* ds = reinterpret_cast<const float*>(gbase + (sD - base) +
+                                                       st * kLse);
+      const int q0 = (qb_lo + it % n_qb) * kB;
+
+      // S^T = K Q^T and dP^T = V dO^T over the head dim, two groups
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_m64n64(s, desc_kmajor<DH>(sK, kk), desc_kmajor<DH>(tQ, kk),
+                        kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_m64n64(dp, desc_kmajor<DH>(sV, kk), desc_kmajor<DH>(tO, kk),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T, and the last item's dV and dK, are done
+      fence_regs(s);
+      fence_regs(adv);
+      fence_regs(adk);
+      fence_regs(pa);
+      fence_regs(da);
+      if (prev_st >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev_st);
+      }
+
+      // fragment j of s: keys key0 / key1, queries q0 + 8 j + col + {0, 1};
+      // P^T into s
+      const bool masked = tile_masked(q0, k0, Sq, Skv, causal, window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + col);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float lc = (c ? l2.y : l2.x) * kLog2eBwd;
+          float p0 = exp2_ftz(s[4 * j + c] * scale_log2 - lc);
+          float p1 = exp2_ftz(s[4 * j + 2 + c] * scale_log2 - lc);
+          if (masked) {
+            const int qpos = q0 + 8 * j + col + c;
+            if (!pair_live(qpos, key0, Sq, Skv, causal, window)) p0 = 0.f;
+            if (!pair_live(qpos, key1, Sq, Skv, causal, window)) p1 = 0.f;
+          }
+          s[4 * j + c] = p0;
+          s[4 * j + 2 + c] = p1;
+        }
+      }
+      acc_to_a(pa, s);
+
+      // dV += P^T dO over the tile's 64 queries
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DH>(adv, pa[kk], desc_mnmajor<DH>(tO, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is done
+      fence_regs(dp);
+
+      // dS^T = P^T o (dP^T - D) into dp
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + 8 * j + col);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dc = c ? d2.y : d2.x;
+          dp[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - dc);
+          dp[4 * j + 2 + c] = s[4 * j + 2 + c] * (dp[4 * j + 2 + c] - dc);
+        }
+      }
+      acc_to_a(da, dp);
+
+      // dK += dS^T Q over the tile's 64 queries
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DH>(adk, da[kk], desc_mnmajor<DH>(tQ, kk));
+      wgmma_commit();
+      prev_st = st;
+    }
+    wgmma_wait<0>();
+    fence_regs(adv);
+    fence_regs(adk);
+    fence_regs(pa);
+    fence_regs(da);
+    if (prev_st >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * prev_st);
+    }
+
+    // The fixed-order sum: each warpgroup hands the other the half it does
+    // not store, in its fragment order, through the drained ring.
+    const int tid = threadIdx.x & 127;
+    float* xfer = reinterpret_cast<float*>(gbase + (sQ - base));
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");  // the ring is drained
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i)
+      xfer[(w * (DH / 2) + i) * 128 + tid] = w == 0 ? adk[i] : adv[i];
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    bf16* out = w == 0 ? dv : dk;
+    const float mul = w == 0 ? 1.f : scale;
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i)
+      acc[i] = ((w == 0 ? adv[i] : adk[i]) +
+                xfer[((1 - w) * (DH / 2) + i) * 128 + tid]) * mul;
+    bf16* o0 = out + (((size_t)b * Skv + key0) * KH + kh) * DH + col;
+    bf16* o1 = out + (((size_t)b * Skv + key1) * KH + kh) * DH + col;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      if (key0 < Skv)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      if (key1 < Skv)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
-  cp_async_wait0();  // the K/V copies, where no query block was live
-  store_rows<DH>(dk, adk, scale, b, k0 + 16 * warp, Skv, KH, kh, lane);
-  store_rows<DH>(dv, adv, 1.f, b, k0 + 16 * warp, Skv, KH, kh, lane);
 }
 
-// One CTA: 64 query rows of head h; warp w owns rows q0 + 16 w .. + 15.
+// Unit u of a KV head in the dQ pass: query block n_qb - 1 - u / G (the
+// longest causal runs first) of query head h_in_group = u % G, and the
+// key blocks [t_lo, t_hi] that hold its rows' live keys (empty if t_lo >
+// t_hi).
+__device__ __forceinline__ void dq_unit(int u, int G, int Sq, int Skv,
+                                        int causal, int window, int& q0,
+                                        int& hg, int& t_lo, int& t_hi) {
+  q0 = ((Sq + kB - 1) / kB - 1 - u / G) * kB;
+  hg = u % G;
+  int j_lo, j_hi;
+  live_keys(q0, min(kB, Sq - q0), Skv, causal, window, j_lo, j_hi);
+  t_lo = j_lo / kB;
+  t_hi = j_lo <= j_hi ? j_hi / kB : t_lo - 1;
+}
+
+// The dQ CTA `cta`: dQ of two units of one KV head (two 64-row query
+// blocks, of two query heads or of one), one consumer warpgroup each, as
+// flash_fwd_tc lays out the forward: the producer warpgroup's first lane
+// loads each unit's Q and dO once, then fills a ring of kStages stages
+// with the K/V tiles of the two units' live key blocks, which both
+// warpgroups share (a warpgroup passes over a tile outside its own).
+// Pairing units, not heads, keeps both warpgroups busy where G is odd.
+// Per tile: S = Q K^T and dP = dO V^T (SS wgmma), P and dS = P o (dP - D)
+// on the fragments, dQ += dS K (RS wgmma, dS rounded to bf16, K
+// MN-major).
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout,
+__device__ __forceinline__ void dq_cta(
+    int cta, const CUtensorMap& tq, const CUtensorMap& tk,
+    const CUtensorMap& tv, const CUtensorMap& tdo,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    bf16* __restrict__ dq, int B, int Sq, int Skv, int H, int KH,
+    int causal, int window, float scale, float scale_log2) {
+  static_assert(DH % 16 == 0 && DH <= 128, "head_dim in {16, 32, 64, 128}");
+  using T = Tile<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;                        // + w * T::kBytes
+  const uint32_t sO = sQ + 2 * T::kBytes;          // + w * T::kBytes
+  const uint32_t sK = sO + 2 * T::kBytes;          // + st * T::kBytes
+  const uint32_t sV = sK + kStages * T::kBytes;    // + st * T::kBytes
+  const uint32_t full = sV + kStages * T::kBytes;  // + 8 st
+  const uint32_t empty = full + 8 * kStages;       // + 8 st
+  const uint32_t qbar = empty + 8 * kStages;
+
+  // units 2 c and 2 c + 1 of (b, kh); c = 0, the longest, first
+  const int G = H / KH;
+  const int b = cta % B;
+  const int kh = (cta / B) % KH;
+  const int u0 = 2 * (cta / (B * KH));
+  const int n_act = min(2, (Sq + kB - 1) / kB * G - u0);
+  int kb_lo = 1 << 30, kb_hi = -1;  // the hull of the units' key blocks
+  for (int w = 0; w < n_act; ++w) {
+    int q0, hg, t_lo, t_hi;
+    dq_unit(u0 + w, G, Sq, Skv, causal, window, q0, hg, t_lo, t_hi);
+    if (t_lo <= t_hi) {
+      kb_lo = min(kb_lo, t_lo);
+      kb_hi = max(kb_hi, t_hi);
+    }
+  }
+  const int n_tiles = kb_hi >= kb_lo ? kb_hi - kb_lo + 1 : 0;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 4 * n_act);  // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: its first lane loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 8 && lane == 0 && n_tiles > 0) {
+      mbar_arrive_tx(qbar, 2 * n_act * T::kBytes);
+      for (int w = 0; w < n_act; ++w) {
+        int q0, hg, t_lo, t_hi;
+        dq_unit(u0 + w, G, Sq, Skv, causal, window, q0, hg, t_lo, t_hi);
+        for (int r = 0; r < DH / T::kBox; ++r) {
+          tma_load(sQ + w * T::kBytes + r * T::kRegion, &tq, r * T::kBox,
+                   kh * G + hg, q0, b, qbar);
+          tma_load(sO + w * T::kBytes + r * T::kRegion, &tdo, r * T::kBox,
+                   kh * G + hg, q0, b, qbar);
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty + 8 * st, (it / kStages - 1) & 1);
+        mbar_arrive_tx(full + 8 * st, 2 * T::kBytes);
+        const int k0 = (kb_lo + it) * kB;
+        for (int r = 0; r < DH / T::kBox; ++r) {
+          tma_load(sK + st * T::kBytes + r * T::kRegion, &tk, r * T::kBox,
+                   kh, k0, b, full + 8 * st);
+          tma_load(sV + st * T::kBytes + r * T::kRegion, &tv, r * T::kBox,
+                   kh, k0, b, full + 8 * st);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  const int w = warp >> 2;  // this consumer warpgroup
+  if (w >= n_act) return;   // the KV head has no unit left for it
+  int qb0, hg, my_lo, my_hi;  // this warpgroup's unit
+  dq_unit(u0 + w, G, Sq, Skv, causal, window, qb0, hg, my_lo, my_hi);
+  const int h = kh * G + hg;
+  // this thread's two rows of every accumulator fragment, and its columns
+  const int row0 = (warp & 3) * 16 + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  const int qpos0 = qb0 + row0, qpos1 = qpos0 + 8;
+  const uint32_t sQw = sQ + w * T::kBytes;
+  const uint32_t sOw = sO + w * T::kBytes;
+  const size_t at = ((size_t)b * H + h) * Sq;
+  const float L0 = qpos0 < Sq ? lse[at + qpos0] * kLog2eBwd : 0.f;
+  const float L1 = qpos1 < Sq ? lse[at + qpos1] * kLog2eBwd : 0.f;
+  const float D0 = qpos0 < Sq ? dsum[at + qpos0] : 0.f;
+  const float D1 = qpos1 < Sq ? dsum[at + qpos1] : 0.f;
+
+  float adq[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) adq[i] = 0.f;
+
+  // As in the dK/dV pass, a tile's products run while this warpgroup
+  // works: P is computed while dP's product runs, and the dQ product is
+  // still running when the next tile's S and dP go out; a stage is
+  // handed back once the products that read it are done.
+  uint32_t da[4][4] = {};  // dS as register A fragments
+  int prev_st = -1;
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages;
+    const int kb = kb_lo + it;
+    mbar_wait(full + 8 * st, (it / kStages) & 1);
+    if (kb < my_lo || kb > my_hi) {  // the other unit's tile: hand it back
+      if (prev_st >= 0) {
+        wgmma_wait<0>();
+        fence_regs(adq);
+        fence_regs(da);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev_st);
+        prev_st = -1;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+      continue;
+    }
+    const uint32_t tK = sK + st * T::kBytes;
+    const uint32_t tV = sV + st * T::kBytes;
+    const int k0 = kb * kB;
+
+    // S = Q K^T and dP = dO V^T over the head dim, two groups
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_m64n64(s, desc_kmajor<DH>(sQw, kk), desc_kmajor<DH>(tK, kk),
+                      kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_m64n64(dp, desc_kmajor<DH>(sOw, kk), desc_kmajor<DH>(tV, kk),
+                      kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S, and the last tile's dQ product, are done
+    fence_regs(s);
+    fence_regs(adq);
+    fence_regs(da);
+    if (prev_st >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * prev_st);
+    }
+
+    // fragment j of s: rows qpos0 / qpos1, keys k0 + 8 j + col + {0, 1};
+    // P into s
+    const bool masked = tile_masked(qb0, k0, Sq, Skv, causal, window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float p0 = exp2_ftz(s[4 * j + c] * scale_log2 - L0);
+        float p1 = exp2_ftz(s[4 * j + 2 + c] * scale_log2 - L1);
+        if (masked) {
+          const int kpos = k0 + 8 * j + col + c;
+          if (!pair_live(qpos0, kpos, Sq, Skv, causal, window)) p0 = 0.f;
+          if (!pair_live(qpos1, kpos, Sq, Skv, causal, window)) p1 = 0.f;
+        }
+        s[4 * j + c] = p0;
+        s[4 * j + 2 + c] = p1;
+      }
+    }
+    wgmma_wait<0>();  // dP is done
+    fence_regs(dp);
+    // dS = P o (dP - D) into dp
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        dp[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - D0);
+        dp[4 * j + 2 + c] = s[4 * j + 2 + c] * (dp[4 * j + 2 + c] - D1);
+      }
+    }
+    acc_to_a(da, dp);
+
+    // dQ += dS K over the tile's 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DH>(adq, da[kk], desc_mnmajor<DH>(tK, kk));
+    wgmma_commit();
+    prev_st = st;
+  }
+  wgmma_wait<0>();
+  fence_regs(adq);
+  fence_regs(da);
+  if (prev_st >= 0) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * prev_st);
+  }
+
+  bf16* o0 = dq + (((size_t)b * Sq + qpos0) * H + h) * DH + col;
+  bf16* o1 = dq + (((size_t)b * Sq + qpos1) * H + h) * DH + col;
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    if (qpos0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(
+          adq[4 * j] * scale, adq[4 * j + 1] * scale);
+    if (qpos1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) = __floats2bfloat162_rn(
+          adq[4 * j + 2] * scale, adq[4 * j + 3] * scale);
+  }
+}
+
+// Both passes in one launch: CTAs 0 .. n_dkdv - 1 run the dK/dV pass,
+// the rest the dQ pass, each in its own longest-first order, so dQ CTAs
+// fill the SMs that the dK/dV pass's short CTAs leave idle.  Three
+// warpgroups a CTA in both: two consumers and a producer whose first warp
+// loads; setmaxnreg moves the producer's registers to the consumers.
+template <int DH>
+__global__ void __launch_bounds__(3 * 128, 1)
+    flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum, bf16* __restrict__ dq,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int B,
                     int Sq, int Skv, int H, int KH, int causal, int window,
-                    float scale, float scale_log2) {
-  constexpr int LD = DH + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + kB * LD;
-  bf16* sK = sO + kB * LD;
-  bf16* sV = sK + kB * LD;
-
-  // the longest causal rows first: the last query block gets block 0
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int row0 = q0 + 16 * warp + (lane >> 2);  // rows row0, row0 + 8
-
-  load_tile<DH>(sQ, q, b, q0, Sq, H, h);
-  load_tile<DH>(sO, dout, b, q0, Sq, H, h);
-  cp_async_commit();
-  float L[2], Dr[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + 8 * half;
-    const size_t at = ((size_t)b * H + h) * Sq + r;
-    L[half] = r < Sq ? lse[at] * kLog2eBwd : 0.f;
-    Dr[half] = r < Sq ? dsum[at] : 0.f;
-  }
-
-  int j_lo, j_hi;
-  live_keys(q0, kB, Skv, causal, window, j_lo, j_hi);
-  const int kb_lo = j_lo / kB;
-  const int kb_hi = j_lo <= j_hi ? j_hi / kB : kb_lo - 1;
-
-  float adq[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adq[n][e] = 0.f;
-
-  for (int kb = kb_lo; kb <= kb_hi; ++kb) {
-    const int k0 = kb * kB;
-    __syncthreads();  // the last tile's K and V are consumed
-    load_tile<DH>(sK, k, b, k0, Skv, KH, kh);
-    load_tile<DH>(sV, v, b, k0, Skv, KH, kh);
-    cp_async_commit();
-    cp_async_wait0();
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 keys
-    float s[8][4], dp[8][4];
-    scores2<DH>(s, dp, sQ, sO, sK, sV, 16 * warp, lane);
-    // fragment (nt, e): row row0 + 8 (e / 2), key k0 + 8 nt + 2 t + e % 2;
-    // dS into dp
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const bool ok = pair_live(row0 + 8 * half, k0 + 8 * nt + 2 * t +
-                                  (e & 1), Sq, Skv, causal, window);
-        const float p = ok ? exp2f(s[nt][e] * scale_log2 - L[half]) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - Dr[half]);
-      }
-    // dQ += dS K over this tile's 64 keys
-    acc_product<DH>(adq, dp, sK, lane);
-  }
-  cp_async_wait0();  // the Q/dO copies, where no key block was live
-  store_rows<DH>(dq, adq, scale, b, q0 + 16 * warp, Sq, H, h, lane);
+                    float scale, float scale_log2, int n_dkdv) {
+  const int cta = static_cast<int>(blockIdx.x);
+  if (cta < n_dkdv)
+    dkdv_cta<DH>(cta, tq, tk, tv, tdo, lse, dsum, dk, dv, B, Sq, Skv, H, KH,
+                 causal, window, scale, scale_log2);
+  else
+    dq_cta<DH>(cta - n_dkdv, tq, tk, tv, tdo, lse, dsum, dq, B, Sq, Skv, H,
+               KH, causal, window, scale, scale_log2);
 }
 
 template <int DH>
@@ -398,32 +691,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, void* dk, void* dv, int B, int Sq, int Skv,
                    int H, int KH, int causal, int window, float scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<DH>();
-  const float sl2 = scale * kLog2eBwd;
-  if (Skv > 0) {
-    auto kernel = flash_bwd_dkdv_tc<DH>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((Skv + kB - 1) / kB, KH, B), kThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H,
-        KH, causal, window, scale, sl2);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  if (Sq == 0 || Skv == 0) {  // nothing live: every gradient is zero
+    const size_t nq = (size_t)B * Sq * H * DH * 2;
+    const size_t nk = (size_t)B * Skv * KH * DH * 2;
+    cudaError_t err = cudaMemsetAsync(dq, 0, nq, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dk, 0, nk, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, nk, stream);
+    return err;
   }
-  if (Sq > 0) {
-    auto kernel = flash_bwd_dq_tc<DH>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3((Sq + kB - 1) / kB, H, B), kThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        dsum, static_cast<bf16*>(dq), Sq, Skv, H, KH, causal, window, scale,
-        sl2);
-    return cudaGetLastError();
-  }
-  return cudaSuccess;
+  PFN_cuTensorMapEncodeTiled_v12000 enc = tensor_map_encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv, mo;
+  if (!encode<DH>(enc, &mq, q, B, Sq, H) ||
+      !encode<DH>(enc, &mk, k, B, Skv, KH) ||
+      !encode<DH>(enc, &mv, v, B, Skv, KH) ||
+      !encode<DH>(enc, &mo, dout, B, Sq, H))
+    return cudaErrorInvalidValue;
+  const long long n_dkdv = (long long)((Skv + kB - 1) / kB) * KH * B;
+  const long long n_dq =
+      ((long long)(Sq + kB - 1) / kB * (H / KH) + 1) / 2 * KH * B;
+  if (n_dkdv + n_dq >= (1LL << 31)) return cudaErrorInvalidValue;
+  const size_t smem = dkdv_smem_bytes<DH>() > dq_smem_bytes<DH>()
+                          ? dkdv_smem_bytes<DH>()
+                          : dq_smem_bytes<DH>();
+  auto kernel = flash_bwd_wgmma<DH>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(n_dkdv + n_dq), 3 * 128, smem, stream>>>(
+      mq, mk, mv, mo, lse, dsum, static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Skv, H, KH,
+      causal, window, scale, scale * kLog2eBwd, (int)n_dkdv);
+  return cudaGetLastError();
 }
 
 }  // namespace tcb
@@ -728,8 +1026,9 @@ cudaError_t launch_dh(int dtype, const void* q, const void* k, const void* v,
 // q, out, dout, dq (B, Sq, H, Dh); k, v, dk, dv (B, Skv, KH, Dh); one
 // element type (dtype: 0 = f32, 1 = bf16), contiguous, 16-byte aligned;
 // lse (B, H, Sq) f32 in natural-log units (flash_attention.cu's); dsum
-// (B, H, Sq) f32 scratch for D.  Three launches on `stream` (D, then dK
-// and dV, then dQ); returns the first cudaGetLastError() that is not 0.
+// (B, H, Sq) f32 scratch for D.  Launches on `stream` D, then bf16's one
+// launch of dK, dV and dQ or f32's two (dK and dV, then dQ); returns the
+// first cudaGetLastError() that is not 0.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          const void* v, const void* out,
                                          const void* dout, const void* lse,

@@ -6,7 +6,8 @@
 ``flash_fwd_simt``; with ``return_lse`` both also write the row
 log-sum-exp.  ``flash_attention_bwd_cuda`` launches
 ``csrc/flash_attention_bwd.cu`` (no TPU counterpart: the reference cannot
-differentiate its Pallas kernel), and ``FlashAttention`` ties the two
+differentiate its Pallas kernel; bf16 runs wgmma on TMA-fed tiles, f32
+exact SIMT kernels), and ``FlashAttention`` ties the two
 together as an autograd Function, the training path's attention.
 ``paged_decode_attention_cuda`` launches ``csrc/paged_decode.cu`` (the
 port of ``paged_decode_attention_pallas``) over (KV head, request, split
@@ -37,7 +38,8 @@ from repro_torch.kernels.ref import (NEG_INF, decode_attention_direct,
 
 # Launches of each kernel since the last reset_launches(); a plain integer
 # per kernel, bumped only where the kernel is launched.  The backward
-# counts one a call (three device launches: D, then dK and dV, then dQ).
+# counts one a call (D, then dK, dV and dQ in one launch for bf16 or two
+# for f32).
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
             "paged_decode_attention": 0}
 
@@ -146,12 +148,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
 
     q, out, dout: (B, Sq, H, Dh); k, v: (B, Skv, KH, Dh); one type (f32 or
     bf16), contiguous, 16-byte aligned; lse: (B, H, Sq) f32 from
-    ``flash_attention_cuda(..., return_lse=True)``.  bf16 runs the
-    tensor-core kernels (mma.sync), f32 the exact SIMT ones; three device
-    launches a call (D = rowsum(dO o O), then dK and dV, then dQ), counted
-    as one.  Queries start at position 0 (no query offset: training's
-    case).  Returns (dq, dk, dv) in q's type, f32 accumulation, the same
-    bits from run to run.
+    ``flash_attention_cuda(..., return_lse=True)``.  First D = rowsum(dO o
+    O); then bf16 runs ``flash_bwd_wgmma`` (wgmma on TMA-fed tiles, the
+    dK/dV and the dQ CTAs in one launch), f32 the exact SIMT kernels (dK
+    and dV, then dQ); the call is counted as one launch.  Queries start at
+    position 0 (no query
+    offset: training's case).  Returns (dq, dk, dv) in q's type, f32
+    accumulation, the same bits from run to run.
     """
     name = "flash_attention_bwd"
     B, Sq, H, Dh, Skv, KH = _check_qkv(name, q, k, v)
