@@ -148,7 +148,38 @@ Phases (any failure ends the run with a non-zero exit):
    tokens a step), LM_ROUNDS rounds: finite losses, two attention
    forwards and one backward a layer and step, one top-k launch a round
    per type pair, no serve launch; the round wall p50 against
-   LM_ROUND_LIMIT_MS and the peak against PEAK_LIMIT_GB (gated).
+   LM_ROUND_LIMIT_MS and the peak against PEAK_LIMIT_GB (gated);
+17. the masked gossip's kernels bit for bit: ``_sparse_mix_rows(...,
+   conn=)`` (the backhaul mask folded into the decode-and-mix's
+   per-destination coefficients, then the absorbed-weight and
+   partitioned-row passes in PyTorch) against its plain route on
+   MIX_CASES at ring and erdos_renyi, one cluster and all but one
+   partitioned; phase 10's main w_in chunk with cluster 1 partitioned
+   through ``sparse_exchange_``: the same bits as the plain route, no host
+   synchronisation, one decode-and-mix launch and MASKED_EPILOGUE_PASSES
+   passes beyond the unmasked chunk's GOSSIP_CHUNK_LAUNCHES, timed beside
+   it; and ``fold_dropped_updates`` after the grouped top-k on ResNet-20's
+   table at R 64 with FOLD_DROPPED devices dropped: contribution + ef_out
+   == delta + ef_old on every leaf;
+18. the round step under the masks, card against CPU: the smoke smollm
+   off-mesh (f32 kernels) under a fixed chaos trace, and the smoke
+   mamba2's fused branch (int4 wire, levels (0.1, 0.6), no wire EF) with
+   a dead device and cluster 1 cut in the gossip rounds, in lockstep,
+   within ROUND_RTOL / ROUND_ATOL (the fused state but for Q_FLIP_SHARE
+   threshold flips); on the card a chaos run and its replay, zero fault
+   probabilities and no chaos give the same bits, a dead partitioned
+   cluster keeps its parameters and its EF takes the update, and the
+   launcher at --population 4 (= R) gives the storeless run's bits;
+19. ResNet-20 FedSim at 64 slots under chaos (dropout 0.2, partitions
+   0.1, coordinator failures 0.2) over FEDSIM_POPULATION clients with
+   per-client shards and a spilling store, FEDSIM_ROUNDS rounds: finite,
+   participation below 1, the population EF sum the same under == across
+   every swap, page files only for clients that took part, one top-k
+   launch a round, round p50 against FEDSIM_ROUND_LIMIT_MS (gated);
+20. the train launcher on smollm-135M at full width under ``--chaos
+   --population 16``: finite losses, participation every round and below
+   1, phase 16's launch counts, the EF sum kept across the last swap,
+   round p50 and peak gated as phase 16's.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -1840,6 +1871,22 @@ def gossip_chunk(wp, col, means, cols):
     return row
 
 
+def w_in_chunk(configs, mamba2, cols, wb=1024):
+    """The main path's inputs: a column chunk of mamba2-1.3B's w_in (bf16
+    weights, so many exactly tied magnitudes), one sender row in f32 as
+    (1, cols / wb, wb) wire blocks, and the (2, cols) f32 cluster means of
+    a C = 2 gossip chunk."""
+    cfg = configs.get_config("mamba2_1p3b").model
+    din, _, _, heads, conv_ch = mamba2._dims(cfg)
+    per_layer = cfg.d_model * (din + conv_ch + heads)
+    cfg = cfg.replace(num_layers=-(-2 * cols // per_layer))
+    w_in = mamba2.init(cfg, seed=12, device="cuda")["layers"]["w_in"]
+    flat = w_in.reshape(-1)
+    xb = flat[:cols].float().reshape(1, -1, wb).contiguous()
+    means = flat[:2 * cols].float().reshape(2, cols)
+    return xb, means
+
+
 def wire_phase(wp, configs, mamba2, cols):
     """Phase 10 at the gossip's column chunk of ``cols`` columns.  Returns
     {kernel: row}: the encode (p4 offsets, the gossip's form), pack and
@@ -1895,18 +1942,8 @@ def wire_phase(wp, configs, mamba2, cols):
               f"L={case[3]}: {len(steps)} steps, "
               f"{-(-len(steps) // wp.MIX_STEPS)} launches a call, bit for "
               f"bit in every dtype")
-    # the main path's inputs: a column chunk of w_in (bf16 weights, so
-    # many exactly tied magnitudes), one sender row in f32
-    cfg = configs.get_config("mamba2_1p3b").model
-    din, _, _, heads, conv_ch = mamba2._dims(cfg)
-    per_layer = cfg.d_model * (din + conv_ch + heads)
-    cfg = cfg.replace(num_layers=-(-2 * cols // per_layer))
-    w_in = mamba2.init(cfg, seed=12, device="cuda")["layers"]["w_in"]
     wb = 1024
-    flat = w_in.reshape(-1)
-    xb = flat[:cols].float().reshape(1, -1, wb).contiguous()
-    means = flat[:2 * cols].float().reshape(2, cols)
-    del w_in, flat
+    xb, means = w_in_chunk(configs, mamba2, cols, wb)
     rows = {}
     for theta in WIRE_LEVELS:
         k_b = max(1, min(wb, int(np.ceil(theta * wb))))
@@ -2681,6 +2718,548 @@ def lm_full(train, fa, tk, topk_per_round):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 17-20: degraded mode and cohorts
+# ---------------------------------------------------------------------------
+
+# phase 17: the passes after the decode-and-mix launch of a gossip chunk
+# with a partitioned cluster: absorbed * means, + y, the where that keeps
+# y where nothing was lost, the where that keeps a cut row's own mean
+MASKED_EPILOGUE_PASSES = 4
+FOLD_DROPPED = 13  # phase 17: devices of ResNet-20's 64 dropped
+CHAOS_ROUNDS = 4   # phase 18
+FEDSIM_ROUND_LIMIT_MS = 3600.0  # phase 19: phase 7's limit
+FEDSIM_POPULATION = 1024        # phase 19
+LM_POPULATION = 16              # phase 20
+
+
+def conn_cases(C):
+    """Phase 17's backhaul masks: cluster 1 (and cluster 0) cut alone,
+    and every link but cluster 0's."""
+    return [1 - np.eye(C)[1], 1 - np.eye(C)[0], np.eye(C)[0]]
+
+
+def masked_mix_cases(col, gen):
+    """The masked gossip (``_sparse_mix_rows(..., conn=)``: the conn mask
+    folded into the decode-and-mix's coefficients and the two passes
+    after it) on the card against its plain route, bit for bit: MIX_CASES
+    at ring and at erdos_renyi, every wire dtype, conn_cases."""
+    n = 0
+    for hk0, C, wbk, L, levels, dense in MIX_CASES:
+        means = mix_means(gen, C, L)
+        for hkind in ("ring", "erdos_renyi"):
+            for wd in WIRE_DTYPES:
+                plans = col._wire_plans(levels, L, wbk, wd, torch.empty(
+                    (), dtype=dense).element_size())
+                layout = col._gossip_layout(hkind, C, 0.4, 0, tuple(plans))
+                kw = dict(wb=col.wf.wire_block_of(L, wbk), wire_dtype=wd,
+                          dense_dtype=dense)
+                for conn in conn_cases(C):
+                    want = col._sparse_mix_rows(means, layout, impl="plain",
+                                                conn=conn, **kw)
+                    got = col._sparse_mix_rows(means, layout, conn=conn,
+                                               **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(_bits(got), _bits(want)):
+                        fail(f"masked gossip differs from its plain route: "
+                             f"{hkind} C={C} {wd} conn {conn.tolist()}")
+                    cut = np.flatnonzero(conn == 0)
+                    if not torch.equal(_bits(got[cut]), _bits(means[cut])):
+                        fail(f"a partitioned row lost its own mean: {hkind} "
+                             f"C={C} {wd}")
+                    n += 1
+    return n
+
+
+def masked_gossip_chunk(wp, col, means, cols):
+    """Phase 10's main chunk (C = 2, levels GOSSIP_LEVELS, int4) through
+    ``sparse_exchange_`` with cluster 1 partitioned: bit for bit its plain
+    route, the partitioned rows keeping their own mean, no host
+    synchronisation inside it, one decode-and-mix launch and the
+    GOSSIP_CHUNK_LAUNCHES of the unmasked chunk plus
+    MASKED_EPILOGUE_PASSES; timed beside the unmasked chunk."""
+    C, Dev = 2, 2
+    x = means.repeat_interleave(Dev, dim=0).to(torch.bfloat16)
+    conn = np.array([1.0, 0.0], np.float32)
+    kw = dict(clusters=C, dev=Dev, hkind="ring", wire_dtype="int4",
+              wire_block=1024, cluster_theta=GOSSIP_LEVELS,
+              chunk_cols=cols)
+    want = x.clone()
+    col.sparse_exchange_(want, impl="plain", conn=conn, **kw)
+    got = x.clone()
+    col.sparse_exchange_(got, conn=conn, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(got), _bits(want)):
+        fail("the masked gossip chunk on the card differs from its plain "
+             "route")
+    if not torch.equal(_bits(got[Dev:]), _bits(x[Dev:])):
+        fail("the partitioned cluster's rows changed in the gossip")
+    checked = x.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        col.sparse_exchange_(checked, conn=conn, **kw)
+    except RuntimeError as e:
+        fail(f"the masked gossip chunk synchronised the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(checked), _bits(got)):
+        fail("the masked chunk under the sync check gave another result")
+    counted = x.clone()
+    wp.reset_launches()
+    ops = aten_kernel_ops(lambda: col.sparse_exchange_(counted, conn=conn,
+                                                       **kw))
+    launches = dict(wp.LAUNCHES)
+    total = sum(launches.values()) + len(ops)
+    scratch = x.clone()
+    masked = lambda: col.sparse_exchange_(scratch, conn=conn, **kw)
+    plain_chunk = lambda: col.sparse_exchange_(scratch, **kw)
+    row = dict(case=f"one chunk: sparse_exchange_ on (4, {x.shape[1]}) bf16,"
+               f" C=2 ring, int4 levels {GOSSIP_LEVELS}, cluster 1 "
+               f"partitioned", ms=time_ms(masked),
+               unmasked_ms=time_ms(plain_chunk),
+               call_ms=time_ms(masked, host_paced=True),
+               device_launches=total, wire_launches=launches,
+               epilogue_passes=total - GOSSIP_CHUNK_LAUNCHES,
+               torch_kernel_ops=ops, host_syncs=0)
+    print("masked_gossip_chunk " + json.dumps(row))
+    want_wire = {"wire_encode": 2, "wire_pack": 0, "wire_unpack": 0,
+                 "wire_decode_mix": 1}
+    if (launches != want_wire
+            or row["epilogue_passes"] != MASKED_EPILOGUE_PASSES):
+        fail(f"the masked chunk ran {total} device launches (wire "
+             f"{launches}, PyTorch {ops}), expected "
+             f"{GOSSIP_CHUNK_LAUNCHES} + {MASKED_EPILOGUE_PASSES} (wire "
+             f"{want_wire})")
+    return row
+
+
+def fold_after_topk(tk, compression, chaos_mod, leaf_shapes):
+    """``fold_dropped_updates`` after the grouped top-k (one launch) on
+    ResNet-20's 59 leaves at R = 64, block 256, FOLD_DROPPED devices
+    dropped: contribution + ef_out == delta + ef_old on every leaf, the
+    dropped rows contributing zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    R = 64
+    delta = {i: torch.randn((R,) + s, generator=gen, device="cuda")
+             for i, s in enumerate(leaf_shapes)}
+    ef = {i: 0.1 * torch.randn((R,) + s, generator=gen, device="cuda")
+          for i, s in enumerate(leaf_shapes)}
+    want = {k: delta[k] + ef[k] for k in delta}
+    theta = torch.rand(R, generator=gen, device="cuda") * 0.9 + 0.05
+    tk.reset_launches()
+    comp, ef_new = compression.compress_delta(delta, ef, theta, block=256)
+    torch.cuda.synchronize()
+    launches = tk.LAUNCHES["topk_compress"]
+    alive = np.ones(R, bool)
+    alive[np.random.default_rng(17).choice(R, FOLD_DROPPED,
+                                           replace=False)] = False
+    contrib, ef_out = chaos_mod.fold_dropped_updates(comp, ef_new, alive)
+    dead = torch.as_tensor(~alive, device="cuda")
+    for k in want:
+        if not torch.equal(contrib[k] + ef_out[k], want[k]):
+            fail(f"fold after the top-k: leaf {k} loses an update")
+        if contrib[k][dead].any():
+            fail(f"fold after the top-k: a dropped device contributes "
+                 f"(leaf {k})")
+    print(f"fold after the grouped top-k: {len(want)} ResNet-20 leaves at "
+          f"R={R}, {FOLD_DROPPED} devices dropped, contribution + ef_out == "
+          f"delta + ef_old on every leaf ({launches} top-k launch)")
+    if launches != 1:
+        fail(f"{launches} top-k launches for ResNet-20's table, expected 1")
+
+
+def masked_mix_phase(wp, col, tk, compression, chaos_mod, configs, mamba2,
+                     cols, leaf_shapes):
+    """Phase 17."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n = masked_mix_cases(col, gen)
+    print(f"masked gossip: {n} cases of MIX_CASES at ring and erdos_renyi, "
+          f"every wire dtype, one cluster and all but one partitioned, bit "
+          f"for bit the plain route")
+    _, means = w_in_chunk(configs, mamba2, cols)
+    row = masked_gossip_chunk(wp, col, means, cols)
+    del means
+    torch.cuda.empty_cache()
+    fold_after_topk(tk, compression, chaos_mod, leaf_shapes)
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    return row
+
+
+def chaos_trace(chaos_mod, R, C, rounds, q, seed=2):
+    """A fixed fault trace: [(alive, conn) or None] a round (None: every
+    device alive and every link up, the unmasked step)."""
+    plan = chaos_mod.FaultPlan(chaos_mod.ChaosConfig(
+        seed=seed, dropout_prob=0.3, partition_prob=0.5,
+        coordinator_fail_prob=0.3), R, C)
+    out = []
+    for r in range(rounds):
+        f = plan.step(r, gossip_round=(r + 1) % q == 0)
+        out.append(None if f.alive.all() and f.cluster_conn.all()
+                   else (f.alive, f.cluster_conn))
+    return out
+
+
+def masks_of(col, faults, C, Dev):
+    if faults is None:
+        return {}
+    alive, conn = faults
+    return dict(alive=alive.astype(np.float32),
+                alive_w=col.participation_weights(alive, clusters=C,
+                                                  dev=Dev),
+                conn=conn.astype(np.float32))
+
+
+def lm_chaos_rounds(configs, lm, rnd_mod, base, col, trace, dev, params0,
+                    tokens):
+    """The smoke smollm's off-mesh step under ``trace`` on ``dev``:
+    (history, parameters and EF on the CPU)."""
+    from repro_torch.tree import flatten
+    cfg = configs.smoke_model(configs.get_config("smollm_135m").model)
+    hcef = base.HCEFConfig(tau=4, q=2, eta=0.1)
+    topo = base.FLTopology(2, 2)
+    rho = np.array([0.9, 0.6, 0.8, 0.7])
+    theta = np.array([0.5, 0.25, 1.0, 0.1])
+    state = rnd_mod.init_state(cfg, hcef, topo, params0, device=dev)
+    hist = []
+    for r, faults in enumerate(trace):
+        step = rnd_mod.make_round_step(cfg, hcef, topo, gossip=r % 2 == 1)
+        state, m = step(state, {"tokens": tokens[r]}, rho, theta, 7 + r,
+                        **masks_of(col, faults, 2, 2))
+        hist.append({k: v.cpu().numpy() for k, v in m.items()})
+    return hist, {f: {k: v.cpu() for k, v in
+                      flatten(getattr(state, f)).items()}
+                  for f in ("params", "ef")}
+
+
+def sparse_chaos_rounds(configs, mamba2, rnd_mod, base, compression,
+                        policies, col, params0, tokens, lockstep):
+    """Phase 18's fused rounds: the smoke mamba2 with the int4 wire at
+    levels (0.1, 0.6), no wire EF, device 3 dead every round and cluster 1
+    partitioned in the gossip rounds, on the CPU and the card; with
+    ``lockstep`` each round starts both from the card's state.  Yields
+    (round, {device: metrics}, {device: parameters and EF on the CPU})."""
+    import dataclasses
+    from repro_torch.tree import flatten, tree_map
+    cfg, hcef, topo, policy, theta, levels = sparse_setup(
+        configs, base, compression, policies, full=False)
+    hcef = dataclasses.replace(hcef, wire_ef=False)
+    rho = np.array([0.9, 0.6, 0.8, 0.7])
+    states = {d: rnd_mod.init_state(cfg, hcef, topo, params0, device=d)
+              for d in ("cpu", "cuda")}
+    alive = np.array([1, 1, 1, 0], bool)
+    for r in range(CHAOS_ROUNDS):
+        gossip = (r + 1) % SPARSE_Q == 0
+        if lockstep:
+            c = states["cuda"]
+            cpu = lambda t: None if t is None else tree_map(
+                lambda x: x.cpu().clone(), t)
+            states["cpu"] = c._replace(params=cpu(c.params),
+                                       momentum=cpu(c.momentum),
+                                       ef=cpu(c.ef))
+        step = rnd_mod.make_round_step(cfg, hcef, topo, policy,
+                                       gossip=gossip,
+                                       cluster_levels=levels if gossip
+                                       else None)
+        masks = masks_of(col, (alive, np.array([True, not gossip])), 2, 2)
+        mets, leaves = {}, {}
+        for d in ("cpu", "cuda"):
+            states[d], m = step(states[d], {"tokens": tokens[r]}, rho,
+                                theta, 21 + r, **masks)
+            mets[d] = {k: v.cpu().numpy() for k, v in m.items()}
+            leaves[d] = {f + "/" + k: v.cpu()
+                         for f in ("params", "ef")
+                         for k, v in flatten(getattr(states[d], f)).items()}
+        yield r, mets, leaves
+
+
+def dead_cluster_on_card(configs, lm, rnd_mod, base, col, params0, tokens):
+    """A gossip round with cluster 1 fully dropped and partitioned: its
+    parameters kept bit for bit, its EF holding the pending update."""
+    from repro_torch.tree import flatten
+    cfg = configs.smoke_model(configs.get_config("smollm_135m").model)
+    hcef = base.HCEFConfig(tau=4, q=2, eta=0.1)
+    topo = base.FLTopology(2, 2)
+    state = rnd_mod.init_state(cfg, hcef, topo, params0, device="cuda")
+    before = {k: v.clone() for k, v in flatten(state.params).items()}
+    step = rnd_mod.make_round_step(cfg, hcef, topo, gossip=True)
+    state, _ = step(state, {"tokens": tokens[0]}, np.ones(4),
+                    np.full(4, 0.3), 3, **masks_of(
+                        col, (np.array([1, 1, 0, 0], bool),
+                              np.array([True, False])), 2, 2))
+    kept = all(torch.equal(_bits(v[2:]), _bits(before[k][2:]))
+               for k, v in flatten(state.params).items())
+    absorbed = max(float(v[2:].abs().max())
+                   for v in flatten(state.ef).values())
+    return kept, absorbed
+
+
+def rounds_under_masks(configs, lm, mamba2, rnd_mod, base, compression,
+                       policies, col, chaos_mod, train, wp):
+    """Phase 18: the round step under the masks, card against CPU, and
+    the card's own contracts.  Returns the fused run's wire launches."""
+    t0 = time.perf_counter()
+    cfg = configs.smoke_model(configs.get_config("smollm_135m").model)
+    params0 = lm.init(cfg, torch.Generator().manual_seed(18), device="cpu")
+    rng = np.random.default_rng(18)
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 65)))
+              for _ in range(CHAOS_ROUNDS)]
+    trace = chaos_trace(chaos_mod, 4, 2, CHAOS_ROUNDS, 2)
+    if all(f is None for f in trace):
+        fail("the phase-18 chaos trace drops nothing")
+    runs = {d: lm_chaos_rounds(configs, lm, rnd_mod, base, col, trace, d,
+                               params0, tokens) for d in ("cpu", "cuda")}
+    worst = max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k])))
+                for a, b in zip(runs["cuda"][0], runs["cpu"][0])
+                for k in ("loss", "g2", "sigma2"))
+    perr = max(float((runs["cuda"][1][f][k] - v).abs().max())
+               for f in ("params", "ef") for k, v in
+               runs["cpu"][1][f].items())
+    shown = [None if f is None else (f[0].tolist(), f[1].tolist())
+             for f in trace]
+    print(f"smollm small round under chaos: trace {shown}; card vs CPU over {CHAOS_ROUNDS} rounds, largest relative "
+          f"deviation of loss/g2/sigma2 {worst:.3e} (tolerance {ROUND_RTOL}),"
+          f" largest parameter or EF deviation {perr:.3e} (tolerance "
+          f"{ROUND_ATOL})")
+    if not (worst <= ROUND_RTOL and perr <= ROUND_ATOL):
+        fail("the LM round under chaos on the card disagrees with the CPU")
+    replay = lm_chaos_rounds(configs, lm, rnd_mod, base, col,
+                             chaos_trace(chaos_mod, 4, 2, CHAOS_ROUNDS, 2),
+                             "cuda", params0, tokens)
+    if not all(torch.equal(_bits(replay[1][f][k]), _bits(v))
+               for f in ("params", "ef")
+               for k, v in runs["cuda"][1][f].items()):
+        fail("a chaos run and its replay differ on the card")
+    zero = chaos_mod.FaultPlan(chaos_mod.ChaosConfig(seed=2), 4, 2)
+    zero_trace = [None if (f.alive.all() and f.cluster_conn.all()) else
+                  (f.alive, f.cluster_conn)
+                  for f in (zero.step(r, gossip_round=r % 2 == 1)
+                            for r in range(CHAOS_ROUNDS))]
+    a = lm_chaos_rounds(configs, lm, rnd_mod, base, col, zero_trace, "cuda",
+                        params0, tokens)
+    b = lm_chaos_rounds(configs, lm, rnd_mod, base, col,
+                        [None] * CHAOS_ROUNDS, "cuda", params0, tokens)
+    if not all(torch.equal(_bits(a[1][f][k]), _bits(v))
+               for f in ("params", "ef") for k, v in b[1][f].items()):
+        fail("zero fault probabilities differ from no chaos on the card")
+    kept, absorbed = dead_cluster_on_card(configs, lm, rnd_mod, base, col,
+                                          params0, tokens)
+    print(f"on the card: chaos replay bit for bit, zero chaos bit for bit "
+          f"no chaos; a dead partitioned cluster kept its parameters: "
+          f"{kept}, its EF took up to {absorbed:.3e}")
+    if not (kept and absorbed > 0):
+        fail("a dead, partitioned cluster did not keep its model or its EF "
+             "took nothing")
+    # the fused branch under the masks
+    mcfg = configs.smoke_model(configs.get_config("mamba2_1p3b").model)
+    mparams = mamba2.init(mcfg, torch.Generator().manual_seed(19),
+                          device="cpu")
+    rng = np.random.default_rng(19)
+    mtokens = [torch.from_numpy(rng.integers(0, mcfg.vocab_size, (16, 40)))
+               for _ in range(CHAOS_ROUNDS)]
+    wp.reset_launches()
+    worst, flips, total = 0.0, 0, 0
+    for r, mets, leaves in sparse_chaos_rounds(
+            configs, mamba2, rnd_mod, base, compression, policies, col,
+            mparams, mtokens, lockstep=True):
+        a, b = mets["cuda"], mets["cpu"]
+        for k in ("loss", "g2", "sigma2"):
+            worst = max(worst, float(np.max(np.abs(a[k] - b[k])
+                                            / np.abs(b[k]))))
+        dev = {k: (leaves["cuda"][k] - v).abs()
+               for k, v in leaves["cpu"].items()}
+        flips = max(flips, sum(int((v > ROUND_ATOL).sum())
+                               for v in dev.values()))
+        total = sum(v.numel() for v in dev.values())
+    launches = dict(wp.LAUNCHES)
+    allowed = int(Q_FLIP_SHARE * total)
+    print(f"mamba2 small sparse round under masks (device 3 dead, cluster 1 "
+          f"cut in the gossip rounds, int4 levels {GOSSIP_LEVELS}, lockstep):"
+          f" card vs CPU over {CHAOS_ROUNDS} rounds, largest relative "
+          f"deviation of loss/g2/sigma2 {worst:.3e} (tolerance {ROUND_RTOL}),"
+          f" entries above {ROUND_ATOL}: at most {flips} of {total} "
+          f"(allowed {allowed}); wire launches on the card {launches}")
+    if not (worst <= ROUND_RTOL and flips <= allowed):
+        fail("the fused round under masks on the card disagrees with the "
+             "CPU")
+    if not (launches["wire_encode"] and launches["wire_decode_mix"]):
+        fail(f"the masked fused round ran no wire kernels: {launches}")
+    # population == R through the launcher: the same bits as no store
+    argv = ["--arch", "smollm_135m", "--rounds", str(CHAOS_ROUNDS)]
+    plain = train.main(argv)
+    pop = train.main(argv + ["--population", "4"])
+    from repro_torch.tree import flatten
+    same = ([h["loss"] for h in plain["history"]]
+            == [h["loss"] for h in pop["history"]]) and all(
+        torch.equal(_bits(v), _bits(flatten(getattr(pop["state"], f))[k]))
+        for f in ("params", "ef", "momentum")
+        for k, v in flatten(getattr(plain["state"], f)).items())
+    print(f"smollm smoke through the launcher at --population 4 (= R): bit "
+          f"for bit the storeless run: {same}")
+    if not same:
+        fail("population == R differs from the fixed roster on the card")
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def fedsim_chaos_full(fedsim, tk, chaos_mod):
+    """Phase 19: ResNet-20 at the paper's topology under chaos with a
+    population of FEDSIM_POPULATION clients over the 64 slots,
+    FEDSIM_ROUNDS rounds of ``FedSim.run``, every top-k launch counted and
+    every cohort swap checked."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fedsim_pop_") as td:
+        sim = fedsim.make_sim(
+            "hcef", model="resnet20", device="cuda",
+            chaos=chaos_mod.ChaosConfig(seed=0, dropout_prob=0.2,
+                                        partition_prob=0.1,
+                                        coordinator_fail_prob=0.2),
+            population=FEDSIM_POPULATION, store_root=td,
+            verify_conservation=True)
+        torch.cuda.synchronize()
+        print(f"fedsim resnet20 chaos+cohorts: {sim.cfg.n_devices} slots in "
+              f"{sim.cfg.n_clusters} clusters over {FEDSIM_POPULATION} "
+              f"clients (resident_max {sim.cfg.resident_max}), set up in "
+              f"{time.perf_counter() - t0:.1f} s")
+        sim.timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launches()
+        sim.run(FEDSIM_ROUNDS, eval_every=FEDSIM_ROUNDS,
+                on_round=fedsim.print_round(sim, "resnet20 chaos "))
+        launches = tk.LAUNCHES["topk_compress"]
+        hist, walls = sim.history, sim.round_ms
+        pages = {int(p.name[7:15]) for p in Path(td).glob("client_*.npy")}
+        store = sim.pop_store
+        took_part = set(np.flatnonzero(store.rounds_participated > 0))
+    if len(hist) != FEDSIM_ROUNDS:
+        fail(f"the run stopped after {len(hist)} of {FEDSIM_ROUNDS} rounds")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"non-finite loss: {[h['loss'] for h in hist]}")
+    if not all(bool(torch.isfinite(p).all()) for p in sim.params.values()):
+        fail("non-finite parameters")
+    parts = [h["participation"] for h in hist]
+    if not min(parts) < 1.0:
+        fail("participation is 1 in every round")
+    # the first swap fills empty slots; every later one is checked
+    checks = [h["swap_check"] for h in hist if "swap_check" in h]
+    if len(checks) != FEDSIM_ROUNDS - 1 or not all(c["equal"]
+                                                   for c in checks):
+        fail(f"the population's sums moved across a swap: {checks}")
+    if not any(c["ef_before"] != 0.0 for c in checks):
+        fail("every swap paged a zero EF: the EF check proves nothing")
+    if not pages <= took_part:
+        fail(f"page files for clients that never took part: "
+             f"{sorted(pages - took_part)[:8]}")
+    if launches != FEDSIM_ROUNDS:
+        fail(f"{launches} top-k launches, expected one a round")
+    med = lambda v: float(np.percentile(v, 50))
+    p50 = med(walls)
+    stats = dict(rounds=FEDSIM_ROUNDS, population=FEDSIM_POPULATION,
+                 slots=sim.cfg.n_devices, round_wall_ms_p50=p50,
+                 round_wall_ms=walls, round_limit_ms=FEDSIM_ROUND_LIMIT_MS,
+                 phase_ms_p50={k: med(v) for k, v in sim.timings.items()},
+                 verify_swap_ms_p50=med([c["host_ms"] for c in checks]),
+                 launches=launches, participation=parts,
+                 n_deadline_missed=[h["n_deadline_missed"] for h in hist],
+                 n_partitioned=[h["n_partitioned"] for h in hist],
+                 cohort_new=[h["cohort_new"] for h in hist],
+                 resident_clients=[h["resident_clients"] for h in hist],
+                 page_files=len(pages), clients_took_part=len(took_part),
+                 ef_sum_last_swap=checks[-1]["ef_before"],
+                 state_sum_last_swap=checks[-1]["state_before"],
+                 loss=[h["loss"] for h in hist], acc=hist[-1]["acc"],
+                 theta_mean=[h["theta_mean"] for h in hist],
+                 time_s=hist[-1]["time"], energy_j=hist[-1]["energy"],
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 phase_s=time.perf_counter() - t0)
+    print("fedsim_chaos " + json.dumps(stats))
+    print(f"fedsim chaos+cohorts round p50 {p50:.1f} ms against "
+          f"{FEDSIM_ROUND_LIMIT_MS} ms")
+    if p50 > FEDSIM_ROUND_LIMIT_MS:
+        fail(f"round p50 {p50:.1f} ms over {FEDSIM_ROUND_LIMIT_MS} ms")
+    return launches
+
+
+def lm_chaos_full(train, fa, tk, topk_per_round):
+    """Phase 20: the launcher's entry point on smollm-135M at full width
+    and depth under ``--chaos --population LM_POPULATION``, LM_ROUNDS
+    rounds, every launch counted, every swap checked."""
+    t0 = time.perf_counter()
+    argv = ["--arch", "smollm_135m", "--full", "--rounds", str(LM_ROUNDS),
+            "--seq", "2047", "--chaos", "--population", str(LM_POPULATION),
+            "--verify-conservation"]
+    print("python -m repro_torch.launch.train " + " ".join(argv))
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    tk.reset_launches()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"])
+    cfg, hist = out["cfg"], out["history"]
+    tau, R = 4, 4
+    steps = LM_ROUNDS * R * tau  # dropped devices run their steps too
+    want = {"flash_attention": steps * cfg.num_layers * (2 if cfg.remat
+                                                         else 1),
+            "flash_attention_bwd": steps * cfg.num_layers,
+            "paged_decode_attention": 0,
+            "topk_compress": LM_ROUNDS * topk_per_round}
+    if len(hist) != LM_ROUNDS:
+        fail(f"the launcher ran {len(hist)} of {LM_ROUNDS} rounds")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"non-finite loss: {[h['loss'] for h in hist]}")
+    if not all("participation" in h for h in hist):
+        fail("participation missing from a round")
+    parts = [h["participation"] for h in hist]
+    if not min(parts) < 1.0:
+        fail("participation is 1 in every round")
+    if launches != want:
+        fail(f"launch counts {launches}, expected {want}")
+    # the first swap fills empty slots; every later one is checked
+    checks = [h["swap_check"] for h in hist if "swap_check" in h]
+    if len(checks) != LM_ROUNDS - 1 or not all(c["equal"] for c in checks):
+        fail(f"the population's sums moved across a swap: {checks}")
+    if not all(c["state_before"] != 0.0 for c in checks):
+        fail(f"a swap paged a zero state: the check proves nothing: "
+             f"{checks}")
+    if all(c["ef_before"] == 0.0 for c in checks):
+        print("the EF conservation is vacuous on this path: every swap "
+              "paged a zero EF; the whole-state sums carry the check here,"
+              " phases 17-19 check a nonzero fold and EF")
+    med = lambda v: float(np.percentile(v, 50))
+    p50 = med(out["round_ms"])
+    stats = dict(rounds=LM_ROUNDS, layers=cfg.num_layers,
+                 population=LM_POPULATION, slots=R, params=out["n_params"],
+                 tokens_per_step=2 * 2048, round_wall_ms_p50=p50,
+                 round_wall_ms=out["round_ms"],
+                 round_limit_ms=LM_ROUND_LIMIT_MS,
+                 phase_ms_p50={k: med(v) for k, v in out["timings"].items()},
+                 phase_ms=out["timings"],
+                 swap_bytes_per_round=out["swap_bytes"],
+                 launches_per_round={k: v / LM_ROUNDS
+                                     for k, v in launches.items()},
+                 participation=parts,
+                 n_deadline_missed=[h["n_deadline_missed"] for h in hist],
+                 n_partitioned=[h["n_partitioned"] for h in hist],
+                 degraded=[h["degraded"] for h in hist],
+                 cohorts=[h["cohort"] for h in hist], swap_checks=checks,
+                 loss=[h["loss"] for h in hist],
+                 theta_mean=[h["theta_mean"] for h in hist],
+                 peak_mem_gb=out["peak_mem_gb"], peak_limit_gb=PEAK_LIMIT_GB,
+                 phase_s=time.perf_counter() - t0)
+    print("smollm_chaos " + json.dumps(stats))
+    print(f"smollm chaos+cohorts round p50 {p50:.1f} ms against "
+          f"{LM_ROUND_LIMIT_MS} ms; peak {out['peak_mem_gb']:.2f} GB against "
+          f"{PEAK_LIMIT_GB} GB")
+    if p50 > LM_ROUND_LIMIT_MS:
+        fail(f"round p50 {p50:.1f} ms over {LM_ROUND_LIMIT_MS} ms")
+    if out["peak_mem_gb"] > PEAK_LIMIT_GB:
+        fail(f"peak {out['peak_mem_gb']:.2f} GB over {PEAK_LIMIT_GB} GB")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -2707,6 +3286,7 @@ def main():
     from repro_torch.models import lm
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.page_manager import pages_for
+    from repro_torch.runtime import chaos as chaos_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 compared at 2e-5
     torch.backends.cudnn.allow_tf32 = False
@@ -2833,6 +3413,18 @@ def main():
     fwd_train["launches"] = m16["flash_attention"]  # all at that shape
     print("attention_fwd_train " + json.dumps(fwd_train))
 
+    # -- phases 17-20: degraded mode and cohorts -----------------------------
+    masked_mix_phase(wp, col, tk, compression, chaos_mod, configs, mamba2,
+                     rnd_mod.GOSSIP_COLS, leaf_shapes)
+    m18 = rounds_under_masks(configs, lm, mamba2, rnd_mod, base, compression,
+                             policies, col, chaos_mod, train, wp)
+    for k in ("wire_encode", "wire_decode_mix"):
+        launches[k] += m18[k]
+    launches["topk_compress"] += fedsim_chaos_full(fedsim, tk, chaos_mod)
+    m20 = lm_chaos_full(train, fa, tk, lm_topk_launches(configs, lm, tk))
+    for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
+        launches[k] += m20[k]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -2884,8 +3476,9 @@ def main():
                           "(phases 11-13 decode in wire_decode_mix); this "
                           "kernel (a warp a block up to wb 1024) serves "
                           "ops.unpack_offsets and wire_decode")
-    kernels[0]["note"] = ("launches: the serve's prefills and phase 16's "
-                          "training forwards (two a layer and step: remat)")
+    kernels[0]["note"] = ("launches: the serve's prefills and phases 16 "
+                          "and 20's training forwards (two a layer and "
+                          "step: remat)")
     kernels[9]["note"] = ("the backward has no TPU counterpart: jax.grad "
                           "through flash_attention_pallas fails; held to "
                           "jax.grad of the reference's jnp route "
@@ -2896,7 +3489,9 @@ def main():
     kernels[8]["note"] = ("no TPU counterpart: the reference decodes in "
                           "jnp (dist/collectives.py:642 wire_decode); it "
                           "holds unpack_offsets_pallas's p4 unpack and "
-                          "replaces the gossip's decode chain")
+                          "replaces the gossip's decode chain; under a "
+                          "backhaul partition the conn mask rides in its "
+                          "per-destination coefficients (phases 17, 18)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

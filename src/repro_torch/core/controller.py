@@ -24,6 +24,10 @@ class DeviceReports:
     alpha: np.ndarray  # joules per local iteration
     nu: np.ndarray     # seconds to upload one FULL model
     p: np.ndarray      # transmit power (W)
+    # population mode: each client's energy cap (J) this round, its fair
+    # share of the campaign budget (``population_energy_caps``); None:
+    # only the round-level budget applies
+    energy_cap: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -39,9 +43,9 @@ class BudgetState:
     time_spent_this: float = 0.0     # Sum_{e<r} T^{l,e}
     energy_spent_this: float = 0.0
     backhaul_time: float = 0.0       # max_{i'} T_{i,i'}
-    # The reference's population-mode sizes.  Nothing in the port reads
-    # them; they are kept so that ``BudgetState(**meta["budget"])`` takes
-    # the budget of a reference checkpoint, which carries both keys.
+    # population mode: N logical clients rotating through a cohort of R
+    # slots a round; ``population_energy_caps`` turns the campaign's
+    # energy budget into a share per participation (0 / 0: fixed roster)
     population: int = 0
     cohort: int = 0
 
@@ -70,6 +74,23 @@ class BudgetState:
         return max(d_time, 0.0), max(d_energy, 0.0)
 
 
+def population_energy_caps(budget: BudgetState, participations, spent):
+    """Per-client energy caps for a cohort (population mode).
+
+    The campaign buys ``phi * q`` rounds of ``cohort`` participations, so
+    one participation's share is ``energy_budget / (phi * q * cohort)``.
+    A client starting its (k+1)-th participation may have spent (k+1)
+    shares in its lifetime; its cap this round is that less what it has
+    spent.  ``participations`` / ``spent``: (R,) for the cohort.  Returns
+    the (R,) caps for ``DeviceReports.energy_cap``."""
+    if not (budget.population and budget.cohort):
+        raise ValueError("population_energy_caps needs BudgetState."
+                         "population and .cohort set")
+    share = budget.energy_budget / (budget.phi * budget.q * budget.cohort)
+    entitled = (np.asarray(participations, np.float64) + 1.0) * share
+    return np.maximum(entitled - np.asarray(spent, np.float64), 0.0)
+
+
 def solve_p21_theta(rho, reports: DeviceReports, d_time, d_energy, tau,
                     theta_min=0.05, *, return_infeasible: bool = False):
     """Exact LP: maximize sum rho_n theta_n subject to per-device time caps and
@@ -85,6 +106,13 @@ def solve_p21_theta(rho, reports: DeviceReports, d_time, d_energy, tau,
     ``BudgetState`` accounting (and its logs) stay truthful."""
     nu = np.maximum(reports.nu, 1e-12)
     raw_cap = (d_time - rho * tau * reports.mu) / nu
+    if reports.energy_cap is not None:
+        # population mode: a client's own entitlement caps its theta, as
+        # the time allowance does: rho tau alpha + p theta nu <= cap
+        raw_cap = np.minimum(
+            raw_cap,
+            (reports.energy_cap - rho * tau * reports.alpha)
+            / np.maximum(reports.p * nu, 1e-12))
     infeasible = raw_cap < theta_min - 1e-12
     cap = np.clip(raw_cap, theta_min, 1.0)
     e_comm_room = d_energy - float(np.sum(rho * tau * reports.alpha))
@@ -119,7 +147,14 @@ def solve_p22_rho(theta, reports: DeviceReports, d_time, d_energy, tau,
     s2 = float(np.mean(reports.sigma2))
     G2 = max(float(np.mean(reports.G2)), 1e-12)
     mu = np.maximum(reports.mu, 1e-12)
-    cap = np.clip((d_time - theta * reports.nu) / (tau * mu), rho_min, 1.0)
+    cap = (d_time - theta * reports.nu) / (tau * mu)
+    if reports.energy_cap is not None:
+        # population mode: the client's entitlement also caps local work
+        cap = np.minimum(
+            cap,
+            (reports.energy_cap - reports.p * theta * reports.nu)
+            / np.maximum(tau * reports.alpha, 1e-12))
+    cap = np.clip(cap, rho_min, 1.0)
     e_comp_room = d_energy - float(np.sum(reports.p * theta * reports.nu))
 
     def rho_of(lam):

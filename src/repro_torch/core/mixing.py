@@ -1,6 +1,6 @@
 """Edge-backhaul topologies and doubly-stochastic mixing matrices,
-Assumption 5 (own copy of ``repro/core/mixing.py``, numpy).
-``participation_mixing`` waits for the degraded-mode slice (ROADMAP.md).
+Assumption 5, and the gossip operator under backhaul partitions (own copy
+of ``repro/core/mixing.py``, numpy).
 """
 from __future__ import annotations
 
@@ -66,3 +66,29 @@ def check_mixing(H: np.ndarray, atol=1e-9) -> None:
     assert np.allclose(H, H.T, atol=atol), "H must be symmetric"
     assert np.allclose(H.sum(0), 1, atol=atol), "H must be doubly stochastic"
     assert np.all(H >= -atol), "H must be nonnegative"
+
+
+def participation_mixing(H, conn) -> np.ndarray:
+    """The gossip operator under cluster backhaul partitions, in float32.
+
+    ``conn``: (C,) 0/1, 1 where the cluster's link is up.  A partitioned
+    cluster's column is zeroed for the other receivers, whose self weight
+    absorbs the lost weight (rows stay stochastic), and its own row
+    becomes e_c: it keeps its intra-cluster model.  All connected gives H
+    bit for bit (off-diagonal entries times 1.0, +0.0 absorbed).
+
+    The reference's arithmetic in float32 (its jnp version under jit),
+    with the absorbed row sums taken left to right as XLA takes them."""
+    H = np.asarray(H, np.float32)
+    conn = np.asarray(conn, np.float32)
+    C = H.shape[0]
+    one = np.float32(1.0)
+    eye = np.eye(C, dtype=np.float32)
+    offdiag = H * (one - eye)
+    lost = offdiag * (one - conn[None, :])
+    acc = np.zeros(C, np.float32)
+    for j in range(C):
+        acc = acc + lost[:, j]
+    self_w = np.diag(H) + acc
+    Hm = offdiag * conn[None, :] + eye * self_w[:, None]
+    return np.where(conn[:, None] > 0, Hm, eye).astype(np.float32)

@@ -28,12 +28,22 @@ run in column chunks written back into the parameters.  At mamba2-1.3B's
 width (R = 4) the state alone is 48.7 GB; this keeps the round's extra
 memory to the delta buffer, one device's gradients and activations.
 
+The degraded-mode masks (``alive``, ``alive_w``, ``conn``; reference
+:249-280) drop devices and partition clusters: a dropped device's
+compressed update is folded into its EF (``runtime.chaos.
+fold_dropped_updates``), the intra mean is over live devices, and the
+gossip is ``mixing.participation_mixing(H, conn)``.  Fault-free rounds
+pass None and run the unmasked code.  ``split_state`` / ``merge_state``
+divide the state into the mesh half and the per-client half that pages
+against ``runtime/population.PopulationStore`` (DESIGN.md §Cohort
+contract).
+
 The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
 reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
 -> (R, tau)``.  Left out, each with the ROADMAP.md item that brings it:
-more than one rank (item 5), the chaos masks (item 2), and the overlap
-engine (item 3).  The reference's R == 1 branch exists for ``vmap``; here
-the devices run in a loop and R = 1 takes the same path.
+more than one rank (item 5) and the overlap engine (item 3).  The
+reference's R == 1 branch exists for ``vmap``; here the devices run in a
+loop and R = 1 takes the same path.
 """
 from __future__ import annotations
 
@@ -47,12 +57,13 @@ import torch
 
 from repro_torch.configs.base import FLTopology, HCEFConfig, ModelConfig
 from repro_torch.core.compression import compress_delta
-from repro_torch.core.mixing import make_mixing
+from repro_torch.core.mixing import make_mixing, participation_mixing
 from repro_torch.device import from_numpy, resolve
 from repro_torch.dist.collectives import mix_local, sparse_exchange_
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import get_model
 from repro_torch.optim.sgd import sgd_update_
+from repro_torch.runtime.chaos import fold_dropped_updates
 from repro_torch.tree import flatten, tree_map
 
 AGG_COLS = 1 << 22  # columns of a leaf per aggregation chunk
@@ -83,6 +94,36 @@ class FLState(NamedTuple):
     # CHOCO wire-EF estimates (hcef.wire_ef): {"est_self": tree, "est_wsum":
     # tree} of f32 leaves shaped like params, or None
     wire_ef: Any = None
+
+
+# The state's two halves (DESIGN.md §Cohort contract): the mesh half (the
+# cluster models and the round counter) stays on the card across cohorts;
+# each slot's per-client half belongs to the logical client the cohort put
+# there and pages against runtime/population.PopulationStore.
+MESH_FIELDS = ("params", "round_idx")
+CLIENT_FIELDS = ("ef", "momentum", "wire_ef")
+
+
+def split_state(state: FLState):
+    """FLState -> (mesh_half, client_half) dicts (the same tensors)."""
+    mesh = {f: getattr(state, f) for f in MESH_FIELDS}
+    client = {f: getattr(state, f) for f in CLIENT_FIELDS}
+    return mesh, client
+
+
+def merge_state(mesh, client) -> FLState:
+    """The inverse of ``split_state``."""
+    return FLState(**mesh, **client)
+
+
+def client_template(state: FLState):
+    """One client's page: the client half's leaves without the leading
+    slot dim, as ``torch.empty`` meta tensors ({"ef": {...}, ...}; None
+    fields left out)."""
+    _, client = split_state(state)
+    return {f: tree_map(lambda x: torch.empty(
+        tuple(x.shape[1:]), dtype=x.dtype, device="meta"), t)
+        for f, t in client.items() if t is not None}
 
 
 def bernoulli_bits(key: int, rho, *, tau: int) -> torch.Tensor:
@@ -188,8 +229,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     policy=None, *, gossip: bool = True, impl=None,
                     cluster_levels=None,
                     bits_fn: Optional[Callable] = None):
-    """Returns round_step(state, batch, rho, theta, key, timings=None) ->
-    (state, metrics).
+    """Returns round_step(state, batch, rho, theta, key, timings=None,
+    alive=None, alive_w=None, conn=None) -> (state, metrics).
 
     batch: {"tokens": (R * tau * b_local, S + 1)}; rho, theta: (R,)
     controls; key: the integer ``bits_fn(key, rho)`` turns into the (R,
@@ -204,7 +245,14 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     the exact top-k oracles, the reference's CPU route).  metrics: (R,)
     tensors loss, g2, sigma2, steps, and on a sparse gossip round the
     scalar theta_wire.  ``timings`` (a dict) collects the synchronised
-    host ms of device_round, compress, aggregate and gossip."""
+    host ms of device_round, compress, aggregate and gossip.
+
+    The chaos masks, all None on fault-free rounds (the unmasked code):
+    ``alive`` (R,) 0/1, the devices that made the deadline, whose dropped
+    updates fold into their EF; ``alive_w`` (R,) f32, the host's
+    ``dist.collectives.participation_weights`` (the live-device mean);
+    ``conn`` (C,) 0/1 backhaul links (``mixing.participation_mixing``).
+    Host arrays (numpy)."""
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"the round step trains the dense and ssm families; "
@@ -264,7 +312,22 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                 "sigma2": torch.clamp_min(gn2.mean() - g2, 0.0),
                 "steps": bits.sum()}
 
-    def round_step(state: FLState, batch, rho, theta, key, timings=None):
+    def round_step(state: FLState, batch, rho, theta, key, timings=None,
+                   alive=None, alive_w=None, conn=None):
+        chaos = alive is not None
+        if chaos:
+            if alive_w is None:
+                raise ValueError("alive requires alive_w (host-computed "
+                                 "participation_weights)")
+            if hcef.wire_ef and conn is not None and gossip:
+                raise ValueError(
+                    "wire_ef is incompatible with chaos cluster "
+                    "partitions (conn): a partitioned sender's neighbors "
+                    "would zero its contribution while its own estimate "
+                    "advances; the shared estimates desync")
+            alive = np.asarray(alive, np.float32)
+            alive_w = np.asarray(alive_w, np.float32)
+            conn = None if conn is None else np.asarray(conn, np.float32)
         params = flatten(state.params)
         dev = next(iter(params.values())).device
         sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
@@ -303,22 +366,43 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         # computed from the f32 value
         theta32 = torch.as_tensor(np.asarray(theta, np.float32), device=dev)
         with phase("compress"), torch.no_grad():
-            comp, _ = compress_delta(delta, flatten(state.ef), theta32,
-                                     block=hcef.block_size,
-                                     error_feedback=hcef.error_feedback,
-                                     impl=impl)
+            comp, ef = compress_delta(delta, flatten(state.ef), theta32,
+                                      block=hcef.block_size,
+                                      error_feedback=hcef.error_feedback,
+                                      impl=impl)
+            if chaos:  # leaf by leaf: one leaf's temporaries at a time
+                live = torch.as_tensor(alive > 0, device=dev)
+                for k in comp:
+                    c2, e2 = fold_dropped_updates({k: comp[k]}, {k: ef[k]},
+                                                  live)
+                    comp[k].copy_(c2[k])
+                    ef[k].copy_(e2[k])
+                    del c2, e2
         metrics = {k: torch.stack([m[k] for m in per_dev])
                    for k in per_dev[0]}
+        masks = (alive_w, conn) if chaos else None
         if policy is None:
-            aggregate(params, comp, phase)
+            aggregate(params, comp, phase, masks)
         else:
-            fused(params, comp, state, theta32, metrics, phase)
+            fused(params, comp, state, theta32, metrics, phase, masks)
         return state._replace(round_idx=state.round_idx + 1), metrics
 
-    def aggregate(params, comp, phase):
-        """The off-mesh aggregate (:506-547), in f32 column chunks."""
+    def aggregate(params, comp, phase, masks):
+        """The off-mesh aggregate (:506-547), in f32 column chunks.  Under
+        the masks the gossip GEMM takes M = repeat(participation_mixing(H,
+        conn) / Dev) * alive_w, and the intra mean upd * alive_w."""
+        dev = next(iter(params.values())).device
+        Md, aw = M, None
+        if masks is not None:
+            alive_w, conn = masks
+            aw = torch.as_tensor(alive_w, device=dev)[:, None]
+            if gossip:
+                Hg = (H.numpy() if conn is None
+                      else participation_mixing(H.numpy(), conn))
+                Md = torch.as_tensor(np.repeat(Hg / np.float32(Dev), Dev,
+                                               axis=1) * alive_w[None, :])
         with phase("aggregate"), torch.no_grad():
-            Md = M.to(next(iter(params.values())).device)
+            Md = Md.to(dev)
             for k, x0 in params.items():
                 xf, cf = x0.view(R, -1), comp[k].view(R, -1)
                 for c0 in range(0, xf.shape[1], AGG_COLS):
@@ -327,14 +411,23 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     if gossip:
                         yc = Md @ upd
                     else:
+                        if aw is not None:
+                            upd = upd * aw
                         yc = upd.view(C, Dev, -1).mean(dim=1)
                     xc.view(C, Dev, -1).copy_(yc[:, None])
 
-    def fused(params, comp, state, theta32, metrics, phase):
+    def fused(params, comp, state, theta32, metrics, phase, masks):
         """The fused branch (:301-505) with the whole replica dim here:
         per leaf x0 + Q in the parameters' type and its ``mix_local``,
         then on sparse gossip rounds the wire gossip of the cluster
-        means, leaf by leaf, the wire-EF estimates advanced in place."""
+        means, leaf by leaf, the wire-EF estimates advanced in place.
+        Under the masks ``mix_local`` takes alive_w (and conn on a dense
+        gossip round), the wire gossip conn (:337-480)."""
+        mix_kw, conn = {}, None
+        if masks is not None:
+            alive_w, conn = masks
+            mix_kw = dict(alive=alive_w, conn=(
+                conn if fused_hkind != "none" else None))
         with phase("aggregate"), torch.no_grad():
             for k, x0 in params.items():
                 xf, cf = x0.view(R, -1), comp[k].view(R, -1)
@@ -342,7 +435,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     xc = xf[:, c0:c0 + AGG_COLS]
                     upd = xc + cf[:, c0:c0 + AGG_COLS]
                     xc.copy_(mix_local(upd, clusters=C, dev=Dev,
-                                       hkind=fused_hkind) if R > 1 else upd)
+                                       hkind=fused_hkind, **mix_kw)
+                             if R > 1 else upd)
         if not sparse:
             return
         if cluster_levels is not None:
@@ -359,8 +453,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
             for k, x0 in params.items():
                 wef = (None if est is None
                        else [e[k].view(R, -1) for e in est])
-                sparse_exchange_(x0.view(R, -1), wire_ef=wef, **lv,
-                                 **wire_kw)
+                sparse_exchange_(x0.view(R, -1), wire_ef=wef, conn=conn,
+                                 **lv, **wire_kw)
         metrics["theta_wire"] = torch.tensor(theta_wire, dtype=torch.float32)
 
     return round_step

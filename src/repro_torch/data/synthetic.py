@@ -4,8 +4,9 @@ numpy): the exact shapes (32x32x3 / 10 classes, 28x28x1 / 62 classes),
 learnable class prototypes with per-sample sign, brightness and noise, and
 the paper's Dirichlet(beta) non-IID partition; and the device-skewed token
 corpus of the LM round (``_shared_topics``, ``client_token_shard``,
-``synthetic_tokens``), the same numbers as the reference's.  The vision
-population shards wait for the cohort slice (ROADMAP.md).
+``synthetic_tokens``), the same numbers as the reference's; and the
+per-client vision shards of population mode (``client_image_shard``) and
+``batch_iterator``.
 """
 from __future__ import annotations
 
@@ -103,3 +104,39 @@ def synthetic_tokens(vocab: int, n_seq: int, seq_len: int, n_devices: int,
     return np.stack([
         client_token_shard(vocab, n_seq, seq_len, d, beta=beta, seed=seed)
         for d in range(n_devices)])
+
+
+def client_image_shard(kind: str, n: int, client_id: int, beta: float = 1.0,
+                       seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """One logical client's non-IID vision shard (synthetic.py:123): (n,
+    H, W, C) images and labels from SeedSequence([seed, 31337, id]), the
+    label mix ~ Dirichlet(beta), the class prototypes pinned to seed 777."""
+    if kind == "cifar":
+        hw, ch, ncls = 32, 3, 10
+    elif kind == "femnist":
+        hw, ch, ncls = 28, 1, 62
+    else:
+        raise ValueError(kind)
+    protos = np.random.default_rng(777).normal(
+        0, 1, (ncls, hw, hw, ch)).astype(np.float32)
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, 31337, int(client_id)]))
+    mix = rng.dirichlet([beta] * ncls)
+    labels = rng.choice(ncls, n, p=mix)
+    imgs = protos[labels]
+    sign = rng.choice([-1.0, 1.0], (n, 1, 1, 1)).astype(np.float32)
+    imgs = imgs * sign * rng.uniform(0.7, 1.3, (n, 1, 1, 1)).astype(
+        np.float32)
+    imgs = imgs + 0.6 * rng.normal(0, 1, imgs.shape).astype(np.float32)
+    return imgs, labels.astype(np.int32)
+
+
+def batch_iterator(arrays, batch_size: int, seed: int = 0):
+    """Infinite shuffled minibatch iterator over aligned arrays."""
+    n = len(arrays[0])
+    rng = np.random.default_rng(seed)
+    while True:
+        order = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            sel = order[i:i + batch_size]
+            yield tuple(a[sel] for a in arrays)

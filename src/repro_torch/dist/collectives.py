@@ -33,12 +33,24 @@ in each column, so ``sparse_exchange_`` runs a leaf in column chunks of
 whole wire blocks (the plans are decided on the whole row), in place: the
 result is the unchunked one.
 
+The degraded-mode masks (DESIGN.md §Degraded-mode contract):
+``participation_weights`` turns a device mask into per-replica weights
+that premultiply the rows, so the unchanged sum / Dev mean is the mean
+over live devices; ``conn`` (a (C,) backhaul mask) applies
+``mixing.participation_mixing(H, conn)``.  On the wire a partitioned
+source's band terms are zeroed by folding its 0 into the per-destination
+coefficients of the decode-and-mix (``MixStep.coef``: coef * (c * dec)
+and (coef * c) * dec are the same bits for c in {0, 1}), and two
+elementwise passes after the launch add the lost weight to each
+receiver's own mean and keep a partitioned row's own mean.  Masks of all
+ones given as numpy are the unmasked path; ``None`` runs it untouched.
+
 The reference runs this on a shard_map mesh; at one shard its layout B
 rotations are these row rolls, and it encodes only a plan's sender rows,
 as here.  Not ported, each raising and naming its ROADMAP.md item: mesh
 ``axes`` (torch.distributed rotations, layouts A and B across ranks, the
-psum fallback, multi-axis), the degraded-mode masks ``alive``/``conn``
-and the overlap engine's ``stale``/``stale_clusters``.
+psum fallback, multi-axis) and the overlap engine's ``stale`` /
+``stale_clusters``.
 """
 from __future__ import annotations
 
@@ -49,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import wire_format as wf
-from repro_torch.core.mixing import make_mixing
+from repro_torch.core.mixing import make_mixing, participation_mixing
 from repro_torch.kernels import ops
 from repro_torch.kernels.wire_pack import MixStep, decode_rows, pad_rows
 
@@ -57,17 +69,52 @@ WIRE_DTYPES = wf.WIRE_DTYPES
 MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path, "
               "multi-rank: torch.distributed rotations, layouts A/B at "
               "n > 1, the psum fallback, multi-axis)")
-_DEGRADED = "ROADMAP.md, modules to port, item 2 (degraded mode and cohorts)"
 _OVERLAP = "ROADMAP.md, modules to port, item 3 (overlap engine)"
 
 
-def _local_only(axes, alive=None, conn=None):
+def _local_only(axes):
     if axes:
         raise NotImplementedError(f"mesh axes {axes!r} are not ported yet: "
                                   f"{MULTI_RANK}")
-    if alive is not None or conn is not None:
-        raise NotImplementedError(f"alive=/conn= masks are not ported yet: "
-                                  f"{_DEGRADED}")
+
+
+def participation_weights(alive, *, clusters: int, dev: int) -> np.ndarray:
+    """Per-replica weights for the ``alive=`` masks (on the host).
+
+    alive: (R,) 0/1, cluster-major.  Live device r gets dev / the live
+    count of its cluster, so the unchanged sum / dev mean is the mean over
+    live devices; a dead device 0; every row of a fully dead cluster 1
+    (the plain mean: its rows hold the previous consensus).  All alive
+    gives exact ones.  (R,) float32."""
+    a = np.asarray(alive, np.float32).reshape(clusters, dev)
+    cnt = a.sum(axis=1, keepdims=True)
+    w = np.where(cnt > 0, a * (dev / np.maximum(cnt, 1.0)), 1.0)
+    return np.ascontiguousarray(w.reshape(-1).astype(np.float32))
+
+
+def _all_ones(mask) -> bool:
+    return (not isinstance(mask, torch.Tensor)
+            and bool(np.all(np.asarray(mask) == 1)))
+
+
+def _conn_or_none(conn):
+    """A host backhaul mask of all ones is None: all connected runs the
+    unmasked path itself.  A tensor is taken as given."""
+    return None if conn is None or _all_ones(conn) else conn
+
+
+def _host(mask) -> np.ndarray:
+    return (mask.detach().cpu().numpy() if isinstance(mask, torch.Tensor)
+            else np.asarray(mask))
+
+
+def _alive_premultiply(x, alive):
+    """x's rows times the (R,) participation weights, in x's type, as the
+    reference premultiplies them.  A host mask of all ones is x itself."""
+    if _all_ones(alive):
+        return x
+    w = _on_device(tuple(float(a) for a in _host(alive)), x.dtype, x.device)
+    return x * w.view((x.shape[0],) + (1,) * (x.ndim - 1))
 
 
 def _h_bands(H: np.ndarray):
@@ -98,16 +145,25 @@ def mix_local(x, *, clusters: int, dev: int, axes=(), hkind: str = "ring",
     """W applied to the whole (R, *dims) replica array (the reference's
     ``_mix_dense_local``): per-cluster means in f32, the (C, C) H product
     unless ``hkind="none"``, every device of a cluster taking its row;
-    same shape and type as x."""
-    _local_only(axes, alive, conn)
+    same shape and type as x.
+
+    ``alive``: (R,) ``participation_weights`` premultiplying the rows (the
+    mean over live devices); ``conn``: (C,) backhaul mask, the product
+    then by ``participation_mixing(H, conn)``."""
+    _local_only(axes)
     C, Dev = clusters, dev
+    conn = _conn_or_none(conn)
+    if alive is not None:
+        x = _alive_premultiply(x, alive)
     dims = tuple(x.shape[1:])
     means = x.float().reshape((C, Dev) + dims).mean(dim=1)
     if hkind != "none":
         _, _, H = _mixing_cached(hkind, C, p_edge, seed)
-        means = torch.tensordot(torch.as_tensor(H, dtype=torch.float32,
-                                                device=x.device),
-                                means, dims=([1], [0]))
+        Hm = (np.asarray(H, np.float32) if conn is None
+              else participation_mixing(H, _host(conn)))
+        Hd = _on_device(tuple(Hm.ravel().tolist()), torch.float32,
+                        x.device).view(C, C)
+        means = torch.tensordot(Hd, means, dims=([1], [0]))
     return means[:, None].expand((C, Dev) + dims).reshape(x.shape).to(
         x.dtype)
 
@@ -276,8 +332,25 @@ def _gossip_layout(hkind: str, C: int, p_edge: float, seed: int,
     return _Layout(diag, tuple(sorted(bands.items())), tuple(out))
 
 
+def _conn_fold(layout: _Layout, conn):
+    """The backhaul mask on the gossip's host tables: each band's
+    coefficients times its source's link, ``conn[(c - o) % C]`` at
+    destination c (the reference's c_o; exact in f32), and the (C,) f32
+    weight each receiver lost, summed over the bands in order.  Returns
+    (bands, absorbed)."""
+    cw = np.asarray(conn, np.float32)
+    C = cw.shape[0]
+    bands, absorbed = [], np.zeros(C, np.float32)
+    for o, coef in layout.bands:
+        c_o = cw[(np.arange(C) - o) % C]
+        coef32 = np.asarray(coef, np.float32)
+        bands.append((o, tuple((coef32 * c_o).tolist())))
+        absorbed = absorbed + coef32 * (np.float32(1.0) - c_o)
+    return tuple(bands), absorbed
+
+
 def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
-                     wire_ef=None, wire_ef_gamma=1.0, impl=None):
+                     wire_ef=None, wire_ef_gamma=1.0, impl=None, conn=None):
     """The gossip on (C, L) f32 cluster means: encode each plan's sender
     rows, then y = diag * means plus, band by band and plan by plan in the
     reference's order, coef * the decoded payload of each row's source
@@ -297,8 +370,22 @@ def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
     plan a zero payload's step does it.  Bit for bit the sums in that
     order, but where est_wsum holds -0 and diag times a nonzero decoded
     value rounds to -0 (a value below 2^-149 / diag): +0 here, -0 there.
-    Returns y, or (y, est_self+, est_wsum+)."""
+    Returns y, or (y, est_self+, est_wsum+).
+
+    ``conn``: (C,) host backhaul mask (not with ``wire_ef``).  A
+    partitioned source's terms are zeroed through the coefficients
+    (``_conn_fold``; the launch is unchanged), then in plain torch the
+    reference's y + absorbed * means where a receiver lost weight (a
+    product and a sum, not one fused step: the reference's rounding), and
+    a partitioned receiver's row is its own mean."""
     dev = means.device
+    bands, absorbed = layout.bands, None
+    if conn is not None:
+        if wire_ef is not None:
+            raise ValueError("wire_ef is incompatible with conn= "
+                             "partitions (sender and receiver estimate "
+                             "updates would desync)")
+        bands, absorbed = _conn_fold(layout, _host(conn))
     send = means if wire_ef is None else means - wire_ef[0]
     payloads = []  # (payload, k_b or None for a dense plan)
     for key, rows, _ in layout.plans:
@@ -311,13 +398,24 @@ def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
                                            wire_dtype, impl)), key[1]))
     del send  # the chunk's scratch: core/round.py:gossip_cols
     steps = [MixStep(o, tuple(coef), payload, k_b, senders)
-             for o, coef in layout.bands
+             for o, coef in bands
              for (payload, k_b), (_, _, senders) in zip(payloads,
                                                         layout.plans)]
     mix = functools.partial(ops.wire_decode_mix, wb=wb,
                             wire_dtype=wire_dtype, impl=impl)
     if wire_ef is None:
-        return mix(means, steps, diag=layout.diag)
+        y = mix(means, steps, diag=layout.diag)
+        if absorbed is None:
+            return y
+        col = lambda v, dt: _on_device(tuple(v), dt, dev)[:, None]
+        if np.any(absorbed > 0):
+            ab = col(absorbed.tolist(), torch.float32)
+            y = torch.where(col((absorbed > 0).tolist(), torch.bool),
+                            y + ab * means, y)
+        cw = _host(conn)
+        if not np.all(cw > 0):
+            y = torch.where(col((cw > 0).tolist(), torch.bool), y, means)
+        return y
     C = means.shape[0]
 
     def own(coef):
@@ -372,7 +470,7 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
                      wire_dtype: str = "f32", wire_block: int = 1024,
                      dense_dtype=None, wire_ef=None,
                      wire_ef_gamma: float = 1.0, impl=None,
-                     chunk_cols: Optional[int] = None) -> None:
+                     chunk_cols: Optional[int] = None, conn=None) -> None:
     """The sparse gossip in place on intra-cluster means.
 
     x: (R, L), contiguous, every device row holding its cluster's mean
@@ -381,8 +479,10 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
     place.  ``dense_dtype`` (default x's type) is what a dense-fallback
     plan ships and what sizes the fallback test.  The leaf runs in column
     chunks of ``chunk_cols`` rounded down to whole wire blocks (None: one
-    chunk), the plans decided on the whole row."""
+    chunk), the plans decided on the whole row.  ``conn``: (C,) backhaul
+    mask (``_sparse_mix_rows``)."""
     C, Dev = clusters, dev
+    conn = _conn_or_none(conn)
     R, L = x.shape
     if R != C * Dev:
         raise ValueError(f"{R} rows for {C} clusters x {Dev} devices")
@@ -400,7 +500,8 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
         ef_rows = None if ev is None else tuple(e[:, 0, c0:c1] for e in ev)
         out = _sparse_mix_rows(means, layout, wb=wb, wire_dtype=wire_dtype,
                                dense_dtype=dense_dtype, wire_ef=ef_rows,
-                               wire_ef_gamma=wire_ef_gamma, impl=impl)
+                               wire_ef_gamma=wire_ef_gamma, impl=impl,
+                               conn=conn)
         if ev is not None:
             out, es, ew = out
             ev[0][:, :, c0:c1].copy_(es[:, None])
@@ -431,9 +532,12 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
     the dense mix (``mix_local``).  ``wire_ef=(est_self, est_wsum)`` (f32,
     shaped like delta) turns on the CHOCO wire error feedback (needs
     ``intra_done`` and a gossip ``hkind``); the return is then (y,
-    est_self+, est_wsum+).  ``impl`` routes the wire ops.  Returns the
+    est_self+, est_wsum+).  ``impl`` routes the wire ops.  ``alive`` /
+    ``conn``: the masks of ``mix_local`` (``alive`` premultiplies raw
+    rows; ``intra_done`` rows are already masked means).  Returns the
     mixed rows, delta's shape and type."""
-    _local_only(axes, alive, conn)
+    _local_only(axes)
+    conn = _conn_or_none(conn)
     if stale is not None or stale_clusters is not None:
         raise NotImplementedError(f"stale= payloads are not ported yet: "
                                   f"{_OVERLAP}")
@@ -446,6 +550,12 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
                              "feed back on)")
         if len(wire_ef) != 2:
             raise ValueError("wire_ef must be (est_self, est_wsum)")
+        if conn is not None:
+            raise ValueError("wire_ef is incompatible with conn= "
+                             "partitions (sender and receiver estimate "
+                             "updates would desync)")
+    if alive is not None and not intra_done:
+        delta = _alive_premultiply(delta, alive)
     C, Dev = clusters, dev
     if hkind == "none":
         return mix_local(delta, clusters=C, dev=Dev, hkind="none")
@@ -457,7 +567,7 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
     if plans == [(("dense",), None)] and not intra_done:
         # the uniform dense fallback end to end is the dense mix
         return mix_local(delta, clusters=C, dev=Dev, hkind=hkind,
-                         p_edge=p_edge, seed=seed)
+                         p_edge=p_edge, seed=seed, conn=conn)
     if intra_done:
         x = delta.reshape(R, L).clone()
     else:  # f32 cluster means, rounded to delta's type only at the end
@@ -467,7 +577,8 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
         e.float().reshape(R, L).clone() for e in wire_ef]
     sparse_exchange_(x, clusters=C, dev=Dev, hkind=hkind, p_edge=p_edge,
                      seed=seed, dense_dtype=delta.dtype, wire_ef=est,
-                     wire_ef_gamma=wire_ef_gamma, impl=impl, **level_kw)
+                     wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn,
+                     **level_kw)
     y = x.to(delta.dtype).reshape(delta.shape)
     if est is None:
         return y

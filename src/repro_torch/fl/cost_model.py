@@ -5,9 +5,10 @@ With ``wire_dtype=None`` a theta-compressed upload costs ``theta * nu``;
 with a wire dtype the effective fraction is the exact byte ratio of the
 sparse (value, offset) encoding (``core.wire_format``), capped at 1.0.
 The gossip backhaul term is charged per cluster at its own level.
-The degraded-mode masks (``alive``, ``conn``), ``overlap_round_time`` and
-``decide_stale_clusters`` wait for the degraded-mode and overlap slices
-(ROADMAP.md).
+Degraded mode: ``alive`` (an (N,) device mask) charges live devices only,
+``conn`` (a (C,) backhaul mask) skips a partitioned cluster's gossip.
+``overlap_round_time`` and ``decide_stale_clusters`` wait for the overlap
+slice (ROADMAP.md, modules to port, item 3).
 """
 from __future__ import annotations
 
@@ -32,9 +33,19 @@ def wire_fraction(theta, *, wire_dtype=None, wire_block=1024, dense_bits=16):
                                 dense_bits=dense_bits), 1.0)
 
 
+def per_device_time(rho, theta, mu, nu, tau, *, wire_dtype=None,
+                    wire_block=1024, dense_bits=16):
+    """Per-device wall time of one edge round: rho*tau*mu + eff(theta)*nu
+    (``round_time``'s per-device term; ``runtime/chaos.FaultPlan`` holds
+    it to the straggler deadline)."""
+    eff = wire_fraction(theta, wire_dtype=wire_dtype, wire_block=wire_block,
+                        dense_bits=dense_bits)
+    return rho * tau * mu + eff * nu
+
+
 def round_time(rho, theta, mu, nu, tau, cluster_of, *, backhaul=0.0,
                gossip=False, wire_dtype=None, wire_block=1024,
-               dense_bits=16):
+               dense_bits=16, alive=None, conn=None):
     """Expected wall time of one edge round.
 
     Per device: rho*tau*mu + eff(theta)*nu; per cluster: max over its
@@ -45,33 +56,46 @@ def round_time(rho, theta, mu, nu, tau, cluster_of, *, backhaul=0.0,
     max over its devices — sender-sized edges, core/round.py), so a
     low-level cluster finishes its send early instead of being charged
     the global max level.  Returns (round_time, per_cluster_times) with
-    the backhaul term folded into per_cluster_times."""
+    the backhaul term folded into per_cluster_times.
+
+    ``alive``: the round waits only for the devices that made the
+    deadline, and a fully dead cluster adds 0.  ``conn``: a partitioned
+    cluster skips its gossip transfer."""
     eff = wire_fraction(theta, wire_dtype=wire_dtype, wire_block=wire_block,
                         dense_bits=dense_bits)
     per_dev = rho * tau * mu + eff * nu
     m = int(cluster_of.max()) + 1
+    live = (np.ones(len(per_dev), bool) if alive is None
+            else np.asarray(alive, bool))
     per_cluster = np.array([
-        per_dev[cluster_of == i].max(initial=0.0) for i in range(m)])
+        per_dev[(cluster_of == i) & live].max(initial=0.0) for i in range(m)])
     if gossip:
-        eff_c = (np.array([eff[cluster_of == i].max(initial=0.0)
+        eff_c = (np.array([eff[(cluster_of == i) & live].max(initial=0.0)
                            for i in range(m)])
                  if wire_dtype else np.ones(m))
+        if conn is not None:
+            eff_c = eff_c * np.asarray(conn, np.float64)
         per_cluster = per_cluster + float(backhaul) * eff_c
     t = float(per_cluster.max())
     return t, per_cluster
 
 
 def per_device_energy(rho, theta, mu, nu, alpha, p, tau, *, wire_dtype=None,
-                      wire_block=1024, dense_bits=16):
-    """Per-device energy of one edge round: rho*tau*alpha + p*eff(theta)*nu."""
+                      wire_block=1024, dense_bits=16, alive=None):
+    """Per-device energy of one edge round: rho*tau*alpha + p*eff(theta)*nu;
+    ``alive`` zeroes the dropped devices (they never ran)."""
     eff = wire_fraction(theta, wire_dtype=wire_dtype, wire_block=wire_block,
                         dense_bits=dense_bits)
-    return rho * tau * alpha + p * eff * nu
+    e = rho * tau * alpha + p * eff * nu
+    if alive is not None:
+        e = e * np.asarray(alive, np.float64)
+    return e
 
 
 def round_energy(rho, theta, mu, nu, alpha, p, tau, *, wire_dtype=None,
-                 wire_block=1024, dense_bits=16):
-    """Expected total energy of one edge round (sum over devices)."""
+                 wire_block=1024, dense_bits=16, alive=None):
+    """Expected total energy of one edge round (sum over devices); dropped
+    devices (``alive``) are not charged."""
     return float(np.sum(per_device_energy(
         rho, theta, mu, nu, alpha, p, tau, wire_dtype=wire_dtype,
-        wire_block=wire_block, dense_bits=dense_bits)))
+        wire_block=wire_block, dense_bits=dense_bits, alive=alive)))

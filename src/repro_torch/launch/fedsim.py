@@ -14,10 +14,16 @@ evaluated, mean rho and theta, simulated time and energy, and wall time.
 stand-in with the ResNet-20 configuration's topology, tau, q and budgets.
 ``--profile`` traces the rounds after a warm-up round with torch.profiler
 and prints the device's busy share and its kernels by device time.
+``--chaos`` injects faults (dropout 0.2, partitions 0.1, coordinator
+failures 0.2 a round, seeded with ``--seed``); ``--population N`` rotates
+a cohort of the devices through N logical clients, each with its own
+shard (``data.synthetic.client_image_shard``, SHARD_SIZE images), its EF
+and momentum paged under ``--store-root`` (default: kept in memory).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
@@ -25,11 +31,13 @@ import torch
 
 from repro_torch.configs.vision import (FEMNIST_CNN, RESNET20_CIFAR10,
                                         VisionConfig)
-from repro_torch.data.synthetic import dirichlet_partition, synthetic_images
+from repro_torch.data.synthetic import (client_image_shard,
+                                        dirichlet_partition, synthetic_images)
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.vision import make_vision_model, param_count
+from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.runtime.driver import FedSim, FedSimConfig
 
 # benchmarks/common.py:_DATASETS
@@ -40,6 +48,7 @@ DATASETS = {
 }
 MODELS = {"resnet20": RESNET20_CIFAR10, "femnist_cnn": FEMNIST_CNN,
           "mlp": RESNET20_CIFAR10}
+SHARD_SIZE = 64  # images a client holds in population mode
 
 
 def vision_config(model: str) -> VisionConfig:
@@ -54,21 +63,24 @@ def vision_config(model: str) -> VisionConfig:
 def make_sim(scheme: str, *, model: str = "resnet20", n_devices=None,
              n_clusters=None, n_train=None, n_test=None, beta=1.0,
              budgets: bool = True, tau=None, q=None, eta=None, seed=0,
-             params0=None, bits_fn=None, device=None, phi=200) -> FedSim:
+             params0=None, bits_fn=None, device=None, phi=200,
+             chaos=None, population=0, store_root=None,
+             verify_conservation=False) -> FedSim:
     """The FedSim of ``model``'s configuration on its synthetic stand-in.
     ``budgets=False`` runs without time/energy budgets (then HCEF's theta
-    is 1); ``params0`` defaults to the port's He init seeded ``seed``."""
+    is 1); ``params0`` defaults to the port's He init seeded ``seed``.
+    ``chaos``: a ``ChaosConfig``.  ``population``: logical clients behind
+    the devices, each with SHARD_SIZE images of its own (the Dirichlet
+    ``beta`` label mix), its state in a store under ``store_root`` (None:
+    in memory); ``verify_conservation`` checks every cohort swap."""
     bundle = MODELS[model]
     hc, fl = bundle.hcef, bundle.fl
     ds = DATASETS[bundle.dataset]
     vc = vision_config(model)
     init_fn, loss_fn, acc_fn, _ = make_vision_model(vc)
-    X, Y = synthetic_images(ds["kind"], n_train or ds["n_train"], seed=seed,
-                            noise=ds["noise"])
     Xt, Yt = synthetic_images(ds["kind"], n_test or ds["n_test"],
                               seed=seed + 1, noise=ds["noise"])
     n_devices = n_devices or fl.num_devices
-    parts = dirichlet_partition(Y, n_devices, beta=beta, seed=seed)
     tau = tau or hc.tau
     # the MLP sweeps run at eta 0.02 (benchmarks/common.py:make_sim)
     eta = eta or (0.02 if model == "mlp" else hc.eta)
@@ -76,14 +88,27 @@ def make_sim(scheme: str, *, model: str = "resnet20", n_devices=None,
                        n_clusters=n_clusters or fl.clusters, tau=tau,
                        q=q or hc.q, eta=eta, momentum=hc.momentum,
                        batch_size=50, backhaul=fl.backhaul, seed=seed,
-                       theta_min=hc.theta_min, rho_min=hc.rho_min)
+                       theta_min=hc.theta_min, rho_min=hc.rho_min,
+                       population=population)
     if params0 is None:
         params0 = init_fn(torch.Generator().manual_seed(seed))
     n_params = sum(int(np.prod(np.shape(p))) for p in params0.values())
     het = HeterogeneityModel(num_devices=n_devices,
-                             model_bits=float(n_params) * 32, seed=seed)
+                             model_bits=float(n_params) * 32, seed=seed,
+                             population=population)
+    if population:
+        data, data_fn = None, functools.partial(
+            client_image_shard, ds["kind"], SHARD_SIZE, beta=beta,
+            seed=seed)
+    else:
+        X, Y = synthetic_images(ds["kind"], n_train or ds["n_train"],
+                                seed=seed, noise=ds["noise"])
+        parts = dirichlet_partition(Y, n_devices, beta=beta, seed=seed)
+        data, data_fn = [(X[p], Y[p]) for p in parts], None
     return FedSim(cfg, params0=params0, loss_fn=loss_fn, acc_fn=acc_fn,
-                  device_data=[(X[p], Y[p]) for p in parts],
+                  device_data=data, data_fn=data_fn, chaos=chaos,
+                  store_root=store_root,
+                  verify_conservation=verify_conservation,
                   test_data=(Xt, Yt),
                   controller=make_controller(scheme, tau,
                                              theta_min=hc.theta_min,
@@ -98,10 +123,18 @@ def print_round(sim, label: str = ""):
     """An ``on_round`` for ``FedSim.run`` that prints the round's line."""
     def show(rec):
         acc = f" acc={rec['acc']:.4f}" if "acc" in rec else ""
+        extra = ""
+        if "participation" in rec:
+            extra += (f" part={rec['participation']:.2f} miss="
+                      f"{rec['n_deadline_missed']} cut="
+                      f"{rec['n_partitioned']}")
+        if "cohort_new" in rec:
+            extra += (f" new={rec['cohort_new']} "
+                      f"res={rec['resident_clients']}")
         print(f"{label}round {rec['round']:3d} loss={rec['loss']:.4f}{acc} "
               f"rho={rec['rho_mean']:.3f} theta={rec['theta_mean']:.3f} "
               f"time={rec['time']:.1f}s energy={rec['energy']:.1f}J "
-              f"wall={sim.round_ms[-1]:.1f}ms", flush=True)
+              f"wall={sim.round_ms[-1]:.1f}ms{extra}", flush=True)
     return show
 
 
@@ -124,7 +157,15 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="trace the rounds after one warm-up round and "
                          "print the device busy share and kernels by time")
+    ap.add_argument("--chaos", action="store_true",
+                    help="seeded fault injection (runtime/chaos)")
+    ap.add_argument("--population", type=int, default=0,
+                    help="logical clients behind the devices")
+    ap.add_argument("--store-root", default=None)
     args = ap.parse_args(argv)
+    chaos = (ChaosConfig(seed=args.seed, dropout_prob=0.2,
+                         partition_prob=0.1, coordinator_fail_prob=0.2)
+             if args.chaos else None)
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference is f32
     torch.backends.cudnn.allow_tf32 = False
     for scheme in args.schemes.split(","):
@@ -133,7 +174,9 @@ def main(argv=None):
         sim = make_sim(scheme, model=args.model, n_devices=args.devices,
                        n_clusters=args.clusters, n_train=args.n_train,
                        budgets=args.budgets, seed=args.seed,
-                       device=args.device)
+                       device=args.device, chaos=chaos,
+                       population=args.population,
+                       store_root=args.store_root)
         n_params = param_count({k: p[0] for k, p in sim.params.items()})
         print(f"{scheme}: {args.model}, {n_params} params, "
               f"{sim.cfg.n_devices} devices in {sim.cfg.n_clusters} "

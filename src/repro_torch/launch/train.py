@@ -35,16 +35,36 @@ kernels, forward and backward; ``--full --arch qwen2_7b`` needs four
 7.6B replicas with f32 momentum, more than one card holds, and the memory
 is the caller's problem, as in the reference.
 
+``--chaos`` injects faults (``runtime/chaos``: ``--chaos-dropout``,
+``--chaos-partition``, ``--chaos-coord-fail``, ``--chaos-seed``): the
+controller solves P2 over the live devices, the fault plan drops the
+devices that miss the deadline and partitions clusters on gossip rounds,
+and a degraded round calls the step with the masks; a round with all
+alive and all links up runs the fault-free step.  The round line gains
+the participation, deadline misses, coordinator and cut links.
+``--population N`` (>= R) runs N logical clients behind the R slots: each
+round a cohort (``--cohort-seed``) swaps into the slots through
+``runtime/population.PopulationStore`` (LRU of 4R clients, pages under
+``--store-root``, by default a temporary directory removed at the end),
+with per-client data shards and energy caps; N = R is bit for bit the
+fixed roster.  ``--verify-conservation`` checks that every swap kept the
+population's EF sum and the sum of its whole per-client state (float64,
+under ==; ``runtime/elastic.verified_swap``, as FedSim's
+``verify_conservation``), prints them and keeps them in the round's
+record; their host time is left out of the round's wall time.
+
 Not ported, each exits naming its ROADMAP.md item: ``--mesh
-single|multi`` (more than one rank), the overlap engine, population
-mode, fault injection and checkpoints.
+single|multi`` (more than one rank), the overlap engine and checkpoints.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,27 +72,28 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, smoke_model
 from repro_torch.configs.base import FLTopology
 from repro_torch.core.compression import quantize_theta
-from repro_torch.core.controller import BudgetState
-from repro_torch.core.round import init_state, make_round_step
-from repro_torch.data.synthetic import synthetic_tokens
+from repro_torch.core.controller import BudgetState, population_energy_caps
+from repro_torch.core.round import (client_template, init_state,
+                                    make_round_step, split_state)
+from repro_torch.data.synthetic import client_token_shard, synthetic_tokens
 from repro_torch.device import resolve
-from repro_torch.dist.collectives import MULTI_RANK
+from repro_torch.dist.collectives import MULTI_RANK, participation_weights
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
-from repro_torch.fl.cost_model import round_energy, round_time
+from repro_torch.fl.cost_model import (per_device_energy, per_device_time,
+                                       round_energy, round_time)
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.lm import param_count
 from repro_torch.models.registry import get_model
+from repro_torch.runtime.chaos import ChaosConfig, FaultPlan, controls_on_live
+from repro_torch.runtime.elastic import cohort_swap, verified_swap
+from repro_torch.runtime.population import PopulationStore
+from repro_torch.tree import flatten
 
 _OVERLAP = "ROADMAP.md, modules to port, item 3 (overlap engine)"
-_COHORTS = "ROADMAP.md, modules to port, item 2 (degraded mode and cohorts)"
 # flag -> where it is ported; giving any of them exits
 NOT_PORTED = {
     "overlap": _OVERLAP, "staleness": _OVERLAP, "stale_quantile": _OVERLAP,
-    "population": _COHORTS, "cohort_seed": _COHORTS, "store_root": _COHORTS,
-    "chaos": _COHORTS, "chaos_dropout": _COHORTS,
-    "chaos_partition": _COHORTS, "chaos_coord_fail": _COHORTS,
-    "chaos_seed": _COHORTS,
     "ckpt_dir": "ROADMAP.md, modules to port, item 7 (smokes and "
                 "launchers: train checkpoints)",
 }
@@ -103,20 +124,34 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--wire-ef", action="store_true",
                     help="CHOCO wire error feedback (needs a policy: "
                          "raises on --mesh host, as in the reference)")
-    for flag in ("--overlap", "--chaos"):
-        ap.add_argument(flag, action="store_true", default=None,
-                        help="not ported")
-    for flag in ("--staleness", "--stale-quantile",
-                 "--population", "--cohort-seed", "--store-root",
-                 "--chaos-dropout", "--chaos-partition", "--chaos-coord-fail",
-                 "--chaos-seed", "--ckpt-dir"):
+    ap.add_argument("--chaos", action="store_true",
+                    help="seeded fault injection (runtime/chaos)")
+    ap.add_argument("--chaos-dropout", type=float, default=0.2)
+    ap.add_argument("--chaos-partition", type=float, default=0.1)
+    ap.add_argument("--chaos-coord-fail", type=float, default=0.2)
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--population", type=int, default=0,
+                    help="logical clients behind the R slots (0: the "
+                         "fixed roster)")
+    ap.add_argument("--cohort-seed", type=int, default=0)
+    ap.add_argument("--store-root", default=None,
+                    help="population page directory (default: a "
+                         "temporary one)")
+    ap.add_argument("--verify-conservation", action="store_true",
+                    help="check that every cohort swap keeps the "
+                         "population's EF and state sums")
+    ap.add_argument("--overlap", action="store_true", default=None,
+                    help="not ported")
+    for flag in ("--staleness", "--stale-quantile", "--ckpt-dir"):
         ap.add_argument(flag, default=None, help="not ported")
     return ap
 
 
 def main(argv=None):
     """Run the launcher; returns {"history", "round_ms", "timings",
-    "n_params", "cfg", "peak_mem_gb"}."""
+    "n_params", "cfg", "peak_mem_gb", "swap_bytes", "pop_store",
+    "cohort_ids", "state"}.  ``pop_store`` is None where its pages were
+    in a temporary directory, removed before the return."""
     ap = parser()
     args = ap.parse_args(argv)
     for dest, where in NOT_PORTED.items():
@@ -132,11 +167,20 @@ def main(argv=None):
             hcef, sparse_gossip=hcef.sparse_gossip or args.sparse_gossip,
             wire_dtype=args.wire_dtype or hcef.wire_dtype,
             wire_ef=hcef.wire_ef or args.wire_ef)
+    topo = FLTopology(clusters=2, devices_per_cluster=2)
+    R = topo.num_devices
+    if args.population and args.population < R:
+        ap.exit(2, f"--population {args.population} smaller than the mesh "
+                   f"cohort R={R}\n")
+    if args.population > R and hcef.wire_ef:
+        # the CHOCO estimates are shared between gossip neighbours; a
+        # rotating cohort would desync them
+        ap.exit(2, "--wire-ef is incompatible with cohort sampling "
+                   "(--population > R): neighbor estimates desync under "
+                   "churn\n")
     dev = resolve(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference is f32
 
-    topo = FLTopology(clusters=2, devices_per_cluster=2)
-    R = topo.num_devices
     cluster_of = np.repeat(np.arange(topo.clusters), topo.devices_per_cluster)
     gen = torch.Generator(device=dev).manual_seed(0)
     params0 = get_model(cfg).init(cfg, gen, device=dev)
@@ -148,14 +192,46 @@ def main(argv=None):
     controller = make_controller(args.controller, hcef.tau,
                                  theta_min=hcef.theta_min,
                                  rho_min=hcef.rho_min)
-    het = HeterogeneityModel(num_devices=R, model_bits=n_params * 16)
+    het = HeterogeneityModel(num_devices=R, model_bits=n_params * 16,
+                             population=args.population)
     budget = BudgetState(
         time_budget=hcef.time_budget or np.inf,
         energy_budget=hcef.energy_budget or np.inf,
         phi=max(args.rounds // hcef.q, 1), q=hcef.q,
-        backhaul_time=het.backhaul_time())
-    corpus = synthetic_tokens(cfg.vocab_size, n_seq=N_SEQ,
-                              seq_len=args.seq + 1, n_devices=R, beta=0.5)
+        backhaul_time=het.backhaul_time(),
+        population=args.population, cohort=R if args.population else 0)
+    pop_store = cohort_ids = tmp = None
+    swap_bytes = []  # device<->host bytes of each round's swap
+    if args.population:
+        if args.store_root:
+            root = Path(args.store_root)
+        else:
+            tmp = tempfile.TemporaryDirectory(prefix="pop_store_")
+            root = Path(tmp.name)
+        tmpl = client_template(state)
+        pop_store = PopulationStore(args.population, tmpl, root=root,
+                                    resident_max=4 * R)
+        client_bytes = sum(t.numel() * t.element_size()
+                           for t in flatten(tmpl).values())
+
+        # per-client shards made by id; with population == R they are
+        # synthetic_tokens' rows
+        @functools.lru_cache(maxsize=4 * R)
+        def shard(cid: int) -> np.ndarray:
+            return client_token_shard(cfg.vocab_size, n_seq=N_SEQ,
+                                      seq_len=args.seq + 1, client_id=cid,
+                                      beta=0.5)
+    else:
+        corpus = synthetic_tokens(cfg.vocab_size, n_seq=N_SEQ,
+                                  seq_len=args.seq + 1, n_devices=R,
+                                  beta=0.5)
+    plan = None
+    if args.chaos:
+        plan = FaultPlan(ChaosConfig(
+            seed=args.chaos_seed, dropout_prob=args.chaos_dropout,
+            partition_prob=args.chaos_partition,
+            coordinator_fail_prob=args.chaos_coord_fail),
+            num_devices=R, num_clusters=topo.clusters)
     rng = np.random.default_rng(0)
     b_per_dev = hcef.tau * 2
     # dense_bits=16: het's model_bits above is n_params * 16 (bf16)
@@ -164,63 +240,175 @@ def main(argv=None):
 
     print(f"arch={args.arch} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}) mesh=host R={R} controller={args.controller} "
-          f"params/replica={n_params:,} seq={args.seq + 1} on {dev}",
-          flush=True)
+          f"params/replica={n_params:,} seq={args.seq + 1} on {dev}"
+          + (f" population={args.population}" if args.population else "")
+          + (" chaos" if plan is not None else ""), flush=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     history, round_ms, timings = [], [], {}
 
+    def swap(rnd):
+        """This round's cohort into the slots (``elastic.cohort_swap``);
+        returns its ``elastic.verified_swap`` record where checked."""
+        nonlocal cohort_ids
+        old_ids = cohort_ids
+        new_ids = (het.sample_cohort(rnd, R, seed=args.cohort_seed)
+                   if args.population > R else np.arange(R, dtype=np.int64))
+        _, client = split_state(state)
+
+        def move():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            # bytes between card and host: the outgoing cohort's state,
+            # and the incoming clients' that took part before (a
+            # first-time client's rows are zeroed on the card)
+            held = pop_store.touched | set(
+                () if old_ids is None else old_ids.tolist())
+            moved = sum(int(c) in held for c in new_ids)
+            if old_ids is None:
+                # the slots hold zeros, every client's state before it
+                # takes part: nothing to scatter yet
+                pop_store.gather(new_ids, out=client)
+            else:
+                cohort_swap(client, old_ids, new_ids, pop_store)
+                moved += R
+            swap_bytes.append(moved * client_bytes)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings.setdefault("cohort_swap", []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+        check = None
+        if args.verify_conservation and old_ids is not None:
+            check = verified_swap(move, pop_store, client, old_ids, new_ids)
+            print(f"cohort swap before round {rnd}: the population's EF "
+                  f"sum {check['ef_before']!r} before, "
+                  f"{check['ef_after']!r} after; its whole per-client "
+                  f"state (EF, momentum) {check['state_before']!r} before,"
+                  f" {check['state_after']!r} after ("
+                  f"{'equal' if check['equal'] else 'NOT EQUAL'}; checked "
+                  f"in {check['host_ms']:.0f} ms)", flush=True)
+        else:
+            move()
+        cohort_ids = new_ids
+        return check
+
     def one_round(rnd):
         nonlocal state
         t0 = time.perf_counter()
-        reports = het.sample_round(rnd)
-        rho, theta = controller.controls(reports, budget)
+        check = swap(rnd) if pop_store is not None else None
+        reports = het.sample_round(rnd, ids=cohort_ids)
+        if pop_store is not None and args.population > R:
+            reports = dataclasses.replace(
+                reports, energy_cap=population_energy_caps(
+                    budget, pop_store.rounds_participated[cohort_ids],
+                    pop_store.energy_spent[cohort_ids]))
+        alive0 = plan.sample_available(rnd) if plan is not None else None
+        if alive0 is not None:
+            rho, theta = controls_on_live(controller, reports, budget,
+                                          alive0)
+        else:
+            rho, theta = controller.controls(reports, budget)
         gossip = (rnd + 1) % hcef.q == 0
         if hcef.sparse_gossip:  # the wire ships grid levels only
             theta = quantize_theta(theta, hcef.theta_levels)
         idx = rng.integers(0, N_SEQ, (R, b_per_dev))
-        tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+        if pop_store is not None:
+            tokens = np.concatenate([shard(int(cohort_ids[d]))[idx[d]]
+                                     for d in range(R)])
+        else:
+            tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+        faults = alive = conn = None
+        masks = {}
+        if plan is not None:
+            faults = plan.step(rnd, gossip_round=gossip,
+                               per_device_time=per_device_time(
+                                   rho, theta, reports.mu, reports.nu,
+                                   hcef.tau, **wire_kw),
+                               alive=alive0)
+            alive, conn = faults.alive, faults.cluster_conn
+            if not (alive.all() and conn.all()):
+                masks = dict(alive=alive.astype(np.float32),
+                             alive_w=participation_weights(
+                                 alive, clusters=topo.clusters,
+                                 dev=topo.devices_per_cluster),
+                             conn=conn.astype(np.float32))
         state, m = steps[gossip](state, {"tokens": torch.from_numpy(tokens)},
-                                 rho, theta, 1000 + rnd, timings=timings)
+                                 rho, theta, 1000 + rnd, timings=timings,
+                                 **masks)
         t, _ = round_time(rho, theta, reports.mu, reports.nu, hcef.tau,
                           cluster_of, gossip=gossip,
-                          backhaul=het.backhaul_time(), **wire_kw)
+                          backhaul=het.backhaul_time(), alive=alive,
+                          conn=conn, **wire_kw)
         e = round_energy(rho, theta, reports.mu, reports.nu, reports.alpha,
-                         reports.p, hcef.tau, **wire_kw)
+                         reports.p, hcef.tau, alive=alive, **wire_kw)
+        if pop_store is not None:
+            pop_store.record_round(cohort_ids, rnd, energy=per_device_energy(
+                rho, theta, reports.mu, reports.nu, reports.alpha,
+                reports.p, hcef.tau, alive=alive, **wire_kw))
         budget.charge(t, e, gossip)
         loss = float(m["loss"].mean())  # waits for the round
-        round_ms.append((time.perf_counter() - t0) * 1e3)
+        round_ms.append((time.perf_counter() - t0) * 1e3
+                        - (check["host_ms"] if check else 0.0))
         rec = {"round": rnd, "loss": loss, "gossip": gossip,
                "rho_mean": float(np.mean(rho)),
                "theta_mean": float(np.mean(theta)),
                "time": budget.time_spent_prev + budget.time_spent_this,
                "energy": budget.energy_spent_prev + budget.energy_spent_this}
-        split = "/".join(f"{timings[k][-1]:.0f}"
-                         for k in ("device_round", "compress", "aggregate"))
+        names = ["device_round", "compress", "aggregate"]
+        extra = ""
+        if pop_store is not None:
+            names.append("cohort_swap")
+            rec["cohort"] = [int(c) for c in cohort_ids]
+            if check is not None:
+                rec["swap_check"] = check
+            extra += (f" cohort[{int(cohort_ids.min())}.."
+                      f"{int(cohort_ids.max())}] "
+                      f"res={pop_store.resident_count}")
+        if faults is not None:
+            rec.update(participation=faults.participation,
+                       n_deadline_missed=faults.n_deadline_missed,
+                       coordinator=faults.coordinator,
+                       n_partitioned=int((~conn).sum()),
+                       degraded=bool(masks))
+            extra += (f" part={faults.participation:.2f} "
+                      f"miss={faults.n_deadline_missed} "
+                      f"coord={faults.coordinator}"
+                      + (f" cut={rec['n_partitioned']}"
+                         if rec["n_partitioned"] else ""))
+        split = "/".join(f"{timings[k][-1]:.0f}" for k in names)
         mem = (f" peak={torch.cuda.max_memory_allocated(dev) / 1e9:.2f}GB"
                if dev.type == "cuda" else "")
         print(f"round {rnd:3d} loss={loss:7.4f} rho={rec['rho_mean']:.2f} "
               f"theta={rec['theta_mean']:.2f} sim_t={rec['time']:9.0f}s "
-              f"wall={round_ms[-1]:.0f}ms (device_round/compress/aggregate "
-              f"{split} ms){mem}", flush=True)
+              f"wall={round_ms[-1]:.0f}ms ({'/'.join(names)} {split} ms)"
+              f"{extra}{mem}", flush=True)
         return rec
 
     prof, t_prof = None, 0.0
-    with contextlib.ExitStack() as stack:
-        for rnd in range(args.rounds):
-            if args.profile and rnd == 1:  # after a warm-up round
-                prof = stack.enter_context(torch.profiler.profile(
-                    activities=activities(dev)))
-                t_prof = time.perf_counter()
-            history.append(one_round(rnd))
-        wall = time.perf_counter() - t_prof
+    try:
+        with contextlib.ExitStack() as stack:
+            for rnd in range(args.rounds):
+                if args.profile and rnd == 1:  # after a warm-up round
+                    prof = stack.enter_context(torch.profiler.profile(
+                        activities=activities(dev)))
+                    t_prof = time.perf_counter()
+                history.append(one_round(rnd))
+            wall = time.perf_counter() - t_prof
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
     if prof is not None:
         print_profile(prof, wall)
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else None)
     return {"history": history, "round_ms": round_ms, "timings": timings,
-            "n_params": n_params, "cfg": cfg, "peak_mem_gb": peak}
+            "n_params": n_params, "cfg": cfg, "peak_mem_gb": peak,
+            "swap_bytes": swap_bytes,
+            "pop_store": pop_store if tmp is None else None,
+            "cohort_ids": cohort_ids, "state": state}
 
 
 if __name__ == "__main__":

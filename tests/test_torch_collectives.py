@@ -221,9 +221,16 @@ def test_argument_validation():
         tcol.sparse_neighbor_exchange(tx, clusters=C, dev=DEV,
                                       cluster_theta=(0.5, 0.5))
     for kw, item in ((dict(axes=("data",)), "item 5"),
-                     (dict(conn=np.ones(C)), "item 2"),
                      (dict(stale=tx, stale_clusters=(0,)), "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             tcol.sparse_neighbor_exchange(tx, **base, **kw)
+    # the degraded-mode masks are ported: all links up is the unmasked
+    # mix, and a partition with the wire EF raises as in the reference
+    assert torch.equal(
+        tcol.sparse_neighbor_exchange(tx, conn=np.ones(C), **base),
+        tcol.sparse_neighbor_exchange(tx, **base))
+    with pytest.raises(ValueError, match="conn"):
+        tcol.sparse_neighbor_exchange(tx, intra_done=True, wire_ef=(z, z),
+                                      conn=np.eye(C)[0], **base)
     with pytest.raises(NotImplementedError, match="item 5"):
         tcol.mix_local(tx, clusters=C, dev=DEV, axes=("data",))

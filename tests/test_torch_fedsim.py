@@ -355,11 +355,19 @@ def test_unported_modes_raise_naming_the_roadmap():
               acc_fn=None, device_data=data, test_data=(data[0]),
               controller=tbase.make_controller("hcef", TAU),
               het=HeterogeneityModel(num_devices=N), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FedSim(FedSimConfig(n_devices=N, n_clusters=C), chaos=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # fault injection and population mode are ported: FedSim takes them,
+    # with the reference's own checks on a population
+    from repro_torch.runtime.chaos import ChaosConfig
+    sim = FedSim(FedSimConfig(n_devices=N, n_clusters=C),
+                 chaos=ChaosConfig(dropout_prob=0.2), **kw)
+    assert sim.fault_plan is not None and sim.pop_store is None
+    with pytest.raises(ValueError, match="population"):
         FedSim(FedSimConfig(n_devices=N, n_clusters=C, population=2 * N),
                **kw)
+    with pytest.raises(ValueError, match="data"):
+        FedSim(FedSimConfig(n_devices=N, n_clusters=C, population=2 * N),
+               **dict(kw, het=HeterogeneityModel(num_devices=N,
+                                                 population=2 * N)))
 
 
 def test_launcher_defaults_to_the_card():

@@ -194,3 +194,92 @@ def test_encode_routes_by_shape():
     assert [twp.encode_route(wb) for wb in (1, 31, 33, 1000, 1024, 1025,
                                             2048)] == \
         ["warp"] * 5 + ["block"] * 2
+
+
+def conn_masks(C):
+    """Each cluster's link cut alone, and every link but cluster 0's."""
+    return [1 - np.eye(C)[c] for c in range(C)] + [np.eye(C)[0]]
+
+
+def masked_chain(means, layout, payloads, wb, wd, conn):
+    """The reference's masked band loop (``_sparse_mix_rows``,
+    collectives.py:1241-1282) in torch: coef * (c_o * dec) with c_o the
+    band's source link, the lost weight added to the receiver's own mean
+    where it lost any, a partitioned receiver's own mean."""
+    C, L = means.shape
+    col = lambda v: torch.as_tensor(np.asarray(v, np.float32))[:, None]
+    cw = np.asarray(conn, np.float32)
+    y = col(layout.diag) * means
+    absorbed = np.zeros(C, np.float32)
+    for o, coef in layout.bands:
+        c_o = cw[(np.arange(C) - o) % C]
+        for payload, k_b, rows in payloads:
+            dec = old_chain(torch.zeros_like(means), layout._replace(
+                bands=((o, (1.0,) * C),)), [(payload, k_b, rows)], wb, wd)
+            y = y + col(coef) * (col(c_o) * dec)
+        absorbed = absorbed + np.asarray(coef, np.float32) * (1 - c_o)
+    ab = col(absorbed)
+    y = torch.where(ab > 0, y + ab * means, y)
+    return torch.where(col(cw) > 0, y, means)
+
+
+def nan_payloads(payloads):
+    """A NaN in the first payload row of every plan: in the values of the
+    float wires and dense plans, in the scale of the others."""
+    out = []
+    for payload, k_b, rows in payloads:
+        payload = tuple(None if p is None else p.clone() for p in payload)
+        if len(payload) == 3 and payload[2] is not None:
+            payload[2][0, 0] = float("nan")
+        elif payload[0].is_floating_point():
+            payload[0].view(-1)[0] = float("nan")
+        out.append((payload, k_b, rows))
+    return out
+
+
+@pytest.mark.parametrize("wd", ALL)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_conn_folded_coefficients_are_the_masked_chain(name, wd):
+    """conn folded into the decode-and-mix's coefficients, (coef * c) *
+    dec, and the two passes after it are bit for bit the reference's
+    order, coef * (c * dec), for c in {0, 1}: -0 entries, NaN payloads
+    and partitioned senders with NaN in their rows included."""
+    means, layout, payloads, _, wb = gossip(CASES[name], wd, seed=2)
+    C = means.shape[0]
+    for nan in (False, True):
+        pl = nan_payloads(payloads) if nan else payloads
+        for conn in conn_masks(C):
+            bands, absorbed = tcol._conn_fold(layout, conn)
+            steps = [twp.MixStep(o, coef, p, k_b, senders)
+                     for o, coef in bands
+                     for (p, k_b, _), (_, _, senders) in zip(pl,
+                                                             layout.plans)]
+            y = twp.decode_mix_plain(means, steps, wb=wb, wire_dtype=wd,
+                                     diag=layout.diag)
+            ab = torch.as_tensor(absorbed)[:, None]
+            got = torch.where(ab > 0, y + ab * means, y)
+            got = torch.where(torch.as_tensor(conn > 0)[:, None], got,
+                              means)
+            want = masked_chain(means, layout, pl, wb, wd, conn)
+            assert torch.equal(bits(got), bits(want)), (conn, nan)
+            if nan:
+                assert torch.isnan(want).any()
+
+
+@pytest.mark.parametrize("wd", ("int4", "f32"))
+def test_masked_sparse_mix_rows_is_the_masked_chain(wd):
+    """``_sparse_mix_rows(..., conn=)`` end to end on its own encode:
+    the partitioned rows keep their means, the rest the masked chain."""
+    means, layout, payloads, _, wb = gossip(CASES["ring4_dense"], wd,
+                                            seed=3)
+    for conn in conn_masks(4):
+        got = tcol._sparse_mix_rows(means, layout, wb=wb, wire_dtype=wd,
+                                    dense_dtype=torch.float32, conn=conn)
+        want = masked_chain(means, layout, payloads, wb, wd, conn)
+        assert torch.equal(bits(got), bits(want))
+        cut = np.flatnonzero(conn == 0)
+        assert torch.equal(bits(got[cut]), bits(means[cut]))
+    with pytest.raises(ValueError, match="wire_ef"):
+        tcol._sparse_mix_rows(means, layout, wb=wb, wire_dtype=wd,
+                              dense_dtype=torch.float32, conn=conn,
+                              wire_ef=(means, means))
