@@ -179,7 +179,37 @@ Phases (any failure ends the run with a non-zero exit):
 20. the train launcher on smollm-135M at full width under ``--chaos
    --population 16``: finite losses, participation every round and below
    1, phase 16's launch counts, the EF sum kept across the last swap,
-   round p50 and peak gated as phase 16's.
+   round p50 and peak gated as phase 16's;
+21. the stale gossip's kernels bit for bit: ``_sparse_mix_rows(...,
+   stale=)`` against its plain route on MIX_CASES at ring and
+   erdos_renyi, every wire dtype, with every cluster stale, cluster 1
+   alone stale, and every cluster stale with cluster 1 partitioned; phase
+   10's main w_in chunk with every cluster stale, its payloads encoded
+   ahead on a side stream (``stale_payloads``) and mixed by
+   ``sparse_exchange_(payloads=)``: the in-line stale chunk's and the
+   plain route's bits, no host synchronisation, the synchronous chunk's
+   wire launches and STALE_CHUNK_LAUNCHES in all; timed beside the
+   synchronous chunk, with the side stream's and the main stream's parts
+   alone;
+22. the overlap step at staleness 1, card against CPU in lockstep: the
+   smoke smollm off the mesh (every cluster stale, then cluster 1 alone)
+   and the smoke mamba2's fused branch (int4, levels (0.1, 0.6), every
+   cluster stale: the side stream on the card), the statistics within
+   ROUND_RTOL and the state (pending included) within ROUND_ATOL but for
+   Q_FLIP_SHARE threshold flips; on the card staleness 0 and an empty
+   stale set give the synchronous step's bits, pending included;
+23. smollm-135M at full width: the fused branch with int4 at levels
+   (0.1, 0.6), q = 2, OVERLAP_ROUNDS rounds, every cluster stale, by the
+   overlap step and by the synchronous step from the same state: finite
+   losses, phase 16's attention and top-k launches a round and the
+   synchronous program's encode and decode-and-mix launches a gossip
+   round, round p50 and peak gated, and the overlap verdict on CUDA
+   events (in every gossip round the side stream's last encode ends
+   before the main stream's device round does; in the synchronous
+   program the first encode starts after it), the gossip phase's ms and
+   the stale payloads' bytes printed; then the train launcher off the
+   mesh with ``--overlap --staleness 1`` (round 4's stale set
+   LAUNCHER_STALE_SET gated, phase 16's launch counts, p50, peak).
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -3260,6 +3290,557 @@ def lm_chaos_full(train, fa, tk, topk_per_round):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the overlap engine
+# ---------------------------------------------------------------------------
+
+# phase 21: the device launches of phase 10's main chunk with every
+# cluster stale: the synchronous chunk's (two encodes, one decode-and-mix,
+# two copies) and the bf16 -> f32 copy of the stale rows the encodes read
+STALE_CHUNK_LAUNCHES = GOSSIP_CHUNK_LAUNCHES + 1
+OVERLAP_ROUNDS = 4  # phases 22-23: q = 2, rounds 2 and 4 gossip
+# phase 23's launcher run: the stale set of its gossip round (round 4 at q
+# = 4), worked out on the host (fl.cost_model.decide_stale_clusters, the
+# launcher's controller and heterogeneity model) for smollm-135M's
+# 134,515,008 parameters: per-device times (1237.7, 912.0, 1525.1, 1150.7)
+# s and a backhaul of 43.0 s put cluster 1 alone past the 0.9 quantile
+# deadline (at 0.5 and below both clusters are stale)
+LAUNCHER_STALE_QUANTILE = 0.9
+LAUNCHER_STALE_SET = [1]
+
+
+def stale_cases(C):
+    """Phase 21's (stale set, backhaul mask): every cluster, cluster 1
+    alone, every cluster with cluster 1 partitioned."""
+    return [(tuple(range(C)), None), ((1,), None),
+            (tuple(range(C)), 1 - np.eye(C, dtype=np.float32)[1])]
+
+
+def stale_mix_cases(col, gen):
+    """``_sparse_mix_rows(..., stale=)`` on the card against its plain
+    route, bit for bit: MIX_CASES at ring and erdos_renyi, every wire
+    dtype, stale_cases."""
+    n = 0
+    for _, C, wbk, L, levels, dense in MIX_CASES:
+        means, stale = mix_means(gen, C, L), mix_means(gen, C, L)
+        for hkind in ("ring", "erdos_renyi"):
+            for wd in WIRE_DTYPES:
+                plans = col._wire_plans(levels, L, wbk, wd, torch.empty(
+                    (), dtype=dense).element_size())
+                layout = col._gossip_layout(hkind, C, 0.4, 0, tuple(plans))
+                kw = dict(wb=col.wf.wire_block_of(L, wbk), wire_dtype=wd,
+                          dense_dtype=dense)
+                for st, conn in stale_cases(C):
+                    sk = dict(stale=stale, stale_clusters=st, conn=conn)
+                    want = col._sparse_mix_rows(means, layout, impl="plain",
+                                                **sk, **kw)
+                    got = col._sparse_mix_rows(means, layout, **sk, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(_bits(got), _bits(want)):
+                        fail(f"stale gossip differs from its plain route: "
+                             f"{hkind} C={C} {wd} stale {st} conn "
+                             f"{None if conn is None else conn.tolist()}")
+                    n += 1
+    return n
+
+
+def encode_on_side(col, stale, kw, side):
+    """``stale_payloads`` on the side stream after the current stream's
+    work, as the overlap step runs them; the current stream then waits
+    for them."""
+    main = torch.cuda.current_stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        pre = col.stale_payloads(stale, **kw)
+        done = torch.cuda.Event()
+        done.record()
+    main.wait_event(done)
+    for chunk in pre:
+        for payload, _ in chunk:
+            for t in payload:
+                if t is not None:
+                    t.record_stream(main)
+    return pre
+
+
+def stale_gossip_chunk(wp, col, means, cols):
+    """Phase 10's main chunk (C = 2, levels GOSSIP_LEVELS, int4) with
+    every cluster stale: encoded ahead of time on a side stream
+    (``stale_payloads``), then ``sparse_exchange_(payloads=)``, bit for
+    bit the in-line stale chunk and its plain route; no host
+    synchronisation; STALE_CHUNK_LAUNCHES device launches, the wire's
+    the synchronous chunk's; timed beside the synchronous chunk."""
+    C, Dev = 2, 2
+    x = means.repeat_interleave(Dev, dim=0).to(torch.bfloat16)
+    s = means.flip(1).repeat_interleave(Dev, dim=0).to(torch.bfloat16)
+    kw = dict(clusters=C, dev=Dev, hkind="ring", wire_dtype="int4",
+              wire_block=1024, cluster_theta=GOSSIP_LEVELS,
+              chunk_cols=cols)
+    st = dict(stale=s, stale_clusters=(0, 1))
+    side = torch.cuda.Stream()
+    want = x.clone()
+    col.sparse_exchange_(want, impl="plain", **st, **kw)
+    inline = x.clone()
+    col.sparse_exchange_(inline, **st, **kw)
+    got = x.clone()
+    col.sparse_exchange_(got, payloads=encode_on_side(col, s, kw, side),
+                         **kw)
+    fresh = x.clone()
+    col.sparse_exchange_(fresh, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(_bits(inline), _bits(want))
+            and torch.equal(_bits(got), _bits(want))):
+        fail("the stale gossip chunk (in line, or encoded ahead on the "
+             "side stream) differs from its plain route")
+    if torch.equal(_bits(got), _bits(fresh)):
+        fail("the stale gossip chunk gave the fresh chunk's bits")
+    checked = x.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        col.sparse_exchange_(checked, payloads=encode_on_side(
+            col, s, kw, side), **kw)
+    except RuntimeError as e:
+        fail(f"the stale gossip chunk synchronised the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(checked), _bits(got)):
+        fail("the stale chunk under the sync check gave another result")
+    counted = x.clone()
+    wp.reset_launches()
+    ops = [op for op in aten_kernel_ops(lambda: col.sparse_exchange_(
+        counted, payloads=encode_on_side(col, s, kw, side), **kw))
+        if "record_stream" not in op]
+    launches = dict(wp.LAUNCHES)
+    scratch = x.clone()
+    pre = encode_on_side(col, s, kw, side)
+    row = dict(case=f"one chunk: sparse_exchange_ on (4, {x.shape[1]}) bf16,"
+               f" C=2 ring, int4 levels {GOSSIP_LEVELS}, every cluster "
+               f"stale", device_launches=sum(launches.values()) + len(ops),
+               wire_launches=launches, torch_kernel_ops=ops, host_syncs=0,
+               sync_ms=time_ms(lambda: col.sparse_exchange_(scratch, **kw)),
+               stale_inline_ms=time_ms(
+                   lambda: col.sparse_exchange_(scratch, **st, **kw)),
+               ahead_ms=time_ms(lambda: col.sparse_exchange_(
+                   scratch, payloads=encode_on_side(col, s, kw, side),
+                   **kw)),
+               side_encode_ms=time_ms(lambda: col.stale_payloads(s, **kw)),
+               main_mix_ms=time_ms(lambda: col.sparse_exchange_(
+                   scratch, payloads=pre, **kw)))
+    print("stale_gossip_chunk " + json.dumps(row))
+    want_wire = {"wire_encode": 2, "wire_pack": 0, "wire_unpack": 0,
+                 "wire_decode_mix": 1}
+    if (launches != want_wire
+            or row["device_launches"] != STALE_CHUNK_LAUNCHES):
+        fail(f"the stale chunk ran {row['device_launches']} device launches "
+             f"(wire {launches}, PyTorch {ops}), expected "
+             f"{STALE_CHUNK_LAUNCHES} (wire {want_wire})")
+    return row
+
+
+def stale_mix_phase(wp, col, configs, mamba2, cols):
+    """Phase 21."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    n = stale_mix_cases(col, gen)
+    print(f"stale gossip: {n} cases of MIX_CASES at ring and erdos_renyi, "
+          f"every wire dtype, every cluster stale, cluster 1 stale, every "
+          f"cluster stale with cluster 1 partitioned, bit for bit the plain "
+          f"route")
+    _, means = w_in_chunk(configs, mamba2, cols)
+    stale_gossip_chunk(wp, col, means, cols)
+    del means
+    torch.cuda.empty_cache()
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+
+
+def _copy_state(state, fields, device):
+    """An overlap state (or its fl) with every tensor copied to
+    ``device``."""
+    from repro_torch.tree import tree_map
+    cp = lambda t: None if t is None else tree_map(
+        lambda x: x.to(device, copy=True), t)
+    fl = state.fl
+    return state._replace(fl=fl._replace(**{f: cp(getattr(fl, f))
+                                            for f in fields}),
+                          pending=cp(state.pending))
+
+
+def _leaves_of(state, fields):
+    from repro_torch.tree import flatten
+    out = {f + "/" + k: v.cpu() for f in fields
+           for k, v in flatten(getattr(state.fl, f)).items()}
+    out.update({"pending/" + k: v.cpu()
+                for k, v in flatten(state.pending).items()})
+    return out
+
+
+def _overlap_lockstep(rnd_mod, cfg, hcef, topo, params0, tokens, rho, theta,
+                      step_of, seed):
+    """OVERLAP_ROUNDS overlap rounds on the CPU and the card, each round
+    starting both from the card's state (a top-k threshold flip would
+    otherwise spread through the later rounds).  Returns (largest
+    relative deviation of loss/g2/sigma2, most entries beyond ROUND_ATOL
+    in a round, entries, stale_frac a round (-1: none))."""
+    fields = ("params", "ef", "momentum")
+    states = {d: rnd_mod.init_overlap_state(cfg, hcef, topo, params0,
+                                            device=d)
+              for d in ("cpu", "cuda")}
+    worst, flips, total, fracs = 0.0, 0, 0, []
+    for r in range(OVERLAP_ROUNDS):
+        states["cpu"] = _copy_state(states["cuda"], fields, "cpu")
+        step = step_of(r)
+        mets, leaves = {}, {}
+        for d in ("cpu", "cuda"):
+            states[d], m = step(states[d], {"tokens": tokens[r]}, rho,
+                                theta, seed + r)
+            mets[d] = {k: v.cpu().numpy() for k, v in m.items()}
+            leaves[d] = _leaves_of(states[d], fields)
+        a, b = mets["cuda"], mets["cpu"]
+        for k in ("loss", "g2", "sigma2"):
+            worst = max(worst, float(np.max(np.abs(a[k] - b[k])
+                                            / np.abs(b[k]))))
+        if a.get("stale_frac") != b.get("stale_frac"):
+            fail("stale_frac differs between the card and the CPU")
+        fracs.append(float(a.get("stale_frac", -1)))
+        dev = {k: (leaves["cuda"][k] - v).abs()
+               for k, v in leaves["cpu"].items()}
+        flips = max(flips, sum(int((v > ROUND_ATOL).sum())
+                               for v in dev.values()))
+        total = sum(v.numel() for v in dev.values())
+    return worst, flips, total, fracs
+
+
+def overlap_small(configs, lm, mamba2, rnd_mod, base, compression, policies,
+                  wp):
+    """Phase 22: the overlap step at staleness 1, card against CPU in
+    lockstep, at smoke size: losses and statistics within ROUND_RTOL, the
+    state (parameters, EF, momentum, pending) within ROUND_ATOL but for
+    Q_FLIP_SHARE of its entries; on the card staleness 0 and an empty
+    stale set give the synchronous step's bits."""
+    import dataclasses
+    from repro_torch.tree import flatten
+    t0 = time.perf_counter()
+    topo = base.FLTopology(2, 2)
+    rho = np.array([0.9, 0.6, 0.8, 0.7])
+    # the smoke smollm off the mesh: round 2 every cluster stale, round 4
+    # cluster 1 alone
+    cfg = configs.smoke_model(configs.get_config("smollm_135m").model)
+    hcef = base.HCEFConfig(tau=4, q=2, eta=0.1, overlap=True, staleness=1)
+    params0 = lm.init(cfg, torch.Generator().manual_seed(22), device="cpu")
+    rng = np.random.default_rng(22)
+    tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 65)))
+              for _ in range(OVERLAP_ROUNDS)]
+    theta = np.array([0.5, 0.25, 1.0, 0.1])
+    worst, flips, total, fracs = _overlap_lockstep(
+        rnd_mod, cfg, hcef, topo, params0, tokens, rho, theta,
+        lambda r: rnd_mod.make_overlap_round_step(
+            cfg, hcef, topo, gossip=r % 2 == 1,
+            stale_clusters=(1,) if r == 3 else None), 7)
+    allowed = int(Q_FLIP_SHARE * total)
+    print(f"smollm small overlap round (off the mesh, staleness 1, "
+          f"lockstep): card vs CPU over {OVERLAP_ROUNDS} rounds, stale_frac "
+          f"{fracs}, largest relative deviation of loss/g2/sigma2 "
+          f"{worst:.3e} (tolerance {ROUND_RTOL}), entries above "
+          f"{ROUND_ATOL}: at most {flips} of {total} (allowed {allowed})")
+    if fracs != [-1, 1.0, -1, 0.5]:
+        fail(f"stale_frac {fracs}, expected [-, 1.0, -, 0.5]")
+    if not (worst <= ROUND_RTOL and flips <= allowed):
+        fail("the off-mesh overlap round on the card disagrees with the CPU")
+    # the smoke mamba2's fused branch, every cluster stale (the side
+    # stream on the card)
+    mcfg, mh, _, policy, mtheta, levels = sparse_setup(
+        configs, base, compression, policies, full=False)
+    mh = dataclasses.replace(mh, wire_ef=False, overlap=True, staleness=1)
+    mparams = mamba2.init(mcfg, torch.Generator().manual_seed(22),
+                          device="cpu")
+    mtokens = [torch.from_numpy(rng.integers(0, mcfg.vocab_size, (16, 40)))
+               for _ in range(OVERLAP_ROUNDS)]
+    wp.reset_launches()
+    worst, flips, total, fracs = _overlap_lockstep(
+        rnd_mod, mcfg, mh, topo, mparams, mtokens, rho, mtheta,
+        lambda r: rnd_mod.make_overlap_round_step(
+            mcfg, mh, topo, policy, gossip=(r + 1) % SPARSE_Q == 0,
+            cluster_levels=levels if (r + 1) % SPARSE_Q == 0 else None), 31)
+    launches = dict(wp.LAUNCHES)
+    allowed = int(Q_FLIP_SHARE * total)
+    print(f"mamba2 small overlap round (fused, int4 levels {levels}, every "
+          f"cluster stale, lockstep): card vs CPU over {OVERLAP_ROUNDS} "
+          f"rounds, stale_frac {fracs}, largest relative deviation of "
+          f"loss/g2/sigma2 {worst:.3e} (tolerance {ROUND_RTOL}), entries "
+          f"above {ROUND_ATOL}: at most {flips} of {total} (allowed "
+          f"{allowed}); wire launches on the card {launches}")
+    if fracs != [-1, 1.0, -1, 1.0]:
+        fail(f"stale_frac {fracs}, expected [-, 1.0, -, 1.0]")
+    if not (worst <= ROUND_RTOL and flips <= allowed):
+        fail("the fused overlap round on the card disagrees with the CPU")
+    if not (launches["wire_encode"] and launches["wire_decode_mix"]):
+        fail(f"the fused overlap round ran no wire kernels: {launches}")
+    # on the card: staleness 0 and an empty stale set are the synchronous
+    # step, pending included
+    same = []
+    for c, h, p, pol, th, lv in (
+            (cfg, hcef, params0, None, theta, None),
+            (mcfg, mh, mparams, policy, mtheta, levels)):
+        sync_h = dataclasses.replace(h, overlap=False, staleness=0)
+        tok = tokens[0] if pol is None else mtokens[0]
+        ref = rnd_mod.init_state(c, sync_h, topo, p, device="cuda")
+        ref, _ = rnd_mod.make_round_step(c, sync_h, topo, pol, gossip=True,
+                                         cluster_levels=lv)(
+            ref, {"tokens": tok}, rho, th, 5)
+        for hh, stale in ((dataclasses.replace(h, staleness=0), None),
+                          (h, ())):
+            st = rnd_mod.init_overlap_state(c, hh, topo, p, device="cuda")
+            st, _ = rnd_mod.make_overlap_round_step(
+                c, hh, topo, pol, gossip=True, cluster_levels=lv,
+                stale_clusters=stale)(st, {"tokens": tok}, rho, th, 5)
+            got = _leaves_of(st, ("params", "ef", "momentum"))
+            want = {f + "/" + k: v.cpu() for f in ("params", "ef",
+                                                   "momentum")
+                    for k, v in flatten(getattr(ref, f)).items()}
+            ok = all(torch.equal(_bits(got[k]), _bits(v))
+                     for k, v in want.items()) and all(
+                torch.equal(_bits(got["pending/" + k[7:]]), _bits(v))
+                for k, v in want.items() if k.startswith("params/"))
+            same.append(ok)
+    print(f"on the card: staleness 0 and an empty stale set give the "
+          f"synchronous step's bits, pending included (smollm off the mesh,"
+          f" mamba2 fused): {same}")
+    if not all(same):
+        fail("a synchronous-like overlap step differs from the synchronous "
+             "step on the card")
+    print(f"phase 22 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _payload_bytes(pre):
+    return sum(t.numel() * t.element_size() for chunks in pre.values()
+               for chunk in chunks for payload, _ in chunk
+               for t in payload if t is not None)
+
+
+def lm_overlap_fused(configs, lm, rnd_mod, base, compression, policies, wf,
+                     train, synthetic, wp, fa, tk, col, topk_per_round):
+    """Phase 23, the fused branch: smollm-135M at full width, int4 at
+    levels (0.1, 0.6), q = 2, OVERLAP_ROUNDS rounds, every cluster stale,
+    run by the overlap step and by the synchronous step from the same
+    state, tokens and controls; finite losses, launch counts, p50, peak,
+    and the overlap verdict on CUDA events in every gossip round."""
+    import dataclasses
+    from repro_torch.tree import flatten
+    bundle = configs.get_config("smollm_135m")
+    cfg = bundle.model
+    hcef = dataclasses.replace(bundle.hcef, q=SPARSE_Q, sparse_gossip=True,
+                               wire_dtype="int4", overlap=True, staleness=1)
+    topo = base.FLTopology(2, 2)
+    R, C = topo.num_devices, topo.clusters
+    theta = compression.quantize_theta(SPARSE_THETA, hcef.theta_levels)
+    levels = compression.cluster_levels_from_theta(
+        SPARSE_THETA, hcef.theta_levels, np.repeat(np.arange(C), 2))
+    if levels != GOSSIP_LEVELS:
+        fail(f"cluster levels {levels}, expected {GOSSIP_LEVELS}")
+    policy = policies.make_train_policy(topo)
+    corpus = synthetic.synthetic_tokens(cfg.vocab_size, n_seq=train.N_SEQ,
+                                        seq_len=2048, n_devices=R, beta=0.5)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(OVERLAP_ROUNDS):
+        idx = rng.integers(0, train.N_SEQ, (R, hcef.tau * 2))
+        batches.append(torch.from_numpy(np.concatenate(
+            [corpus[d, idx[d]] for d in range(R)])))
+    rho = np.ones(R)
+    out = {}
+    for prog in ("overlap", "sync"):
+        h = hcef if prog == "overlap" else dataclasses.replace(
+            hcef, overlap=False, staleness=0)
+        torch.cuda.empty_cache()
+        params0 = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+        init = (rnd_mod.init_overlap_state if prog == "overlap"
+                else rnd_mod.init_state)
+        state = init(cfg, h, topo, params0, device="cuda")
+        del params0
+        make = (rnd_mod.make_overlap_round_step if prog == "overlap"
+                else rnd_mod.make_round_step)
+        steps = {g: make(cfg, h, topo, policy, gossip=g,
+                         cluster_levels=levels if g else None)
+                 for g in (False, True)}
+        sizes = [v[0].numel() for v in flatten(
+            (state.fl if prog == "overlap" else state).params).values()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (wp, fa, tk):
+            mod.reset_launches()
+        hist, walls, timings, verdict = [], [], {}, []
+        for rnd in range(OVERLAP_ROUNDS):
+            gossip = (rnd + 1) % SPARSE_Q == 0
+            events = {}
+            t0 = time.perf_counter()
+            state, m = steps[gossip](state, {"tokens": batches[rnd]}, rho,
+                                     theta, 1000 + rnd, timings=timings,
+                                     events=events)
+            loss = float(m["loss"].mean())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            hist.append(dict(loss=loss, gossip=gossip))
+            if gossip:
+                end = events["device_round_end"]
+                if prog == "overlap":  # ms the encodes finished ahead
+                    verdict.append(dict(
+                        round=rnd, margin_ms=events["encode_end"]
+                        .elapsed_time(end), encode_span_ms=events[
+                            "encode_start"].elapsed_time(
+                            events["encode_end"]),
+                        gossip_ms=events["gossip_start"].elapsed_time(
+                            events["gossip_end"])))
+                else:  # ms after the device round the first encode came
+                    verdict.append(dict(
+                        round=rnd, lag_ms=end.elapsed_time(
+                            events["gossip_start"]),
+                        gossip_ms=events["gossip_start"].elapsed_time(
+                            events["gossip_end"])))
+            print(f"{prog} round {rnd} loss={loss:.4f} gossip={gossip} "
+                  f"wall={walls[-1]:.0f}ms", flush=True)
+        launches = dict(wp.LAUNCHES, **fa.LAUNCHES,
+                        topk_compress=tk.LAUNCHES["topk_compress"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_gossip = sum(x["gossip"] for x in hist)
+        per_round = predicted_wire_launches(
+            sizes, levels, h.wire_block, wf, rnd_mod.gossip_cols(C),
+            bands=1, clusters=C, mix_steps=wp.MIX_STEPS,
+            mix_rows=wp.MIX_ROWS)
+        steps_run = OVERLAP_ROUNDS * R * h.tau
+        want = {k: v * n_gossip for k, v in per_round.items()}
+        want.update(flash_attention=steps_run * cfg.num_layers * (
+            2 if cfg.remat else 1),
+            flash_attention_bwd=steps_run * cfg.num_layers,
+            paged_decode_attention=0,
+            topk_compress=OVERLAP_ROUNDS * topk_per_round)
+        if not all(np.isfinite(x["loss"]) for x in hist):
+            fail(f"{prog}: non-finite loss: {[x['loss'] for x in hist]}")
+        if launches != want:
+            fail(f"{prog}: launch counts {launches}, expected {want}")
+        med = lambda v: float(np.percentile(v, 50))
+        stats = dict(program=prog, rounds=OVERLAP_ROUNDS,
+                     gossip_rounds=n_gossip, params=sum(sizes),
+                     levels=levels, round_wall_ms_p50=med(walls),
+                     round_wall_ms=walls,
+                     phase_ms_p50={k: med(v) for k, v in timings.items()},
+                     phase_ms=timings, verdict=verdict,
+                     wire_launches_per_gossip_round=per_round,
+                     launches=launches, loss=[x["loss"] for x in hist],
+                     peak_mem_gb=peak)
+        if prog == "overlap":
+            kw = dict(clusters=C, dev=2, hkind=topo.backhaul,
+                      wire_dtype=h.wire_dtype, wire_block=h.wire_block,
+                      cluster_theta=levels,
+                      chunk_cols=rnd_mod.gossip_cols(C))
+            pend = flatten(state.pending)
+            pre = {k: col.stale_payloads(p.view(R, -1), **kw)
+                   for k, p in pend.items()}
+            stats["stale_payload_bytes"] = _payload_bytes(pre)
+            del pre
+            stats["encode_all_ms"] = time_ms(lambda: [
+                col.stale_payloads(p.view(R, -1), **kw)
+                for p in pend.values()], iters=3, warmup=1)
+            del pend
+        print("smollm_overlap " + json.dumps(stats))
+        if stats["round_wall_ms_p50"] > LM_ROUND_LIMIT_MS:
+            fail(f"{prog}: round p50 {stats['round_wall_ms_p50']:.1f} ms "
+                 f"over {LM_ROUND_LIMIT_MS} ms")
+        if peak > PEAK_LIMIT_GB:
+            fail(f"{prog}: peak {peak:.2f} GB over {PEAK_LIMIT_GB} GB")
+        if len(verdict) != n_gossip or n_gossip != 2:
+            fail(f"{prog}: {len(verdict)} verdicts for {n_gossip} gossip "
+                 f"rounds")
+        out[prog] = stats
+        del state, steps
+        torch.cuda.empty_cache()
+    ov, sy = out["overlap"]["verdict"], out["sync"]["verdict"]
+    print(f"overlap verdict on CUDA events: the side stream's last encode "
+          f"ended {[round(v['margin_ms'], 3) for v in ov]} ms before the "
+          f"main stream's device round; in the synchronous program the "
+          f"first encode came {[round(v['lag_ms'], 3) for v in sy]} ms "
+          f"after it; gossip phase {[round(v['gossip_ms'], 3) for v in ov]}"
+          f" ms overlapped, {[round(v['gossip_ms'], 3) for v in sy]} ms "
+          f"synchronous; stale payloads "
+          f"{out['overlap']['stale_payload_bytes'] / 1e6:.1f} MB")
+    if not (all(v["margin_ms"] > 0 for v in ov)
+            and all(v["lag_ms"] > 0 for v in sy)):
+        fail("the overlap verdict failed: the stale encodes did not finish "
+             "inside the device round, or the synchronous encodes did not "
+             "follow it")
+    return {k: out["overlap"]["launches"][k] + out["sync"]["launches"][k]
+            for k in out["sync"]["launches"]}
+
+
+def lm_overlap_launcher(train, fa, tk, wp, wf, rnd_mod, topk_per_round):
+    """Phase 23, the train launcher off the mesh: ``--overlap --staleness
+    1 --stale-quantile LAUNCHER_STALE_QUANTILE`` on smollm-135M at full
+    width, LM_ROUNDS rounds: the gossip round's stale set
+    LAUNCHER_STALE_SET, phase 16's launch counts, one decode-and-mix (dense
+    payloads) a leaf and chunk of the stale fold, p50 and peak."""
+    from repro_torch.tree import flatten
+    argv = ["--arch", "smollm_135m", "--full", "--rounds", str(LM_ROUNDS),
+            "--seq", "2047", "--overlap", "--staleness", "1",
+            "--stale-quantile", str(LAUNCHER_STALE_QUANTILE)]
+    print("python -m repro_torch.launch.train " + " ".join(argv))
+    torch.cuda.empty_cache()
+    for mod in (fa, tk, wp):
+        mod.reset_launches()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"])
+    wire = dict(wp.LAUNCHES)
+    cfg, hist = out["cfg"], out["history"]
+    tau, R = 4, 4
+    steps = LM_ROUNDS * R * tau
+    want = {"flash_attention": steps * cfg.num_layers * (2 if cfg.remat
+                                                         else 1),
+            "flash_attention_bwd": steps * cfg.num_layers,
+            "paged_decode_attention": 0,
+            "topk_compress": LM_ROUNDS * topk_per_round}
+    cols = rnd_mod.gossip_cols(2)
+    sizes = [v[0].numel() for v in flatten(out["state"].fl.params).values()]
+    chunks = sum(-(-L // max(wf.wire_block_of(L, 1024),
+                             cols // wf.wire_block_of(L, 1024)
+                             * wf.wire_block_of(L, 1024))) for L in sizes)
+    want_wire = {"wire_encode": 0, "wire_pack": 0, "wire_unpack": 0,
+                 "wire_decode_mix": chunks}
+    stale = [h.get("stale") for h in hist]
+    if len(hist) != LM_ROUNDS or not all(np.isfinite(h["loss"])
+                                         for h in hist):
+        fail(f"the overlap launcher: losses {[h['loss'] for h in hist]}")
+    if stale != [None] * (LM_ROUNDS - 1) + [LAUNCHER_STALE_SET]:
+        fail(f"stale sets {stale}, expected {LAUNCHER_STALE_SET} in the "
+             f"gossip round only")
+    if launches != want or wire != want_wire:
+        fail(f"launch counts {launches} and {wire}, expected {want} and "
+             f"{want_wire}")
+    med = lambda v: float(np.percentile(v, 50))
+    p50 = med(out["round_ms"])
+    stats = dict(rounds=LM_ROUNDS, params=out["n_params"], stale=stale,
+                 round_wall_ms_p50=p50, round_wall_ms=out["round_ms"],
+                 round_limit_ms=LM_ROUND_LIMIT_MS,
+                 phase_ms_p50={k: med(v) for k, v in out["timings"].items()},
+                 phase_ms=out["timings"],
+                 launches_per_round={k: v / LM_ROUNDS
+                                     for k, v in launches.items()},
+                 wire_launches=wire, loss=[h["loss"] for h in hist],
+                 time_s=hist[-1]["time"], peak_mem_gb=out["peak_mem_gb"],
+                 peak_limit_gb=PEAK_LIMIT_GB)
+    print("smollm_overlap_launcher " + json.dumps(stats))
+    print(f"smollm overlap launcher round p50 {p50:.1f} ms against "
+          f"{LM_ROUND_LIMIT_MS} ms; peak {out['peak_mem_gb']:.2f} GB against"
+          f" {PEAK_LIMIT_GB} GB")
+    if p50 > LM_ROUND_LIMIT_MS:
+        fail(f"round p50 {p50:.1f} ms over {LM_ROUND_LIMIT_MS} ms")
+    if out["peak_mem_gb"] > PEAK_LIMIT_GB:
+        fail(f"peak {out['peak_mem_gb']:.2f} GB over {PEAK_LIMIT_GB} GB")
+    return launches, wire
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -3421,9 +4002,24 @@ def main():
     for k in ("wire_encode", "wire_decode_mix"):
         launches[k] += m18[k]
     launches["topk_compress"] += fedsim_chaos_full(fedsim, tk, chaos_mod)
-    m20 = lm_chaos_full(train, fa, tk, lm_topk_launches(configs, lm, tk))
+    topk_lm = lm_topk_launches(configs, lm, tk)
+    m20 = lm_chaos_full(train, fa, tk, topk_lm)
     for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
         launches[k] += m20[k]
+
+    # -- phases 21-23: the overlap engine ------------------------------------
+    stale_mix_phase(wp, col, configs, mamba2, rnd_mod.GOSSIP_COLS)
+    m22 = overlap_small(configs, lm, mamba2, rnd_mod, base, compression,
+                        policies, wp)
+    t0 = time.perf_counter()
+    m23 = lm_overlap_fused(configs, lm, rnd_mod, base, compression, policies,
+                           wf, train, synthetic, wp, fa, tk, col, topk_lm)
+    m23l, w23l = lm_overlap_launcher(train, fa, tk, wp, wf, rnd_mod, topk_lm)
+    print(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+    for k in ("wire_encode", "wire_decode_mix"):
+        launches[k] += m22[k] + m23[k] + w23l[k]
+    for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
+        launches[k] += m23[k] + m23l[k]
 
     # -- report --------------------------------------------------------------
     kernels = []

@@ -5,8 +5,7 @@ decoder (served) and the ``ssm`` family (mamba2, trained by the HCEF round
 step); the MoE, encoder-decoder and hybrid families are not ported
 (``models/registry.py``).  ``FLTopology`` and ``HCEFConfig`` keep the
 fields the round step reads, the sparse gossip wire and its error
-feedback included; the overlapped engine raises and names the ROADMAP.md
-item that brings it.
+feedback and the overlapped engine's bounded staleness included.
 """
 from __future__ import annotations
 
@@ -95,12 +94,6 @@ def validate_theta_levels(theta_levels) -> None:
             f"the largest level must be 1.0")
 
 
-_NOT_PORTED = {
-    "overlap": "ROADMAP.md, modules to port, item 3 (overlap engine)",
-    "staleness": "ROADMAP.md, modules to port, item 3 (overlap engine)",
-}
-
-
 @dataclass(frozen=True)
 class HCEFConfig:
     """Round structure and controller knobs (paper Sec. 3/5)."""
@@ -127,7 +120,9 @@ class HCEFConfig:
     # estimate of each cluster's mean
     wire_ef: bool = False
     wire_ef_gamma: float = 1.0  # consensus step size (1.0 = plain mix)
-    # not ported: asking for either raises (see _NOT_PORTED)
+    # the overlapped engine (core/round.make_overlap_round_step):
+    # staleness 0 folds this round's means, 1 lets stale clusters ship
+    # their start-of-round model
     overlap: bool = False
     staleness: int = 0
 
@@ -139,16 +134,24 @@ class HCEFConfig:
                 f"int8 wire needs wire_block <= 32768, got {self.wire_block}")
         if self.sparse_gossip:
             validate_theta_levels(self.theta_levels)
-        if self.wire_ef and not self.sparse_gossip:
-            raise ValueError("wire_ef requires sparse_gossip=True (the "
-                             "estimates track wire-encoded payloads)")
+        if self.staleness not in (0, 1):
+            raise ValueError(
+                f"staleness must be 0 (synchronous fold) or 1 (bounded "
+                f"stale), got {self.staleness}")
+        if self.staleness and not self.overlap:
+            raise ValueError("staleness > 0 requires overlap=True")
+        if self.wire_ef:
+            if not self.sparse_gossip:
+                raise ValueError("wire_ef requires sparse_gossip=True (the "
+                                 "estimates track wire-encoded payloads)")
+            if self.staleness:
+                raise ValueError(
+                    "wire_ef is incompatible with overlap staleness: a "
+                    "stale payload would update neighbors' estimates with "
+                    "a buffer the sender's own estimate never saw")
         if self.wire_ef_gamma <= 0.0 or self.wire_ef_gamma > 1.0:
             raise ValueError(f"wire_ef_gamma must lie in (0, 1], got "
                              f"{self.wire_ef_gamma}")
-        for name, where in _NOT_PORTED.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"HCEFConfig.{name} is not ported yet: {where}")
 
 
 @dataclass(frozen=True)

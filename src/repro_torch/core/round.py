@@ -1,7 +1,9 @@
-"""The HCEF round step (Algorithm 1, lines 4-19), fault-free and
-synchronous (port of ``repro/core/round.py``: ``FLState``, ``init_state``,
-``_split_batch``, ``_global_norm2``, ``_check_cluster_levels`` and
-``make_round_step``, :178-547).
+"""The HCEF round step (Algorithm 1, lines 4-19), synchronous and
+overlapped (port of ``repro/core/round.py``: ``FLState``, ``init_state``,
+``_split_batch``, ``_global_norm2``, ``_check_cluster_levels``,
+``make_round_step``, :178-547, and ``OverlapState``,
+``init_overlap_state`` and ``make_overlap_round_step``, :77-137,
+:557-713).
 
 Stacked-replica layout: every leaf of the state holds the R devices' copies
 on a leading dim.  One call is one edge round:
@@ -38,10 +40,17 @@ divide the state into the mesh half and the per-client half that pages
 against ``runtime/population.PopulationStore`` (DESIGN.md §Cohort
 contract).
 
+The overlapped engine (DESIGN.md §Overlap contract) keeps a second
+buffer, ``pending``, the model at the start of the round.  At staleness 1
+a gossip round runs the intra-only step, then folds the gossip in which
+the stale clusters ship ``pending``: their payloads do not depend on the
+local steps.  Where the reference leaves the scheduling to XLA, here the
+stale payloads of an all-stale sparse gossip are encoded on a side CUDA
+stream while the main stream runs the local steps.
+
 The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
 reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
--> (R, tau)``.  Left out, each with the ROADMAP.md item that brings it:
-more than one rank (item 5) and the overlap engine (item 3).  The
+-> (R, tau)``.  Left out: more than one rank (ROADMAP.md item 5).  The
 reference's R == 1 branch exists for ``vmap``; here the devices run in a
 loop and R = 1 takes the same path.
 """
@@ -59,7 +68,8 @@ from repro_torch.configs.base import FLTopology, HCEFConfig, ModelConfig
 from repro_torch.core.compression import compress_delta
 from repro_torch.core.mixing import make_mixing, participation_mixing
 from repro_torch.device import from_numpy, resolve
-from repro_torch.dist.collectives import mix_local, sparse_exchange_
+from repro_torch.dist.collectives import (mix_local, sparse_exchange_,
+                                          stale_payloads)
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import get_model
 from repro_torch.optim.sgd import sgd_update_
@@ -102,6 +112,17 @@ class FLState(NamedTuple):
 # there and pages against runtime/population.PopulationStore.
 MESH_FIELDS = ("params", "round_idx")
 CLIENT_FIELDS = ("ef", "momentum", "wire_ef")
+
+
+class OverlapState(NamedTuple):
+    """The overlapped engine's state (reference :77): ``fl`` is the
+    working buffer the local steps run on; ``pending`` (params-shaped,
+    leaves (R, *shape)) the model at the start of the round, which stale
+    clusters ship.  ``pending`` is a buffer of its own: the step writes
+    ``fl.params`` in place, and refreshes ``pending`` by a copy at its
+    end."""
+    fl: FLState
+    pending: Any
 
 
 def split_state(state: FLState):
@@ -171,6 +192,47 @@ def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                    wire_ef=wef)
 
 
+def init_overlap_state(cfg: ModelConfig, hcef: HCEFConfig,
+                       topo: FLTopology, params0,
+                       device=None) -> OverlapState:
+    """``init_state`` and a copy of its parameters as ``pending``: round
+    0's stale payload is the initial model, a fixed point of the stale
+    mix as of the synchronous one."""
+    fl = init_state(cfg, hcef, topo, params0, device)
+    return OverlapState(fl=fl, pending=tree_map(torch.clone, fl.params))
+
+
+def _phase_timer(timings, dev):
+    """phase(name): a context manager that appends its body's host ms to
+    ``timings[name]`` (None: no timing), the current stream's work
+    finished at both ends.  The current stream only: the overlapped
+    engine's side stream runs on through the phases it overlaps."""
+    sync = ((lambda: torch.cuda.current_stream(dev).synchronize())
+            if dev.type == "cuda" else (lambda: None))
+
+    @contextlib.contextmanager
+    def phase(name):
+        if timings is None:
+            yield
+            return
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        timings.setdefault(name, []).append(
+            (time.perf_counter() - t0) * 1e3)
+    return phase
+
+
+def _mark(events, name, dev):
+    """Records a timing CUDA event on the current stream as
+    ``events[name]`` (``events`` None or off the card: nothing)."""
+    if events is not None and dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[name] = ev
+
+
 def _split_batch(batch: Dict[str, torch.Tensor], R: int, tau: int):
     """(global_batch, ...) -> (R, tau, b_local, ...) (:146)."""
     def split(x):
@@ -230,7 +292,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     cluster_levels=None,
                     bits_fn: Optional[Callable] = None):
     """Returns round_step(state, batch, rho, theta, key, timings=None,
-    alive=None, alive_w=None, conn=None) -> (state, metrics).
+    alive=None, alive_w=None, conn=None, events=None) -> (state, metrics).
 
     batch: {"tokens": (R * tau * b_local, S + 1)}; rho, theta: (R,)
     controls; key: the integer ``bits_fn(key, rho)`` turns into the (R,
@@ -245,7 +307,10 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     the exact top-k oracles, the reference's CPU route).  metrics: (R,)
     tensors loss, g2, sigma2, steps, and on a sparse gossip round the
     scalar theta_wire.  ``timings`` (a dict) collects the synchronised
-    host ms of device_round, compress, aggregate and gossip.
+    host ms of device_round, compress, aggregate and gossip.  ``events``
+    (a dict, on the card) receives timing CUDA events recorded on the
+    current stream: device_round_end, and around the fused branch's wire
+    gossip gossip_start and gossip_end.
 
     The chaos masks, all None on fault-free rounds (the unmasked code):
     ``alive`` (R,) 0/1, the devices that made the deadline, whose dropped
@@ -275,7 +340,6 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     # dense gossip round the whole W (reference :344, :364)
     fused_hkind = topo.backhaul if gossip and not sparse else "none"
     levels = sorted({float(t) for t in hcef.theta_levels})
-    levels32 = np.asarray(levels, np.float32)
     wire_kw = dict(clusters=C, dev=Dev, hkind=topo.backhaul,
                    wire_dtype=hcef.wire_dtype, wire_block=hcef.wire_block,
                    wire_ef_gamma=hcef.wire_ef_gamma, impl=impl,
@@ -313,7 +377,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                 "steps": bits.sum()}
 
     def round_step(state: FLState, batch, rho, theta, key, timings=None,
-                   alive=None, alive_w=None, conn=None):
+                   alive=None, alive_w=None, conn=None, events=None):
         chaos = alive is not None
         if chaos:
             if alive_w is None:
@@ -330,21 +394,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
             conn = None if conn is None else np.asarray(conn, np.float32)
         params = flatten(state.params)
         dev = next(iter(params.values())).device
-        sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
-                else (lambda: None))
-
-        @contextlib.contextmanager
-        def phase(name):
-            if timings is None:
-                yield
-                return
-            sync()
-            t0 = time.perf_counter()
-            yield
-            sync()
-            timings.setdefault(name, []).append(
-                (time.perf_counter() - t0) * 1e3)
-
+        phase = _phase_timer(timings, dev)
         tokens = _split_batch(batch, R, hcef.tau)["tokens"].to(dev)
         bits = torch.as_tensor(bits_fn(key, rho), dtype=torch.float32,
                                device=dev)
@@ -362,6 +412,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                 per_dev.append(device_round(
                     work, {k: v[r] for k, v in params.items()}, mom,
                     tokens[r], bits[r]))
+        _mark(events, "device_round_end", dev)
         # theta in float32 before Q, as the reference casts it: k is
         # computed from the f32 value
         theta32 = torch.as_tensor(np.asarray(theta, np.float32), device=dev)
@@ -384,7 +435,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         if policy is None:
             aggregate(params, comp, phase, masks)
         else:
-            fused(params, comp, state, theta32, metrics, phase, masks)
+            fused(params, comp, state, theta, metrics, phase, masks,
+                  events)
         return state._replace(round_idx=state.round_idx + 1), metrics
 
     def aggregate(params, comp, phase, masks):
@@ -416,7 +468,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                         yc = upd.view(C, Dev, -1).mean(dim=1)
                     xc.view(C, Dev, -1).copy_(yc[:, None])
 
-    def fused(params, comp, state, theta32, metrics, phase, masks):
+    def fused(params, comp, state, theta, metrics, phase, masks, events):
         """The fused branch (:301-505) with the whole replica dim here:
         per leaf x0 + Q in the parameters' type and its ``mix_local``,
         then on sparse gossip rounds the wire gossip of the cluster
@@ -439,22 +491,182 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                              if R > 1 else upd)
         if not sparse:
             return
-        if cluster_levels is not None:
-            lv = dict(cluster_theta=cluster_levels)
-            theta_wire = max(cluster_levels)
-        else:  # the smallest grid level >= max theta, in f32 (:463)
-            i = min(int(np.searchsorted(levels32, theta32.max().item(),
-                                        side="left")), len(levels) - 1)
-            lv = dict(theta=levels[i])
-            theta_wire = levels32[i]
+        lv, theta_wire = _wire_level(cluster_levels, levels, theta)
         est = ([flatten(state.wire_ef[f]) for f in ("est_self", "est_wsum")]
                if use_wef else None)
+        dev = next(iter(params.values())).device
         with phase("gossip"), torch.no_grad():
+            _mark(events, "gossip_start", dev)
             for k, x0 in params.items():
                 wef = (None if est is None
                        else [e[k].view(R, -1) for e in est])
                 sparse_exchange_(x0.view(R, -1), wire_ef=wef, conn=conn,
                                  **lv, **wire_kw)
+            _mark(events, "gossip_end", dev)
         metrics["theta_wire"] = torch.tensor(theta_wire, dtype=torch.float32)
 
     return round_step
+
+
+def _wire_level(cluster_levels, levels, theta):
+    """The sparse gossip's level arguments and its theta_wire: the static
+    per-cluster levels, else the smallest grid level >= max theta, in f32
+    (reference :463); ``theta`` the host's per-device levels."""
+    if cluster_levels is not None:
+        return dict(cluster_theta=cluster_levels), max(cluster_levels)
+    levels32 = np.asarray(levels, np.float32)
+    top = np.asarray(theta, np.float32).max()
+    i = min(int(np.searchsorted(levels32, top, side="left")),
+            len(levels) - 1)
+    return dict(theta=levels[i]), levels32[i]
+
+
+def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
+                            topo: FLTopology, policy=None, *,
+                            gossip: bool = True, impl=None,
+                            cluster_levels=None, stale_clusters=None,
+                            bits_fn: Optional[Callable] = None):
+    """The overlapped round step (reference :557): round_step(state:
+    OverlapState, batch, rho, theta, key, timings=None, alive=None,
+    alive_w=None, conn=None, events=None) -> (OverlapState, metrics), the
+    arguments as ``make_round_step``'s.
+
+    Staleness 0, a round without gossip, an empty ``stale_clusters`` or R
+    = 1 run ``make_round_step``'s step (its bits) and refresh ``pending``.
+    Otherwise (staleness 1) a gossip round runs in two stages: the
+    intra-only step (``make_round_step(..., gossip=False)``: local steps,
+    compress, EF fold, intra mean), then the stale fold, in which the
+    clusters of ``stale_clusters`` (default: all) ship ``pending`` and
+    the self terms stay fresh (``sparse_exchange_(stale=...)``).  The fold
+    is the sparse wire at ``cluster_levels`` or the grid level >= max
+    theta with a policy and ``hcef.sparse_gossip``, else the dense rows
+    (theta 1.0 on the f32 wire: dense plans).  ``alive`` / ``alive_w``
+    mask stage 1 and ``conn`` the fold.  metrics gain ``stale_frac``.
+
+    When every cluster is stale on the sparse wire, no payload depends on
+    the local steps: the step encodes every leaf's every chunk of
+    ``pending`` (``stale_payloads``) before stage 1, on the card on a side
+    CUDA stream that first waits for the main stream, and stage 2's main
+    stream waits on the side stream's event before its first
+    decode-and-mix; ``pending`` is refreshed after that wait.  A partial
+    set's fresh payloads wait on the local steps (reduced overlap): it
+    encodes in line.  ``events`` gains encode_start and encode_end (on the
+    side stream) and gossip_start and gossip_end (stage 2)."""
+    if not hcef.overlap:
+        raise ValueError("make_overlap_round_step requires hcef.overlap "
+                         "(use make_round_step for the synchronous engine)")
+    C, Dev = topo.clusters, topo.devices_per_cluster
+    R = topo.num_devices
+    if stale_clusters is not None:
+        stale_clusters = tuple(sorted({int(c) for c in stale_clusters}))
+        if any(not 0 <= c < C for c in stale_clusters):
+            raise ValueError(
+                f"stale_clusters {stale_clusters} out of range({C})")
+    if (hcef.staleness == 0 or not gossip or stale_clusters == ()
+            or R == 1):
+        inner = make_round_step(
+            cfg, hcef, topo, policy, gossip=gossip, impl=impl,
+            cluster_levels=cluster_levels if gossip else None,
+            bits_fn=bits_fn)
+
+        def sync_step(state: OverlapState, batch, rho, theta, key,
+                      timings=None, alive=None, alive_w=None, conn=None,
+                      events=None):
+            fl, metrics = inner(state.fl, batch, rho, theta, key,
+                                timings=timings, alive=alive,
+                                alive_w=alive_w, conn=conn, events=events)
+            _refresh_pending(state.pending, fl.params, timings)
+            return OverlapState(fl=fl, pending=state.pending), metrics
+
+        return sync_step
+
+    cluster_levels = _check_cluster_levels(cluster_levels, hcef, C, policy,
+                                           gossip=True)
+    if stale_clusters is None:
+        stale_clusters = tuple(range(C))
+    inner = make_round_step(cfg, hcef, topo, policy, gossip=False,
+                            impl=impl, bits_fn=bits_fn)
+    sparse = policy is not None and hcef.sparse_gossip
+    levels = sorted({float(t) for t in hcef.theta_levels})
+    # the sparse wire at the round's level, or the dense rows (reference
+    # :691-706: theta 1.0 on the f32 wire is the dense-wire fallback)
+    wire_kw = dict(clusters=C, dev=Dev, hkind=topo.backhaul, impl=impl,
+                   chunk_cols=gossip_cols(C), **(
+                       dict(wire_dtype=hcef.wire_dtype,
+                            wire_block=hcef.wire_block) if sparse
+                       else dict(wire_dtype="f32", theta=1.0)))
+    ahead = sparse and len(stale_clusters) == C
+    side_streams = {}  # device -> the side stream of the stale encodes
+
+    def encode_ahead(pending, kw, dev, events):
+        """Every leaf's every chunk's stale payloads, and on the card the
+        event after the side stream's last encode."""
+        if dev.type != "cuda":
+            return {k: stale_payloads(p.view(R, -1), **kw)
+                    for k, p in pending.items()}, None
+        main = torch.cuda.current_stream(dev)
+        side = side_streams.setdefault(dev, torch.cuda.Stream(dev))
+        side.wait_stream(main)  # pending's last refresh
+        with torch.cuda.stream(side), torch.no_grad():
+            _mark(events, "encode_start", dev)
+            pre = {k: stale_payloads(p.view(R, -1), **kw)
+                   for k, p in pending.items()}
+            _mark(events, "encode_end", dev)
+            done = torch.cuda.Event()
+            done.record()
+        for chunks in pre.values():  # made on the side stream, read on main
+            for chunk in chunks:
+                for payload, _ in chunk:
+                    for t in payload:
+                        if t is not None:
+                            t.record_stream(main)
+        return pre, done
+
+    def round_step(state: OverlapState, batch, rho, theta, key,
+                   timings=None, alive=None, alive_w=None, conn=None,
+                   events=None):
+        pending = flatten(state.pending)
+        dev = next(iter(pending.values())).device
+        kw, theta_wire = dict(wire_kw), None
+        if sparse:
+            lv, theta_wire = _wire_level(cluster_levels, levels, theta)
+            kw.update(lv)
+        pre = done = None
+        if ahead:
+            pre, done = encode_ahead(pending, kw, dev, events)
+        fl, metrics = inner(state.fl, batch, rho, theta, key,
+                            timings=timings, alive=alive, alive_w=alive_w,
+                            conn=conn, events=events)
+        conn_h = None if conn is None else np.asarray(conn, np.float32)
+        with _phase_timer(timings, dev)("gossip"), torch.no_grad():
+            if done is not None:
+                torch.cuda.current_stream(dev).wait_event(done)
+            _mark(events, "gossip_start", dev)
+            for k, x0 in flatten(fl.params).items():
+                if pre is not None:
+                    sparse_exchange_(x0.view(R, -1), payloads=pre.pop(k),
+                                     conn=conn_h, **kw)
+                else:
+                    sparse_exchange_(x0.view(R, -1),
+                                     stale=pending[k].view(R, -1),
+                                     stale_clusters=stale_clusters,
+                                     conn=conn_h, **kw)
+            _mark(events, "gossip_end", dev)
+        _refresh_pending(state.pending, fl.params, timings)
+        if theta_wire is not None:
+            metrics["theta_wire"] = torch.tensor(theta_wire,
+                                                 dtype=torch.float32)
+        metrics["stale_frac"] = torch.tensor(len(stale_clusters) / C,
+                                             dtype=torch.float32)
+        return OverlapState(fl=fl, pending=state.pending), metrics
+
+    return round_step
+
+
+def _refresh_pending(pending, params, timings):
+    """pending <- params, leaf by leaf, in place (timed as "pending")."""
+    pend = flatten(pending)
+    dev = next(iter(pend.values())).device
+    with _phase_timer(timings, dev)("pending"), torch.no_grad():
+        for k, p in flatten(params).items():
+            pend[k].copy_(p)

@@ -45,12 +45,19 @@ elementwise passes after the launch add the lost weight to each
 receiver's own mean and keep a partitioned row's own mean.  Masks of all
 ones given as numpy are the unmasked path; ``None`` runs it untouched.
 
+Bounded staleness (DESIGN.md §Overlap contract): with ``stale=`` /
+``stale_clusters=`` the clusters of the set ship their stale-by-1 mean
+(the overlapped engine's ``pending`` buffer) while every self term stays
+the fresh mean.  A chunk's payloads come from ``_chunk_payloads``, so
+``stale_payloads`` can encode every chunk of an all-stale gossip ahead of
+the round's local steps and ``sparse_exchange_(payloads=...)`` mix them
+later, with the in-line path's bits.
+
 The reference runs this on a shard_map mesh; at one shard its layout B
 rotations are these row rolls, and it encodes only a plan's sender rows,
 as here.  Not ported, each raising and naming its ROADMAP.md item: mesh
 ``axes`` (torch.distributed rotations, layouts A and B across ranks, the
-psum fallback, multi-axis) and the overlap engine's ``stale`` /
-``stale_clusters``.
+psum fallback, multi-axis).
 """
 from __future__ import annotations
 
@@ -69,7 +76,6 @@ WIRE_DTYPES = wf.WIRE_DTYPES
 MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path, "
               "multi-rank: torch.distributed rotations, layouts A/B at "
               "n > 1, the psum fallback, multi-axis)")
-_OVERLAP = "ROADMAP.md, modules to port, item 3 (overlap engine)"
 
 
 def _local_only(axes):
@@ -239,7 +245,8 @@ def _wire_plans(sender_levels, L: int, wire_block: int, wire_dtype: str,
 def _on_device(values: tuple, dtype: torch.dtype, device: torch.device):
     """A small host table as a tensor on ``device``, made once: a copy
     from the host to the card waits for the card, so none runs per
-    chunk."""
+    chunk.  That wait also makes a table first built under a side stream
+    whole before any other stream reads it."""
     return torch.as_tensor(values, dtype=dtype, device=device)
 
 
@@ -349,12 +356,57 @@ def _conn_fold(layout: _Layout, conn):
     return tuple(bands), absorbed
 
 
+def _check_stale_set(stale_clusters, C: int) -> tuple:
+    """The stale set as a sorted tuple: a non-empty subset of range(C)."""
+    out = tuple(sorted({int(c) for c in stale_clusters}))
+    if not out or not all(0 <= c < C for c in out):
+        raise ValueError(f"stale_clusters {out} not a non-empty subset of "
+                         f"range({C})")
+    return out
+
+
+def _stale_row_select(fresh, stale_means, stale_clusters):
+    """The rows a chunk ships (reference :741): the stale clusters' stale
+    means, the others' fresh ones.  With every cluster stale the stale
+    rows themselves, which do not depend on this round's local steps."""
+    C = fresh.shape[0]
+    if len(stale_clusters) == C:
+        return stale_means
+    mask = _on_device(tuple(c in stale_clusters for c in range(C)),
+                      torch.bool, fresh.device)
+    return torch.where(mask[:, None], stale_means, fresh)
+
+
+def _chunk_payloads(send, layout: _Layout, *, wb, wire_dtype, dense_dtype,
+                    impl=None):
+    """Each wire plan's payload of a chunk's (C, L) f32 rows ``send``: the
+    encoded sender rows, or for a dense plan the rows in ``dense_dtype``.
+    [(payload, k_b or None for a dense plan)], in the plans' order."""
+    payloads = []
+    for key, rows, _ in layout.plans:
+        if key[0] == "dense":
+            sub = send if rows is None else send.index_select(
+                0, _on_device(rows, torch.long, send.device))
+            payloads.append(((sub.to(dense_dtype).contiguous(),), None))
+        else:
+            payloads.append((tuple(_encode(send, rows, key[1], wb,
+                                           wire_dtype, impl)), key[1]))
+    return payloads
+
+
 def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
-                     wire_ef=None, wire_ef_gamma=1.0, impl=None, conn=None):
+                     wire_ef=None, wire_ef_gamma=1.0, impl=None, conn=None,
+                     stale=None, stale_clusters=None, payloads=None):
     """The gossip on (C, L) f32 cluster means: encode each plan's sender
     rows, then y = diag * means plus, band by band and plan by plan in the
     reference's order, coef * the decoded payload of each row's source
     cluster (``ops.wire_decode_mix``: one launch on the card).
+
+    ``stale`` (C, L) f32 with ``stale_clusters``: the set's rows ship
+    their stale mean (``_stale_row_select``); diag * means, the absorbed
+    weight and a partitioned row's own mean stay fresh (reference :1168).
+    ``payloads``: the chunk's ``_chunk_payloads``, encoded beforehand,
+    in place of the encode.
 
     ``wire_ef = (est_self, est_wsum)``, (C, L) f32: the CHOCO wire error
     feedback.  The payload is ``means - est_self``; each row decodes its
@@ -386,17 +438,14 @@ def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
                              "partitions (sender and receiver estimate "
                              "updates would desync)")
         bands, absorbed = _conn_fold(layout, _host(conn))
-    send = means if wire_ef is None else means - wire_ef[0]
-    payloads = []  # (payload, k_b or None for a dense plan)
-    for key, rows, _ in layout.plans:
-        if key[0] == "dense":
-            sub = send if rows is None else send.index_select(
-                0, _on_device(rows, torch.long, dev))
-            payloads.append(((sub.to(dense_dtype).contiguous(),), None))
-        else:
-            payloads.append((tuple(_encode(send, rows, key[1], wb,
-                                           wire_dtype, impl)), key[1]))
-    del send  # the chunk's scratch: core/round.py:gossip_cols
+    if payloads is None:
+        send = means if wire_ef is None else means - wire_ef[0]
+        if stale is not None:
+            send = _stale_row_select(send, stale, stale_clusters)
+        payloads = _chunk_payloads(send, layout, wb=wb,
+                                   wire_dtype=wire_dtype,
+                                   dense_dtype=dense_dtype, impl=impl)
+        del send  # the chunk's scratch: core/round.py:gossip_cols
     steps = [MixStep(o, tuple(coef), payload, k_b, senders)
              for o, coef in bands
              for (payload, k_b), (_, _, senders) in zip(payloads,
@@ -464,13 +513,56 @@ def _col_chunks(L: int, wb: int, chunk_cols):
     return [(c, min(c + step, L)) for c in range(0, L, step)]
 
 
+def _exchange_layout(L: int, dense_dtype, C: int, *, k, theta,
+                     cluster_theta, hkind, p_edge, seed, wire_block,
+                     wire_dtype):
+    """(layout, wb) of a gossip over rows of L entries."""
+    plans = _level_plans(L, torch.empty((), dtype=dense_dtype)
+                         .element_size(), C, k=k, theta=theta,
+                         cluster_theta=cluster_theta, wire_block=wire_block,
+                         wire_dtype=wire_dtype)
+    return (_gossip_layout(hkind, C, p_edge, seed, tuple(plans)),
+            wf.wire_block_of(L, wire_block))
+
+
+def stale_payloads(stale, *, clusters: int, dev: int, k=None, theta=None,
+                   cluster_theta=None, hkind: str = "ring",
+                   p_edge: float = 0.4, seed: int = 0,
+                   wire_dtype: str = "f32", wire_block: int = 1024,
+                   dense_dtype=None, impl=None,
+                   chunk_cols: Optional[int] = None) -> list:
+    """Every column chunk's payloads of a gossip in which every cluster is
+    stale: ``_chunk_payloads`` of each cluster's row 0 of ``stale`` (R, L)
+    (cluster-uniform rows, the overlapped engine's ``pending``), chunked
+    and planned as ``sparse_exchange_`` does with the same arguments.
+    Nothing here reads this round's means, so the encodes can run
+    before (or beside) the local steps; ``sparse_exchange_(payloads=)``
+    then gives the bits of ``stale=`` with ``stale_clusters`` = all."""
+    C, Dev = clusters, dev
+    R, L = stale.shape
+    if R != C * Dev:
+        raise ValueError(f"{R} rows for {C} clusters x {Dev} devices")
+    dense_dtype = dense_dtype or stale.dtype
+    layout, wb = _exchange_layout(
+        L, dense_dtype, C, k=k, theta=theta, cluster_theta=cluster_theta,
+        hkind=hkind, p_edge=p_edge, seed=seed, wire_block=wire_block,
+        wire_dtype=wire_dtype)
+    sv = stale.view(C, Dev, L)
+    return [_chunk_payloads(sv[:, 0, c0:c1].float(), layout, wb=wb,
+                            wire_dtype=wire_dtype, dense_dtype=dense_dtype,
+                            impl=impl)
+            for c0, c1 in _col_chunks(L, wb, chunk_cols)]
+
+
 def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
                      cluster_theta=None, hkind: str = "ring",
                      p_edge: float = 0.4, seed: int = 0,
                      wire_dtype: str = "f32", wire_block: int = 1024,
                      dense_dtype=None, wire_ef=None,
                      wire_ef_gamma: float = 1.0, impl=None,
-                     chunk_cols: Optional[int] = None, conn=None) -> None:
+                     chunk_cols: Optional[int] = None, conn=None,
+                     stale=None, stale_clusters=None,
+                     payloads=None) -> None:
     """The sparse gossip in place on intra-cluster means.
 
     x: (R, L), contiguous, every device row holding its cluster's mean
@@ -480,28 +572,48 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
     plan ships and what sizes the fallback test.  The leaf runs in column
     chunks of ``chunk_cols`` rounded down to whole wire blocks (None: one
     chunk), the plans decided on the whole row.  ``conn``: (C,) backhaul
-    mask (``_sparse_mix_rows``)."""
+    mask (``_sparse_mix_rows``).  ``stale`` (R, L), cluster-uniform rows,
+    with ``stale_clusters``: the set ships its row 0 of ``stale``;
+    ``payloads``: ``stale_payloads`` of the same leaf and arguments, in
+    place of the encodes (every cluster stale)."""
     C, Dev = clusters, dev
     conn = _conn_or_none(conn)
     R, L = x.shape
     if R != C * Dev:
         raise ValueError(f"{R} rows for {C} clusters x {Dev} devices")
+    if (stale is None) != (stale_clusters is None):
+        raise ValueError("stale= and stale_clusters= go together")
+    if wire_ef is not None and (stale is not None or payloads is not None):
+        raise ValueError("wire_ef is incompatible with stale payloads")
+    if stale is not None:
+        if payloads is not None:
+            raise ValueError("pass stale= or payloads=, not both")
+        stale_clusters = _check_stale_set(stale_clusters, C)
+        if tuple(stale.shape) != (R, L):
+            raise ValueError(f"stale rows {tuple(stale.shape)} for x "
+                             f"{(R, L)}")
     dense_dtype = dense_dtype or x.dtype
-    plans = _level_plans(L, torch.empty((), dtype=dense_dtype)
-                         .element_size(), C, k=k, theta=theta,
-                         cluster_theta=cluster_theta, wire_block=wire_block,
-                         wire_dtype=wire_dtype)
-    wb = wf.wire_block_of(L, wire_block)
-    layout = _gossip_layout(hkind, C, p_edge, seed, tuple(plans))
+    layout, wb = _exchange_layout(
+        L, dense_dtype, C, k=k, theta=theta, cluster_theta=cluster_theta,
+        hkind=hkind, p_edge=p_edge, seed=seed, wire_block=wire_block,
+        wire_dtype=wire_dtype)
+    chunks = _col_chunks(L, wb, chunk_cols)
+    if payloads is not None and len(payloads) != len(chunks):
+        raise ValueError(f"{len(payloads)} chunks of payloads for "
+                         f"{len(chunks)} chunks")
     xv = x.view(C, Dev, L)
     ev = None if wire_ef is None else [e.view(C, Dev, L) for e in wire_ef]
-    for c0, c1 in _col_chunks(L, wb, chunk_cols):
+    sv = None if stale is None else stale.view(C, Dev, L)
+    for i, (c0, c1) in enumerate(chunks):
         means = xv[:, 0, c0:c1].float()
         ef_rows = None if ev is None else tuple(e[:, 0, c0:c1] for e in ev)
-        out = _sparse_mix_rows(means, layout, wb=wb, wire_dtype=wire_dtype,
-                               dense_dtype=dense_dtype, wire_ef=ef_rows,
-                               wire_ef_gamma=wire_ef_gamma, impl=impl,
-                               conn=conn)
+        out = _sparse_mix_rows(
+            means, layout, wb=wb, wire_dtype=wire_dtype,
+            dense_dtype=dense_dtype, wire_ef=ef_rows,
+            wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn,
+            stale=None if sv is None else sv[:, 0, c0:c1].float(),
+            stale_clusters=stale_clusters,
+            payloads=None if payloads is None else payloads[i])
         if ev is not None:
             out, es, ew = out
             ev[0][:, :, c0:c1].copy_(es[:, None])
@@ -534,17 +646,29 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
     ``intra_done`` and a gossip ``hkind``); the return is then (y,
     est_self+, est_wsum+).  ``impl`` routes the wire ops.  ``alive`` /
     ``conn``: the masks of ``mix_local`` (``alive`` premultiplies raw
-    rows; ``intra_done`` rows are already masked means).  Returns the
-    mixed rows, delta's shape and type."""
+    rows; ``intra_done`` rows are already masked means).  ``stale``
+    (shaped like delta, cluster-uniform rows) and ``stale_clusters`` (a
+    non-empty subset of range(C)), both or neither, need ``intra_done``:
+    the set's clusters ship their ``stale`` row, the self terms stay
+    fresh (bounded-stale gossip).  Returns the mixed rows, delta's shape
+    and type."""
     _local_only(axes)
     conn = _conn_or_none(conn)
-    if stale is not None or stale_clusters is not None:
-        raise NotImplementedError(f"stale= payloads are not ported yet: "
-                                  f"{_OVERLAP}")
+    C, Dev = clusters, dev
+    if (stale is None) != (stale_clusters is None):
+        raise ValueError("stale= and stale_clusters= go together")
+    if stale is not None:
+        if not intra_done:
+            raise ValueError("stale= requires intra_done=True rows")
+        stale_clusters = _check_stale_set(stale_clusters, C)
     if wire_ef is not None:
         if not intra_done:
             raise ValueError("wire_ef requires intra_done=True rows (the "
                              "estimates track per-cluster means)")
+        if stale is not None:
+            raise ValueError("wire_ef is incompatible with stale= payloads "
+                             "(neighbors' estimates would advance on a "
+                             "buffer the sender's estimate never saw)")
         if hkind == "none":
             raise ValueError("wire_ef requires a gossip hkind (no wire to "
                              "feed back on)")
@@ -556,7 +680,6 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
                              "updates would desync)")
     if alive is not None and not intra_done:
         delta = _alive_premultiply(delta, alive)
-    C, Dev = clusters, dev
     if hkind == "none":
         return mix_local(delta, clusters=C, dev=Dev, hkind="none")
     R = delta.shape[0]
@@ -578,7 +701,8 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
     sparse_exchange_(x, clusters=C, dev=Dev, hkind=hkind, p_edge=p_edge,
                      seed=seed, dense_dtype=delta.dtype, wire_ef=est,
                      wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn,
-                     **level_kw)
+                     stale=None if stale is None else stale.reshape(R, L),
+                     stale_clusters=stale_clusters, **level_kw)
     y = x.to(delta.dtype).reshape(delta.shape)
     if est is None:
         return y

@@ -53,8 +53,18 @@ under ==; ``runtime/elastic.verified_swap``, as FedSim's
 ``verify_conservation``), prints them and keeps them in the round's
 record; their host time is left out of the round's wall time.
 
+``--overlap`` runs the overlapped engine (``core/round.
+make_overlap_round_step``) at ``--staleness`` (1 by default; 0 is the
+synchronous program's bits): each gossip round the clusters whose gossip
+does not fit before the ``--stale-quantile`` straggler deadline run stale
+(``fl.cost_model.decide_stale_clusters``, over the live devices under
+chaos), the round is charged by ``overlap_round_time`` when that set is
+not empty, and the round line gains stale=k/C.  The steps are kept by
+(gossip, stale set); cohort swaps and chaos act on the working buffer,
+and ``pending`` stays on the mesh.
+
 Not ported, each exits naming its ROADMAP.md item: ``--mesh
-single|multi`` (more than one rank), the overlap engine and checkpoints.
+single|multi`` (more than one rank) and checkpoints.
 """
 from __future__ import annotations
 
@@ -73,14 +83,17 @@ from repro_torch.configs import ARCH_IDS, get_config, smoke_model
 from repro_torch.configs.base import FLTopology
 from repro_torch.core.compression import quantize_theta
 from repro_torch.core.controller import BudgetState, population_energy_caps
-from repro_torch.core.round import (client_template, init_state,
+from repro_torch.core.round import (client_template, init_overlap_state,
+                                    init_state, make_overlap_round_step,
                                     make_round_step, split_state)
 from repro_torch.data.synthetic import client_token_shard, synthetic_tokens
 from repro_torch.device import resolve
 from repro_torch.dist.collectives import MULTI_RANK, participation_weights
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
-from repro_torch.fl.cost_model import (per_device_energy, per_device_time,
-                                       round_energy, round_time)
+from repro_torch.fl.cost_model import (decide_stale_clusters,
+                                       overlap_round_time, per_device_energy,
+                                       per_device_time, round_energy,
+                                       round_time)
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.lm import param_count
@@ -90,10 +103,8 @@ from repro_torch.runtime.elastic import cohort_swap, verified_swap
 from repro_torch.runtime.population import PopulationStore
 from repro_torch.tree import flatten
 
-_OVERLAP = "ROADMAP.md, modules to port, item 3 (overlap engine)"
 # flag -> where it is ported; giving any of them exits
 NOT_PORTED = {
-    "overlap": _OVERLAP, "staleness": _OVERLAP, "stale_quantile": _OVERLAP,
     "ckpt_dir": "ROADMAP.md, modules to port, item 7 (smokes and "
                 "launchers: train checkpoints)",
 }
@@ -140,17 +151,24 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--verify-conservation", action="store_true",
                     help="check that every cohort swap keeps the "
                          "population's EF and state sums")
-    ap.add_argument("--overlap", action="store_true", default=None,
-                    help="not ported")
-    for flag in ("--staleness", "--stale-quantile", "--ckpt-dir"):
-        ap.add_argument(flag, default=None, help="not ported")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlapped round engine: stale clusters ship "
+                         "their start-of-round model (bounded staleness)")
+    ap.add_argument("--staleness", type=int, default=1, choices=[0, 1],
+                    help="with --overlap: 0 is the synchronous program, 1 "
+                         "lets behind clusters ship their stale-by-1 model")
+    ap.add_argument("--stale-quantile", type=float, default=0.9,
+                    help="straggler-deadline quantile deciding which "
+                         "clusters run stale on gossip rounds")
+    ap.add_argument("--ckpt-dir", default=None, help="not ported")
     return ap
 
 
 def main(argv=None):
     """Run the launcher; returns {"history", "round_ms", "timings",
     "n_params", "cfg", "peak_mem_gb", "swap_bytes", "pop_store",
-    "cohort_ids", "state"}.  ``pop_store`` is None where its pages were
+    "cohort_ids", "state"} (``state`` an ``OverlapState`` with
+    ``--overlap``).  ``pop_store`` is None where its pages were
     in a temporary directory, removed before the return."""
     ap = parser()
     args = ap.parse_args(argv)
@@ -162,11 +180,12 @@ def main(argv=None):
     bundle = get_config(args.arch)
     cfg = smoke_model(bundle.model) if args.smoke else bundle.model
     hcef = bundle.hcef
-    if args.sparse_gossip or args.wire_dtype or args.wire_ef:
+    if args.sparse_gossip or args.wire_dtype or args.wire_ef or args.overlap:
         hcef = dataclasses.replace(
             hcef, sparse_gossip=hcef.sparse_gossip or args.sparse_gossip,
             wire_dtype=args.wire_dtype or hcef.wire_dtype,
-            wire_ef=hcef.wire_ef or args.wire_ef)
+            wire_ef=hcef.wire_ef or args.wire_ef, overlap=args.overlap,
+            staleness=args.staleness if args.overlap else 0)
     topo = FLTopology(clusters=2, devices_per_cluster=2)
     R = topo.num_devices
     if args.population and args.population < R:
@@ -185,10 +204,25 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params0 = get_model(cfg).init(cfg, gen, device=dev)
     n_params = param_count(params0)
-    state = init_state(cfg, hcef, topo, params0, device=dev)
+    state = (init_overlap_state if hcef.overlap else init_state)(
+        cfg, hcef, topo, params0, device=dev)
     del params0
-    steps = {g: make_round_step(cfg, hcef, topo, gossip=g)
-             for g in (False, True)}
+    # the working buffer: the state of the synchronous engine, the
+    # overlapped engine's fl
+    fl = lambda: state.fl if hcef.overlap else state
+    steps = {}  # (gossip, stale set) -> step
+
+    def get_step(gossip, stale):
+        if (gossip, stale) not in steps:
+            steps[gossip, stale] = (
+                make_overlap_round_step(cfg, hcef, topo, gossip=gossip,
+                                        stale_clusters=stale)
+                if hcef.overlap else make_round_step(cfg, hcef, topo,
+                                                     gossip=gossip))
+        return steps[gossip, stale]
+
+    for g in (False, True):  # the configuration's errors raise here
+        get_step(g, None)
     controller = make_controller(args.controller, hcef.tau,
                                  theta_min=hcef.theta_min,
                                  rho_min=hcef.rho_min)
@@ -208,7 +242,7 @@ def main(argv=None):
         else:
             tmp = tempfile.TemporaryDirectory(prefix="pop_store_")
             root = Path(tmp.name)
-        tmpl = client_template(state)
+        tmpl = client_template(fl())
         pop_store = PopulationStore(args.population, tmpl, root=root,
                                     resident_max=4 * R)
         client_bytes = sum(t.numel() * t.element_size()
@@ -255,7 +289,7 @@ def main(argv=None):
         old_ids = cohort_ids
         new_ids = (het.sample_cohort(rnd, R, seed=args.cohort_seed)
                    if args.population > R else np.arange(R, dtype=np.int64))
-        _, client = split_state(state)
+        _, client = split_state(fl())
 
         def move():
             if dev.type == "cuda":
@@ -320,6 +354,13 @@ def main(argv=None):
                                      for d in range(R)])
         else:
             tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+        stale = None
+        if hcef.overlap and hcef.staleness and gossip:
+            # the clusters whose gossip does not fit before the deadline
+            stale = decide_stale_clusters(
+                rho, theta, reports.mu, reports.nu, hcef.tau, cluster_of,
+                backhaul=het.backhaul_time(), alive=alive0,
+                quantile=args.stale_quantile, **wire_kw)
         faults = alive = conn = None
         masks = {}
         if plan is not None:
@@ -335,13 +376,15 @@ def main(argv=None):
                                  alive, clusters=topo.clusters,
                                  dev=topo.devices_per_cluster),
                              conn=conn.astype(np.float32))
-        state, m = steps[gossip](state, {"tokens": torch.from_numpy(tokens)},
-                                 rho, theta, 1000 + rnd, timings=timings,
-                                 **masks)
-        t, _ = round_time(rho, theta, reports.mu, reports.nu, hcef.tau,
-                          cluster_of, gossip=gossip,
-                          backhaul=het.backhaul_time(), alive=alive,
-                          conn=conn, **wire_kw)
+        state, m = get_step(gossip, stale)(
+            state, {"tokens": torch.from_numpy(tokens)}, rho, theta,
+            1000 + rnd, timings=timings, **masks)
+        # a stale cluster's gossip runs during its local steps
+        t, _ = (overlap_round_time if stale else round_time)(
+            rho, theta, reports.mu, reports.nu, hcef.tau, cluster_of,
+            gossip=gossip, backhaul=het.backhaul_time(), alive=alive,
+            conn=conn, **(dict(stale_clusters=stale) if stale else {}),
+            **wire_kw)
         e = round_energy(rho, theta, reports.mu, reports.nu, reports.alpha,
                          reports.p, hcef.tau, alive=alive, **wire_kw)
         if pop_store is not None:
@@ -367,6 +410,9 @@ def main(argv=None):
             extra += (f" cohort[{int(cohort_ids.min())}.."
                       f"{int(cohort_ids.max())}] "
                       f"res={pop_store.resident_count}")
+        if stale is not None:
+            rec["stale"] = list(stale)
+            extra += f" stale={len(stale)}/{topo.clusters}"
         if faults is not None:
             rec.update(participation=faults.participation,
                        n_deadline_missed=faults.n_deadline_missed,

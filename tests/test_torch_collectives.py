@@ -220,10 +220,12 @@ def test_argument_validation():
     with pytest.raises(ValueError, match="entries"):
         tcol.sparse_neighbor_exchange(tx, clusters=C, dev=DEV,
                                       cluster_theta=(0.5, 0.5))
-    for kw, item in ((dict(axes=("data",)), "item 5"),
-                     (dict(stale=tx, stale_clusters=(0,)), "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcol.sparse_neighbor_exchange(tx, **base, **kw)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tcol.sparse_neighbor_exchange(tx, axes=("data",), **base)
+    # the stale payloads are ported, with the reference's own checks
+    with pytest.raises(ValueError, match="intra_done"):
+        tcol.sparse_neighbor_exchange(tx, stale=tx, stale_clusters=(0,),
+                                      **base)
     # the degraded-mode masks are ported: all links up is the unmasked
     # mix, and a partition with the wire EF raises as in the reference
     assert torch.equal(

@@ -185,9 +185,10 @@ def test_final_state_matches_reference(histories, field):
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    for kw in (dict(overlap=True), dict(staleness=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            HCEFConfig(**kw)
+    # the overlap options are ported, with the reference's own checks
+    HCEFConfig(overlap=True, staleness=1)
+    with pytest.raises(ValueError, match="requires overlap"):
+        HCEFConfig(staleness=1)
     # the wire options are ported, with the reference's own checks
     with pytest.raises(ValueError, match="sparse_gossip"):
         HCEFConfig(wire_ef=True)

@@ -29,7 +29,6 @@ def test_launcher_runs_the_smoke_round_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--stale-quantile", "0.5"], ["--overlap"], ["--staleness", "0"],
     ["--ckpt-dir", "x"], ["--mesh", "single"], ["--mesh", "multi"]])
 def test_unported_options_exit_naming_the_roadmap(flag, capsys):
     with pytest.raises(SystemExit) as exc:
