@@ -28,8 +28,11 @@ Phases (any failure ends the run with a non-zero exit):
    also at the host's pace (``call_ms``);
 4. the serving path: first a small f32 model's prefill and decode steps on
    the card (kernels) must give the CPU's logits (plain versions) within
-   1e-4; then qwen2-7b at full width (bf16, seeded random weights)
-   serves 16 Poisson requests, with every launch counted;
+   1e-4, each decode layer's FFN half replayed as a CUDA graph on the
+   card as the engine runs it; the graphed decode step against the eager
+   one at qwen2-7b's width with 2 layers (phase 26's check); then
+   qwen2-7b at full width (bf16, seeded random weights) serves 16
+   Poisson requests, with every launch counted;
 5. top-k compression kernel vs its plain version, bit for bit (int32 /
    int16 views): the reference's test grid in f32 and bf16 with ef absent,
    of x's type and f32; an all-zero block, tied magnitudes, theta = 1 and
@@ -209,13 +212,38 @@ Phases (any failure ends the run with a non-zero exit):
    program the first encode starts after it), the gossip phase's ms and
    the stale payloads' bytes printed; then the train launcher off the
    mesh with ``--overlap --staleness 1`` (round 4's stale set
-   LAUNCHER_STALE_SET gated, phase 16's launch counts, p50, peak).
+   LAUNCHER_STALE_SET gated, phase 16's launch counts, p50, peak);
+24. the MoE layer (``models/lm.py:_moe_ffn``, plain PyTorch: routing,
+   capacity, gather dispatch and combine, the expert GEMMs in ``bmm``):
+   phase 15's three rounds on the smoke granite-moe-1b-a400m, card
+   against CPU in lockstep (each round starts the CPU from the card's
+   state), within ROUND_RTOL / ROUND_ATOL, the f32 attention kernels
+   counted; then ``_moe_ffn`` at granite's training layer (B 2, S 2048,
+   bf16) forward and backward twice on the same inputs, the same bits,
+   its card ms forward and backward and the share of assignments
+   capacity dropped, printed;
+25. phase 16 on granite-moe-1b-a400m at full width and depth (24 layers,
+   32 experts, top 8, 1,334,887,424 parameters; R = 4 in 2 x 2, tau = q
+   = 4, 2 x 2048 tokens a step), LM_ROUNDS rounds: phase 16's gates (two
+   attention forwards and one backward a layer and step, the top-k
+   launches a round, p50 and peak); then one local step of its round
+   traced as the launchers' ``--profile`` traces: the device's busy
+   share and its kernels by time;
+26. the decode step with each layer's FFN half replayed as a CUDA graph
+   (``lm.DecodeGraphs``, as the engine runs it on the card) against the
+   eager step, at granite's width with 2 layers: logits and pages within
+   the bf16 tolerance, the paged decode kernel launched eagerly in both;
+   then phase 4's serve on granite-moe-1b-a400m at full width (bf16,
+   random weights; the stream's prompts taken into its vocabulary):
+   finite logits, every request complete, the attention launches a layer
+   and call, TPOT p50 against TPOT_LIMIT_MS (gated), TTFT p99 printed.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -625,7 +653,8 @@ class Recorder:
 
 def small_path_agrees(lm, configs):
     """prefill_paged + 5 decode_step_paged of a small f32 qwen2-shaped model
-    on the card (kernels) against the same calls on the CPU (plain
+    on the card (kernels, each decode layer's FFN half replayed as a CUDA
+    graph as the engine runs it) against the same calls on the CPU (plain
     versions, which the CPU tests hold to the JAX package), fed the same
     tokens: logits within 1e-4.  One decode slot is empty (kv_len 0)."""
     cfg = configs.smoke_model(configs.get_config("qwen2_7b").model)
@@ -633,6 +662,8 @@ def small_path_agrees(lm, configs):
     on_gpu = {k: ({n: w.cuda() for n, w in v.items()}
                   if isinstance(v, dict) else v.cuda())
               for k, v in params.items()}
+    on_gpu = dict(on_gpu, layers=lm.layer_list(on_gpu))  # as the engine
+    graphs = {"cpu": None, "cuda": lm.DecodeGraphs()}
     rng = np.random.default_rng(1)
     B, ps, P, S = 4, 16, 4, 32
     NP = 1 + B * P
@@ -654,10 +685,11 @@ def small_path_agrees(lm, configs):
     tok = torch.cat([tok, torch.zeros(1, dtype=tok.dtype)])
     for _ in range(5):
         for dev, run in runs.items():
-            logits, run[1] = lm.decode_step_paged(
-                cfg, run[0], run[1], tok[:, None].to(dev),
-                torch.as_tensor(table, device=dev),
-                torch.as_tensor(kv_len, device=dev))
+            with torch.inference_mode():
+                logits, run[1] = lm.decode_step_paged(
+                    cfg, run[0], run[1], tok[:, None].to(dev),
+                    torch.as_tensor(table, device=dev),
+                    torch.as_tensor(kv_len, device=dev), graphs=graphs[dev])
             run[2].append(logits.cpu())
         tok = torch.argmax(runs["cpu"][2][-1][:, -1], -1)
         kv_len[:3] += 1
@@ -669,22 +701,42 @@ def small_path_agrees(lm, configs):
         fail("the serving path on the card disagrees with the CPU path")
 
 
-def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests):
-    """Serve ``reqs`` with qwen2-7b at full width; check and print the
-    serve's numbers; return the kernels' launch counts of that serve."""
+def serve_requests(poisson_requests, cfg, vocab):
+    """Phase 4's stream: 16 Poisson requests at 50 req/s, prompts of
+    16-512 tokens drawn in ``vocab`` (qwen2-7b's) and taken into
+    ``cfg``'s vocabulary, 16-64 tokens out, seed 0."""
+    reqs = poisson_requests(16, 50.0, 512, 64, vocab, seed=0, min_prompt=16,
+                            min_new=16)
+    return [dataclasses.replace(r, prompt=r.prompt % cfg.vocab_size)
+            for r in reqs]
+
+
+def serve_engine(lm, engine_mod, cfg, poisson_requests):
+    """The engine phases 4 and 26 serve with: ``cfg`` at full width with
+    seeded random weights, SLOTS decode slots, pages of PAGE, after one
+    warm-up serve (cuBLAS handles, allocator pools, the decode graphs)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = lm.init(cfg, gen, device="cuda")
     torch.cuda.synchronize()
     n_params = lm.param_count(params)
-    print(f"qwen2-7b full width: {n_params} params "
+    print(f"{cfg.name} full width: {n_params} params "
           f"({n_params * 2 / 1e9:.2f} GB bf16) initialised in "
           f"{time.perf_counter() - t0:.1f} s")
     eng = engine_mod.Engine(cfg, params, device="cuda",
                             paged=engine_mod.PagedConfig(page_size=PAGE,
                                                          max_slots=SLOTS))
-    # warm-up: cuBLAS handles, allocator pools (not measured or counted)
     eng.serve(poisson_requests(2, 1e6, 32, 4, cfg.vocab_size, seed=7))
+    return eng
+
+
+def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests,
+               tpot_limit_ms=None):
+    """Serve ``reqs`` with ``cfg`` (qwen2-7b in phase 4, granite in phase
+    26) at full width; check and print the serve's numbers, failing on a
+    TPOT p50 over ``tpot_limit_ms`` where given; return the kernels'
+    launch counts of that serve."""
+    eng = serve_engine(lm, engine_mod, cfg, poisson_requests)
     rec = Recorder(eng.model)
     eng.model = rec
     torch.cuda.synchronize()
@@ -729,7 +781,13 @@ def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests):
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  prompt_lens=[len(r.prompt) for r in reqs],
                  max_new=[r.max_new_tokens for r in reqs])
-    print("serve " + json.dumps(stats))
+    print(f"serve {cfg.name} " + json.dumps(stats))
+    if tpot_limit_ms is not None:
+        p50 = stats["tpot_p50_ms"]
+        print(f"{cfg.name} TPOT p50 {p50:.2f} ms against {tpot_limit_ms} ms;"
+              f" TTFT p99 {stats['ttft_p99_ms']:.1f} ms (not gated)")
+        if not p50 <= tpot_limit_ms:
+            fail(f"{cfg.name} TPOT p50 {p50:.2f} ms over {tpot_limit_ms} ms")
     return launches
 
 
@@ -2622,15 +2680,18 @@ def attention_bwd_phase(fa, build):
 LM_ROUNDS = 4  # phase 16: q = 4, round 4 gossips
 
 
-def small_lm_round_agrees(configs, lm, rnd_mod, base, fa):
-    """Three rounds (the last a gossip round) of the smoke smollm's round
+def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
+                          arch="smollm_135m", lockstep=False):
+    """Three rounds (the last a gossip round) of ``arch``'s smoke round
     step (f32, 2 layers, S 65, 2 x 2, tau 4) on the card (the f32
     attention kernels, forward and backward) and on the CPU (the plain
     version under autograd), from the same parameters, tokens, controls
     and bits: losses, statistics and parameters within ROUND_RTOL /
-    ROUND_ATOL."""
-    from repro_torch.tree import flatten
-    cfg = configs.smoke_model(configs.get_config("smollm_135m").model)
+    ROUND_ATOL.  With ``lockstep`` each round starts the CPU from the
+    card's state, so that a routing or top-k flip does not carry on into
+    the later rounds, and the parameters are compared after every round."""
+    from repro_torch.tree import flatten, tree_map
+    cfg = configs.smoke_model(configs.get_config(arch).model)
     hcef = base.HCEFConfig(tau=4, q=3, eta=0.1)
     topo = base.FLTopology(2, 2)
     params0 = lm.init(cfg, torch.Generator().manual_seed(5), device="cpu")
@@ -2639,62 +2700,78 @@ def small_lm_round_agrees(configs, lm, rnd_mod, base, fa):
               for _ in range(3)]
     rho = np.array([0.9, 0.6, 0.8, 0.7])
     theta = np.array([0.5, 0.25, 1.0, 0.1])
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        fa.reset_launches()
-        state = rnd_mod.init_state(cfg, hcef, topo, params0, device=dev)
-        hist = []
-        for r in range(3):
-            step = rnd_mod.make_round_step(cfg, hcef, topo, gossip=r == 2)
-            state, m = step(state, {"tokens": tokens[r]}, rho, theta, 7 + r)
-            hist.append({k: v.cpu().numpy() for k, v in m.items()})
-        runs[dev] = (hist, {k: v.cpu() for k, v in
-                            flatten(state.params).items()},
-                     dict(fa.LAUNCHES))
+    states = {d: rnd_mod.init_state(cfg, hcef, topo, params0, device=d)
+              for d in ("cpu", "cuda")}
+    hist = {d: [] for d in states}
+    launches = {d: {} for d in states}
+    to_cpu = lambda t: None if t is None else tree_map(  # noqa: E731
+        lambda x: x.to("cpu", copy=True), t)
+    perr = 0.0
+    for r in range(3):
+        if lockstep and r:
+            c = states["cuda"]
+            states["cpu"] = c._replace(params=to_cpu(c.params),
+                                       momentum=to_cpu(c.momentum),
+                                       ef=to_cpu(c.ef))
+        step = rnd_mod.make_round_step(cfg, hcef, topo, gossip=r == 2)
+        for d in states:
+            fa.reset_launches()
+            states[d], m = step(states[d], {"tokens": tokens[r]}, rho, theta,
+                                7 + r)
+            hist[d].append({k: v.cpu().numpy() for k, v in m.items()})
+            for k, v in fa.LAUNCHES.items():
+                launches[d][k] = launches[d].get(k, 0) + v
+        if lockstep or r == 2:
+            want = flatten(states["cpu"].params)
+            perr = max(perr, max(float((v.cpu() - want[k]).abs().max())
+                                 for k, v in flatten(
+                                     states["cuda"].params).items()))
     worst = 0.0
-    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+    for a, b in zip(hist["cuda"], hist["cpu"]):
         for k in ("loss", "g2", "sigma2"):
             worst = max(worst, float(np.max(np.abs(a[k] - b[k])
                                             / np.abs(b[k]))))
         if not np.array_equal(a["steps"], b["steps"]):
-            fail("the card's LM round drew other masked-step bits")
-    perr = max(float((runs["cuda"][1][k] - v).abs().max())
-               for k, v in runs["cpu"][1].items())
+            fail(f"the card's {arch} round drew other masked-step bits")
     steps = 3 * topo.num_devices * hcef.tau * cfg.num_layers  # no remat
     want = {"flash_attention": steps, "flash_attention_bwd": steps,
             "paged_decode_attention": 0}
-    print(f"smollm small round: card vs CPU over 3 rounds, largest relative "
-          f"deviation of loss/g2/sigma2 {worst:.3e} (tolerance {ROUND_RTOL}),"
-          f" largest parameter deviation {perr:.3e} (tolerance "
-          f"{ROUND_ATOL}); card launches {runs['cuda'][2]}, CPU launches "
-          f"{runs['cpu'][2]}")
-    if runs["cuda"][2] != want or any(runs["cpu"][2].values()):
-        fail(f"the LM round's attention launches: card {runs['cuda'][2]} "
-             f"(expected {want}), CPU {runs['cpu'][2]} (expected none)")
+    print(f"{arch} small round{' (lockstep)' if lockstep else ''}: card vs "
+          f"CPU over 3 rounds, largest relative deviation of loss/g2/sigma2 "
+          f"{worst:.3e} (tolerance {ROUND_RTOL}), largest parameter "
+          f"deviation {perr:.3e} (tolerance {ROUND_ATOL}); card launches "
+          f"{launches['cuda']}, CPU launches {launches['cpu']}")
+    if launches["cuda"] != want or any(launches["cpu"].values()):
+        fail(f"the {arch} round's attention launches: card "
+             f"{launches['cuda']} (expected {want}), CPU {launches['cpu']} "
+             f"(expected none)")
     if not (worst <= ROUND_RTOL and perr <= ROUND_ATOL):
-        fail("the LM round step on the card disagrees with the CPU")
+        fail(f"the {arch} round step on the card disagrees with the CPU")
 
 
-def lm_topk_launches(configs, lm, tk):
-    """Top-k launches a round of smollm-135M: one per (parameter type, EF
-    type) pair of its leaves; one layer tells, as for mamba2."""
+def lm_topk_launches(configs, lm, tk, arch="smollm_135m"):
+    """Top-k launches a round of ``arch`` at full width: one per
+    (parameter type, EF type) pair of its leaves; one layer tells, as for
+    mamba2."""
     from repro_torch.tree import flatten
-    cfg = configs.get_config("smollm_135m").model.replace(num_layers=1)
+    cfg = configs.get_config(arch).model.replace(num_layers=1)
     leaves = list(flatten(lm.init(cfg, seed=0, device="cuda")).values())
     n = topk_launches(leaves, leaves, tk)
-    print(f"smollm top-k: {len(leaves)} leaves of types "
+    print(f"{arch} top-k: {len(leaves)} leaves of types "
           f"{sorted({str(x.dtype) for x in leaves})}: {n} launches a round")
     del leaves
     torch.cuda.empty_cache()
     return n
 
 
-def lm_full(train, fa, tk, topk_per_round):
-    """Phase 16: the launcher's entry point on smollm-135M at full width
-    and depth (30 layers, bf16, remat; R = 4 in 2 x 2, tau = q = 4; 2 x
-    2048 tokens a step): every attention launch, forward and backward, and
-    every top-k launch counted, the run's numbers checked."""
-    argv = ["--arch", "smollm_135m", "--full", "--rounds", str(LM_ROUNDS),
+def lm_full(train, fa, tk, topk_per_round, arch="smollm_135m"):
+    """Phases 16 and 25: the launcher's entry point on ``arch`` at full
+    width and depth (smollm-135M's 30 layers, granite-moe-1b-a400m's 24;
+    bf16, remat; R = 4 in 2 x 2, tau = q = 4; 2 x 2048 tokens a step):
+    every attention launch, forward and backward, and every top-k launch
+    counted, the run's numbers checked, round p50 and peak gated."""
+    name = arch.split("_")[0]
+    argv = ["--arch", arch, "--full", "--rounds", str(LM_ROUNDS),
             "--seq", "2047"]
     print("python -m repro_torch.launch.train " + " ".join(argv))
     torch.cuda.empty_cache()
@@ -2737,12 +2814,14 @@ def lm_full(train, fa, tk, topk_per_round):
                  time_s=hist[-1]["time"], energy_j=hist[-1]["energy"],
                  peak_mem_gb=out["peak_mem_gb"],
                  peak_limit_gb=PEAK_LIMIT_GB)
-    print("smollm " + json.dumps(stats))
-    print(f"smollm round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
+    print(f"{name} " + json.dumps(stats))
+    print(f"{name} round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
           f"({'met' if p50 <= LM_ROUND_LIMIT_MS else 'missed'}); peak "
           f"{out['peak_mem_gb']:.2f} GB against {PEAK_LIMIT_GB} GB")
     if out["peak_mem_gb"] > PEAK_LIMIT_GB:
         fail(f"peak {out['peak_mem_gb']:.2f} GB over {PEAK_LIMIT_GB} GB")
+    if p50 > LM_ROUND_LIMIT_MS:
+        fail(f"{name} round p50 {p50:.1f} ms over {LM_ROUND_LIMIT_MS} ms")
     return launches
 
 
@@ -3841,6 +3920,165 @@ def lm_overlap_launcher(train, fa, tk, wp, wf, rnd_mod, topk_per_round):
     return launches, wire
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: the MoE family (granite-moe-1b-a400m)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite_moe_1b_a400m"
+MOE_LAYER = dict(B=2, S=2048)  # phase 24: granite's training layer
+TPOT_LIMIT_MS = 50.0  # phase 26: >= 20 tokens/s a request (phase 4's limit)
+
+
+def moe_layer_phase(configs, lm):
+    """Phase 24's layer: ``lm._moe_ffn`` at granite-moe-1b-a400m's
+    training shape (B 2, S 2048, d_model 1024, 32 experts of width 512,
+    top 8, bf16; weights of a seeded ``init``), forward and backward twice
+    on the same inputs: the same bits (the routing is a stable sort, the
+    dispatch's gradients gathers summed in k order), finite; its card ms
+    forward and backward (CUDA events, L2 flushed) beside the expert
+    GEMMs' bound, and the share of assignments capacity dropped."""
+    cfg = configs.get_config(MOE_ARCH).model
+    B, S = MOE_LAYER["B"], MOE_LAYER["S"]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    layer = lm.init(cfg.replace(num_layers=1), gen, device="cuda")["layers"]
+    w = {k: layer[k][0].detach().requires_grad_()
+         for k in ("router", "we_gate", "we_up", "we_down")}
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    dy = 1e-2 * torch.randn(x.shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+    inputs = [x] + list(w.values())
+
+    def fwd_bwd():
+        y = lm._moe_ffn(cfg, x, w)
+        return [y] + list(torch.autograd.grad(y, inputs, dy))
+
+    a, b = fwd_bwd(), fwd_bwd()
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in a):
+        fail("non-finite MoE layer output or gradient")
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    route = lm._moe_route(cfg, x.detach(), w["router"])
+    kept = int(route.ok.sum())
+    A = B * S * cfg.experts_per_token
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.d_ff
+    rows = E * B * route.cap  # the expert GEMMs' padded rows
+    gemm_flops = 3 * 2 * rows * D * F  # gate, up, down
+    fwd_ms = time_ms(lambda: lm._moe_ffn(cfg, x, w), iters=10)
+    y = lm._moe_ffn(cfg, x, w)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(y, inputs, dy,
+                                                 retain_graph=True), iters=10)
+    stats = dict(B=B, S=S, d_model=D, experts=E, top_k=cfg.experts_per_token,
+                 d_ff=F, cap=route.cap, assignments=A, kept=kept,
+                 dropped_share=1 - kept / A, padded_rows=rows,
+                 same_bits_twice=same, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                 gemm_fwd_bound_ms=bound(gemm_flops, 0, torch.bfloat16)[0],
+                 gemm_bwd_bound_ms=bound(2 * gemm_flops, 0,
+                                         torch.bfloat16)[0])
+    print("moe_layer " + json.dumps(stats))
+    if not same:
+        fail("the MoE layer's forward and backward differ between two runs "
+             "on the same inputs")
+
+
+def decode_graphs_agree(lm, fa, cfg):
+    """Phases 4 and 26's check of ``lm.DecodeGraphs``: three decode steps
+    of ``cfg`` at full width with 2 layers (8 slots, ragged lengths, one
+    empty), with each layer's FFN half replayed as a CUDA graph and run
+    eagerly, from the same cache: logits and the written pages within the
+    bf16 tolerance (the same bits printed), and the paged decode kernel
+    launched eagerly, once a layer and step, in both."""
+    cfg = cfg.replace(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    params = lm.init(cfg, gen, device="cuda")
+    params = dict(params, layers=lm.layer_list(params))
+    B, P = SLOTS, 8
+    cache0 = lm.init_paged_cache(cfg, 1 + B * P, PAGE, device="cuda")
+    for t in cache0.values():
+        t.normal_(generator=gen)
+    table = torch.arange(1, 1 + B * P, dtype=torch.int32,
+                         device="cuda").view(B, P)
+    kv_len = torch.tensor([3, 17, 40, 64, 90, 100, 111, 0],
+                          dtype=torch.int32, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                           device="cuda")
+    runs = {}
+    for mode, graphs in (("eager", None), ("graphs", lm.DecodeGraphs())):
+        cache = {k: v.clone() for k, v in cache0.items()}
+        fa.reset_launches()
+        with torch.inference_mode():
+            logits = [lm.decode_step_paged(cfg, params, cache, tokens, table,
+                                           kv_len + i, graphs=graphs)[0]
+                      for i in range(3)]
+        torch.cuda.synchronize()
+        runs[mode] = (torch.stack(logits), cache,
+                      fa.LAUNCHES["paged_decode_attention"])
+    (le, ce, ne), (lg, cg, ng) = runs["eager"], runs["graphs"]
+    err, ok = max_err(lg, le, dict(atol=2e-2, rtol=2e-2))
+    same = torch.equal(lg, le) and all(torch.equal(cg[k], ce[k])
+                                       for k in ce)
+    print(f"decode graphs: {cfg.name} 2 layers, 3 steps: max |logit diff| "
+          f"{err:.3e}, the same bits {same}; paged decode launches "
+          f"{ng} with graphs, {ne} eager")
+    if not (ok and all(torch.allclose(cg[k].float(), ce[k].float(),
+                                      atol=2e-2, rtol=2e-2) for k in ce)):
+        fail("the decode step with CUDA graphs disagrees with the eager one")
+    if not ng == ne == 3 * cfg.num_layers:
+        fail(f"paged decode launches {ng} / {ne}, expected "
+             f"{3 * cfg.num_layers}")
+
+
+def moe_profile(configs, lm, rnd_mod, profiling):
+    """Phase 25's trace: one local step of granite's round at full width
+    (what ``device_round`` does for a device tau times a round: forward
+    and backward under remat over the per-layer leaves, the gradients'
+    norm, the in-place SGD update with f32 momentum; B 2, S 2048),
+    traced with the launchers' ``--profile`` (CPU and CUDA activity):
+    the device's busy share and its kernels by time.  One step, not a
+    round: a traced round's 220k device events take the profiler about
+    two minutes to read."""
+    from repro_torch.optim.sgd import sgd_update_
+    cfg = configs.get_config(MOE_ARCH).model
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    leaves, rebuild = rnd_mod._per_layer(lm.init(cfg, gen, device="cuda"))
+    moms = [torch.zeros(v.shape, dtype=torch.float32, device="cuda")
+            for v in leaves]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 2048), generator=gen,
+                           device="cuda")
+
+    def step():
+        ps = [v.detach().requires_grad_() for v in leaves]
+        loss = lm.loss_fn(cfg, rebuild(ps), {"tokens": tokens})
+        grads = torch.autograd.grad(loss, ps)
+        with torch.no_grad():
+            gn2 = sum(torch.sum(torch.square(g.float())) for g in grads)
+        sgd_update_(ps, grads, moms, lr=0.05, momentum=0.9)
+        return loss, gn2
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    untraced = (time.perf_counter() - t0) / 3
+    with torch.profiler.profile(
+            activities=profiling.activities(torch.device("cuda"))) as prof:
+        t0 = time.perf_counter()
+        loss, gn2 = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not (torch.isfinite(loss) and torch.isfinite(gn2)):
+        fail("non-finite loss or gradient in granite's traced step")
+    busy = profiling.busy_ms(profiling.device_events(prof.events())[0])
+    print(f"granite local step: {untraced * 1e3:.1f} ms untraced, "
+          f"{wall * 1e3:.1f} ms traced; the device busy {busy:.1f} ms, "
+          f"{busy / 1e3 / untraced:.3f} of the untraced step")
+    profiling.print_profile(prof, wall)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -3860,7 +4098,7 @@ def main():
     from repro_torch.data import synthetic
     from repro_torch.dist import collectives as col
     from repro_torch.dist import policies
-    from repro_torch.launch import fedsim, train
+    from repro_torch.launch import fedsim, profiling, train
     from repro_torch.models import mamba2
     from repro_torch.models.vision import make_vision_model
     from repro_torch.launch.serve import poisson_requests
@@ -3893,8 +4131,7 @@ def main():
     # the served stream fixes the main path's prefill and decode shapes:
     # every prefill runs at S_pad, every decode over `width` pages per slot
     cfg = configs.get_config("qwen2_7b").model
-    reqs = poisson_requests(16, 50.0, 512, 64, cfg.vocab_size, seed=0,
-                            min_prompt=16, min_new=16)
+    reqs = serve_requests(poisson_requests, cfg, cfg.vocab_size)
     S_pad = engine_mod._align(max(len(r.prompt) for r in reqs), PAGE)
     width = pages_for(S_pad + max(r.max_new_tokens for r in reqs), PAGE)
 
@@ -3940,6 +4177,7 @@ def main():
 
     # -- phase 4 -------------------------------------------------------------
     small_path_agrees(lm, configs)
+    decode_graphs_agree(lm, fa, cfg)
     launches = serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests)
 
     # -- phase 5 -------------------------------------------------------------
@@ -4021,6 +4259,30 @@ def main():
     for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
         launches[k] += m23[k] + m23l[k]
 
+    # -- phases 24-26: the MoE family ----------------------------------------
+    t0 = time.perf_counter()
+    small_lm_round_agrees(configs, lm, rnd_mod, base, fa, arch=MOE_ARCH,
+                          lockstep=True)
+    moe_layer_phase(configs, lm)
+    print(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m25 = lm_full(train, fa, tk, lm_topk_launches(configs, lm, tk, MOE_ARCH),
+                  arch=MOE_ARCH)
+    moe_profile(configs, lm, rnd_mod, profiling)
+    print(f"phase 25 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    granite = configs.get_config(MOE_ARCH).model
+    decode_graphs_agree(lm, fa, granite)
+    m26 = serve_full(lm, engine_mod, granite, fa,
+                     serve_requests(poisson_requests, granite,
+                                    cfg.vocab_size), poisson_requests,
+                     tpot_limit_ms=TPOT_LIMIT_MS)
+    print(f"phase 26 took {time.perf_counter() - t0:.1f} s")
+    for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
+        launches[k] += m25[k]
+    for k in ("flash_attention", "paged_decode_attention"):
+        launches[k] += m26[k]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -4072,9 +4334,9 @@ def main():
                           "(phases 11-13 decode in wire_decode_mix); this "
                           "kernel (a warp a block up to wb 1024) serves "
                           "ops.unpack_offsets and wire_decode")
-    kernels[0]["note"] = ("launches: the serve's prefills and phases 16 "
-                          "and 20's training forwards (two a layer and "
-                          "step: remat)")
+    kernels[0]["note"] = ("launches: the serves' prefills (phases 4, 26) "
+                          "and the training forwards of phases 16, 20, 23 "
+                          "and 25 (two a layer and step: remat)")
     kernels[9]["note"] = ("the backward has no TPU counterpart: jax.grad "
                           "through flash_attention_pallas fails; held to "
                           "jax.grad of the reference's jnp route "

@@ -8,13 +8,19 @@ from typing import List
 from repro_torch.configs.base import ArchBundle, ModelConfig
 from repro_torch.configs.vision import VISION_CONFIGS, VisionBundle
 
-ARCH_IDS: List[str] = ["mamba2_1p3b", "qwen2_7b", "smollm_135m"]
+ARCH_IDS: List[str] = ["mamba2_1p3b", "qwen2_7b", "phi3_medium_14b",
+                       "smollm_135m", "codeqwen1p5_7b", "arctic_480b",
+                       "granite_moe_1b_a400m"]
 PAPER_IDS: List[str] = list(VISION_CONFIGS)
 
 _ALIASES = {
     "mamba2-1.3b": "mamba2_1p3b",
     "qwen2-7b": "qwen2_7b",
+    "phi3-medium-14b": "phi3_medium_14b",
     "smollm-135m": "smollm_135m",
+    "codeqwen1.5-7b": "codeqwen1p5_7b",
+    "arctic-480b": "arctic_480b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
 
@@ -28,8 +34,8 @@ def get_config(name: str) -> ArchBundle:
 
 
 def smoke_model(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family config for CPU tests (the reference's dense and
-    ssm branches of ``smoke_model``)."""
+    """Reduced same-family config for CPU tests (the reference's dense,
+    moe and ssm branches of ``smoke_model``)."""
     kw = dict(
         num_layers=2,
         d_model=64,
@@ -42,6 +48,10 @@ def smoke_model(cfg: ModelConfig) -> ModelConfig:
         compute_dtype="float32",
         remat=False,
     )
+    if cfg.num_experts:
+        kw.update(num_experts=4,
+                  experts_per_token=min(cfg.experts_per_token, 2),
+                  d_ff=64, moe_dense_ff=64 if cfg.moe_dense_ff else 0)
     if cfg.family == "ssm":
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_groups=1, ssm_chunk=16,
                   num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0)

@@ -1,8 +1,9 @@
 """Configuration dataclasses (own copy of ``repro/configs/base.py``).
 
 ``ModelConfig`` keeps the fields of the families the port runs: the dense
-decoder (served) and the ``ssm`` family (mamba2, trained by the HCEF round
-step); the MoE, encoder-decoder and hybrid families are not ported
+decoder and the ``moe`` family (trained by the HCEF round step and
+served), and the ``ssm`` family (mamba2, trained by the HCEF round step);
+the encoder-decoder and hybrid families are not ported
 (``models/registry.py``).  ``FLTopology`` and ``HCEFConfig`` keep the
 fields the round step reads, the sparse gossip wire and its error
 feedback and the overlapped engine's bounded staleness included.
@@ -16,10 +17,10 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters (dense and ssm families)."""
+    """Architecture hyperparameters (dense, moe and ssm families)."""
 
     name: str
-    family: str  # dense | ssm
+    family: str  # dense | moe | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,6 +28,10 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_dense_ff: int = 0  # arctic-style parallel dense residual FFN width
     # --- SSM (mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_head_dim: int = 64

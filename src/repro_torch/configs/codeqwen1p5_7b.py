@@ -1,0 +1,21 @@
+"""codeqwen1.5-7b [dense] — qwen1.5 arch (MHA kv=32). [hf:Qwen/CodeQwen1.5-7B; hf]
+
+32L d_model=4096 32H (GQA kv=32) d_ff=13440 vocab=92416.
+"""
+from repro_torch.configs.base import ArchBundle, ModelConfig
+
+MODEL = ModelConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=13_440,
+    vocab_size=92_416,
+    qkv_bias=True,
+    tie_embeddings=False,
+)
+
+CONFIG = ArchBundle(model=MODEL, source="hf:Qwen/CodeQwen1.5-7B")

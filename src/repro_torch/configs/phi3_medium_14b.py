@@ -1,0 +1,21 @@
+"""phi3-medium-14b [dense] — RoPE SwiGLU GQA. [arXiv:2404.14219; unverified]
+
+40L d_model=5120 40H (GQA kv=10) d_ff=17920 vocab=100352.
+"""
+from repro_torch.configs.base import ArchBundle, ModelConfig
+
+MODEL = ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=10,
+    head_dim=128,
+    d_ff=17_920,
+    vocab_size=100_352,
+    tie_embeddings=False,
+    state_dtype="bfloat16",  # fp32 momentum would not leave temp headroom
+)
+
+CONFIG = ArchBundle(model=MODEL, source="arXiv:2404.14219")

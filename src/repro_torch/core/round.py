@@ -318,9 +318,9 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     ``dist.collectives.participation_weights`` (the live-device mean);
     ``conn`` (C,) 0/1 backhaul links (``mixing.participation_mixing``).
     Host arrays (numpy)."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"the round step trains the dense and ssm families; "
+            f"the round step trains the dense, moe and ssm families; "
             f"{cfg.family!r} is not ported yet (ROADMAP.md, modules to "
             f"port, item 6)")
     model = get_model(cfg)

@@ -189,7 +189,7 @@ def decode_attention_combine(q, out_old, m_old, l_old, k_new, v_new, *,
     w_new = torch.exp(s_new - m_c)
     l_c = corr + w_new
     oo = out_old.float().reshape(B, Sq, KH, G, Dh)
-    vn = v_new.float()[:, :, :, None, :]  # (B, 1, KH, 1, Dh)
+    vn = v_new[:, :, :, None, :]  # (B, 1, KH, 1, Dh), promoted to f32 below
     out = (oo * corr[..., None] + vn * w_new[..., None]) / l_c[..., None]
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 

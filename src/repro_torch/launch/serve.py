@@ -4,11 +4,14 @@ card unless ``--device cpu`` (port of the ``--continuous`` path of
 
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
         --arch qwen2_7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
+        --arch granite_moe_1b_a400m
 
 serves a synthetic Poisson request stream (per-request prompt and output
 lengths) through ``Engine.serve``.  ``--full`` runs the architecture at
 its published width with random weights; the default is the CPU-sized
-smoke config.
+smoke config.  The paged families (``engine.PAGED_FAMILIES``: dense and
+moe) are served.
 """
 from __future__ import annotations
 
@@ -21,8 +24,19 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, smoke_model
 from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.registry import get_model
-from repro_torch.serving.engine import Engine, PagedConfig, ServeConfig
+from repro_torch.serving.engine import (PAGED_FAMILIES, Engine,
+                                        PagedConfig, ServeConfig)
 from repro_torch.serving.scheduler import Request
+
+# family -> what serving it needs; the paged engine serves PAGED_FAMILIES
+NOT_SERVED = {
+    "ssm": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
+           "item 6: mamba2's prefill and decode_step",
+    "hybrid": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
+              "item 6: griffin",
+    "encdec": "ROADMAP.md, modules to port, item 6: the encoder and "
+              "cross-attention",
+}
 
 
 def poisson_requests(n, rate, prompt_len, new_tokens, vocab, seed=0,
@@ -76,10 +90,9 @@ def main(argv=None):
                  "Engine.generate path is not)")
 
     cfg = get_config(args.arch).model
-    if cfg.family != "dense":
+    if cfg.family not in PAGED_FAMILIES:
         ap.error(f"--arch {args.arch}: serving the {cfg.family} family is "
-                 f"not ported yet (ROADMAP.md, modules to port, 'Other "
-                 f"architectures': mamba2 prefill and decode_step)")
+                 f"not ported yet ({NOT_SERVED[cfg.family]})")
     if args.smoke:
         cfg = smoke_model(cfg)
     params = get_model(cfg).init(cfg, seed=0, device=args.device)

@@ -5,6 +5,8 @@
         --full --rounds 4 --seq 511
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_135m \
         --full --rounds 4 --seq 2047
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite_moe_1b_a400m --full --rounds 4 --seq 2047
 
 runs the HCEF round step (``core/round.py``) on 2 clusters x 2 devices,
 with the architecture's HCEF configuration, the online controller, the
@@ -30,10 +32,14 @@ weights (``init`` from a seeded ``torch.Generator``) and the masked-step
 bits (``bits_fn(1000 + round, rho)``) cannot be the reference's
 ``jax.random`` draws.
 
-The dense archs (smollm-135M, qwen2-7b) train through the attention
-kernels, forward and backward; ``--full --arch qwen2_7b`` needs four
-7.6B replicas with f32 momentum, more than one card holds, and the memory
-is the caller's problem, as in the reference.
+Every decoder-only LM arch trains through the attention kernels, forward
+and backward: the dense smollm-135M, qwen2-7b, codeqwen1.5-7b and
+phi3-medium-14b (bf16 momentum), and the MoE granite-moe-1b-a400m (32
+experts, top 8) and arctic-480b (128 experts, top 2, a dense residual, no
+momentum).  At full width smollm-135M and granite-moe-1b-a400m fit four
+replicas on one card; qwen2-7b, codeqwen1.5-7b, phi3-medium-14b and
+arctic-480b need more than one card holds, and the memory is the
+caller's problem, as in the reference.
 
 ``--chaos`` injects faults (``runtime/chaos``: ``--chaos-dropout``,
 ``--chaos-partition``, ``--chaos-coord-fail``, ``--chaos-seed``): the

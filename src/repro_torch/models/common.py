@@ -12,27 +12,38 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def rms_norm(x, w, eps=1e-6):
-    """RMS norm in f32, cast back to x's type (common.py:21-25)."""
+    """RMS norm in f32, cast back to x's type (common.py:21-25).  The f32
+    product with a bf16 w promotes w exactly, as ``w.float()`` would,
+    without a launch of its own."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * w.float()).to(x.dtype)
+    return (out * w).to(x.dtype)
 
 
-def rope(x, positions, theta=10_000.0):
-    """Rotary embedding with f32 angles and a split-half rotation.
-
-    x: (B, S, H, Dh); positions: (B, S) or (S,)."""
-    B, S, H, Dh = x.shape
-    half = Dh // 2
-    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+def rope_tables(positions, head_dim, theta=10_000.0):
+    """(cos, sin) of the rotary embedding, f32 angles, each (B, S, 1,
+    head_dim / 2) for positions (B, S) or (1, S, 1, ...) for (S,):
+    computed once a forward and shared by q, k and every layer.  The
+    reference recomputes them in each ``rope`` call, to the same bits."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
     freqs = 1.0 / torch.pow(float(theta), exps)  # f32, as the reference
     if positions.ndim == 1:
         positions = positions[None, :]
     ang = positions.float()[..., None] * freqs  # (B, S, half)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def rope(x, tables):
+    """Rotary embedding with a split-half rotation (common.py:28-40).
+    x: (B, S, H, Dh); tables: ``rope_tables`` at x's positions."""
+    cos, sin = tables
+    half = x.shape[-1] // 2
+    # x's halves times the f32 tables: promoted to f32 exactly, as the
+    # reference's casts, with no cast launched
+    x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

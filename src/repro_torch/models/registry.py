@@ -1,9 +1,9 @@
 """Family -> model module resolution (port of ``repro/models/registry.py``).
 
-Ported: the dense family (``models/lm.py``: init, forward and loss for
-the HCEF round step, and the paged serving path) and the ssm family
-(``models/mamba2.py``: init, forward and loss for the HCEF round step).
-The others raise and name the ROADMAP.md item that brings them.
+Ported: the dense and moe families (``models/lm.py``: init, forward and
+loss for the HCEF round step, and the paged serving path) and the ssm
+family (``models/mamba2.py``: init, forward and loss for the HCEF round
+step).  The others raise and name the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -11,7 +11,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm, mamba2
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md, modules to port, 'Other architectures' (MoE FFN)",
     "encdec": "ROADMAP.md, modules to port, 'Other architectures' "
               "(encoder-decoder)",
     "hybrid": "ROADMAP.md, modules to port, 'Other architectures' (griffin)",
@@ -19,10 +18,10 @@ _NOT_PORTED = {
 
 
 def get_model(cfg: ModelConfig):
-    """The module of ``cfg.family``: ``lm`` for dense (init, forward,
-    loss_fn, prefill_paged, decode_step_paged), ``mamba2`` for ssm (init,
-    forward, loss_fn)."""
-    if cfg.family == "dense":
+    """The module of ``cfg.family``: ``lm`` for dense and moe (init,
+    forward, loss_fn, prefill_paged, decode_step_paged), ``mamba2`` for
+    ssm (init, forward, loss_fn)."""
+    if cfg.family in ("dense", "moe"):
         return lm
     if cfg.family == "ssm":
         return mamba2

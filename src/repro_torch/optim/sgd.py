@@ -16,6 +16,13 @@ def sgd_init(params, momentum: float, state_dtype=torch.float32):
             for k, p in params.items()}
 
 
+def _in_type(momentum: float, dtype: torch.dtype) -> float:
+    """The momentum factor as the reference multiplies by it: a Python
+    float times a jax array takes the array's type, so a bf16 momentum
+    buffer decays by bf16(0.9) = 0.8984375."""
+    return float(torch.tensor(momentum, dtype=dtype))
+
+
 def sgd_update(params, grads, mom_state, *, lr, momentum: float):
     """Returns (new_params, new_mom): m <- momentum * m + g and
     p <- p - lr * m in f32, as the reference does.  A zeroed gradient
@@ -23,7 +30,7 @@ def sgd_update(params, grads, mom_state, *, lr, momentum: float):
     if not momentum or mom_state is None:
         return ({k: (p.float() - lr * grads[k].float()).to(p.dtype)
                  for k, p in params.items()}, mom_state)
-    new_mom = {k: momentum * m + grads[k].to(m.dtype)
+    new_mom = {k: _in_type(momentum, m.dtype) * m + grads[k].to(m.dtype)
                for k, m in mom_state.items()}
     new_params = {k: (p.float() - lr * new_mom[k].float()).to(p.dtype)
                   for k, p in params.items()}
@@ -33,12 +40,13 @@ def sgd_update(params, grads, mom_state, *, lr, momentum: float):
 @torch.no_grad()
 def sgd_update_(params, grads, moms, *, lr, momentum: float):
     """``sgd_update`` in place, over parallel lists of tensors: m <-
-    momentum * m + g, then p <- p - lr * m, each computed in f32 with the
-    result cast to the tensor's type (``moms`` may be None)."""
+    momentum * m + g (g cast to m's type first, each op rounded to m's
+    type, as the reference), then p <- p - lr * m computed in f32 and
+    cast to p's type (``moms`` may be None)."""
     if not momentum or moms is None:
         for p, g in zip(params, grads):
             p.sub_(g, alpha=lr)
         return
     for p, g, m in zip(params, grads, moms):
-        m.mul_(momentum).add_(g)
+        m.mul_(_in_type(momentum, m.dtype)).add_(g.to(m.dtype))
         p.sub_(m, alpha=lr)

@@ -8,6 +8,10 @@ released and its slot refilled by a waiting prefill the same step).  Each
 admitted request is prefilled alone (B=1, padded to the page size); then
 one batched decode step runs over all slots, empty ones included.
 
+On the card each decode step replays every layer's FFN half as a CUDA
+graph (``lm.DecodeGraphs``, captured in the first decode step); the
+attention kernels run, and are counted, as launched.
+
 Sampling is deterministic per request: token t of request rid draws from a
 ``torch.Generator`` seeded with (seed, rid, t), so outputs do not depend on
 batch composition or admission order.  The draws are not the reference's
@@ -30,9 +34,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models.common import layer_list
 from repro_torch.models.registry import get_model
 from repro_torch.serving.page_manager import PageManager, pages_for
 from repro_torch.serving.scheduler import Request, RequestOutput, Scheduler
+
+PAGED_FAMILIES = ("dense", "moe")  # families with a self-attention KV cache
 
 
 @dataclass
@@ -69,7 +76,6 @@ class Engine:
                  paged: PagedConfig = None, device=None):
         self.cfg = cfg
         self.model = get_model(cfg)
-        self.params = params
         self.serve_cfg = serve or ServeConfig()
         self.paged = paged or PagedConfig()
         self.device = resolve(device)
@@ -77,6 +83,13 @@ class Engine:
         if emb.device.type != self.device.type:
             raise ValueError(f"params live on {emb.device}, engine device "
                              f"is {self.device}")
+        # each layer's views taken once, not in every decode step
+        self.params = dict(params, layers=layer_list(params))
+        # on the card the decode step replays each layer's FFN half as a
+        # CUDA graph (the paged families' model, ``lm``)
+        self._graphs = (self.model.DecodeGraphs()
+                        if self.device.type == "cuda"
+                        and cfg.family in PAGED_FAMILIES else None)
 
     def _tensor(self, arr, dtype):
         return torch.as_tensor(np.asarray(arr), dtype=dtype,
@@ -110,6 +123,10 @@ class Engine:
         reqs = sorted(requests, key=lambda r: (r.arrival, r.rid))
         if not reqs:
             return {}
+        if cfg.family not in PAGED_FAMILIES:
+            raise ValueError(
+                f"continuous batching needs a KV-cache family "
+                f"{PAGED_FAMILIES}, got {cfg.family!r}")
         S_pad = _align(max(len(r.prompt) for r in reqs), pc.page_size)
         budget = S_pad + max(r.max_new_tokens for r in reqs)
         width = pages_for(budget, pc.page_size)
@@ -157,7 +174,8 @@ class Engine:
                 cfg, self.params, cache,
                 self._tensor(slot_tok[:, None], torch.int64),
                 self._tensor(sched.table(), torch.int32),
-                self._tensor(sched.kv_lens(), torch.int32))
+                self._tensor(sched.kv_lens(), torch.int32),
+                graphs=self._graphs)
             tok_np = self._sample_rows(logits, slot_rid, tok_idx)
             t = now()
             for i, s in enumerate(sched.slots):

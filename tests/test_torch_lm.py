@@ -1,10 +1,15 @@
-"""The port's dense LM serving path against the JAX package's.
+"""The port's decoder LM serving path against the JAX package's.
 
-``smoke_model`` of smollm-135m (tied embeddings) and qwen2-7b (QKV bias,
-untied head), f32, with the reference's weights carried over by
+``smoke_model`` of smollm-135m (tied embeddings), qwen2-7b (QKV bias,
+untied head), and the MoE granite-moe-1b-a400m and arctic-480b (its
+dense residual), f32, with the reference's weights carried over by
 ``params_from_jax``: ``prefill_paged`` logits and written pages, then
 decode steps through a permuted page table with ragged lengths and one
-empty slot, fed the same tokens on both sides.
+empty slot, fed the same tokens on both sides.  The MoE prefill routes
+the padded positions too; they take capacity after the real tokens of
+each expert.  phi3-medium-14b (untied GQA) and codeqwen1.5-7b (MHA with
+QKV bias) run through the same dense code as qwen2-7b: their parameter
+names and shapes are checked, not their serving path again.
 """
 import dataclasses
 
@@ -27,7 +32,8 @@ from repro_torch.models.registry import get_model  # noqa: E402
 # blocking, einsum contraction order), so f32 results agree to a few ulps
 # per op, compounded over 2 layers and the head: 1e-4 absolute/relative.
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["smollm_135m", "qwen2_7b"]
+ARCHS = ["smollm_135m", "qwen2_7b", "granite_moe_1b_a400m", "arctic_480b"]
+INIT_ARCHS = ARCHS + ["phi3_medium_14b", "codeqwen1p5_7b"]
 
 
 def _models(arch):
@@ -49,7 +55,7 @@ def test_config_copy_matches_reference(arch, smoke):
     assert cfg.vocab_padded == jcfg.vocab_padded
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", INIT_ARCHS)
 def test_init_names_and_shapes_match_reference(arch):
     jcfg, jparams, cfg, _ = _models(arch)
     ours = lm.init(cfg, seed=0, device="cpu")
@@ -65,7 +71,9 @@ def test_init_names_and_shapes_match_reference(arch):
 def test_registry_names_the_roadmap_item():
     assert get_model(smoke_model(get_config("qwen2_7b").model)) is lm
     assert get_model(smoke_model(get_config("mamba2_1p3b").model)) is mamba2
-    for fam in ("moe", "encdec", "hybrid"):
+    assert get_model(smoke_model(get_config("granite_moe_1b_a400m").model)) \
+        is lm
+    for fam in ("encdec", "hybrid"):
         cfg = smoke_model(get_config("qwen2_7b").model).replace(family=fam)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_model(cfg)

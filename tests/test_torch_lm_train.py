@@ -3,8 +3,9 @@
 The reference's parameters (its ``init``, carried over bit for bit by
 ``convert.params_from_jax``) and the same tokens go through both
 ``forward`` and ``loss_fn`` and through ``jax.grad`` / torch autograd of
-the loss, every leaf compared: the smoke smollm and the smoke qwen2-7b
-(QKV bias), f32, with ``remat`` off and on.  On the CPU the attention is
+the loss, every leaf compared: the smoke smollm, the smoke qwen2-7b (QKV
+bias) and the MoE smoke granite-moe-1b-a400m and arctic-480b (its dense
+residual), f32, with ``remat`` off and on.  On the CPU the attention is
 the plain blockwise version under autograd; ``chip_smoke.py`` holds the
 card's kernels, forward and backward, to it.
 """
@@ -36,7 +37,10 @@ VARIANTS = {"smollm": ("smollm_135m", {}),
             "smollm-remat": ("smollm_135m", dict(remat=True)),
             "qwen2": ("qwen2_7b", {}),
             "qwen2-remat-3layers": ("qwen2_7b", dict(remat=True,
-                                                     num_layers=3))}
+                                                     num_layers=3)),
+            "granite": ("granite_moe_1b_a400m", {}),
+            "granite-remat": ("granite_moe_1b_a400m", dict(remat=True)),
+            "arctic": ("arctic_480b", {})}
 
 
 def _setup(variant, seed=0, B=2, S=40):
@@ -101,7 +105,8 @@ def test_layers_as_a_list_give_the_stacked_result():
 
 
 def test_other_families_raise_naming_the_roadmap():
-    cfg = smoke_model(get_config("smollm_135m").model).replace(family="moe")
+    cfg = smoke_model(get_config("smollm_135m").model).replace(
+        family="hybrid")
     params = lm.init(smoke_model(get_config("smollm_135m").model), seed=0,
                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -66,18 +66,37 @@ def jax_bits(tau, n):
     return bits
 
 
-def _history(port: bool, arch: str = "mamba2_1p3b"):
-    """Rounds of each package's make_round_step on ``arch``'s smoke model,
-    driven as the train launcher drives it.  Returns (history, final state
-    as numpy, the state)."""
+def _jit(fn, compiler_options=None):
+    """``jax.jit(fn)``, compiled on its first call with XLA's
+    ``compiler_options`` where given."""
+    jitted = jax.jit(fn)
+    if not compiler_options:
+        return jitted
+    compiled = []
+
+    def call(*args):
+        if not compiled:
+            compiled.append(jitted.lower(*args).compile(
+                compiler_options=compiler_options))
+        return compiled[0](*args)
+    return call
+
+
+def _history(port: bool, arch: str = "mamba2_1p3b", rounds: int = ROUNDS,
+             q: int = Q, compiler_options=None):
+    """``rounds`` rounds of each package's make_round_step on ``arch``'s
+    smoke model, gossip every ``q``-th, driven as the train launcher
+    drives it; the reference's steps compiled with ``compiler_options``.
+    Returns (history, final state as numpy, the state)."""
+    hcef_kw, budget_kw = dict(HCEF, q=q), dict(BUDGET, q=q)
     jcfg = j_smoke(j_get_config(arch).model)
     jtopo = JTopo(clusters=2, devices_per_cluster=2)
     R = jtopo.num_devices
-    jstate = jround.init_state(jcfg, JHCEF(**HCEF), jtopo,
+    jstate = jround.init_state(jcfg, JHCEF(**hcef_kw), jtopo,
                                jax.random.PRNGKey(0))
     if port:
         cfg = smoke_model(get_config(arch).model)
-        hcef, topo = HCEFConfig(**HCEF), FLTopology(2, 2)
+        hcef, topo = HCEFConfig(**hcef_kw), FLTopology(2, 2)
         params0 = jax.tree.map(lambda x: np.asarray(x[0]), jstate.params)
         state = tround.init_state(cfg, hcef, topo, params0, device="cpu")
         steps = {g: tround.make_round_step(cfg, hcef, topo, gossip=g,
@@ -87,22 +106,23 @@ def _history(port: bool, arch: str = "mamba2_1p3b"):
             tctrl.BudgetState
     else:
         state = jstate
-        steps = {g: jax.jit(jround.make_round_step(jcfg, JHCEF(**HCEF),
-                                                   jtopo, gossip=g))
+        steps = {g: _jit(jround.make_round_step(jcfg, JHCEF(**hcef_kw),
+                                                jtopo, gossip=g),
+                         compiler_options)
                  for g in (False, True)}
         ctrl, Het, cost, Budget = jbase, JHet, jcost, jctrl.BudgetState
     controller = ctrl.make_controller("hcef", TAU)
     het = Het(num_devices=R, model_bits=MODEL_BITS)
-    budget = Budget(backhaul_time=het.backhaul_time(), **BUDGET)
+    budget = Budget(backhaul_time=het.backhaul_time(), **budget_kw)
     cluster_of = np.repeat(np.arange(2), 2)
     corpus = synthetic_tokens(jcfg.vocab_size, n_seq=N_SEQ, seq_len=SEQ,
                               n_devices=R, beta=0.5)
     rng = np.random.default_rng(0)
     hist = []
-    for rnd in range(ROUNDS):
+    for rnd in range(rounds):
         reports = het.sample_round(rnd)
         rho, theta = controller.controls(reports, budget)
-        gossip = (rnd + 1) % Q == 0
+        gossip = (rnd + 1) % q == 0
         idx = rng.integers(0, N_SEQ, (R, 2 * TAU))
         tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
         if port:
@@ -138,7 +158,7 @@ def _history(port: bool, arch: str = "mamba2_1p3b"):
                      "energy": (budget.energy_spent_prev
                                 + budget.energy_spent_this)})
     if port:
-        final = {f: {k: v.numpy() for k, v in
+        final = {f: {k: v.float().numpy() for k, v in
                      flatten(getattr(state, f)).items()}
                  for f in ("params", "momentum", "ef")}
     else:
@@ -192,7 +212,8 @@ def test_unported_options_raise_naming_the_roadmap():
     # the wire options are ported, with the reference's own checks
     with pytest.raises(ValueError, match="sparse_gossip"):
         HCEFConfig(wire_ef=True)
-    # the dense and ssm families train; the others wait for their item
-    cfg = smoke_model(get_config("smollm_135m").model).replace(family="moe")
+    # the dense, moe and ssm families train; the others wait for their item
+    cfg = smoke_model(get_config("smollm_135m").model).replace(
+        family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tround.make_round_step(cfg, HCEFConfig(), FLTopology(2, 2))

@@ -175,6 +175,17 @@ def test_greedy_serve_matches_jax_serve():
     late and attends the stale slot before it.  ``Engine.generate`` and a
     teacher-forced ``forward`` give other tokens; the port copies the
     scheduler and so gives the reference's."""
+    _serve_parity("smollm_135m")
+
+
+def test_greedy_moe_serve_matches_jax_serve():
+    """The same on the smoke granite-moe-1b-a400m: each prefill (B = 1,
+    padded to the page size) routes its pad positions too, after the real
+    tokens of each expert, and each decode step routes every slot alone."""
+    _serve_parity("granite_moe_1b_a400m")
+
+
+def _serve_parity(arch):
     jax = pytest.importorskip("jax")
     from repro.configs import get_config as j_get_config
     from repro.configs import smoke_model as j_smoke
@@ -185,13 +196,13 @@ def test_greedy_serve_matches_jax_serve():
     from repro.serving.scheduler import Request as JRequest
     from repro_torch.convert import params_from_jax
 
-    jcfg = j_smoke(j_get_config("smollm_135m").model)
+    jcfg = j_smoke(j_get_config(arch).model)
     # weights at std 0.2 (not init's 0.02), so greedy decoding does not
     # collapse into repeating one token per request
     jparams = jax.tree_util.tree_map_with_path(
         lambda path, a: a if "ln" in str(path) or "norm" in str(path)
         else a * 10.0, jlm.init(jcfg, jax.random.PRNGKey(3)))
-    cfg = smoke_model(get_config("smollm_135m").model)
+    cfg = smoke_model(get_config(arch).model)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
 
     emitted = []  # the reference's logits of every row that emits a token
