@@ -13,7 +13,11 @@ Phases (any failure ends the run with a non-zero exit):
    and the serve trace's padded prompt length), an f32 case, a
    window/q_offset case with a ragged Skv at Dh=64 in f32 and in bf16,
    bf16 with S not a multiple of 64 at Dh 64 (smollm's heads) and 16, and
-   a window case at Dh=64; on every case the row log-sum-exp that both
+   a window case at Dh=64; head dim 256 with one KV head under a window
+   (an f32 case, a ragged bf16 one, and recurrentgemma-9b's training
+   layer GRIFFIN_LAYER: B 1, S 4096, 16 heads of 256 over one, window
+   2048, timed beside SDPA with the window as a boolean mask, its
+   backend named); on every case the row log-sum-exp that both
    kernels write for the training path (``return_lse``), held to the
    plain version's at the case's tolerance, beside the same out;
 3. the split paged decode (bf16 ``paged_decode_tc`` on the tensor cores,
@@ -133,15 +137,18 @@ Phases (any failure ends the run with a non-zero exit):
    by wgmma on TMA-fed tiles, f32 the exact SIMT kernels) vs its plain
    version (``ref.flash_attention_bwd_plain``) on the same seeded inputs,
    out and lse from the forward kernel: BWD_CASES (G 1, 2 and 3, causal
-   and not, a window, ragged S 65, 130 and 1000, Dh 16-128, both types,
-   bf16 Dh 128 over 16 query blocks), each gradient within BWD_TOL_OF_MAX
-   of its largest entry and the same bits on a second run; ptxas must
-   report no spill for a bf16 backward kernel; then smollm-135M's layer
-   (B 2, S 2048, 9 heads, 3 KV heads, Dh 64, bf16, causal), timed beside
-   its plain version, SDPA's backward alone and its bound, and split by
-   kernel; and the forward at that shape with its log-sum-exp (the
-   training forward), checked and timed beside SDPA's forward and its
-   bound, printed with its phase-16 launches after phase 16;
+   and not, a window, ragged S 65, 130 and 1000, Dh 16-256, both types,
+   bf16 Dh 128 over 16 query blocks, Dh 256 with one KV head under a
+   window), each gradient within BWD_TOL_OF_MAX of its largest entry and
+   the same bits on a second run; ptxas must report no spill for a bf16
+   backward kernel nor for ``flash_fwd_tc``; then smollm-135M's layer
+   (B 2, S 2048, 9 heads, 3 KV heads, Dh 64, bf16, causal) and
+   recurrentgemma-9b's (GRIFFIN_LAYER), timed beside their plain
+   version, SDPA's backward alone (at griffin's layer with the window as
+   a boolean mask) and their bound, and split by kernel; and the forward
+   at smollm's shape with its log-sum-exp (the training forward),
+   checked and timed beside SDPA's forward and its bound, printed with
+   its phase-16 launches after phase 16;
 15. the HCEF round step on the smoke smollm (f32, 2 layers, S 65, 2 x 2,
    tau 4), 3 rounds on the card (the f32 attention kernels, forward and
    backward, every launch counted) against the CPU (the plain version
@@ -236,14 +243,38 @@ Phases (any failure ends the run with a non-zero exit):
    then phase 4's serve on granite-moe-1b-a400m at full width (bf16,
    random weights; the stream's prompts taken into its vocabulary):
    finite logits, every request complete, the attention launches a layer
-   and call, TPOT p50 against TPOT_LIMIT_MS (gated), TTFT p99 printed.
+   and call, TPOT p50 against TPOT_LIMIT_MS (gated), TTFT p99 printed;
+27. the hybrid family (``models/griffin.py``: RG-LRU blocks, local MQA):
+   phase 15's round check on the smoke recurrentgemma-9b (f32, window
+   16 under S 65, one KV head) at 3 layers (one rglru, rglru, attn
+   group) and 5 (two trailing rglru blocks), GRIFFIN_SMALL_ROUNDS
+   rounds in lockstep, card against CPU within ROUND_RTOL / ROUND_ATOL
+   (the parameters but for Q_FLIP_SHARE top-k threshold flips), the f32
+   attention kernels counted; then the RG-LRU scan (``ops.rglru``, plain
+   PyTorch: the reference has no kernel for it) at RGLRU_LAYER (W 4096,
+   S 4096, B 1, f32) against its sequential oracle, its forward and
+   backward timed (``rglru_layer``);
+28. recurrentgemma-9b at full width (d_model 4096, lru_width 4096, 16
+   heads of 256 over one KV head, d_ff 12288, vocab 256000, window 2048,
+   softcap 30; bf16, f32 momentum, remat) and depth GRIFFIN_DEPTH (one
+   group and the two trailing rglru blocks, GRIFFIN_PARAMS parameters)
+   through ``make_round_step``, driven as the train launcher drives it
+   but at R = 2 in 2 clusters x 1 device and one 4096-token sequence a
+   step, GRIFFIN_ROUNDS rounds (tau = q = 4, the last gossips): finite
+   losses, two attention forwards and one backward an attention layer
+   and step, the top-k launches a round, p50 against LM_ROUND_LIMIT_MS
+   and peak against PEAK_LIMIT_GB (gated); then the train launcher's
+   entry point on the smoke griffin for 2 rounds (the f32 kernels
+   counted).
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -501,8 +532,60 @@ def live_pairs(Sq, Skv, causal, window, q_offset):
     return int(keep.sum())
 
 
+# SDPA's backends in the order tried for a masked call (the flash backend
+# takes no mask)
+SDPA_MASKED_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_yardstick(q, k, v, causal, window):
+    """(call, backend): one SDPA call on q (B, S, H, Dh), k, v (B, S, KH,
+    Dh) in SDPA's layout, K and V repeated to the query heads (made
+    outside the timing).  With a window the mask is a boolean (S, S)
+    ``attn_mask`` and the backend is the first of SDPA_MASKED_BACKENDS
+    that takes the call; without one ``is_causal`` and SDPA's own pick
+    ("auto").  ``call(requires_grad=False)`` returns the output, or with
+    ``requires_grad`` (out, (q, k, v)) leaves for a backward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(is_causal=causal)
+    if window:
+        pos = torch.arange(q.shape[1], device=q.device)
+        keep = pos[None, :] > pos[:, None] - window
+        if causal:
+            keep &= pos[None, :] <= pos[:, None]
+        kw = dict(attn_mask=keep)
+
+    def call(backend, requires_grad=False):
+        ins = [t.detach().requires_grad_(requires_grad)
+               for t in (qt, kt, vt)]
+        ctx = (sdpa_kernel([getattr(SDPBackend, backend)])
+               if backend != "auto" else contextlib.nullcontext())
+        with ctx:
+            out = sdpa(*ins, **kw)
+        return (out, ins) if requires_grad else out
+
+    if not window:
+        return functools.partial(call, "auto"), "auto"
+    for backend in SDPA_MASKED_BACKENDS:
+        try:
+            call(backend, requires_grad=True)[0].sum().backward()
+            torch.cuda.synchronize()
+            return functools.partial(call, backend), backend
+        except RuntimeError:
+            continue
+    fail("no SDPA backend takes a boolean mask")
+
+
 def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
-                 Skv=None):
+                 Skv=None, masked_library=False):
+    """The forward kernel against its plain version on seeded inputs (out
+    and, with ``return_lse``, the row log-sum-exp), timed beside the plain
+    version, its bound and, without a window (or with
+    ``masked_library``), SDPA (``sdpa_yardstick``)."""
     Skv = Skv or S
     q = torch.randn((1, S, H, Dh), generator=gen, device="cuda").to(dtype)
     k = torch.randn((1, Skv, KH, Dh), generator=gen, device="cuda").to(dtype)
@@ -522,14 +605,10 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
                       host_paced=True)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                        iters=3, warmup=1)
-    library_ms = None
-    if not window and not q_offset and Skv == S:
-        G = H // KH
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-        vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    library_ms = library_backend = None
+    if not q_offset and Skv == S and (not window or masked_library):
+        sdpa, library_backend = sdpa_yardstick(q, k, v, True, window)
+        library_ms = time_ms(sdpa)
     pairs = live_pairs(S, Skv, True, window, q_offset)
     flops = 4 * Dh * H * pairs  # q.k and p.v, 2 ops per multiply-add
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -539,7 +618,8 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
                dtype=str(dtype)[6:], window=window, q_offset=q_offset,
                max_abs_err=err, lse_max_abs_err=lse_err,
                tol=tol["atol"], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               library_backend=library_backend)
     print("prefill " + json.dumps(row))
     if not ok:
         fail(f"flash-attention kernel disagrees with the plain version: {row}")
@@ -2520,8 +2600,9 @@ def wire_ef_chunk(col, wp, gb, x, est, cols):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, KH, Dh, dtype, causal, window): G 1, 2 and 3, causal and not, a
-# window, ragged S (65, 1000, 130), Dh 16, 32, 64 and 128, in both types;
-# the last is smollm-135M's layer in training (the timed row)
+# window, ragged S (65, 1000, 130), Dh 16, 32, 64, 128 and 256, in both
+# types; bf16 Dh 128 over 16 query blocks; Dh 256 with one KV head (MQA,
+# G 3 and 16) under a window, as recurrentgemma-9b's layers
 BWD_CASES = [
     (1, 65, 3, 3, 16, torch.float32, True, 0),
     (2, 65, 4, 2, 64, torch.float32, False, 0),
@@ -2536,7 +2617,14 @@ BWD_CASES = [
     (1, 200, 4, 2, 32, torch.bfloat16, True, 0),
     (1, 200, 4, 2, 128, torch.bfloat16, True, 0),
     (1, 1024, 8, 2, 128, torch.bfloat16, True, 0),
+    (1, 200, 3, 1, 256, torch.float32, True, 16),
+    (1, 1000, 16, 1, 256, torch.bfloat16, True, 96),
+    (2, 130, 4, 2, 256, torch.bfloat16, False, 0),
+    (1, 65, 3, 3, 256, torch.bfloat16, True, 0),
 ]
+# recurrentgemma-9b's attention layer in training (phases 2 and 14, timed):
+# 16 query heads of 256 over one KV head, S 4096 under a 2048 window
+GRIFFIN_LAYER = dict(B=1, S=4096, H=16, KH=1, Dh=256, window=2048)
 # each gradient within this share of its largest entry (f32: the
 # reference's 2e-5; bf16: 2e-2, the kernel rounds P and dS to bf16)
 BWD_TOL_OF_MAX = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -2544,8 +2632,9 @@ BWD_TOL_OF_MAX = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # two SIMT launches
 BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_wgmma", "flash_bwd_dkdv_simt",
                "flash_bwd_dq_simt")
-# the kernels that run bf16 (prep has a bf16 instantiation): none may spill
-BWD_BF16_KERNELS = BWD_KERNELS[:2]
+# the kernels that run bf16 (prep has a bf16 instantiation), and the bf16
+# forward: none may spill
+BWD_BF16_KERNELS = BWD_KERNELS[:2] + ("flash_fwd_tc",)
 
 
 def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
@@ -2586,13 +2675,18 @@ def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
         row["plain_ms"] = time_ms(
             lambda: fa.flash_attention_bwd_plain(*args, **kw), iters=3,
             warmup=1)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        o = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        if window:  # a boolean mask, K and V repeated to the heads
+            call, row["library_backend"] = sdpa_yardstick(q, k, v, causal,
+                                                          window)
+            o, ins = call(requires_grad=True)
+        else:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ins = [t.transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v)]
+            o = sdpa(*ins, is_causal=causal, enable_gqa=True)
         gt = dout.transpose(1, 2)
         row["library_ms"] = time_ms(lambda: torch.autograd.grad(
-            o, (qt, kt, vt), gt, retain_graph=True))
+            o, ins, gt, retain_graph=True))
         # which launch takes the time, prep or the passes (warm L2)
         row["split_us"] = kernel_split(
             lambda: fa.flash_attention_bwd_cuda(*args, **kw))
@@ -2652,12 +2746,13 @@ def attention_fwd_train(fa, gen, B, S, H, KH, Dh):
 
 
 def attention_bwd_phase(fa, build):
-    """Phase 14: every case of BWD_CASES (no bf16 backward kernel may
+    """Phase 14: every case of BWD_CASES (no bf16 attention kernel may
     spill), then smollm-135M's layer (B 2, S 2048, 9 heads, 3 KV heads, Dh
-    64, bf16, causal), timed: the backward's row, and the training
-    forward's (printed after phase 16 with its launches)."""
+    64, bf16, causal) and recurrentgemma-9b's (GRIFFIN_LAYER), timed: the
+    backward's rows, and smollm's training forward's (printed after phase
+    16 with its launches)."""
     ptx = ptxas_summary(build.build_log)
-    for name in BWD_KERNELS:
+    for name in BWD_KERNELS + BWD_BF16_KERNELS[2:]:
         regs, spills, stack, smem, n = ptx.get(name, (0, 0, 0, 0, 0))
         print(f"  ptxas: {name}: up to {regs} registers, {spills} bytes of "
               f"spill stores, {stack} bytes of stack, over {n} "
@@ -2670,7 +2765,11 @@ def attention_bwd_phase(fa, build):
         attention_bwd_case(fa, gen, *case)
     main = attention_bwd_case(fa, gen, 2, 2048, 9, 3, 64, torch.bfloat16,
                               True, 0, timed=True)
-    return main, attention_fwd_train(fa, gen, 2, 2048, 9, 3, 64)
+    g = GRIFFIN_LAYER
+    griffin = attention_bwd_case(fa, gen, g["B"], g["S"], g["H"], g["KH"],
+                                 g["Dh"], torch.bfloat16, True, g["window"],
+                                 timed=True)
+    return main, griffin, attention_fwd_train(fa, gen, 2, 2048, 9, 3, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -2680,24 +2779,43 @@ def attention_bwd_phase(fa, build):
 LM_ROUNDS = 4  # phase 16: q = 4, round 4 gossips
 
 
+def attention_layers(cfg):
+    """The attention layers that ``cfg``'s forward runs: every layer of
+    the decoder LM, griffin's groups' attention blocks."""
+    if cfg.family != "hybrid":
+        return cfg.num_layers
+    from repro_torch.models import griffin
+    n_groups, _, _, apg, _, _ = griffin._layout(cfg)
+    return n_groups * apg
+
+
 def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
-                          arch="smollm_135m", lockstep=False):
-    """Three rounds (the last a gossip round) of ``arch``'s smoke round
-    step (f32, 2 layers, S 65, 2 x 2, tau 4) on the card (the f32
-    attention kernels, forward and backward) and on the CPU (the plain
-    version under autograd), from the same parameters, tokens, controls
-    and bits: losses, statistics and parameters within ROUND_RTOL /
-    ROUND_ATOL.  With ``lockstep`` each round starts the CPU from the
-    card's state, so that a routing or top-k flip does not carry on into
-    the later rounds, and the parameters are compared after every round."""
+                          arch="smollm_135m", lockstep=False, rounds=3,
+                          num_layers=None, flip_share=0.0):
+    """``rounds`` rounds (the last a gossip round) of ``arch``'s smoke
+    round step (f32, 2 layers or ``num_layers``, S 65, 2 x 2, tau 4) on
+    the card (the f32 attention kernels, forward and backward) and on the
+    CPU (the plain version under autograd), from the same parameters,
+    tokens, controls and bits: losses, statistics and parameters within
+    ROUND_RTOL / ROUND_ATOL.  With ``lockstep`` each round starts the CPU
+    from the card's state, so that a routing or top-k flip does not carry
+    on into the later rounds, and the parameters are compared after every
+    round; with ``flip_share`` as well, at most that share of the
+    parameters may sit beyond ROUND_ATOL after a round (top-k threshold
+    flips: an entry at its block's threshold kept on one side and left in
+    the EF on the other)."""
+    from repro_torch.models.registry import get_model
     from repro_torch.tree import flatten, tree_map
     cfg = configs.smoke_model(configs.get_config(arch).model)
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
     hcef = base.HCEFConfig(tau=4, q=3, eta=0.1)
     topo = base.FLTopology(2, 2)
-    params0 = lm.init(cfg, torch.Generator().manual_seed(5), device="cpu")
+    params0 = get_model(cfg).init(cfg, torch.Generator().manual_seed(5),
+                                  device="cpu")
     rng = np.random.default_rng(5)
     tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 65)))
-              for _ in range(3)]
+              for _ in range(rounds)]
     rho = np.array([0.9, 0.6, 0.8, 0.7])
     theta = np.array([0.5, 0.25, 1.0, 0.1])
     states = {d: rnd_mod.init_state(cfg, hcef, topo, params0, device=d)
@@ -2706,14 +2824,15 @@ def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
     launches = {d: {} for d in states}
     to_cpu = lambda t: None if t is None else tree_map(  # noqa: E731
         lambda x: x.to("cpu", copy=True), t)
-    perr = 0.0
-    for r in range(3):
+    perr, flips, total, far = 0.0, 0, 0, ""
+    for r in range(rounds):
         if lockstep and r:
             c = states["cuda"]
             states["cpu"] = c._replace(params=to_cpu(c.params),
                                        momentum=to_cpu(c.momentum),
                                        ef=to_cpu(c.ef))
-        step = rnd_mod.make_round_step(cfg, hcef, topo, gossip=r == 2)
+        step = rnd_mod.make_round_step(cfg, hcef, topo,
+                                       gossip=r == rounds - 1)
         for d in states:
             fa.reset_launches()
             states[d], m = step(states[d], {"tokens": tokens[r]}, rho, theta,
@@ -2721,11 +2840,16 @@ def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
             hist[d].append({k: v.cpu().numpy() for k, v in m.items()})
             for k, v in fa.LAUNCHES.items():
                 launches[d][k] = launches[d].get(k, 0) + v
-        if lockstep or r == 2:
+        if lockstep or r == rounds - 1:
             want = flatten(states["cpu"].params)
-            perr = max(perr, max(float((v.cpu() - want[k]).abs().max())
-                                 for k, v in flatten(
-                                     states["cuda"].params).items()))
+            dev = {k: (v.cpu() - want[k]).abs() for k, v in flatten(
+                states["cuda"].params).items()}
+            total = sum(d.numel() for d in dev.values())
+            flips = max(flips, sum(int((d > ROUND_ATOL).sum())
+                                   for d in dev.values()))
+            k_far = max(dev, key=lambda k: float(dev[k].max()))
+            if float(dev[k_far].max()) > perr:
+                perr, far = float(dev[k_far].max()), k_far
     worst = 0.0
     for a, b in zip(hist["cuda"], hist["cpu"]):
         for k in ("loss", "g2", "sigma2"):
@@ -2733,19 +2857,24 @@ def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
                                             / np.abs(b[k]))))
         if not np.array_equal(a["steps"], b["steps"]):
             fail(f"the card's {arch} round drew other masked-step bits")
-    steps = 3 * topo.num_devices * hcef.tau * cfg.num_layers  # no remat
+    steps = (rounds * topo.num_devices * hcef.tau
+             * attention_layers(cfg))  # no remat
     want = {"flash_attention": steps, "flash_attention_bwd": steps,
             "paged_decode_attention": 0}
     print(f"{arch} small round{' (lockstep)' if lockstep else ''}: card vs "
-          f"CPU over 3 rounds, largest relative deviation of loss/g2/sigma2 "
+          f"CPU over {rounds} rounds ({cfg.num_layers} layers), largest "
+          f"relative deviation of loss/g2/sigma2 "
           f"{worst:.3e} (tolerance {ROUND_RTOL}), largest parameter "
-          f"deviation {perr:.3e} (tolerance {ROUND_ATOL}); card launches "
+          f"deviation {perr:.3e} in {far} (tolerance {ROUND_ATOL}; "
+          f"{flips} of {total} entries beyond it in a round, "
+          f"{int(flip_share * total)} allowed); card launches "
           f"{launches['cuda']}, CPU launches {launches['cpu']}")
     if launches["cuda"] != want or any(launches["cpu"].values()):
         fail(f"the {arch} round's attention launches: card "
              f"{launches['cuda']} (expected {want}), CPU {launches['cpu']} "
              f"(expected none)")
-    if not (worst <= ROUND_RTOL and perr <= ROUND_ATOL):
+    if not (worst <= ROUND_RTOL and (perr <= ROUND_ATOL or (
+            lockstep and flips <= int(flip_share * total)))):
         fail(f"the {arch} round step on the card disagrees with the CPU")
 
 
@@ -4079,6 +4208,227 @@ def moe_profile(configs, lm, rnd_mod, profiling):
     profiling.print_profile(prof, wall)
 
 
+# ---------------------------------------------------------------------------
+# phases 27 and 28: the hybrid family (griffin)
+# ---------------------------------------------------------------------------
+
+GRIFFIN_ARCH = "recurrentgemma_9b"
+GRIFFIN_SMALL_LAYERS = (3, 5)  # one group; and two trailing rglru blocks
+GRIFFIN_SMALL_ROUNDS = 2       # the second gossips
+RGLRU_LAYER = dict(B=1, S=4096, W=4096)  # recurrentgemma-9b's, one step
+# phase 28: full width at depth 5 (one rglru, rglru, attn group and the two
+# trailing rglru blocks, as the 38-layer model ends), R = 2 in 2 clusters
+# x 1 device, tau = q = 4, one sequence of 4096 tokens a step
+GRIFFIN_DEPTH = 5
+GRIFFIN_TOPO = (2, 1)
+GRIFFIN_ROUNDS = 4
+GRIFFIN_SEQ = 4096
+GRIFFIN_PARAMS = 2_174_889_984  # 4 x 234,913,792 + 186,654,720 + emb
+
+
+def rglru_layer(ops):
+    """The RG-LRU scan (``ops.rglru``: plain PyTorch, the reference has no
+    kernel for it) at recurrentgemma-9b's width, one step's inputs (f32,
+    as the gates give them): against the sequential oracle, then its
+    forward and its backward timed with CUDA events after an L2 flush,
+    beside the bound of the bytes they must move."""
+    B, S, W = RGLRU_LAYER["B"], RGLRU_LAYER["S"], RGLRU_LAYER["W"]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    log_a = -0.1 * torch.rand((B, S, W), generator=gen, device="cuda")
+    gated = torch.randn((B, S, W), generator=gen, device="cuda")
+    dhs = torch.randn((B, S, W), generator=gen, device="cuda")
+    hs, h_last = ops.rglru(log_a, gated)
+    want, want_last = ops.rglru(log_a, gated, impl="ref")
+    err = max(float((hs - want).abs().max()),
+              float((h_last - want_last).abs().max()))
+    scale = float(want.abs().max())
+    fwd_ms = time_ms(lambda: ops.rglru(log_a, gated))
+    la, gx = (t.clone().requires_grad_() for t in (log_a, gated))
+    out, _ = ops.rglru(la, gx)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (la, gx), dhs,
+                                                 retain_graph=True))
+    n = B * S * W * 4
+    row = dict(B=B, S=S, W=W, dtype="float32", route="plain (log-depth "
+               "scan)", levels=int(np.ceil(np.log2(S))), max_abs_err=err,
+               err_of_max=err / scale, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               # log_a and gated in, hs out; the backward also dhs in and
+               # two gradients out
+               fwd_bound_ms=bound(0, 3 * n, torch.float32)[0],
+               bwd_bound_ms=bound(0, 5 * n, torch.float32)[0])
+    print("rglru_layer " + json.dumps(row))
+    if not err <= F32_TOL["atol"] + F32_TOL["rtol"] * scale:
+        fail(f"the RG-LRU scan disagrees with its sequential oracle: {row}")
+    del la, gx, out
+    torch.cuda.empty_cache()
+
+
+def griffin_small(configs, lm, rnd_mod, base, fa, ops):
+    """Phase 27: the smoke recurrentgemma-9b's round step, card against
+    CPU (``small_lm_round_agrees`` at 3 and 5 layers,
+    GRIFFIN_SMALL_ROUNDS rounds in lockstep: the f32 attention kernels on
+    the card, the plain versions under autograd on the CPU; the
+    parameters within ROUND_ATOL but for Q_FLIP_SHARE top-k threshold
+    flips: at 5 layers a 1e-7 relative perturbation of the initial
+    weights moves 4 entries of a w_down by 1.8e-4 on the CPU alone), then
+    ``rglru_layer``."""
+    for layers in GRIFFIN_SMALL_LAYERS:
+        small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
+                              arch=GRIFFIN_ARCH, rounds=GRIFFIN_SMALL_ROUNDS,
+                              num_layers=layers, lockstep=True,
+                              flip_share=Q_FLIP_SHARE)
+    rglru_layer(ops)
+
+
+def griffin_full(configs, rnd_mod, base, train, synthetic, fa, tk):
+    """Phase 28: recurrentgemma-9b at full width (bf16, f32 momentum,
+    remat) and depth GRIFFIN_DEPTH through ``make_round_step``, driven as
+    the train launcher drives its rounds (the HCEF controller, the
+    device-skewed corpus and its numpy stream, the Eq. 8/9 time and
+    energy accounting) but at R = 2 (GRIFFIN_TOPO) and one sequence of
+    GRIFFIN_SEQ tokens a step: at about 10 bytes a parameter a replica,
+    four replicas would not fit.  Every attention and top-k launch
+    counted; losses finite, gossip in the last round only, round p50 and
+    peak gated.  Then the launcher's smoke entry point."""
+    import dataclasses
+    from repro_torch.core.controller import BudgetState
+    from repro_torch.fl.baselines import make_controller
+    from repro_torch.fl.cost_model import round_energy, round_time
+    from repro_torch.fl.heterogeneity import HeterogeneityModel
+    from repro_torch.models import griffin
+    from repro_torch.tree import flatten
+    bundle = configs.get_config(GRIFFIN_ARCH)
+    cfg = bundle.model.replace(num_layers=GRIFFIN_DEPTH)
+    hcef = dataclasses.replace(bundle.hcef, tau=4, q=4)
+    topo = base.FLTopology(*GRIFFIN_TOPO)
+    R = topo.num_devices
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params0 = griffin.init(cfg, gen, device="cuda")
+    n_params = sum(v.numel() for v in flatten(params0).values())
+    if n_params != GRIFFIN_PARAMS:
+        fail(f"recurrentgemma-9b at depth {GRIFFIN_DEPTH}: {n_params} "
+             f"parameters, expected {GRIFFIN_PARAMS}")
+    state = rnd_mod.init_state(cfg, hcef, topo, params0, device="cuda")
+    del params0
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    topk_per_round = topk_launches(list(flatten(state.params).values()),
+                                   list(flatten(state.ef).values()), tk)
+    print(f"griffin full width: {GRIFFIN_DEPTH} layers, {n_params} params, "
+          f"R={R} ({topo.clusters} x {topo.devices_per_cluster}), state "
+          f"{state_gb:.2f} GB, {topk_per_round} top-k launches a round, "
+          f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    steps = {g: rnd_mod.make_round_step(cfg, hcef, topo, gossip=g)
+             for g in (False, True)}
+    controller = make_controller("hcef", hcef.tau, theta_min=hcef.theta_min,
+                                 rho_min=hcef.rho_min)
+    het = HeterogeneityModel(num_devices=R, model_bits=n_params * 16)
+    budget = BudgetState(time_budget=hcef.time_budget or np.inf,
+                         energy_budget=hcef.energy_budget or np.inf,
+                         phi=max(GRIFFIN_ROUNDS // hcef.q, 1), q=hcef.q,
+                         backhaul_time=het.backhaul_time())
+    cluster_of = np.repeat(np.arange(topo.clusters),
+                           topo.devices_per_cluster)
+    corpus = synthetic.synthetic_tokens(cfg.vocab_size, n_seq=train.N_SEQ,
+                                        seq_len=GRIFFIN_SEQ + 1,
+                                        n_devices=R, beta=0.5)
+    rng = np.random.default_rng(0)
+    b_per_dev = hcef.tau  # one sequence a step
+    fa.reset_launches()
+    tk.reset_launches()
+    hist, walls, timings = [], [], {}
+    for rnd in range(GRIFFIN_ROUNDS):
+        t0 = time.perf_counter()
+        reports = het.sample_round(rnd)
+        rho, theta = controller.controls(reports, budget)
+        gossip = (rnd + 1) % hcef.q == 0
+        idx = rng.integers(0, train.N_SEQ, (R, b_per_dev))
+        tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+        state, m = steps[gossip](state, {"tokens": torch.from_numpy(tokens)},
+                                 rho, theta, 1000 + rnd, timings=timings)
+        t, _ = round_time(rho, theta, reports.mu, reports.nu, hcef.tau,
+                          cluster_of, gossip=gossip,
+                          backhaul=het.backhaul_time())
+        e = round_energy(rho, theta, reports.mu, reports.nu, reports.alpha,
+                         reports.p, hcef.tau)
+        budget.charge(t, e, gossip)
+        loss = float(m["loss"].mean())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        hist.append(dict(loss=loss, gossip=gossip,
+                         rho_mean=float(np.mean(rho)),
+                         theta_mean=float(np.mean(theta)),
+                         time=budget.time_spent_prev
+                         + budget.time_spent_this))
+        print(f"round {rnd} loss={loss:.4f} rho={hist[-1]['rho_mean']:.2f} "
+              f"theta={hist[-1]['theta_mean']:.2f} gossip={gossip} "
+              f"wall={walls[-1]:.0f}ms", flush=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"])
+    local_steps = GRIFFIN_ROUNDS * R * hcef.tau
+    n_attn = attention_layers(cfg)
+    want = {"flash_attention": local_steps * n_attn * (2 if cfg.remat
+                                                       else 1),
+            "flash_attention_bwd": local_steps * n_attn,
+            "paged_decode_attention": 0,
+            "topk_compress": GRIFFIN_ROUNDS * topk_per_round}
+    med = lambda v: float(np.percentile(v, 50))  # noqa: E731
+    p50 = med(walls)
+    stats = dict(rounds=GRIFFIN_ROUNDS, layers=cfg.num_layers,
+                 attention_layers=n_attn, d_model=cfg.d_model,
+                 lru_width=cfg.lru_width, heads=cfg.num_heads,
+                 kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                 window=cfg.window, params=n_params, replicas=R,
+                 tokens_per_step=GRIFFIN_SEQ, state_gb=state_gb,
+                 round_wall_ms_p50=p50, round_wall_ms=walls,
+                 round_limit_ms=LM_ROUND_LIMIT_MS,
+                 phase_ms_p50={k: med(v) for k, v in timings.items()},
+                 phase_ms=timings,
+                 launches_per_round={k: v / GRIFFIN_ROUNDS
+                                     for k, v in launches.items()},
+                 loss=[h["loss"] for h in hist],
+                 rho_mean=[h["rho_mean"] for h in hist],
+                 theta_mean=[h["theta_mean"] for h in hist],
+                 time_s=hist[-1]["time"], peak_mem_gb=peak,
+                 peak_limit_gb=PEAK_LIMIT_GB)
+    print("griffin " + json.dumps(stats))
+    print(f"griffin round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
+          f"({'met' if p50 <= LM_ROUND_LIMIT_MS else 'missed'}); peak "
+          f"{peak:.2f} GB against {PEAK_LIMIT_GB} GB")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"non-finite loss: {[h['loss'] for h in hist]}")
+    if not hist[-1]["gossip"] or any(h["gossip"] for h in hist[:-1]):
+        fail("expected gossip in the last round only")
+    if launches != want:
+        fail(f"launch counts {launches}, expected {want}")
+    if peak > PEAK_LIMIT_GB:
+        fail(f"peak {peak:.2f} GB over {PEAK_LIMIT_GB} GB")
+    if p50 > LM_ROUND_LIMIT_MS:
+        fail(f"griffin round p50 {p50:.1f} ms over {LM_ROUND_LIMIT_MS} ms")
+    del state, steps
+    torch.cuda.empty_cache()
+
+    # the launcher's entry point on the smoke griffin (f32 kernels)
+    argv = ["--arch", GRIFFIN_ARCH, "--rounds", "2"]
+    print("python -m repro_torch.launch.train " + " ".join(argv))
+    fa.reset_launches()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    smoke, tau = out["cfg"], bundle.hcef.tau
+    runs = 2 * 4 * tau * attention_layers(smoke)  # 2 rounds, R = 4
+    want = {"flash_attention": runs * (2 if smoke.remat else 1),
+            "flash_attention_bwd": runs, "paged_decode_attention": 0}
+    if len(out["history"]) != 2 or not all(
+            np.isfinite(h["loss"]) for h in out["history"]):
+        fail(f"the launcher's smoke griffin: {out['history']}")
+    if dict(fa.LAUNCHES) != want:
+        fail(f"the launcher's smoke griffin: attention launches "
+             f"{dict(fa.LAUNCHES)}, expected {want}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -4090,6 +4440,7 @@ def main():
     from repro_torch.configs import base
     from repro_torch.core import round as rnd_mod
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import topk_compress as tk
     from repro_torch.kernels import wire_pack as wp
@@ -4153,6 +4504,16 @@ def main():
     prefill_case(fa, gen, S=100, H=4, KH=2, Dh=16, dtype=torch.bfloat16)
     prefill_case(fa, gen, S=256, H=8, KH=2, Dh=64, dtype=torch.bfloat16,
                  window=64)
+    # head dim 256 with one KV head under a window: an f32 case, a ragged
+    # bf16 one, and recurrentgemma-9b's training layer beside masked SDPA
+    g = GRIFFIN_LAYER
+    prefill_case(fa, gen, S=200, H=3, KH=1, Dh=256, dtype=torch.float32,
+                 window=96)
+    prefill_case(fa, gen, S=300, H=16, KH=1, Dh=256, dtype=torch.bfloat16,
+                 window=96)
+    griffin_fwd = prefill_case(fa, gen, S=g["S"], H=g["H"], KH=g["KH"],
+                               Dh=g["Dh"], dtype=torch.bfloat16,
+                               window=g["window"], masked_library=True)
 
     # -- phase 3 -------------------------------------------------------------
     kv_len = [0, 1, 16, 100, 257, 333, S_pad + 31, width * PAGE - 1]
@@ -4222,7 +4583,7 @@ def main():
         launches[k] = m11[k] + m12[k] + m13[k]
 
     # -- phase 14 ------------------------------------------------------------
-    main_bwd, fwd_train = attention_bwd_phase(fa, build)
+    main_bwd, griffin_bwd, fwd_train = attention_bwd_phase(fa, build)
 
     # -- phases 15 and 16 ----------------------------------------------------
     small_lm_round_agrees(configs, lm, rnd_mod, base, fa)
@@ -4283,6 +4644,16 @@ def main():
     for k in ("flash_attention", "paged_decode_attention"):
         launches[k] += m26[k]
 
+    # -- phases 27 and 28: the hybrid family ---------------------------------
+    t0 = time.perf_counter()
+    griffin_small(configs, lm, rnd_mod, base, fa, ops)
+    print(f"phase 27 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m28 = griffin_full(configs, rnd_mod, base, train, synthetic, fa, tk)
+    print(f"phase 28 took {time.perf_counter() - t0:.1f} s")
+    for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
+        launches[k] += m28[k]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -4335,8 +4706,18 @@ def main():
                           "kernel (a warp a block up to wb 1024) serves "
                           "ops.unpack_offsets and wire_decode")
     kernels[0]["note"] = ("launches: the serves' prefills (phases 4, 26) "
-                          "and the training forwards of phases 16, 20, 23 "
-                          "and 25 (two a layer and step: remat)")
+                          "and the training forwards of phases 16, 20, 23, "
+                          "25 and 28 (two a layer and step: remat); "
+                          "griffin_layer: recurrentgemma-9b's training "
+                          "layer (16/1 heads of 256, S 4096, window 2048), "
+                          "library_ms SDPA with the window as a boolean "
+                          "mask")
+    kernels[0]["griffin_layer"] = {k: griffin_fwd[k] for k in (
+        "ms", "bound_ms", "bound_by", "library_ms", "library_backend",
+        "max_abs_err")}
+    kernels[9]["griffin_layer"] = {k: griffin_bwd[k] for k in (
+        "ms", "bound_ms", "bound_by", "library_ms", "library_backend",
+        "max_abs_err", "split_us")}
     kernels[9]["note"] = ("the backward has no TPU counterpart: jax.grad "
                           "through flash_attention_pallas fails; held to "
                           "jax.grad of the reference's jnp route "

@@ -10,7 +10,7 @@ from repro_torch.configs.vision import VISION_CONFIGS, VisionBundle
 
 ARCH_IDS: List[str] = ["mamba2_1p3b", "qwen2_7b", "phi3_medium_14b",
                        "smollm_135m", "codeqwen1p5_7b", "arctic_480b",
-                       "granite_moe_1b_a400m"]
+                       "granite_moe_1b_a400m", "recurrentgemma_9b"]
 PAPER_IDS: List[str] = list(VISION_CONFIGS)
 
 _ALIASES = {
@@ -21,6 +21,7 @@ _ALIASES = {
     "codeqwen1.5-7b": "codeqwen1p5_7b",
     "arctic-480b": "arctic_480b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 
@@ -35,7 +36,7 @@ def get_config(name: str) -> ArchBundle:
 
 def smoke_model(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU tests (the reference's dense,
-    moe and ssm branches of ``smoke_model``)."""
+    moe, ssm and hybrid branches of ``smoke_model``)."""
     kw = dict(
         num_layers=2,
         d_model=64,
@@ -55,6 +56,9 @@ def smoke_model(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "ssm":
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_groups=1, ssm_chunk=16,
                   num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0)
+    if cfg.family == "hybrid":
+        kw.update(block_pattern=cfg.block_pattern, num_layers=3,
+                  window=16, lru_width=64, num_kv_heads=1)
     return cfg.replace(**kw)
 
 

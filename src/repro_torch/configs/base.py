@@ -2,9 +2,9 @@
 
 ``ModelConfig`` keeps the fields of the families the port runs: the dense
 decoder and the ``moe`` family (trained by the HCEF round step and
-served), and the ``ssm`` family (mamba2, trained by the HCEF round step);
-the encoder-decoder and hybrid families are not ported
-(``models/registry.py``).  ``FLTopology`` and ``HCEFConfig`` keep the
+served), and the ``ssm`` family (mamba2) and the ``hybrid`` family
+(griffin: RG-LRU blocks and local MQA), both trained by the HCEF round
+step; the encoder-decoder family is not ported (``models/registry.py``).  ``FLTopology`` and ``HCEFConfig`` keep the
 fields the round step reads, the sparse gossip wire and its error
 feedback and the overlapped engine's bounded staleness included.
 """
@@ -17,10 +17,11 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters (dense, moe and ssm families)."""
+    """Architecture hyperparameters (dense, moe, ssm and hybrid
+    families)."""
 
     name: str
-    family: str  # dense | moe | ssm
+    family: str  # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -39,6 +40,9 @@ class ModelConfig:
     expand: int = 2
     conv_width: int = 4
     ssm_chunk: int = 256
+    # --- hybrid (recurrentgemma / griffin) ---
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "attn")
+    lru_width: int = 0
     # --- attention ---
     window: int = 0  # local-attention window (0 = full/global)
     qkv_bias: bool = False

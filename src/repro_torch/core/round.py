@@ -244,21 +244,29 @@ def _split_batch(batch: Dict[str, torch.Tensor], R: int, tau: int):
 
 def _per_layer(tree):
     """The leaves a local step differentiates, in a fixed order: each
-    top-level leaf whole, then each layer's slice of every stacked layer
-    leaf.  Returns (list of views, rebuild(list) -> the tree loss_fn
-    takes, with "layers" as a list of per-layer dicts).  Gradients then
-    come per layer: no zero-filled (L, ...) gradient per layer slice."""
-    tops = sorted(k for k in tree if k != "layers")
-    names = sorted(tree["layers"])
-    L = tree["layers"][names[0]].shape[0]
-    leaves = ([tree[k] for k in tops]
-              + [tree["layers"][n][l] for l in range(L) for n in names])
+    top-level leaf whole, then, stack by stack (a top-level dict of
+    stacked layer leaves: "layers", or griffin's "attn_layers" and
+    "rec_layers"), each layer's slice of every leaf.  Returns (list of
+    views, rebuild(list) -> the tree loss_fn takes, each stack as a list
+    of per-layer dicts).  Gradients then come per layer: no zero-filled
+    (L, ...) gradient per layer slice."""
+    tops = sorted(k for k in tree if not isinstance(tree[k], dict))
+    stacks = []  # (key, leaf names, layers)
+    for key in sorted(k for k in tree if isinstance(tree[k], dict)):
+        names = sorted(tree[key])
+        stacks.append((key, names, tree[key][names[0]].shape[0]))
+    leaves = [tree[k] for k in tops]
+    for key, names, L in stacks:
+        leaves += [tree[key][n][l] for l in range(L) for n in names]
 
     def rebuild(vals):
         out = dict(zip(tops, vals[:len(tops)]))
-        rest, m = vals[len(tops):], len(names)
-        out["layers"] = [dict(zip(names, rest[l * m:(l + 1) * m]))
-                         for l in range(L)]
+        at = len(tops)
+        for key, names, L in stacks:
+            m = len(names)
+            out[key] = [dict(zip(names, vals[at + l * m:at + (l + 1) * m]))
+                        for l in range(L)]
+            at += L * m
         return out
     return leaves, rebuild
 
@@ -318,11 +326,11 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     ``dist.collectives.participation_weights`` (the live-device mean);
     ``conn`` (C,) 0/1 backhaul links (``mixing.participation_mixing``).
     Host arrays (numpy)."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the round step trains the dense, moe and ssm families; "
-            f"{cfg.family!r} is not ported yet (ROADMAP.md, modules to "
-            f"port, item 6)")
+            f"the round step trains the dense, moe, ssm and hybrid "
+            f"families; {cfg.family!r} is not ported yet (ROADMAP.md, "
+            f"modules to port, item 6)")
     model = get_model(cfg)
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices

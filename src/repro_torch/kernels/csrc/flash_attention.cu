@@ -41,6 +41,14 @@
 // overlap of one tile's softmax with the next tile's products (two score
 // buffers, or two warpgroups taking turns).
 //
+// At head dim 256 (recurrentgemma-9b's 16 query heads over one KV head,
+// under a 2048-token window) a 64-row tile is 32 KB, four 64-column TMA
+// boxes, and a CTA has one consumer warpgroup (one query head): O is 64 x
+// 256 f32, 128 registers a thread, and with a second warpgroup ptxas
+// keeps the 288-thread CTA to 168 registers a thread and spills.  The
+// ring keeps two K/V stages: Q plus two K and two V tiles is 160 KB of
+// the 227 KB a block may take.  P V is one wgmma m64n256k16 a k-step.
+//
 // flash_fwd_simt (f32).  TF32 tensor cores would miss the f32 tolerance of
 // 2e-5, so f32 keeps the exact kernel on the f32 pipes: one block of 256
 // threads owns 64 query rows of one head; each 32-key K/V tile is staged
@@ -74,7 +82,11 @@ using namespace hopper;
 
 constexpr int kBQ = 64;      // query rows of a consumer warpgroup: wgmma's M
 constexpr int kBKV = 64;     // keys per K/V tile
-constexpr int kStages = 4;   // K/V ring depth
+// K/V ring depth: four stages, two at head dim 256, whose 32 KB tiles
+// would otherwise need 320 KB of shared memory (2 Q + 8 K/V tiles)
+__host__ __device__ constexpr int stages(int dh) {
+  return dh == 256 ? 2 : 4;
+}
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -82,6 +94,7 @@ template <int DH, int NWG>
 __host__ __device__ constexpr size_t smem_bytes() {
   // Q of each warpgroup, K and V of each stage, 2 kStages + 1 mbarriers,
   // and slack to align the tiles to 1024 bytes (the 128B swizzle's period)
+  constexpr int kStages = stages(DH);
   return static_cast<size_t>(Tile<DH>::kBytes) * (NWG + 2 * kStages) +
          8 * (2 * kStages + 1) + 1024;
 }
@@ -99,8 +112,10 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1)
                  bf16* __restrict__ out, float* __restrict__ lse, int Sq,
                  int Skv, int H, int KH, int causal, int window,
                  int q_offset, float scale_log2) {
-  static_assert(DH % 16 == 0 && DH <= 128, "head_dim in {16, 32, 64, 128}");
+  static_assert(DH % 16 == 0 && DH <= 256,
+                "head_dim in {16, 32, 64, 128, 256}");
   using T = Tile<DH>;
+  constexpr int kStages = stages(DH);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;                        // + w * T::kBytes
@@ -327,13 +342,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // Two consumer warpgroups (two query heads on every K/V tile) where the
-// KV group has two heads or more, else one.
+// KV group has two heads or more, else one; one at head dim 256, where
+// two would spill (ptxas keeps a 288-thread CTA to 168 registers a
+// thread, under the 64 x 256 f32 O and the score fragments).
 template <int DH>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       float* lse, int B, int Sq, int Skv, int H, int KH,
                       int causal, int window, int q_offset, float scale,
                       cudaStream_t stream) {
-  if (H / KH >= 2)
+  if constexpr (DH == 256)
+    return launch<DH, 1>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal,
+                         window, q_offset, scale, stream);
+  else if (H / KH >= 2)
     return launch<DH, 2>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal,
                          window, q_offset, scale, stream);
   return launch<DH, 1>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal, window,
@@ -529,6 +549,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     case 32: return go(flash_fwd_simt<float, 32>, flash_smem_bytes<32>());
     case 64: return go(flash_fwd_simt<float, 64>, flash_smem_bytes<64>());
     case 128: return go(flash_fwd_simt<float, 128>, flash_smem_bytes<128>());
+    case 256: return go(flash_fwd_simt<float, 256>, flash_smem_bytes<256>());
     default: return cudaErrorInvalidValue;
   }
 }
@@ -569,6 +590,9 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                  window, q_offset, scale, s);
     case 128:
       return tc::launch_tc<128>(q, k, v, out, l, B, Sq, Skv, H, KH, causal,
+                                 window, q_offset, scale, s);
+    case 256:
+      return tc::launch_tc<256>(q, k, v, out, l, B, Sq, Skv, H, KH, causal,
                                  window, q_offset, scale, s);
     default:
       return cudaErrorInvalidValue;

@@ -53,6 +53,22 @@
 //     tile before, and P = 2^x comes from ex2.approx.ftz.  The reference
 //     differentiates in f32, so chip_smoke.py holds this route to the
 //     plain version at bf16 2e-2 of each gradient's largest entry.
+//     Head dim 256 (recurrentgemma-9b: 16 query heads over one KV head,
+//     a 2048-token window) splits the head dim between the consumers:
+//     a 64-row tile is 32 KB, and one warpgroup's f32 dK and dV of a key
+//     block would be 256 registers a thread against its 240.  So both
+//     consumer warpgroups take every item (dK/dV) or tile (dQ), each
+//     computes S^T and dP^T (S and dP) over the whole head dim, and each
+//     owns 128 of the 256 output columns: 64 + 64 accumulator registers
+//     for dK and dV, as at head dim 128, 64 for dQ, and no sum between
+//     the warpgroups.  The rings keep two stages: a dK/dV CTA holds K, V
+//     and two (Q, dO) stages, 198,696 bytes of shared memory with lse, D,
+//     barriers and alignment slack; a dQ CTA holds one unit's Q and dO
+//     and two (K, V) stages, 197,672 bytes.  Computing S and dP in both
+//     warpgroups makes 6 products of 64 x 64 x 256 a dK/dV item where 4
+//     would do, and 5 a dQ tile where 3 would do.  With one KV
+//     head at B 1 and S 4096 there are only 64 dK/dV CTAs, each walking
+//     the 16 heads' items, beside 1024 dQ CTAs.
 //   f32: exact SIMT kernels on the f32 pipes (TF32 would miss 2e-5), as
 //     flash_fwd_simt, in two launches: a dK/dV CTA per (b, KV head,
 //     32-key block), a dQ CTA per (b, head, 32-row query block); 256
@@ -125,7 +141,15 @@ namespace tcb {
 using namespace hopper;
 
 constexpr int kB = 64;             // keys and query rows of a tile
-constexpr int kStages = 4;         // depth of each role's ring
+// depth of each role's ring: four stages, two at head dim 256 (32 KB
+// tiles)
+__host__ __device__ constexpr int stages(int dh) {
+  return dh == 256 ? 2 : 4;
+}
+// Whether the two consumer warpgroups split the head dim: at 256 each
+// takes every item and owns 128 columns of the outputs (split), below
+// that each takes every other item (or unit) with all the columns.
+__host__ __device__ constexpr bool split_dh(int dh) { return dh == 256; }
 constexpr int kLse = kB * 4;       // bytes of a tile's lse (or D) rows
 constexpr int kConsumerRegs = 240; // registers of a consumer's thread
 constexpr int kProducerRegs = 24;  // ... and of the producer's
@@ -165,15 +189,20 @@ template <int DH>
 __host__ __device__ constexpr size_t dkdv_smem_bytes() {
   // K and V, Q and dO of each stage, lse and D of each stage, two
   // mbarriers a stage and one, and slack to align the tiles to 1024 bytes
+  constexpr int kStages = stages(DH);
   return static_cast<size_t>(Tile<DH>::kBytes) * (2 + 2 * kStages) +
          2 * kLse * kStages + 8 * (2 * kStages + 1) + 1024;
 }
 
 template <int DH>
 __host__ __device__ constexpr size_t dq_smem_bytes() {
-  // Q and dO of each of two warpgroups, K and V of each stage, two
-  // mbarriers a stage and one, and slack to align the tiles to 1024 bytes
-  return static_cast<size_t>(Tile<DH>::kBytes) * (4 + 2 * kStages) +
+  // Q and dO of each unit (two units, one when split), K and V of each
+  // stage, two mbarriers a stage and one, and slack to align the tiles to
+  // 1024 bytes
+  constexpr int kStages = stages(DH);
+  constexpr int kUnits = split_dh(DH) ? 1 : 2;
+  return static_cast<size_t>(Tile<DH>::kBytes) *
+             (2 * kUnits + 2 * kStages) +
          8 * (2 * kStages + 1) + 1024;
 }
 
@@ -190,7 +219,11 @@ __host__ __device__ constexpr size_t dq_smem_bytes() {
 // dP^T = V dO^T (SS wgmma), then P^T = exp2(S^T scale log2 e - lse log2
 // e) and dS^T = P^T o (dP^T - D) on the fragments, then dV += P^T dO and
 // dK += dS^T Q (RS wgmma, P^T and dS^T rounded to bf16, dO and Q
-// MN-major).
+// MN-major).  Split (head dim 256): both warpgroups take every item, each
+// computes S^T and dP^T over the whole head dim and owns head-dim columns
+// [128 w, 128 w + 128) of dK and dV, which it stores itself: dK and dV of
+// 64 keys x 256 columns would be 256 f32 registers a thread in one
+// warpgroup, and are 128 this way, as at head dim 128.
 template <int DH>
 __device__ __forceinline__ void dkdv_cta(
     int cta, const CUtensorMap& tq, const CUtensorMap& tk,
@@ -198,8 +231,12 @@ __device__ __forceinline__ void dkdv_cta(
     const float* __restrict__ lse, const float* __restrict__ dsum,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int Sq, int Skv,
     int H, int KH, int causal, int window, float scale, float scale_log2) {
-  static_assert(DH % 16 == 0 && DH <= 128, "head_dim in {16, 32, 64, 128}");
+  static_assert(DH % 16 == 0 && DH <= 256,
+                "head_dim in {16, 32, 64, 128, 256}");
   using T = Tile<DH>;
+  constexpr int kStages = stages(DH);
+  constexpr bool kSplit = split_dh(DH);
+  constexpr int DO = kSplit ? DH / 2 : DH;  // output columns a warpgroup
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -231,7 +268,8 @@ __device__ __forceinline__ void dkdv_cta(
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
       mbar_init(full + 8 * st, 1 + 32);  // the TMA's, and each lane's
-      mbar_init(empty + 8 * st, 4);  // the four warps of the item's group
+      // the four warps of the item's warpgroup, or of both when split
+      mbar_init(empty + 8 * st, kSplit ? 8 : 4);
     }
     mbar_init(kvbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -282,10 +320,12 @@ __device__ __forceinline__ void dkdv_cta(
     const int row0 = (warp & 3) * 16 + (lane >> 2);
     const int col = 2 * (lane & 3);
     const int key0 = k0 + row0, key1 = key0 + 8;
+    // this warpgroup's head-dim columns of dO and Q (split: its half)
+    const uint32_t cols = kSplit ? w * (DO / T::kBox) * T::kRegion : 0;
 
-    float adk[DH / 2], adv[DH / 2];
+    float adk[DO / 2], adv[DO / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) adk[i] = adv[i] = 0.f;
+    for (int i = 0; i < DO / 2; ++i) adk[i] = adv[i] = 0.f;
 
     // Each item's products run while this warpgroup works on the one
     // before: S^T and dP^T go out together, P^T is computed while dP^T
@@ -297,8 +337,8 @@ __device__ __forceinline__ void dkdv_cta(
     // done (at the next item's first wait, or at the end).
     uint32_t pa[4][4] = {}, da[4][4] = {};  // P^T, dS^T as A fragments
     int prev_st = -1;
-    if (w < n_items) mbar_wait(kvbar, 0);
-    for (int it = w; it < n_items; it += 2) {
+    if ((kSplit ? 0 : w) < n_items) mbar_wait(kvbar, 0);
+    for (int it = kSplit ? 0 : w; it < n_items; it += kSplit ? 1 : 2) {
       const int st = it % kStages;
       mbar_wait(full + 8 * st, (it / kStages) & 1);
       const uint32_t tQ = sQ + st * T::kBytes;
@@ -359,7 +399,7 @@ __device__ __forceinline__ void dkdv_cta(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DH>(adv, pa[kk], desc_mnmajor<DH>(tO, kk));
+        wgmma_rs<DO>(adv, pa[kk], desc_mnmajor<DH>(tO + cols, kk));
       wgmma_commit();
       wgmma_wait<1>();  // dP^T is done
       fence_regs(dp);
@@ -381,7 +421,7 @@ __device__ __forceinline__ void dkdv_cta(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DH>(adk, da[kk], desc_mnmajor<DH>(tQ, kk));
+        wgmma_rs<DO>(adk, da[kk], desc_mnmajor<DH>(tQ + cols, kk));
       wgmma_commit();
       prev_st = st;
     }
@@ -395,32 +435,56 @@ __device__ __forceinline__ void dkdv_cta(
       if (lane == 0) mbar_arrive(empty + 8 * prev_st);
     }
 
-    // The fixed-order sum: each warpgroup hands the other the half it does
-    // not store, in its fragment order, through the drained ring.
-    const int tid = threadIdx.x & 127;
-    float* xfer = reinterpret_cast<float*>(gbase + (sQ - base));
-    asm volatile("bar.sync 3, 256;\n" ::: "memory");  // the ring is drained
+    if constexpr (kSplit) {  // each warpgroup stores its own columns
+      const size_t r0 = (((size_t)b * Skv + key0) * KH + kh) * DH + w * DO +
+                        col;
+      const size_t r1 = r0 + (size_t)8 * KH * DH;  // key1's row
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i)
-      xfer[(w * (DH / 2) + i) * 128 + tid] = w == 0 ? adk[i] : adv[i];
-    asm volatile("bar.sync 3, 256;\n" ::: "memory");
-    bf16* out = w == 0 ? dv : dk;
-    const float mul = w == 0 ? 1.f : scale;
-    float acc[DH / 2];
+      for (int j = 0; j < DO / 8; ++j) {
+        if (key0 < Skv) {
+          *reinterpret_cast<__nv_bfloat162*>(dv + r0 + 8 * j) =
+              __floats2bfloat162_rn(adv[4 * j], adv[4 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dk + r0 + 8 * j) =
+              __floats2bfloat162_rn(adk[4 * j] * scale,
+                                    adk[4 * j + 1] * scale);
+        }
+        if (key1 < Skv) {
+          *reinterpret_cast<__nv_bfloat162*>(dv + r1 + 8 * j) =
+              __floats2bfloat162_rn(adv[4 * j + 2], adv[4 * j + 3]);
+          *reinterpret_cast<__nv_bfloat162*>(dk + r1 + 8 * j) =
+              __floats2bfloat162_rn(adk[4 * j + 2] * scale,
+                                    adk[4 * j + 3] * scale);
+        }
+      }
+    } else {
+      // The fixed-order sum: each warpgroup hands the other the half it
+      // does not store, in its fragment order, through the drained ring.
+      const int tid = threadIdx.x & 127;
+      float* xfer = reinterpret_cast<float*>(gbase + (sQ - base));
+      // the ring is drained
+      asm volatile("bar.sync 3, 256;\n" ::: "memory");
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i)
-      acc[i] = ((w == 0 ? adv[i] : adk[i]) +
-                xfer[((1 - w) * (DH / 2) + i) * 128 + tid]) * mul;
-    bf16* o0 = out + (((size_t)b * Skv + key0) * KH + kh) * DH + col;
-    bf16* o1 = out + (((size_t)b * Skv + key1) * KH + kh) * DH + col;
+      for (int i = 0; i < DH / 2; ++i)
+        xfer[(w * (DH / 2) + i) * 128 + tid] = w == 0 ? adk[i] : adv[i];
+      asm volatile("bar.sync 3, 256;\n" ::: "memory");
+      bf16* out = w == 0 ? dv : dk;
+      const float mul = w == 0 ? 1.f : scale;
+      float acc[DH / 2];
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      if (key0 < Skv)
-        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-      if (key1 < Skv)
-        *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      for (int i = 0; i < DH / 2; ++i)
+        acc[i] = ((w == 0 ? adv[i] : adk[i]) +
+                  xfer[((1 - w) * (DH / 2) + i) * 128 + tid]) * mul;
+      bf16* o0 = out + (((size_t)b * Skv + key0) * KH + kh) * DH + col;
+      bf16* o1 = out + (((size_t)b * Skv + key1) * KH + kh) * DH + col;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        if (key0 < Skv)
+          *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        if (key1 < Skv)
+          *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
     }
   }
 }
@@ -449,7 +513,10 @@ __device__ __forceinline__ void dq_unit(int u, int G, int Sq, int Skv,
 // Pairing units, not heads, keeps both warpgroups busy where G is odd.
 // Per tile: S = Q K^T and dP = dO V^T (SS wgmma), P and dS = P o (dP - D)
 // on the fragments, dQ += dS K (RS wgmma, dS rounded to bf16, K
-// MN-major).
+// MN-major).  Split (head dim 256): one unit a CTA, whose Q and dO (64
+// KB) and two K/V stages (128 KB) fill the shared memory; both
+// warpgroups take every tile, each computes S and dP over the whole head
+// dim and owns dQ's head-dim columns [128 w, 128 w + 128).
 template <int DH>
 __device__ __forceinline__ void dq_cta(
     int cta, const CUtensorMap& tq, const CUtensorMap& tk,
@@ -457,24 +524,30 @@ __device__ __forceinline__ void dq_cta(
     const float* __restrict__ lse, const float* __restrict__ dsum,
     bf16* __restrict__ dq, int B, int Sq, int Skv, int H, int KH,
     int causal, int window, float scale, float scale_log2) {
-  static_assert(DH % 16 == 0 && DH <= 128, "head_dim in {16, 32, 64, 128}");
+  static_assert(DH % 16 == 0 && DH <= 256,
+                "head_dim in {16, 32, 64, 128, 256}");
   using T = Tile<DH>;
+  constexpr int kStages = stages(DH);
+  constexpr bool kSplit = split_dh(DH);
+  constexpr int DO = kSplit ? DH / 2 : DH;  // dQ columns a warpgroup
+  constexpr int kUnits = kSplit ? 1 : 2;    // units a CTA
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;                        // + w * T::kBytes
-  const uint32_t sO = sQ + 2 * T::kBytes;          // + w * T::kBytes
-  const uint32_t sK = sO + 2 * T::kBytes;          // + st * T::kBytes
+  const uint32_t sO = sQ + kUnits * T::kBytes;     // + w * T::kBytes
+  const uint32_t sK = sO + kUnits * T::kBytes;     // + st * T::kBytes
   const uint32_t sV = sK + kStages * T::kBytes;    // + st * T::kBytes
   const uint32_t full = sV + kStages * T::kBytes;  // + 8 st
   const uint32_t empty = full + 8 * kStages;       // + 8 st
   const uint32_t qbar = empty + 8 * kStages;
 
-  // units 2 c and 2 c + 1 of (b, kh); c = 0, the longest, first
+  // units 2 c and 2 c + 1 (split: unit c) of (b, kh); c = 0, the
+  // longest, first
   const int G = H / KH;
   const int b = cta % B;
   const int kh = (cta / B) % KH;
-  const int u0 = 2 * (cta / (B * KH));
-  const int n_act = min(2, (Sq + kB - 1) / kB * G - u0);
+  const int u0 = kUnits * (cta / (B * KH));
+  const int n_act = min(kUnits, (Sq + kB - 1) / kB * G - u0);
   int kb_lo = 1 << 30, kb_hi = -1;  // the hull of the units' key blocks
   for (int w = 0; w < n_act; ++w) {
     int q0, hg, t_lo, t_hi;
@@ -491,7 +564,8 @@ __device__ __forceinline__ void dq_cta(
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
       mbar_init(full + 8 * st, 1);
-      mbar_init(empty + 8 * st, 4 * n_act);  // one arrival a consumer warp
+      // one arrival a consumer warp (split: both warpgroups)
+      mbar_init(empty + 8 * st, 4 * (kSplit ? 2 : n_act));
     }
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -530,25 +604,28 @@ __device__ __forceinline__ void dq_cta(
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 
   const int w = warp >> 2;  // this consumer warpgroup
-  if (w >= n_act) return;   // the KV head has no unit left for it
+  const int unit = kSplit ? 0 : w;  // its unit of the CTA's
+  if (unit >= n_act) return;  // the KV head has no unit left for it
   int qb0, hg, my_lo, my_hi;  // this warpgroup's unit
-  dq_unit(u0 + w, G, Sq, Skv, causal, window, qb0, hg, my_lo, my_hi);
+  dq_unit(u0 + unit, G, Sq, Skv, causal, window, qb0, hg, my_lo, my_hi);
   const int h = kh * G + hg;
   // this thread's two rows of every accumulator fragment, and its columns
   const int row0 = (warp & 3) * 16 + (lane >> 2);
   const int col = 2 * (lane & 3);
   const int qpos0 = qb0 + row0, qpos1 = qpos0 + 8;
-  const uint32_t sQw = sQ + w * T::kBytes;
-  const uint32_t sOw = sO + w * T::kBytes;
+  const uint32_t sQw = sQ + unit * T::kBytes;
+  const uint32_t sOw = sO + unit * T::kBytes;
+  // this warpgroup's head-dim columns of K (split: its half)
+  const uint32_t cols = kSplit ? w * (DO / T::kBox) * T::kRegion : 0;
   const size_t at = ((size_t)b * H + h) * Sq;
   const float L0 = qpos0 < Sq ? lse[at + qpos0] * kLog2eBwd : 0.f;
   const float L1 = qpos1 < Sq ? lse[at + qpos1] * kLog2eBwd : 0.f;
   const float D0 = qpos0 < Sq ? dsum[at + qpos0] : 0.f;
   const float D1 = qpos1 < Sq ? dsum[at + qpos1] : 0.f;
 
-  float adq[DH / 2];
+  float adq[DO / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) adq[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) adq[i] = 0.f;
 
   // As in the dK/dV pass, a tile's products run while this warpgroup
   // works: P is computed while dP's product runs, and the dQ product is
@@ -635,7 +712,7 @@ __device__ __forceinline__ void dq_cta(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<DH>(adq, da[kk], desc_mnmajor<DH>(tK, kk));
+      wgmma_rs<DO>(adq, da[kk], desc_mnmajor<DH>(tK + cols, kk));
     wgmma_commit();
     prev_st = st;
   }
@@ -647,10 +724,11 @@ __device__ __forceinline__ void dq_cta(
     if (lane == 0) mbar_arrive(empty + 8 * prev_st);
   }
 
-  bf16* o0 = dq + (((size_t)b * Sq + qpos0) * H + h) * DH + col;
-  bf16* o1 = dq + (((size_t)b * Sq + qpos1) * H + h) * DH + col;
+  const int c0 = (kSplit ? w * DO : 0) + col;
+  bf16* o0 = dq + (((size_t)b * Sq + qpos0) * H + h) * DH + c0;
+  bf16* o1 = dq + (((size_t)b * Sq + qpos1) * H + h) * DH + c0;
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
+  for (int j = 0; j < DO / 8; ++j) {
     if (qpos0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(
           adq[4 * j] * scale, adq[4 * j + 1] * scale);
@@ -708,8 +786,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !encode<DH>(enc, &mo, dout, B, Sq, H))
     return cudaErrorInvalidValue;
   const long long n_dkdv = (long long)((Skv + kB - 1) / kB) * KH * B;
+  const long long units = (long long)(Sq + kB - 1) / kB * (H / KH);
   const long long n_dq =
-      ((long long)(Sq + kB - 1) / kB * (H / KH) + 1) / 2 * KH * B;
+      (split_dh(DH) ? units : (units + 1) / 2) * KH * B;
   if (n_dkdv + n_dq >= (1LL << 31)) return cudaErrorInvalidValue;
   const size_t smem = dkdv_smem_bytes<DH>() > dq_smem_bytes<DH>()
                           ? dkdv_smem_bytes<DH>()
@@ -1061,6 +1140,9 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                            H, KH, causal, window, scale, s);
     case 128:
       return launch_dh<128>(dtype, q, k, v, dout, L, D, dq, dk, dv, B, Sq,
+                            Skv, H, KH, causal, window, scale, s);
+    case 256:
+      return launch_dh<256>(dtype, q, k, v, dout, L, D, dq, dk, dv, B, Sq,
                             Skv, H, KH, causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;

@@ -232,3 +232,18 @@ def unpack_offsets(packed, *, wb, k_b, mode, impl=None):
     if _route(impl, packed) == "kernel":
         return unpack_offsets_cuda(packed, wb=wb, k_b=k_b)
     return unpack_offsets_plain(packed, wb=wb, k_b=k_b, mode=mode)
+
+
+def rglru(log_a, gated_x, *, h0=None, impl=None):
+    """The RG-LRU recurrence (port of ``ops.py:168``).  The reference has
+    no Pallas kernel for it: its routes are the jnp associative scan and,
+    with ``impl="ref"``, the sequential oracle.  So here it is plain
+    PyTorch on every device: ``ref.rglru_scan`` (a log-depth scan, under
+    autograd on the card too), or ``ref.rglru_ref`` for "ref".  Returns
+    (hs in gated_x's type, the last h in f32)."""
+    if impl == "ref":
+        return ref.rglru_ref(log_a, gated_x, h0=h0)
+    if impl not in (None, "plain"):
+        raise ValueError(f"rglru: impl {impl!r} not in (None, 'plain', "
+                         f"'ref'): the RG-LRU has no kernel")
+    return ref.rglru_scan(log_a, gated_x, h0=h0)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels' functions (port of
 ``repro/kernels/ref.py`` and ``gather_kv_pages`` of
-``repro/kernels/flash_attention.py``): attention, block top-k and the
-Mamba2 SSD scan, and the exact top-k wire encode.
+``repro/kernels/flash_attention.py``): attention, block top-k, the Mamba2
+SSD scan, the RG-LRU and the exact top-k wire encode.
 
 They compute what the reference's oracles compute, line for line, and are
 what the CPU runs and what the CUDA kernels are held against on the card.
@@ -579,6 +579,70 @@ def ssd_bwd_stages(dy, x, dt, A, B, C, states, *, chunk=64):
     ddt, dA = ssd_stage_dcs(dcs, ddx, dt, A)
     return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype),
             dC.to(C.dtype))
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma), ref.py:303-350
+# ---------------------------------------------------------------------------
+
+RGLRU_C = 8.0
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0), exact at every x (torch's
+    ``softplus`` turns linear above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru_gates(x, wa, wx, log_lambda):
+    """(log_a, gated_x) of the RG-LRU (ref.py:310).  x: (b, s, w); wa, wx:
+    (w, w) recurrence and input gate weights; log_lambda: (w,) f32, a =
+    sigmoid(log_lambda).  The reference's promotions: the gates in x's
+    type, -c r in x's type times the f32 softplus, so log_a and gated are
+    f32 for a bf16 x."""
+    r = torch.sigmoid(x @ wa)
+    i = torch.sigmoid(x @ wx)
+    log_a = (-RGLRU_C * r) * _softplus(-log_lambda)[None, None, :]
+    a2 = torch.exp(2.0 * log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * (i * x)
+    return log_a, gated
+
+
+def rglru_ref(log_a, gated_x, *, h0=None):
+    """The sequential recurrence h_t = a_t h_{t-1} + gx_t in f32 (ref.py:325),
+    a loop over time: the oracle.  Returns (hs in gated_x's type, the last
+    h in f32)."""
+    b, s, w = gated_x.shape
+    a = torch.exp(log_a.float())
+    gx = gated_x.float()
+    h = (torch.zeros((b, w), dtype=torch.float32, device=gated_x.device)
+         if h0 is None else h0)
+    ys = []
+    for t in range(s):
+        h = a[:, t] * h + gx[:, t]
+        ys.append(h)
+    return torch.stack(ys, dim=1).to(gated_x.dtype), h
+
+
+def rglru_scan(log_a, gated_x, *, h0=None):
+    """The log-depth scan of the recurrence (``rglru_scan_jnp``, ref.py:340):
+    Hillis-Steele doubling over the sequence with the reference's combine,
+    (a_l, x_l) . (a_r, x_r) = (a_l a_r, x_l a_r + x_r), in f32, h0 folded
+    into the first step.  ceil(log2 s) rounds of a few elementwise passes
+    each, where a loop over time would launch s steps (and s more in the
+    backward).  Returns (hs in gated_x's type, the last h in f32)."""
+    s = gated_x.shape[1]
+    a = torch.exp(log_a.float())
+    x = gated_x.float()
+    if h0 is not None:
+        x = torch.cat([x[:, :1] + a[:, :1] * h0[:, None], x[:, 1:]], dim=1)
+    d = 1
+    while d < s:
+        # position t takes (t - d) as its left operand
+        x = torch.cat([x[:, :d], x[:, :-d] * a[:, d:] + x[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return x.to(gated_x.dtype), x[:, -1]
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ NOT_SERVED = {
     "ssm": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
            "item 6: mamba2's prefill and decode_step",
     "hybrid": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
-              "item 6: griffin",
+              "griffin's prefill and decode_step",
     "encdec": "ROADMAP.md, modules to port, item 6: the encoder and "
               "cross-attention",
 }

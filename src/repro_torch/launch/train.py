@@ -36,10 +36,21 @@ Every decoder-only LM arch trains through the attention kernels, forward
 and backward: the dense smollm-135M, qwen2-7b, codeqwen1.5-7b and
 phi3-medium-14b (bf16 momentum), and the MoE granite-moe-1b-a400m (32
 experts, top 8) and arctic-480b (128 experts, top 2, a dense residual, no
-momentum).  At full width smollm-135M and granite-moe-1b-a400m fit four
-replicas on one card; qwen2-7b, codeqwen1.5-7b, phi3-medium-14b and
-arctic-480b need more than one card holds, and the memory is the
-caller's problem, as in the reference.
+momentum).  So does the hybrid recurrentgemma-9b (``models/griffin.py``:
+RG-LRU blocks, whose scan is plain PyTorch, and local MQA, 16 heads of
+256 over one KV head under a 2048-token window), e.g.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma_9b --rounds 2
+
+at smoke size (3 layers).  At full width smollm-135M and
+granite-moe-1b-a400m fit four replicas on one card; qwen2-7b,
+codeqwen1.5-7b, phi3-medium-14b, arctic-480b and recurrentgemma-9b need
+more than one card holds (``--full`` at recurrentgemma-9b's 38 layers is
+about 9.4 B parameters; at about 10 bytes a parameter a replica's state,
+parameters, momentum, EF and the round's delta, is about 94 GB), and the
+memory is the caller's problem, as in the reference.  ``chip_smoke.py``
+phase 28 trains recurrentgemma-9b at full width and depth 5 with R = 2.
 
 ``--chaos`` injects faults (``runtime/chaos``: ``--chaos-dropout``,
 ``--chaos-partition``, ``--chaos-coord-fail``, ``--chaos-seed``): the

@@ -87,12 +87,16 @@ def mask_padded_logits(cfg, logits):
                                   device=logits.device))
 
 
-def layer_list(params):
-    """params["layers"] as a list of per-layer dicts (views of the stacked
-    leaves, or the list itself: the round step differentiates with respect
-    to each layer's slices)."""
-    layers = params["layers"]
+def stack_list(layers):
+    """A stack of layers as a list of per-layer dicts: views of the stacked
+    leaves (L, ...), or the list itself (the round step differentiates
+    with respect to each layer's slices)."""
     if isinstance(layers, (list, tuple)):
         return list(layers)
     L = next(iter(layers.values())).shape[0]
     return [{k: v[l] for k, v in layers.items()} for l in range(L)]
+
+
+def layer_list(params):
+    """params["layers"] as a list of per-layer dicts (``stack_list``)."""
+    return stack_list(params["layers"])

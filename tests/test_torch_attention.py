@@ -45,6 +45,7 @@ FLASH_CASES = [
     (1, 32, 64, 4, 2, 16, True, 0, 32),     # query offset
     (2, 32, 64, 4, 2, 64, False, 0, 0),     # non-causal, Sq != Skv
     (1, 144, 144, 4, 2, 16, True, 0, 0),    # S a page multiple, not 128
+    (1, 72, 72, 4, 1, 256, True, 32, 0),    # Dh 256, MQA, window (griffin)
 ]
 
 

@@ -8,7 +8,8 @@ route.  The same numpy inputs go through ``jax.vjp`` of
 port's ``ref.flash_attention_bwd_plain`` (fed the port's forward and its
 row log-sum-exp), which is what ``chip_smoke.py`` holds the CUDA backward
 kernels to on the card.  The grid: G 1, 2 and 3, causal and not, window 0
-and 16, S 17, 65 and 130, head dims 16 and 64, f32.
+and 16, S 17, 65 and 130, head dims 16 and 64, f32; and head dim 256 with
+one KV head (G 3 and 4, a window and none).
 """
 import functools
 import itertools
@@ -130,6 +131,30 @@ def test_plain_backward_matches_autograd_of_the_blockwise_forward(
                                         window=window)
     _close_of_max([t.numpy() for t in got], [t.numpy() for t in want],
                   "autograd")
+
+
+@pytest.mark.parametrize("G,S,causal,window", [(3, 65, True, 16),
+                                               (4, 40, False, 0)])
+def test_plain_backward_matches_jax_vjp_at_head_dim_256_mqa(G, S, causal,
+                                                          window):
+    """recurrentgemma-9b's attention shape at small size: one KV head
+    (MQA), head dim 256, under a window shorter than S."""
+    rng = np.random.default_rng(G + S)
+    shapes = ((1, S, G, 256), (1, S, 1, 256), (1, S, 1, 256), (1, S, G, 256))
+    q, k, v, g = (rng.normal(size=sh).astype(np.float32) for sh in shapes)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    kw = dict(causal=causal, window=window)
+    out, lse = ref.flash_attention_blockwise(tq, tk, tv, return_lse=True,
+                                             **kw)
+    got = [t.numpy() for t in ref.flash_attention_bwd_plain(
+        tq, tk, tv, out, lse, tg, **kw)]
+
+    def grads(q, k, v, g):
+        return [jax.vjp(functools.partial(fn, **kw), q, k, v)[1](g)
+                for fn in (jref.attention_ref, jref.flash_attention_jnp)]
+    want = jax.jit(grads)(*map(jnp.asarray, (q, k, v, g)))
+    for name, w in zip(("attention_ref", "flash_attention_jnp"), want):
+        _close_of_max(got, [np.asarray(x) for x in w], name)
 
 
 def test_bf16_plain_backward_returns_the_input_types():

@@ -11,7 +11,11 @@ warpgroup a unit, over the units' live key blocks.
 torch: the same live tiles (``dkdv_items`` and ``dq_ctas`` mirror the
 kernels' ``live_rows``, ``live_keys`` and ``dq_unit``), the same split of the tiles
 between the two warpgroups, the same fixed-order sum, P^T and dS rounded
-to bf16 where the kernels round them, every other step in f32.  The card
+to bf16 where the kernels round them, every other step in f32.  At head
+dim 256 the kernels split the head dim instead: both warpgroups take
+every item, each owning half of dK's and dV's columns (so each column
+sums its items in order, with no sum between the warpgroups), and a dQ
+CTA holds one unit.  The card
 cannot be reached here, so this is how the design's rounding and order
 are shown to meet the gate that ``chip_smoke.py`` phase 14 holds the
 kernels to: each gradient within 2e-2 of its largest entry (bf16).
@@ -43,6 +47,7 @@ CASES = [
     (1, 130, 1, 3, 64, False, 16),
     (1, 200, 1, 2, 128, True, 0),
     (1, 128, 2, 3, 128, True, 96),
+    (1, 130, 1, 3, 256, True, 96),  # MQA at head dim 256 under a window
 ]
 
 
@@ -68,11 +73,12 @@ def dq_tiles(q0, nq, Skv, causal, window):
     return list(range(lo // TILE, hi // TILE + 1)) if lo <= hi else []
 
 
-def dq_ctas(Sq, Skv, G, causal, window):
+def dq_ctas(Sq, Skv, G, causal, window, per_cta=2):
     """The dQ CTAs of a (b, KV head) in launch order, each the (head in
-    group, query block, key blocks) of its one or two units (``dq_unit``:
-    unit u is query block n - 1 - u // G of head u % G), and the key
-    blocks its producer streams (the hull of its units')."""
+    group, query block, key blocks) of its ``per_cta`` units or fewer
+    (two, one at head dim 256; ``dq_unit``: unit u is query block n - 1 -
+    u // G of head u % G), and the key blocks its producer streams (the
+    hull of its units')."""
     n = -(-Sq // TILE)
     units = []
     for u in range(n * G):
@@ -81,8 +87,8 @@ def dq_ctas(Sq, Skv, G, causal, window):
                                                          TILE), Skv, causal,
                                            window)))
     ctas = []
-    for c in range(0, len(units), 2):
-        pair = units[c:c + 2]
+    for c in range(0, len(units), per_cta):
+        pair = units[c:c + per_cta]
         seen = [kb for _, _, t in pair for kb in t]
         hull = list(range(min(seen), max(seen) + 1)) if seen else []
         ctas.append((pair, hull))
@@ -116,6 +122,7 @@ def emulate_bwd_wgmma(q, k, v, out, lse, dout, *, causal, window):
     B, Sq, H, Dh = q.shape
     _, Skv, KH, _ = k.shape
     G = H // KH
+    split = Dh == 256  # both warpgroups take every item, half the columns
     scale = Dh ** -0.5
     sl2 = scale * LOG2E
     D = (out.float() * dout.float()).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
@@ -138,7 +145,8 @@ def emulate_bwd_wgmma(q, k, v, out, lse, dout, *, causal, window):
                 items = dkdv_items(k0, min(TILE, Skv - k0), Sq, G, causal,
                                    window)
                 for it, (hg, qb) in enumerate(items):
-                    w, h, q0 = it % 2, kh * G + hg, qb * TILE
+                    w, h, q0 = (0 if split else it % 2), kh * G + hg, \
+                        qb * TILE
                     Q, dO = _tile(q, b, q0, h), _tile(dout, b, q0, h)
                     live = _live(q0 + rows, k0 + rows, Sq, Skv, causal,
                                  window).T
@@ -151,7 +159,8 @@ def emulate_bwd_wgmma(q, k, v, out, lse, dout, *, causal, window):
                 dk[b, k0:k0 + n, kh] = ((acc[1][0] + acc[0][0]) * scale)[:n]
                 dv[b, k0:k0 + n, kh] = (acc[0][1] + acc[1][1])[:n]
         for kh in range(KH):
-            units = [u for pair, _ in dq_ctas(Sq, Skv, G, causal, window)
+            units = [u for pair, _ in dq_ctas(Sq, Skv, G, causal, window,
+                                              1 if split else 2)
                      for u in pair]
             for hg, qb, tiles in units:
                 h, q0 = kh * G + hg, qb * TILE
@@ -257,3 +266,22 @@ def test_tiles_cover_every_live_pair_once(S, G, causal, window):
     assert all(len(pair) == 2 for pair, _ in ctas[:-1])
     for pair, hull in ctas:
         assert set(hull) == {kb for _, _, t in pair for kb in t}
+
+
+@pytest.mark.parametrize("S,G,causal,window", [(130, 3, True, 96),
+                                               (4096, 16, True, 2048)])
+def test_head_dim_256_dq_ctas_take_one_unit_each(S, G, causal, window):
+    """At head dim 256 a dQ CTA holds one unit (its Q and dO are 64 KB):
+    the CTAs are the units, each streams exactly its own key blocks, and
+    together they visit every live (head, key block, query block) tile
+    once."""
+    n = -(-S // TILE)
+    ctas = dq_ctas(S, S, G, causal, window, per_cta=1)
+    assert len(ctas) == n * G and all(len(pair) == 1 for pair, _ in ctas)
+    assert all(hull == pair[0][2] for pair, hull in ctas)
+    seen = [(hg, kb, qb) for pair, _ in ctas for hg, qb, tiles in pair
+            for kb in tiles]
+    by_keys = [(hg, kb, qb) for kb in range(n)
+               for hg, qb in dkdv_items(kb * TILE, min(TILE, S - kb * TILE),
+                                        S, G, causal, window)]
+    assert len(seen) == len(set(seen)) and set(seen) == set(by_keys)

@@ -73,7 +73,7 @@ def test_registry_names_the_roadmap_item():
     assert get_model(smoke_model(get_config("mamba2_1p3b").model)) is mamba2
     assert get_model(smoke_model(get_config("granite_moe_1b_a400m").model)) \
         is lm
-    for fam in ("encdec", "hybrid"):
+    for fam in ("encdec",):
         cfg = smoke_model(get_config("qwen2_7b").model).replace(family=fam)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_model(cfg)

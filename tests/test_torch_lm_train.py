@@ -106,7 +106,7 @@ def test_layers_as_a_list_give_the_stacked_result():
 
 def test_other_families_raise_naming_the_roadmap():
     cfg = smoke_model(get_config("smollm_135m").model).replace(
-        family="hybrid")
+        family="encdec")
     params = lm.init(smoke_model(get_config("smollm_135m").model), seed=0,
                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
