@@ -17,7 +17,11 @@ Phases (any failure ends the run with a non-zero exit):
    (an f32 case, a ragged bf16 one, and recurrentgemma-9b's training
    layer GRIFFIN_LAYER: B 1, S 4096, 16 heads of 256 over one, window
    2048, timed beside SDPA with the window as a boolean mask, its
-   backend named); on every case the row log-sum-exp that both
+   backend named); the training forwards (``return_lse``) at
+   internvl2-2b's layer (INTERNVL_LAYER: B 2, S 2048, 16 heads of 128
+   over 8, causal) and seamless-m4t-large-v2's non-causal one
+   (SEAMLESS_LAYER: B 2, S 2048, 16 heads of 64 over 16), timed beside
+   SDPA; on every case the row log-sum-exp that both
    kernels write for the training path (``return_lse``), held to the
    plain version's at the case's tolerance, beside the same out;
 3. the split paged decode (bf16 ``paged_decode_tc`` on the tensor cores,
@@ -142,8 +146,10 @@ Phases (any failure ends the run with a non-zero exit):
    window), each gradient within BWD_TOL_OF_MAX of its largest entry and
    the same bits on a second run; ptxas must report no spill for a bf16
    backward kernel nor for ``flash_fwd_tc``; then smollm-135M's layer
-   (B 2, S 2048, 9 heads, 3 KV heads, Dh 64, bf16, causal) and
-   recurrentgemma-9b's (GRIFFIN_LAYER), timed beside their plain
+   (B 2, S 2048, 9 heads, 3 KV heads, Dh 64, bf16, causal),
+   recurrentgemma-9b's (GRIFFIN_LAYER), internvl2-2b's (INTERNVL_LAYER)
+   and seamless-m4t-large-v2's non-causal one (SEAMLESS_LAYER), timed
+   beside their plain
    version, SDPA's backward alone (at griffin's layer with the window as
    a boolean mask) and their bound, and split by kernel; and the forward
    at smollm's shape with its log-sum-exp (the training forward),
@@ -265,7 +271,32 @@ Phases (any failure ends the run with a non-zero exit):
    and step, the top-k launches a round, p50 against LM_ROUND_LIMIT_MS
    and peak against PEAK_LIMIT_GB (gated); then the train launcher's
    entry point on the smoke griffin for 2 rounds (the f32 kernels
-   counted).
+   counted);
+29. the last two architectures (``models/lm.py``): phase 15's round
+   check on the smoke internvl2-2b (the ViT stub: 8 patch positions) and
+   the smoke seamless-m4t-large-v2 (2 encoder layers, cross-attention),
+   seeded N(0, 1) patch embeddings and frames beside the tokens,
+   MULTIMODAL_SMALL_ROUNDS rounds in lockstep, card against CPU within
+   ROUND_RTOL / ROUND_ATOL but for Q_FLIP_SHARE top-k threshold flips,
+   the f32 attention kernels counted; then the train launcher's entry
+   point on both smoke models for 2 rounds (the stand-ins it feeds; the
+   f32 kernels counted, the non-causal launches apart);
+30. internvl2-2b at full width and depth (24 layers, d_model 2048, 16
+   heads of 128 over 8, d_ff 8192, vocab 92,553, an untied head, the
+   first 256 positions from the ViT stub; INTERNVL_PARAMS parameters;
+   bf16, f32 momentum, remat) through ``make_round_step``, driven as
+   phase 28 but at 2 x 2048 tokens a step (phase 16's shape) with the
+   launcher's stand-ins (N(0, 1) patch embeddings), R = 2 in 2 x 1,
+   MULTIMODAL_ROUNDS rounds (tau = q = 4): finite losses, the first
+   round's near ln(vocab), 48 attention forwards and 24 backwards a
+   local step, the top-k launches a round, p50 and peak gated;
+31. seamless-m4t-large-v2 at full width and depth 24 + 24 (d_model 1024,
+   16 heads of 64 over 16, d_ff 8192, vocab 256,206, an untied head;
+   SEAMLESS_PARAMS parameters), as phase 30 with N(0, 1) frames: the
+   attention launches of its three kinds counted apart, causal
+   self-attention, the encoder's non-causal self-attention and the
+   non-causal cross-attention (two forwards and one backward of each a
+   layer and step), and phase 30's gates.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -2625,6 +2656,11 @@ BWD_CASES = [
 # recurrentgemma-9b's attention layer in training (phases 2 and 14, timed):
 # 16 query heads of 256 over one KV head, S 4096 under a 2048 window
 GRIFFIN_LAYER = dict(B=1, S=4096, H=16, KH=1, Dh=256, window=2048)
+# internvl2-2b's attention layer in training and seamless-m4t-large-v2's
+# non-causal one (its encoder's and its cross-attention's shape in
+# training) (phases 2 and 14, timed)
+INTERNVL_LAYER = dict(B=2, S=2048, H=16, KH=8, Dh=128, causal=True)
+SEAMLESS_LAYER = dict(B=2, S=2048, H=16, KH=16, Dh=64, causal=False)
 # each gradient within this share of its largest entry (f32: the
 # reference's 2e-5; bf16: 2e-2, the kernel rounds P and dS to bf16)
 BWD_TOL_OF_MAX = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -2708,34 +2744,35 @@ def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
     return row
 
 
-def attention_fwd_train(fa, gen, B, S, H, KH, Dh):
-    """The training forward (``return_lse``) at smollm-135M's layer against
-    its plain version, timed beside SDPA's forward (K and V repeated to
-    the query heads outside the timing, as phase 2) and its bound."""
+def attention_fwd_train(fa, gen, B, S, H, KH, Dh, causal=True):
+    """The training forward (``return_lse``) at a training layer (smollm-
+    135M's; INTERNVL_LAYER, SEAMLESS_LAYER) against its plain version,
+    timed beside SDPA's forward (K and V repeated to the query heads
+    outside the timing, as phase 2) and its bound."""
     q = torch.randn((B, S, H, Dh), generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn((B, S, KH, Dh), generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
-    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    kw = dict(return_lse=True, causal=causal)
+    out, lse = fa.flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
     err, ok = max_err(out, ref, BF16_TOL)
     lse_err, lse_ok = max_err(lse, ref_lse, BF16_TOL)
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, return_lse=True))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                        return_lse=True),
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                        iters=3, warmup=1)
     G = H // KH
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    flops = 4 * Dh * H * B * live_pairs(S, S, True, 0, 0)
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+    flops = 4 * Dh * H * B * live_pairs(S, S, causal, 0, 0)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + \
         lse.numel() * 4
     bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
     row = dict(kernel="flash_fwd_tc", B=B, S=S, H=H, KH=KH, Dh=Dh,
-               dtype="bfloat16", causal=True, max_abs_err=err,
+               dtype="bfloat16", causal=causal, max_abs_err=err,
                lse_max_abs_err=lse_err, tol=BF16_TOL["atol"], ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, gflop=flops / 1e9,
@@ -2748,9 +2785,11 @@ def attention_fwd_train(fa, gen, B, S, H, KH, Dh):
 def attention_bwd_phase(fa, build):
     """Phase 14: every case of BWD_CASES (no bf16 attention kernel may
     spill), then smollm-135M's layer (B 2, S 2048, 9 heads, 3 KV heads, Dh
-    64, bf16, causal) and recurrentgemma-9b's (GRIFFIN_LAYER), timed: the
-    backward's rows, and smollm's training forward's (printed after phase
-    16 with its launches)."""
+    64, bf16, causal), recurrentgemma-9b's (GRIFFIN_LAYER), internvl2-2b's
+    (INTERNVL_LAYER) and seamless-m4t-large-v2's non-causal one
+    (SEAMLESS_LAYER), timed: the backward's rows ({"internvl": row,
+    "seamless": row} for the last two), and smollm's training forward's
+    (printed after phase 16 with its launches)."""
     ptx = ptxas_summary(build.build_log)
     for name in BWD_KERNELS + BWD_BF16_KERNELS[2:]:
         regs, spills, stack, smem, n = ptx.get(name, (0, 0, 0, 0, 0))
@@ -2769,7 +2808,13 @@ def attention_bwd_phase(fa, build):
     griffin = attention_bwd_case(fa, gen, g["B"], g["S"], g["H"], g["KH"],
                                  g["Dh"], torch.bfloat16, True, g["window"],
                                  timed=True)
-    return main, griffin, attention_fwd_train(fa, gen, 2, 2048, 9, 3, 64)
+    layers = {name: attention_bwd_case(
+        fa, gen, c["B"], c["S"], c["H"], c["KH"], c["Dh"], torch.bfloat16,
+        c["causal"], 0, timed=True)
+        for name, c in (("internvl", INTERNVL_LAYER),
+                        ("seamless", SEAMLESS_LAYER))}
+    return (main, griffin, attention_fwd_train(fa, gen, 2, 2048, 9, 3, 64),
+            layers)
 
 
 # ---------------------------------------------------------------------------
@@ -2780,13 +2825,20 @@ LM_ROUNDS = 4  # phase 16: q = 4, round 4 gossips
 
 
 def attention_layers(cfg):
-    """The attention layers that ``cfg``'s forward runs: every layer of
-    the decoder LM, griffin's groups' attention blocks."""
+    """The attention calls that ``cfg``'s forward makes: every layer of
+    the decoder LM (with an encoder, each encoder layer and each decoder
+    layer's cross-attention too), griffin's groups' attention blocks."""
     if cfg.family != "hybrid":
-        return cfg.num_layers
+        return cfg.num_layers * (1 + cfg.cross_attention) + cfg.enc_layers
     from repro_torch.models import griffin
     n_groups, _, _, apg, _, _ = griffin._layout(cfg)
     return n_groups * apg
+
+
+def noncausal_layers(cfg):
+    """The non-causal attention calls of ``cfg``'s forward: the encoder's
+    self-attention and the decoder's cross-attention."""
+    return cfg.enc_layers + cfg.num_layers * cfg.cross_attention
 
 
 def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
@@ -2796,14 +2848,16 @@ def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
     round step (f32, 2 layers or ``num_layers``, S 65, 2 x 2, tau 4) on
     the card (the f32 attention kernels, forward and backward) and on the
     CPU (the plain version under autograd), from the same parameters,
-    tokens, controls and bits: losses, statistics and parameters within
-    ROUND_RTOL / ROUND_ATOL.  With ``lockstep`` each round starts the CPU
+    tokens, frontend stand-ins (``train.frontend_stand_ins``), controls
+    and bits: losses, statistics and parameters within ROUND_RTOL /
+    ROUND_ATOL.  With ``lockstep`` each round starts the CPU
     from the card's state, so that a routing or top-k flip does not carry
     on into the later rounds, and the parameters are compared after every
     round; with ``flip_share`` as well, at most that share of the
     parameters may sit beyond ROUND_ATOL after a round (top-k threshold
     flips: an entry at its block's threshold kept on one side and left in
     the EF on the other)."""
+    from repro_torch.launch.train import frontend_stand_ins
     from repro_torch.models.registry import get_model
     from repro_torch.tree import flatten, tree_map
     cfg = configs.smoke_model(configs.get_config(arch).model)
@@ -2816,6 +2870,8 @@ def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
     rng = np.random.default_rng(5)
     tokens = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 65)))
               for _ in range(rounds)]
+    stand_ins = frontend_stand_ins(cfg, 32, 65, seed=5)
+    frontend = [stand_ins() for _ in range(rounds)]
     rho = np.array([0.9, 0.6, 0.8, 0.7])
     theta = np.array([0.5, 0.25, 1.0, 0.1])
     states = {d: rnd_mod.init_state(cfg, hcef, topo, params0, device=d)
@@ -2835,8 +2891,9 @@ def small_lm_round_agrees(configs, lm, rnd_mod, base, fa,
                                        gossip=r == rounds - 1)
         for d in states:
             fa.reset_launches()
-            states[d], m = step(states[d], {"tokens": tokens[r]}, rho, theta,
-                                7 + r)
+            states[d], m = step(states[d],
+                                {"tokens": tokens[r], **frontend[r]}, rho,
+                                theta, 7 + r)
             hist[d].append({k: v.cpu().numpy() for k, v in m.items()})
             for k, v in fa.LAUNCHES.items():
                 launches[d][k] = launches[d].get(k, 0) + v
@@ -4224,6 +4281,22 @@ GRIFFIN_TOPO = (2, 1)
 GRIFFIN_ROUNDS = 4
 GRIFFIN_SEQ = 4096
 GRIFFIN_PARAMS = 2_174_889_984  # 4 x 234,913,792 + 186,654,720 + emb
+# phases 29-31: internvl2-2b's ViT-stub frontend and seamless-m4t-large-v2's
+# encoder and cross-attention
+MULTIMODAL_ARCHS = ("internvl2_2b", "seamless_m4t_large_v2")
+MULTIMODAL_SMALL_ROUNDS = 2  # the second gossips
+# phases 30-31: full width and depth at R = 2 in 2 clusters x 1 device (a
+# replica's state is about 8 bytes a parameter: four replicas of either
+# would pass PEAK_LIMIT_GB), tau = q = 4, 2 x 2048 tokens a step (phase
+# 16's shape: the launcher's --seq 2047)
+MULTIMODAL_TOPO = (2, 1)
+MULTIMODAL_ROUNDS = 4
+MULTIMODAL_SEQ = 2047
+INTERNVL_PARAMS = 1_889_634_304
+SEAMLESS_PARAMS = 2_034_886_656
+# the first round's mean loss within this of ln(vocab): weights N(0, 0.02^2)
+# give logits of about 0.02 sqrt(d_model) a column
+LOSS0_TOL = 1.0
 
 
 def rglru_layer(ops):
@@ -4279,47 +4352,62 @@ def griffin_small(configs, lm, rnd_mod, base, fa, ops):
     rglru_layer(ops)
 
 
-def griffin_full(configs, rnd_mod, base, train, synthetic, fa, tk):
-    """Phase 28: recurrentgemma-9b at full width (bf16, f32 momentum,
-    remat) and depth GRIFFIN_DEPTH through ``make_round_step``, driven as
-    the train launcher drives its rounds (the HCEF controller, the
-    device-skewed corpus and its numpy stream, the Eq. 8/9 time and
-    energy accounting) but at R = 2 (GRIFFIN_TOPO) and one sequence of
-    GRIFFIN_SEQ tokens a step: at about 10 bytes a parameter a replica,
-    four replicas would not fit.  Every attention and top-k launch
+@contextlib.contextmanager
+def counted_calls(module, name, counts):
+    """Counts the calls of ``module.name`` into counts[name] while open."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kw):
+        counts[name] = counts.get(name, 0) + 1
+        return fn(*args, **kw)
+    setattr(module, name, counted)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, fn)
+
+
+def full_width_rounds(name, cfg, hcef, topo, *, rounds, seq, seqs_per_step,
+                      n_params_want, rnd_mod, train, synthetic, fa, tk):
+    """``rounds`` rounds of ``cfg`` (full width) through
+    ``make_round_step``, driven as the train launcher drives its rounds
+    (the HCEF controller, the device-skewed corpus and its numpy stream,
+    the frontend stand-ins of ``train.frontend_stand_ins``, the Eq. 8/9
+    time and energy accounting) at ``topo`` with ``seqs_per_step``
+    sequences of ``seq + 1`` tokens a step.  Every attention launch
+    (forward and backward, the non-causal ones apart, and with an encoder
+    the cross-attention's forwards by their calls) and every top-k launch
     counted; losses finite, gossip in the last round only, round p50 and
-    peak gated.  Then the launcher's smoke entry point."""
-    import dataclasses
+    peak gated.  Returns (launches, stats)."""
     from repro_torch.core.controller import BudgetState
     from repro_torch.fl.baselines import make_controller
     from repro_torch.fl.cost_model import round_energy, round_time
     from repro_torch.fl.heterogeneity import HeterogeneityModel
-    from repro_torch.models import griffin
+    from repro_torch.models import lm
+    from repro_torch.models.registry import get_model
     from repro_torch.tree import flatten
-    bundle = configs.get_config(GRIFFIN_ARCH)
-    cfg = bundle.model.replace(num_layers=GRIFFIN_DEPTH)
-    hcef = dataclasses.replace(bundle.hcef, tau=4, q=4)
-    topo = base.FLTopology(*GRIFFIN_TOPO)
     R = topo.num_devices
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params0 = griffin.init(cfg, gen, device="cuda")
+    params0 = get_model(cfg).init(cfg, gen, device="cuda")
     n_params = sum(v.numel() for v in flatten(params0).values())
-    if n_params != GRIFFIN_PARAMS:
-        fail(f"recurrentgemma-9b at depth {GRIFFIN_DEPTH}: {n_params} "
-             f"parameters, expected {GRIFFIN_PARAMS}")
+    if n_params != n_params_want:
+        fail(f"{cfg.name} at {cfg.num_layers} layers: {n_params} "
+             f"parameters, expected {n_params_want}")
     state = rnd_mod.init_state(cfg, hcef, topo, params0, device="cuda")
     del params0
     torch.cuda.synchronize()
     state_gb = torch.cuda.memory_allocated() / 1e9
     topk_per_round = topk_launches(list(flatten(state.params).values()),
                                    list(flatten(state.ef).values()), tk)
-    print(f"griffin full width: {GRIFFIN_DEPTH} layers, {n_params} params, "
-          f"R={R} ({topo.clusters} x {topo.devices_per_cluster}), state "
-          f"{state_gb:.2f} GB, {topk_per_round} top-k launches a round, "
-          f"set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{name} full width: {cfg.num_layers} layers"
+          f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
+          f", {n_params} params, R={R} ({topo.clusters} x "
+          f"{topo.devices_per_cluster}), state {state_gb:.2f} GB, "
+          f"{topk_per_round} top-k launches a round, set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     steps = {g: rnd_mod.make_round_step(cfg, hcef, topo, gossip=g)
              for g in (False, True)}
     controller = make_controller("hcef", hcef.tau, theta_min=hcef.theta_min,
@@ -4327,74 +4415,99 @@ def griffin_full(configs, rnd_mod, base, train, synthetic, fa, tk):
     het = HeterogeneityModel(num_devices=R, model_bits=n_params * 16)
     budget = BudgetState(time_budget=hcef.time_budget or np.inf,
                          energy_budget=hcef.energy_budget or np.inf,
-                         phi=max(GRIFFIN_ROUNDS // hcef.q, 1), q=hcef.q,
+                         phi=max(rounds // hcef.q, 1), q=hcef.q,
                          backhaul_time=het.backhaul_time())
     cluster_of = np.repeat(np.arange(topo.clusters),
                            topo.devices_per_cluster)
     corpus = synthetic.synthetic_tokens(cfg.vocab_size, n_seq=train.N_SEQ,
-                                        seq_len=GRIFFIN_SEQ + 1,
-                                        n_devices=R, beta=0.5)
+                                        seq_len=seq + 1, n_devices=R,
+                                        beta=0.5)
     rng = np.random.default_rng(0)
-    b_per_dev = hcef.tau  # one sequence a step
+    b_per_dev = hcef.tau * seqs_per_step
+    stand_ins = train.frontend_stand_ins(cfg, R * b_per_dev, seq + 1,
+                                         seed=0)
     fa.reset_launches()
     tk.reset_launches()
-    hist, walls, timings = [], [], {}
-    for rnd in range(GRIFFIN_ROUNDS):
-        t0 = time.perf_counter()
-        reports = het.sample_round(rnd)
-        rho, theta = controller.controls(reports, budget)
-        gossip = (rnd + 1) % hcef.q == 0
-        idx = rng.integers(0, train.N_SEQ, (R, b_per_dev))
-        tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
-        state, m = steps[gossip](state, {"tokens": torch.from_numpy(tokens)},
-                                 rho, theta, 1000 + rnd, timings=timings)
-        t, _ = round_time(rho, theta, reports.mu, reports.nu, hcef.tau,
-                          cluster_of, gossip=gossip,
-                          backhaul=het.backhaul_time())
-        e = round_energy(rho, theta, reports.mu, reports.nu, reports.alpha,
-                         reports.p, hcef.tau)
-        budget.charge(t, e, gossip)
-        loss = float(m["loss"].mean())
-        walls.append((time.perf_counter() - t0) * 1e3)
-        hist.append(dict(loss=loss, gossip=gossip,
-                         rho_mean=float(np.mean(rho)),
-                         theta_mean=float(np.mean(theta)),
-                         time=budget.time_spent_prev
-                         + budget.time_spent_this))
-        print(f"round {rnd} loss={loss:.4f} rho={hist[-1]['rho_mean']:.2f} "
-              f"theta={hist[-1]['theta_mean']:.2f} gossip={gossip} "
-              f"wall={walls[-1]:.0f}ms", flush=True)
+    hist, walls, timings, calls = [], [], {}, {}
+    with counted_calls(lm, "_cross_attention", calls):
+        for rnd in range(rounds):
+            t0 = time.perf_counter()
+            reports = het.sample_round(rnd)
+            rho, theta = controller.controls(reports, budget)
+            gossip = (rnd + 1) % hcef.q == 0
+            idx = rng.integers(0, train.N_SEQ, (R, b_per_dev))
+            tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+            state, m = steps[gossip](
+                state, {"tokens": torch.from_numpy(tokens), **stand_ins()},
+                rho, theta, 1000 + rnd, timings=timings)
+            t, _ = round_time(rho, theta, reports.mu, reports.nu, hcef.tau,
+                              cluster_of, gossip=gossip,
+                              backhaul=het.backhaul_time())
+            e = round_energy(rho, theta, reports.mu, reports.nu,
+                             reports.alpha, reports.p, hcef.tau)
+            budget.charge(t, e, gossip)
+            loss = float(m["loss"].mean())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            hist.append(dict(loss=loss, gossip=gossip,
+                             rho_mean=float(np.mean(rho)),
+                             theta_mean=float(np.mean(theta)),
+                             time=budget.time_spent_prev
+                             + budget.time_spent_this))
+            print(f"round {rnd} loss={loss:.4f} "
+                  f"rho={hist[-1]['rho_mean']:.2f} "
+                  f"theta={hist[-1]['theta_mean']:.2f} gossip={gossip} "
+                  f"wall={walls[-1]:.0f}ms", flush=True)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"])
-    local_steps = GRIFFIN_ROUNDS * R * hcef.tau
-    n_attn = attention_layers(cfg)
-    want = {"flash_attention": local_steps * n_attn * (2 if cfg.remat
-                                                       else 1),
+    launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"],
+                    noncausal_fwd=fa.NONCAUSAL["flash_attention"],
+                    noncausal_bwd=fa.NONCAUSAL["flash_attention_bwd"],
+                    cross_fwd=calls.get("_cross_attention", 0))
+    local_steps = rounds * R * hcef.tau
+    remat = 2 if cfg.remat else 1
+    n_attn, n_nc = attention_layers(cfg), noncausal_layers(cfg)
+    want = {"flash_attention": local_steps * n_attn * remat,
             "flash_attention_bwd": local_steps * n_attn,
             "paged_decode_attention": 0,
-            "topk_compress": GRIFFIN_ROUNDS * topk_per_round}
+            "topk_compress": rounds * topk_per_round,
+            "noncausal_fwd": local_steps * n_nc * remat,
+            "noncausal_bwd": local_steps * n_nc,
+            "cross_fwd": (local_steps * cfg.num_layers * remat
+                          if cfg.cross_attention else 0)}
     med = lambda v: float(np.percentile(v, 50))  # noqa: E731
     p50 = med(walls)
-    stats = dict(rounds=GRIFFIN_ROUNDS, layers=cfg.num_layers,
-                 attention_layers=n_attn, d_model=cfg.d_model,
-                 lru_width=cfg.lru_width, heads=cfg.num_heads,
-                 kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                 window=cfg.window, params=n_params, replicas=R,
-                 tokens_per_step=GRIFFIN_SEQ, state_gb=state_gb,
-                 round_wall_ms_p50=p50, round_wall_ms=walls,
-                 round_limit_ms=LM_ROUND_LIMIT_MS,
+    per_round = {k: v / rounds for k, v in launches.items()}
+    stats = dict(rounds=rounds, layers=cfg.num_layers,
+                 enc_layers=cfg.enc_layers, attention_layers=n_attn,
+                 d_model=cfg.d_model, lru_width=cfg.lru_width,
+                 heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                 head_dim=cfg.head_dim, window=cfg.window,
+                 vocab=cfg.vocab_size, frontend=cfg.frontend,
+                 params=n_params, replicas=R,
+                 tokens_per_step=seqs_per_step * (seq + 1),
+                 state_gb=state_gb, round_wall_ms_p50=p50,
+                 round_wall_ms=walls, round_limit_ms=LM_ROUND_LIMIT_MS,
                  phase_ms_p50={k: med(v) for k, v in timings.items()},
-                 phase_ms=timings,
-                 launches_per_round={k: v / GRIFFIN_ROUNDS
-                                     for k, v in launches.items()},
+                 phase_ms=timings, launches_per_round=per_round,
+                 attention_per_local_step={
+                     "causal_self_fwd": (launches["flash_attention"]
+                                         - launches["noncausal_fwd"])
+                     / local_steps,
+                     "encoder_fwd": (launches["noncausal_fwd"]
+                                     - launches["cross_fwd"]) / local_steps,
+                     "cross_fwd": launches["cross_fwd"] / local_steps,
+                     "causal_bwd": (launches["flash_attention_bwd"]
+                                    - launches["noncausal_bwd"])
+                     / local_steps,
+                     "noncausal_bwd": launches["noncausal_bwd"]
+                     / local_steps},
                  loss=[h["loss"] for h in hist],
                  rho_mean=[h["rho_mean"] for h in hist],
                  theta_mean=[h["theta_mean"] for h in hist],
                  time_s=hist[-1]["time"], peak_mem_gb=peak,
                  peak_limit_gb=PEAK_LIMIT_GB)
-    print("griffin " + json.dumps(stats))
-    print(f"griffin round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
+    print(f"{name} " + json.dumps(stats))
+    print(f"{name} round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
           f"({'met' if p50 <= LM_ROUND_LIMIT_MS else 'missed'}); peak "
           f"{peak:.2f} GB against {PEAK_LIMIT_GB} GB")
     if not all(np.isfinite(h["loss"]) for h in hist):
@@ -4406,26 +4519,98 @@ def griffin_full(configs, rnd_mod, base, train, synthetic, fa, tk):
     if peak > PEAK_LIMIT_GB:
         fail(f"peak {peak:.2f} GB over {PEAK_LIMIT_GB} GB")
     if p50 > LM_ROUND_LIMIT_MS:
-        fail(f"griffin round p50 {p50:.1f} ms over {LM_ROUND_LIMIT_MS} ms")
+        fail(f"{name} round p50 {p50:.1f} ms over {LM_ROUND_LIMIT_MS} ms")
     del state, steps
     torch.cuda.empty_cache()
+    return launches, stats
+
+
+def griffin_full(configs, rnd_mod, base, train, synthetic, fa, tk):
+    """Phase 28: recurrentgemma-9b at full width (bf16, f32 momentum,
+    remat) and depth GRIFFIN_DEPTH through ``full_width_rounds`` at R = 2
+    (GRIFFIN_TOPO) and one sequence of GRIFFIN_SEQ tokens a step: at
+    about 10 bytes a parameter a replica, four replicas would not fit.
+    Then the launcher's smoke entry point."""
+    bundle = configs.get_config(GRIFFIN_ARCH)
+    cfg = bundle.model.replace(num_layers=GRIFFIN_DEPTH)
+    hcef = dataclasses.replace(bundle.hcef, tau=4, q=4)
+    launches, _ = full_width_rounds(
+        "griffin", cfg, hcef, base.FLTopology(*GRIFFIN_TOPO),
+        rounds=GRIFFIN_ROUNDS, seq=GRIFFIN_SEQ, seqs_per_step=1,
+        n_params_want=GRIFFIN_PARAMS, rnd_mod=rnd_mod, train=train,
+        synthetic=synthetic, fa=fa, tk=tk)
 
     # the launcher's entry point on the smoke griffin (f32 kernels)
-    argv = ["--arch", GRIFFIN_ARCH, "--rounds", "2"]
+    launcher_smoke(train, fa, GRIFFIN_ARCH, bundle.hcef.tau)
+    return launches
+
+
+def launcher_smoke(train, fa, arch, tau):
+    """The train launcher's entry point on ``arch``'s smoke model for 2
+    rounds on the card (the f32 attention kernels): finite losses, the
+    attention launches (no remat), the non-causal ones apart."""
+    argv = ["--arch", arch, "--rounds", "2"]
     print("python -m repro_torch.launch.train " + " ".join(argv))
     fa.reset_launches()
     out = train.main(argv)
     torch.cuda.synchronize()
-    smoke, tau = out["cfg"], bundle.hcef.tau
-    runs = 2 * 4 * tau * attention_layers(smoke)  # 2 rounds, R = 4
+    smoke = out["cfg"]
+    steps = 2 * 4 * tau  # 2 rounds, R = 4
+    runs = steps * attention_layers(smoke)
     want = {"flash_attention": runs * (2 if smoke.remat else 1),
             "flash_attention_bwd": runs, "paged_decode_attention": 0}
+    nc = steps * noncausal_layers(smoke)
+    want_nc = {"flash_attention": nc * (2 if smoke.remat else 1),
+               "flash_attention_bwd": nc}
+    print(f"the launcher's smoke {arch}: losses "
+          f"{[h['loss'] for h in out['history']]}, attention launches "
+          f"{dict(fa.LAUNCHES)}, non-causal {dict(fa.NONCAUSAL)}")
     if len(out["history"]) != 2 or not all(
             np.isfinite(h["loss"]) for h in out["history"]):
-        fail(f"the launcher's smoke griffin: {out['history']}")
-    if dict(fa.LAUNCHES) != want:
-        fail(f"the launcher's smoke griffin: attention launches "
-             f"{dict(fa.LAUNCHES)}, expected {want}")
+        fail(f"the launcher's smoke {arch}: {out['history']}")
+    if dict(fa.LAUNCHES) != want or dict(fa.NONCAUSAL) != want_nc:
+        fail(f"the launcher's smoke {arch}: attention launches "
+             f"{dict(fa.LAUNCHES)}, non-causal {dict(fa.NONCAUSAL)}, "
+             f"expected {want}, {want_nc}")
+
+
+def multimodal_small(configs, lm, rnd_mod, base, fa, train):
+    """Phase 29: the smoke internvl2-2b and seamless-m4t-large-v2, card
+    against CPU (``small_lm_round_agrees``, MULTIMODAL_SMALL_ROUNDS rounds
+    in lockstep, the parameters but for Q_FLIP_SHARE top-k threshold
+    flips; seeded N(0, 1) patch embeddings and frames beside the tokens),
+    then the launcher's entry point on both."""
+    for arch in MULTIMODAL_ARCHS:
+        small_lm_round_agrees(configs, lm, rnd_mod, base, fa, arch=arch,
+                              rounds=MULTIMODAL_SMALL_ROUNDS, lockstep=True,
+                              flip_share=Q_FLIP_SHARE)
+    for arch in MULTIMODAL_ARCHS:
+        launcher_smoke(train, fa, arch, configs.get_config(arch).hcef.tau)
+
+
+def multimodal_full(arch, configs, rnd_mod, base, train, synthetic, fa, tk):
+    """Phases 30 and 31: ``arch`` (internvl2-2b, seamless-m4t-large-v2) at
+    full width and depth through ``full_width_rounds`` at R = 2
+    (MULTIMODAL_TOPO), tau = q = 4, 2 x 2048 tokens a step with the
+    launcher's stand-ins: ``full_width_rounds``'s gates, the parameter
+    count exact, and the first round's loss within LOSS0_TOL of
+    ln(vocab)."""
+    bundle = configs.get_config(arch)
+    cfg = bundle.model
+    hcef = dataclasses.replace(bundle.hcef, tau=4, q=4)
+    want = {"internvl2_2b": INTERNVL_PARAMS,
+            "seamless_m4t_large_v2": SEAMLESS_PARAMS}[arch]
+    launches, stats = full_width_rounds(
+        arch.split("_")[0], cfg, hcef, base.FLTopology(*MULTIMODAL_TOPO),
+        rounds=MULTIMODAL_ROUNDS, seq=MULTIMODAL_SEQ, seqs_per_step=2,
+        n_params_want=want, rnd_mod=rnd_mod, train=train,
+        synthetic=synthetic, fa=fa, tk=tk)
+    ln_v = float(np.log(cfg.vocab_size))
+    print(f"{arch}: first round's loss {stats['loss'][0]:.4f} against "
+          f"ln(vocab) {ln_v:.4f}")
+    if abs(stats["loss"][0] - ln_v) > LOSS0_TOL:
+        fail(f"{arch}: first round's loss {stats['loss'][0]:.4f} not "
+             f"within {LOSS0_TOL} of ln(vocab) {ln_v:.4f}")
     return launches
 
 
@@ -4514,6 +4699,12 @@ def main():
     griffin_fwd = prefill_case(fa, gen, S=g["S"], H=g["H"], KH=g["KH"],
                                Dh=g["Dh"], dtype=torch.bfloat16,
                                window=g["window"], masked_library=True)
+    # the training forwards of phases 30 and 31 at their layers
+    layer_fwd = {name: attention_fwd_train(fa, gen, **c)
+                 for name, c in (("internvl", INTERNVL_LAYER),
+                                 ("seamless", SEAMLESS_LAYER))}
+    for name, row in layer_fwd.items():
+        print(f"attention_fwd_train {name} " + json.dumps(row))
 
     # -- phase 3 -------------------------------------------------------------
     kv_len = [0, 1, 16, 100, 257, 333, S_pad + 31, width * PAGE - 1]
@@ -4583,7 +4774,8 @@ def main():
         launches[k] = m11[k] + m12[k] + m13[k]
 
     # -- phase 14 ------------------------------------------------------------
-    main_bwd, griffin_bwd, fwd_train = attention_bwd_phase(fa, build)
+    main_bwd, griffin_bwd, fwd_train, layer_bwd = attention_bwd_phase(
+        fa, build)
 
     # -- phases 15 and 16 ----------------------------------------------------
     small_lm_round_agrees(configs, lm, rnd_mod, base, fa)
@@ -4654,6 +4846,21 @@ def main():
     for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
         launches[k] += m28[k]
 
+    # -- phases 29-31: the last two architectures ----------------------------
+    t0 = time.perf_counter()
+    multimodal_small(configs, lm, rnd_mod, base, fa, train)
+    print(f"phase 29 took {time.perf_counter() - t0:.1f} s")
+    layer_runs = {}
+    for phase, (name, arch) in enumerate(zip(("internvl", "seamless"),
+                                             MULTIMODAL_ARCHS), start=30):
+        t0 = time.perf_counter()
+        layer_runs[name] = multimodal_full(arch, configs, rnd_mod, base,
+                                           train, synthetic, fa, tk)
+        print(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+        for k in ("flash_attention", "flash_attention_bwd",
+                  "topk_compress"):
+            launches[k] += layer_runs[name][k]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -4707,24 +4914,44 @@ def main():
                           "ops.unpack_offsets and wire_decode")
     kernels[0]["note"] = ("launches: the serves' prefills (phases 4, 26) "
                           "and the training forwards of phases 16, 20, 23, "
-                          "25 and 28 (two a layer and step: remat); "
-                          "griffin_layer: recurrentgemma-9b's training "
-                          "layer (16/1 heads of 256, S 4096, window 2048), "
-                          "library_ms SDPA with the window as a boolean "
-                          "mask")
+                          "25, 28, 30 and 31 (two a layer and step: "
+                          "remat); griffin_layer: recurrentgemma-9b's "
+                          "training layer (16/1 heads of 256, S 4096, "
+                          "window 2048), library_ms SDPA with the window "
+                          "as a boolean mask; internvl_layer (B 2, S 2048, "
+                          "16/8 heads of 128, causal) and seamless_layer "
+                          "(B 2, S 2048, 16/16 heads of 64, non-causal: "
+                          "its encoder's and cross-attention's shape), "
+                          "with the launches a round of phases 30 and 31 "
+                          "(seamless: its non-causal ones apart)")
     kernels[0]["griffin_layer"] = {k: griffin_fwd[k] for k in (
         "ms", "bound_ms", "bound_by", "library_ms", "library_backend",
         "max_abs_err")}
     kernels[9]["griffin_layer"] = {k: griffin_bwd[k] for k in (
         "ms", "bound_ms", "bound_by", "library_ms", "library_backend",
         "max_abs_err", "split_us")}
+    for name in ("internvl", "seamless"):
+        run = layer_runs[name]
+        for i, (row, key) in enumerate(((layer_fwd[name], "flash_attention"),
+                                        (layer_bwd[name],
+                                         "flash_attention_bwd"))):
+            kw = "noncausal_" + ("fwd" if i == 0 else "bwd")
+            kernels[0 if i == 0 else 9][f"{name}_layer"] = dict(
+                {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "max_abs_err")},
+                causal=row["causal"],
+                launches_per_round=run[key] / MULTIMODAL_ROUNDS,
+                noncausal_launches_per_round=run[kw] / MULTIMODAL_ROUNDS)
     kernels[9]["note"] = ("the backward has no TPU counterpart: jax.grad "
                           "through flash_attention_pallas fails; held to "
                           "jax.grad of the reference's jnp route "
                           "(ref.flash_attention_jnp) through the plain "
                           "version; times at smollm-135M's layer (B 2, S "
                           "2048, 9/3 heads of 64, bf16, causal), library_ms "
-                          "SDPA's backward alone")
+                          "SDPA's backward alone; griffin_layer, "
+                          "internvl_layer and seamless_layer as for "
+                          "flash_attention")
     kernels[8]["note"] = ("no TPU counterpart: the reference decodes in "
                           "jnp (dist/collectives.py:642 wire_decode); it "
                           "holds unpack_offsets_pallas's p4 unpack and "

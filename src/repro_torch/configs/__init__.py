@@ -1,5 +1,5 @@
-"""Config registry (own copy of ``repro/configs/__init__.py``), limited to
-the architectures the port runs and the paper's two vision models."""
+"""Config registry (own copy of ``repro/configs/__init__.py``): every
+architecture of the reference and the paper's two vision models."""
 from __future__ import annotations
 
 import importlib
@@ -8,17 +8,20 @@ from typing import List
 from repro_torch.configs.base import ArchBundle, ModelConfig
 from repro_torch.configs.vision import VISION_CONFIGS, VisionBundle
 
-ARCH_IDS: List[str] = ["mamba2_1p3b", "qwen2_7b", "phi3_medium_14b",
-                       "smollm_135m", "codeqwen1p5_7b", "arctic_480b",
+ARCH_IDS: List[str] = ["mamba2_1p3b", "internvl2_2b", "qwen2_7b",
+                       "phi3_medium_14b", "smollm_135m", "codeqwen1p5_7b",
+                       "seamless_m4t_large_v2", "arctic_480b",
                        "granite_moe_1b_a400m", "recurrentgemma_9b"]
 PAPER_IDS: List[str] = list(VISION_CONFIGS)
 
 _ALIASES = {
     "mamba2-1.3b": "mamba2_1p3b",
+    "internvl2-2b": "internvl2_2b",
     "qwen2-7b": "qwen2_7b",
     "phi3-medium-14b": "phi3_medium_14b",
     "smollm-135m": "smollm_135m",
     "codeqwen1.5-7b": "codeqwen1p5_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "arctic-480b": "arctic_480b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "recurrentgemma-9b": "recurrentgemma_9b",
@@ -35,8 +38,8 @@ def get_config(name: str) -> ArchBundle:
 
 
 def smoke_model(cfg: ModelConfig) -> ModelConfig:
-    """Reduced same-family config for CPU tests (the reference's dense,
-    moe, ssm and hybrid branches of ``smoke_model``)."""
+    """Reduced same-family config for CPU tests (the reference's
+    ``smoke_model``)."""
     kw = dict(
         num_layers=2,
         d_model=64,
@@ -59,6 +62,10 @@ def smoke_model(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "hybrid":
         kw.update(block_pattern=cfg.block_pattern, num_layers=3,
                   window=16, lru_width=64, num_kv_heads=1)
+    if cfg.family == "encdec":
+        kw.update(enc_layers=2, num_kv_heads=4)
+    if cfg.frontend:
+        kw.update(frontend_tokens=8)
     return cfg.replace(**kw)
 
 

@@ -1,10 +1,11 @@
 """Configuration dataclasses (own copy of ``repro/configs/base.py``).
 
-``ModelConfig`` keeps the fields of the families the port runs: the dense
-decoder and the ``moe`` family (trained by the HCEF round step and
-served), and the ``ssm`` family (mamba2) and the ``hybrid`` family
-(griffin: RG-LRU blocks and local MQA), both trained by the HCEF round
-step; the encoder-decoder family is not ported (``models/registry.py``).  ``FLTopology`` and ``HCEFConfig`` keep the
+``ModelConfig`` keeps the fields of every family the reference runs: the
+dense decoder and the ``moe`` family (trained by the HCEF round step and
+served), the ``ssm`` family (mamba2), the ``hybrid`` family (griffin:
+RG-LRU blocks and local MQA) and the ``encdec`` family (seamless: an
+encoder and cross-attention), with the modality frontend stubs, all
+trained by the HCEF round step.  ``FLTopology`` and ``HCEFConfig`` keep the
 fields the round step reads, the sparse gossip wire and its error
 feedback and the overlapped engine's bounded staleness included.
 """
@@ -17,11 +18,11 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters (dense, moe, ssm and hybrid
+    """Architecture hyperparameters (dense, moe, ssm, hybrid and encdec
     families)."""
 
     name: str
-    family: str  # dense | moe | ssm | hybrid
+    family: str  # dense | moe | ssm | hybrid | encdec
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,6 +44,12 @@ class ModelConfig:
     # --- hybrid (recurrentgemma / griffin) ---
     block_pattern: Tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "attn")
     lru_width: int = 0
+    # --- encoder-decoder ---
+    enc_layers: int = 0
+    cross_attention: bool = False
+    # --- modality frontend stubs ---
+    frontend: str = ""  # "" | "vit_stub" | "audio_stub"
+    frontend_tokens: int = 0  # number of precomputed embedding positions
     # --- attention ---
     window: int = 0  # local-attention window (0 = full/global)
     qkv_bias: bool = False

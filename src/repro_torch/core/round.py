@@ -302,7 +302,9 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     """Returns round_step(state, batch, rho, theta, key, timings=None,
     alive=None, alive_w=None, conn=None, events=None) -> (state, metrics).
 
-    batch: {"tokens": (R * tau * b_local, S + 1)}; rho, theta: (R,)
+    batch: {"tokens": (R * tau * b_local, S + 1)}, with the frontend's
+    inputs beside it (``patch_embeds``, ``frames``: (R * tau * b_local,
+    ...)), every key split alike; rho, theta: (R,)
     controls; key: the integer ``bits_fn(key, rho)`` turns into the (R,
     tau) masked-step bits (default: ``bernoulli_bits``).
     ``gossip`` selects the inter-cluster mix (Eq. 5) at the end of the
@@ -326,11 +328,6 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     ``dist.collectives.participation_weights`` (the live-device mean);
     ``conn`` (C,) 0/1 backhaul links (``mixing.participation_mixing``).
     Host arrays (numpy)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the round step trains the dense, moe, ssm and hybrid "
-            f"families; {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"modules to port, item 6)")
     model = get_model(cfg)
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
@@ -357,17 +354,19 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     bits_fn = bits_fn or functools.partial(bernoulli_bits, tau=hcef.tau)
     loss_fn = functools.partial(model.loss_fn, cfg)
 
-    def device_round(work, x0, mom, tokens, bits):
+    def device_round(work, x0, mom, batch, bits):
         """One device's tau local iterations, in place.  work: a copy of
         x0 on entry and the delta x_tau - x_0 on exit; mom: updated in
-        place; tokens: (tau, b_local, S + 1); bits: (tau,)."""
+        place; batch: {key: (tau, b_local, ...)}, tokens (tau, b_local,
+        S + 1); bits: (tau,)."""
         leaves, rebuild = _per_layer(work)
         moms = None if mom is None else _per_layer(mom)[0]
         losses, gn2s = [], []
         for t in range(hcef.tau):
             ps = [v.detach().requires_grad_() for v in leaves]
             with torch.enable_grad():
-                loss = loss_fn(rebuild(ps), {"tokens": tokens[t]})
+                loss = loss_fn(rebuild(ps),
+                               {k: v[t] for k, v in batch.items()})
                 grads = torch.autograd.grad(loss, ps)
             with torch.no_grad():
                 gn2s.append(_global_norm2(grads))
@@ -403,7 +402,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         params = flatten(state.params)
         dev = next(iter(params.values())).device
         phase = _phase_timer(timings, dev)
-        tokens = _split_batch(batch, R, hcef.tau)["tokens"].to(dev)
+        batch = {k: v.to(dev)
+                 for k, v in _split_batch(batch, R, hcef.tau).items()}
         bits = torch.as_tensor(bits_fn(key, rho), dtype=torch.float32,
                                device=dev)
         delta_tree = tree_map(torch.empty_like, state.params)
@@ -419,7 +419,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                        else tree_map(lambda m: m[r], state.momentum))
                 per_dev.append(device_round(
                     work, {k: v[r] for k, v in params.items()}, mom,
-                    tokens[r], bits[r]))
+                    {k: v[r] for k, v in batch.items()}, bits[r]))
         _mark(events, "device_round_end", dev)
         # theta in float32 before Q, as the reference casts it: k is
         # computed from the f32 value

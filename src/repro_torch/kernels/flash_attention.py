@@ -42,14 +42,18 @@ from repro_torch.kernels.ref import (NEG_INF, decode_attention_direct,
 # for f32).
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
             "paged_decode_attention": 0}
+# the share of those launches made with causal=False (an encoder's
+# self-attention, a cross-attention)
+NONCAUSAL = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated in both .cu files
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, NONCAUSAL):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check(name, *tensors, dtype):
@@ -135,6 +139,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, q_offset=0,
         float(scale), torch._C._cuda_getCurrentRawStream(q.get_device()))
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    NONCAUSAL["flash_attention"] += not causal
     return (out, lse) if return_lse else out
 
 
@@ -179,6 +184,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
         torch._C._cuda_getCurrentRawStream(q.get_device()))
     _raise_on(err, name)
     LAUNCHES["flash_attention_bwd"] += 1
+    NONCAUSAL["flash_attention_bwd"] += not causal
     return dq, dk, dv
 
 

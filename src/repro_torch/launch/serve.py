@@ -11,7 +11,8 @@ serves a synthetic Poisson request stream (per-request prompt and output
 lengths) through ``Engine.serve``.  ``--full`` runs the architecture at
 its published width with random weights; the default is the CPU-sized
 smoke config.  The paged families (``engine.PAGED_FAMILIES``: dense and
-moe) are served.
+moe) are served, but for a config with a frontend (internvl2-2b's
+``vit_stub``), whose stand-ins prefill does not take yet.
 """
 from __future__ import annotations
 
@@ -31,12 +32,16 @@ from repro_torch.serving.scheduler import Request
 # family -> what serving it needs; the paged engine serves PAGED_FAMILIES
 NOT_SERVED = {
     "ssm": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
-           "item 6: mamba2's prefill and decode_step",
+           "mamba2's prefill and decode_step",
     "hybrid": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
               "griffin's prefill and decode_step",
-    "encdec": "ROADMAP.md, modules to port, item 6: the encoder and "
-              "cross-attention",
+    "encdec": "ROADMAP.md, modules to port, item 4: Engine.generate, "
+              "the encdec cross-attention cache and the frontend "
+              "stand-ins in prefill",
 }
+# a paged family's config that is not served yet: its frontend
+FRONTEND_NOT_SERVED = ("ROADMAP.md, modules to port, item 4: the frontend "
+                       "stand-ins in prefill")
 
 
 def poisson_requests(n, rate, prompt_len, new_tokens, vocab, seed=0,
@@ -93,6 +98,9 @@ def main(argv=None):
     if cfg.family not in PAGED_FAMILIES:
         ap.error(f"--arch {args.arch}: serving the {cfg.family} family is "
                  f"not ported yet ({NOT_SERVED[cfg.family]})")
+    if cfg.frontend:
+        ap.error(f"--arch {args.arch}: serving the {cfg.frontend} frontend "
+                 f"is not ported yet ({FRONTEND_NOT_SERVED})")
     if args.smoke:
         cfg = smoke_model(cfg)
     params = get_model(cfg).init(cfg, seed=0, device=args.device)

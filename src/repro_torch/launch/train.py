@@ -43,14 +43,29 @@ RG-LRU blocks, whose scan is plain PyTorch, and local MQA, 16 heads of
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch recurrentgemma_9b --rounds 2
 
-at smoke size (3 layers).  At full width smollm-135M and
+at smoke size (3 layers).  So do the two configs with a frontend stub:
+internvl2-2b (``vit_stub``: each sequence's first 256 positions take
+patch embeddings) and seamless-m4t-large-v2 (``encdec``: a 24-layer
+encoder over frame embeddings, cross-attention in each decoder layer).
+The reference's launcher builds batches of tokens alone and so cannot
+train them (ROADMAP.md §3); this one feeds stand-ins drawn N(0, 1) each
+round from a numpy generator of their own, seeded with ``--seed``, so
+that the token stream of every architecture stays the reference's:
+``patch_embeds`` (B, frontend_tokens, d_model) and ``frames`` (B, seq +
+1, d_model).  The reference serve's zero patch embeddings are no stand-in
+for training: an all-zero row stays zero through every block, the RMS
+norm's gradient there is 1 / sqrt(norm_eps), and the backward through
+each layer's V and O projections multiplies it again, so that at
+internvl2-2b's width it passes bf16's range by layer 16.  At full width smollm-135M and
 granite-moe-1b-a400m fit four replicas on one card; qwen2-7b,
 codeqwen1.5-7b, phi3-medium-14b, arctic-480b and recurrentgemma-9b need
 more than one card holds (``--full`` at recurrentgemma-9b's 38 layers is
 about 9.4 B parameters; at about 10 bytes a parameter a replica's state,
 parameters, momentum, EF and the round's delta, is about 94 GB), and the
 memory is the caller's problem, as in the reference.  ``chip_smoke.py``
-phase 28 trains recurrentgemma-9b at full width and depth 5 with R = 2.
+phase 28 trains recurrentgemma-9b at full width and depth 5 with R = 2,
+phases 30 and 31 internvl2-2b and seamless-m4t-large-v2 at full width and
+depth with R = 2.
 
 ``--chaos`` injects faults (``runtime/chaos``: ``--chaos-dropout``,
 ``--chaos-partition``, ``--chaos-coord-fail``, ``--chaos-seed``): the
@@ -128,6 +143,29 @@ NOT_PORTED = {
 N_SEQ = 32  # sequences per device in the corpus (train.py)
 
 
+def frontend_stand_ins(cfg, batch: int, seq: int, seed: int):
+    """Returns a function of no arguments giving the frontend inputs of
+    one round's batch of ``batch`` sequences of ``seq`` tokens, drawn
+    N(0, 1) anew each call from ``default_rng(seed)`` (the reference
+    serve's frames, launch/serve.py:99-104; its patch embeddings are
+    zero, which training cannot take: see the module's docstring):
+    ``patch_embeds`` (batch, frontend_tokens, d_model) for ``vit_stub``,
+    ``frames`` (batch, seq, d_model) for the encoder; {} without a
+    frontend.  f32 host tensors."""
+    frng = np.random.default_rng(seed)
+    shapes = {}
+    if cfg.frontend == "vit_stub":
+        shapes["patch_embeds"] = (batch, cfg.frontend_tokens, cfg.d_model)
+    if cfg.enc_layers:
+        shapes["frames"] = (batch, seq, cfg.d_model)
+
+    def draw():
+        return {k: torch.from_numpy(frng.standard_normal(shp,
+                                                         dtype=np.float32))
+                for k, shp in shapes.items()}
+    return draw
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2_1p3b", choices=ARCH_IDS)
@@ -139,6 +177,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--controller", default="hcef",
                     choices=sorted(CONTROLLERS))
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the frontend "
+                         "stand-ins (the token stream is the "
+                         "reference's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; no CPU fallback)")
     ap.add_argument("--profile", action="store_true",
@@ -218,7 +260,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference is f32
 
     cluster_of = np.repeat(np.arange(topo.clusters), topo.devices_per_cluster)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
     params0 = get_model(cfg).init(cfg, gen, device=dev)
     n_params = param_count(params0)
     state = (init_overlap_state if hcef.overlap else init_state)(
@@ -285,6 +327,8 @@ def main(argv=None):
             num_devices=R, num_clusters=topo.clusters)
     rng = np.random.default_rng(0)
     b_per_dev = hcef.tau * 2
+    stand_ins = frontend_stand_ins(cfg, R * b_per_dev, args.seq + 1,
+                                   args.seed)
     # dense_bits=16: het's model_bits above is n_params * 16 (bf16)
     wire_kw = (dict(wire_dtype=hcef.wire_dtype, wire_block=hcef.wire_block,
                     dense_bits=16) if hcef.sparse_gossip else {})
@@ -394,8 +438,8 @@ def main(argv=None):
                                  dev=topo.devices_per_cluster),
                              conn=conn.astype(np.float32))
         state, m = get_step(gossip, stale)(
-            state, {"tokens": torch.from_numpy(tokens)}, rho, theta,
-            1000 + rnd, timings=timings, **masks)
+            state, {"tokens": torch.from_numpy(tokens), **stand_ins()},
+            rho, theta, 1000 + rnd, timings=timings, **masks)
         # a stale cluster's gossip runs during its local steps
         t, _ = (overlap_round_time if stale else round_time)(
             rho, theta, reports.mu, reports.nu, hcef.tau, cluster_of,

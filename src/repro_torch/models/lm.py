@@ -1,6 +1,6 @@
-"""Decoder LM, the dense and moe families: init, the training forward and
-loss, and the paged serving path (port of the dense and MoE decoder of
-``repro/models/lm.py``).
+"""Transformer LM, the dense, moe and encdec families with the modality
+frontend stubs: init, the training forward and loss, and the paged
+serving path of the decoder-only configs (port of ``repro/models/lm.py``).
 
 Parameters are a plain dict with the reference's leaf names and shapes:
 layers stacked on a leading L dim, weights in ``x @ w`` orientation.  The
@@ -14,6 +14,16 @@ gradient is the hand-written backward kernel (``ops.flash_attention``).
 With ``cfg.num_experts`` the FFN is the reference's MoE (``_moe_ffn``):
 top-k routing, capacity-bounded dispatch by gathers whose gradients are
 gathers too, and the expert products as batched GEMMs.
+
+The frontends are stubs, as in the reference: ``vit_stub`` (internvl2-2b)
+puts ``batch["patch_embeds"]`` in the first ``frontend_tokens`` positions
+and the loss leaves their labels out; ``audio_stub`` (seamless-m4t) feeds
+``batch["frames"]`` to the encoder (``enc_layers``: non-causal blocks with
+RoPE), whose output each decoder layer's cross-attention reads through
+its own K and V projections.  Serving a frontend or an encoder config
+(the encoder's cache, the stand-ins in prefill) is not ported yet:
+``prefill_paged`` and ``decode_step_paged`` raise, naming ROADMAP.md's
+item.
 """
 from __future__ import annotations
 
@@ -28,14 +38,44 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        layer_list, rms_norm, rope,
-                                       rope_tables, softcap)
+                                       rope_tables, softcap, stack_list)
+
+FAMILIES = ("dense", "moe", "encdec")
+# the frontend stubs lm computes: "audio_stub" is the encoder's input
+FRONTENDS = ("", "vit_stub", "audio_stub")
+SERVING = ("ROADMAP.md, modules to port, item 4 (Engine.generate, the "
+           "encdec cross-attention cache and the frontend stand-ins in "
+           "prefill)")
+
+
+def check_config(cfg: ModelConfig, serving: bool = False):
+    """Refuses a config lm does not compute: another family, a frontend
+    other than ``FRONTENDS``, an encoder without its ``audio_stub``
+    frames or the reverse; with ``serving``, any frontend or encoder (the
+    paged path embeds tokens alone and keeps no cross-attention cache)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"lm runs the families {FAMILIES}, not "
+                         f"{cfg.family!r} (models/registry.py)")
+    if cfg.frontend not in FRONTENDS:
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r} is not ported: lm computes "
+            f"{FRONTENDS} (ROADMAP.md, modules to port, item 6)")
+    encdec = cfg.family == "encdec"
+    if encdec != bool(cfg.enc_layers) or \
+            encdec != (cfg.frontend == "audio_stub"):
+        raise ValueError(f"{cfg.name}: the encdec family, enc_layers and "
+                         f"the audio_stub frontend go together")
+    if serving and (cfg.frontend or encdec):
+        raise NotImplementedError(
+            f"serving {cfg.name} ({cfg.family}, frontend "
+            f"{cfg.frontend!r}) is not ported yet: {SERVING}")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+def _layer_shapes(cfg: ModelConfig, cross: bool = False) -> Dict[str, tuple]:
     D, H, KH, Dh, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     s: Dict[str, tuple] = {
@@ -45,6 +85,9 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     }
     if cfg.qkv_bias:
         s.update(bq=(H * Dh,), bk=(KH * Dh,), bv=(KH * Dh,))
+    if cross:
+        s.update(lnx=(D,), wxq=(D, H * Dh), wxk=(D, KH * Dh),
+                 wxv=(D, KH * Dh), wxo=(H * Dh, D))
     if cfg.num_experts:
         E = cfg.num_experts
         s.update(router=(D, E), we_gate=(E, D, F), we_up=(E, D, F),
@@ -70,22 +113,34 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, seed=0,
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     dt = dtype_of(cfg.param_dtype)
-    L = cfg.num_layers
 
     def draw(shape):
         return dense_init(generator, shape, dt, dev)
 
+    def stack(shapes, L):
+        return {name: (torch.ones((L,) + shp, dtype=dt, device=dev)
+                       if name.startswith("ln") else draw((L,) + shp))
+                for name, shp in sorted(shapes.items())}
+
     params: Dict[str, Any] = {
         "emb": draw((cfg.vocab_padded, cfg.d_model)),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-        "layers": {
-            name: (torch.ones((L,) + shp, dtype=dt, device=dev)
-                   if name.startswith("ln") else draw((L,) + shp))
-            for name, shp in sorted(_layer_shapes(cfg).items())},
+        "layers": stack(_layer_shapes(cfg, cross=cfg.cross_attention),
+                        cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         params["out_head"] = draw((cfg.d_model, cfg.vocab_padded))
+    if cfg.enc_layers:
+        params["enc_layers"] = stack(_layer_shapes(_enc_cfg(cfg)),
+                                     cfg.enc_layers)
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                        device=dev)
     return params
+
+
+def _enc_cfg(cfg):
+    """The encoder's config: the decoder's, with a dense FFN."""
+    return cfg.replace(num_experts=0)
 
 
 def param_count(params) -> int:
@@ -134,6 +189,29 @@ def _attention(cfg, x, w, tables, *, causal, window=0):
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
     o = o.reshape(B, S, H * Dh) @ w["wo"]
     return o, (k, v)
+
+
+def _cross_kv(cfg, mem, w):
+    """One decoder layer's K and V of the encoder output ``mem`` (B,
+    S_enc, D), each (B, S_enc, KH, Dh) in the compute type: no RoPE."""
+    B = mem.shape[0]
+    KH, Dh = cfg.num_kv_heads, cfg.head_dim
+    cd = dtype_of(cfg.compute_dtype)
+    xk = (mem @ w["wxk"]).to(cd).reshape(B, -1, KH, Dh)
+    xv = (mem @ w["wxv"]).to(cd).reshape(B, -1, KH, Dh)
+    return xk, xv
+
+
+def _cross_attention(cfg, x, w, mem_kv):
+    """Cross-attention of x (B, S, D) over ``mem_kv`` (``_cross_kv``):
+    queries from ``wxq`` with no RoPE, non-causal (reference lm.py:116)."""
+    B, S, D = x.shape
+    H, Dh = cfg.num_heads, cfg.head_dim
+    cd = dtype_of(cfg.compute_dtype)
+    q = (x @ w["wxq"]).to(cd).reshape(B, S, H, Dh)
+    k, v = mem_kv
+    o = ops.flash_attention(q, k, v, causal=False)
+    return o.reshape(B, S, H * Dh) @ w["wxo"]
 
 
 def _dense_ffn(cfg, x, w):
@@ -340,8 +418,16 @@ class DecodeGraphs:
         return static_x, out, graph
 
 
-def _embed(cfg, params, tokens):
-    return params["emb"][tokens].to(dtype_of(cfg.compute_dtype))
+def _embed(cfg, params, batch):
+    """The token embeddings of ``batch["tokens"]``; with the ``vit_stub``
+    frontend the first ``frontend_tokens`` positions are
+    ``batch["patch_embeds"]`` (B, P, D), cast to the compute type."""
+    x = params["emb"][batch["tokens"].long()].to(dtype_of(cfg.compute_dtype))
+    if cfg.frontend == "vit_stub":
+        P = cfg.frontend_tokens
+        pe = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([pe, x[:, P:]], dim=1)
+    return x
 
 
 def _logits(cfg, params, x):
@@ -356,43 +442,74 @@ def _logits(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# forward / loss (reference lm.py:293-385, the decoder only)
+# forward / loss (reference lm.py:293-385)
 # ---------------------------------------------------------------------------
 
-def _block(cfg, x, w, tables):
+def _block(cfg, x, w, tables, mem=None, *, causal=True):
+    """One block: self-attention (RoPE at ``tables``); with ``mem``, the
+    encoder output, the cross-attention over this layer's K and V of it,
+    made here (inside the layer's checkpoint, as in the reference's scan
+    body); then the FFN half."""
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    attn_out, _ = _attention(cfg, h, w, tables, causal=True,
+    attn_out, _ = _attention(cfg, h, w, tables, causal=causal,
                              window=cfg.window)
-    return _ffn_half(cfg, x + attn_out, w)
+    x = x + attn_out
+    if mem is not None:
+        h = rms_norm(x, w["lnx"], cfg.norm_eps)
+        x = x + _cross_attention(cfg, h, w, _cross_kv(cfg, mem, w))
+    return _ffn_half(cfg, x, w)
+
+
+def _run_stack(cfg, layers, x, tables, mem=None, *, causal=True):
+    """x through each block of ``layers`` (per-layer dicts), each under
+    ``torch.utils.checkpoint`` with ``cfg.remat`` while autograd
+    records."""
+    block = functools.partial(_block, cfg, causal=causal)
+    for w in layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, w, tables, mem, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block(x, w, tables, mem)
+    return x
+
+
+def _encode(cfg, params, frames):
+    """The encoder over ``frames`` (B, S_enc, D), cast to the compute
+    type: non-causal blocks with RoPE at arange(S_enc), then
+    ``enc_norm`` (reference lm.py:324-332)."""
+    x = frames.to(dtype_of(cfg.compute_dtype))
+    tables = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
+    x = _run_stack(_enc_cfg(cfg), stack_list(params["enc_layers"]), x,
+                   tables, causal=False)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params, batch):
     """Teacher-forced logits (B, S, vocab_padded) of ``batch["tokens"]``
-    (B, S).  The dense and MoE decoder: the reference's encoder and ViT
-    frontend are other families here, not ported (ROADMAP.md, modules to
-    port, item 6)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"lm.forward runs the dense and MoE decoder; family "
-            f"{cfg.family!r} is not ported yet (ROADMAP.md, modules to "
-            f"port, item 6)")
-    x = _embed(cfg, params, batch["tokens"].long())
+    (B, S), with the frontend's inputs: ``patch_embeds`` (B, P, D) for
+    ``vit_stub``, ``frames`` (B, S_enc, D) for the encoder."""
+    check_config(cfg)
+    x = _embed(cfg, params, batch)
     tables = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
-    block = functools.partial(_block, cfg)
-    for w in layer_list(params):
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, w, tables, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = block(x, w, tables)
+    mem = (_encode(cfg, params, batch["frames"].to(x.device))
+           if cfg.enc_layers else None)
+    x = _run_stack(cfg, layer_list(params), x, tables, mem)
     return _logits(cfg, params, x)
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Mean next-token cross entropy of ``batch["tokens"]`` in f32."""
+    """Mean next-token cross entropy of ``batch["tokens"]`` in f32; with
+    the ``vit_stub`` frontend the labels at positions below
+    ``frontend_tokens`` are left out (reference lm.py:372-381)."""
     tokens = batch["tokens"]
     logits = forward(cfg, params, batch)
-    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+    labels = tokens[:, 1:]
+    mask = None
+    if cfg.frontend == "vit_stub":
+        pos = torch.arange(labels.shape[1], device=labels.device)
+        mask = (pos >= cfg.frontend_tokens).expand(labels.shape)
+    return cross_entropy(logits[:, :-1], labels, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -426,7 +543,8 @@ def prefill_paged(cfg: ModelConfig, params, batch, cache, page_table,
     several rows may write page 0 in one call; which write lands does not
     matter, because page 0 is never read unmasked.
     """
-    x = _embed(cfg, params, batch["tokens"])
+    check_config(cfg, serving=True)
+    x = _embed(cfg, params, batch)
     B, S, D = x.shape
     ps = cache["k"].shape[2]
     if S % ps:
@@ -466,12 +584,13 @@ def decode_step_paged(cfg: ModelConfig, params, cache, tokens, page_table,
     page 0 is never read unmasked.  With ``graphs`` (a ``DecodeGraphs``,
     on the card) each layer's FFN half replays as a CUDA graph.
     """
+    check_config(cfg, serving=True)
     B = tokens.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ps = cache["k"].shape[2]
     kv_len = kv_len.to(torch.int32)
     tables = _rope_tables(cfg, kv_len[:, None])  # per-request positions
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, {"tokens": tokens})
     pj = torch.div(kv_len, ps, rounding_mode="floor")
     phys = torch.gather(page_table, 1, pj[:, None].long())[:, 0].long()
     off = (kv_len % ps).long()

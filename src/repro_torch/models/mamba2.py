@@ -11,7 +11,7 @@ respect to each layer's slices, so that no stacked gradient is formed).
 With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``: its
 forward runs again in the backward, as ``jax.checkpoint`` does.
 ``prefill`` and ``decode_step`` wait for the ssm serving slice (ROADMAP.md,
-modules to port, 'Other architectures').
+modules to port, item 4: ``Engine.generate``).
 """
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models import lm
 from repro_torch.models.common import layer_list
 from repro_torch.models.registry import get_model
 from repro_torch.serving.page_manager import PageManager, pages_for
@@ -76,6 +77,8 @@ class Engine:
                  paged: PagedConfig = None, device=None):
         self.cfg = cfg
         self.model = get_model(cfg)
+        if self.model is lm:  # no frontend, no encoder: item 4
+            lm.check_config(cfg, serving=True)
         self.serve_cfg = serve or ServeConfig()
         self.paged = paged or PagedConfig()
         self.device = resolve(device)

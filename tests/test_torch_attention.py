@@ -25,6 +25,16 @@ TOL = {jnp.float32: dict(atol=2e-5, rtol=2e-5),
        jnp.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(rng, shape, dtype):
     """The same values as a JAX array and as a CPU tensor (bit-exact)."""
     j = jnp.asarray(rng.normal(size=shape).astype(np.float32), dtype)

@@ -37,6 +37,16 @@ MASKS = list(itertools.product((True, False), (0, 16)))  # (causal, window)
 GRID = list(itertools.product((1, 2, 3), (17, 65, 130), (16, 64), MASKS))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, B, S, G, Dh):
     rng = np.random.default_rng(seed)
     H = KH * G

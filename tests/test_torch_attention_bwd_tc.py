@@ -51,6 +51,16 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def dkdv_items(k0, nk, Sq, G, causal, window):
     """The dK/dV CTA's (head in group, query block) items in the kernel's
     order for keys [k0, k0 + nk): every head of the group, each over the

@@ -29,6 +29,16 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 MIXED = (0.05, 1.0, 0.25, 0.05)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rows(seed, dtype=np.float32, intra_done=False):
     x = np.random.default_rng(seed).standard_normal((C * DEV, L))
     if intra_done:  # every device row holds its cluster's mean

@@ -63,6 +63,16 @@ BUDGETS = dict(time_budget=8.5e5, energy_budget=2e4, phi=200)
 # numpy copies
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reports(mod_het, seed=3):
     het = mod_het(num_devices=16, model_bits=269_722 * 32, seed=1)
     rep = het.sample_round(seed)

@@ -52,6 +52,16 @@ CHAOS_KEYS = ("participation", "n_deadline_missed", "coordinator",
               "resident_clients")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _shard(syn):
     return lambda cid: syn.client_image_shard("femnist", 64, cid, beta=0.5)
 

@@ -45,6 +45,16 @@ LOSS_RTOL = 1e-7
 F64_RTOL = 1e-9
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_bits(tau, n):
     """The reference's masked-step bits for a key integer (driver.py:183,
     :371), as the port's ``bits_fn``."""

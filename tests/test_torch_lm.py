@@ -27,6 +27,7 @@ from repro_torch.configs import ARCH_IDS, get_config, smoke_model  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import lm, mamba2  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
 
 # Sums run in a different order in torch and in XLA on the CPU (matmul
 # blocking, einsum contraction order), so f32 results agree to a few ulps
@@ -34,6 +35,16 @@ from repro_torch.models.registry import get_model  # noqa: E402
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["smollm_135m", "qwen2_7b", "granite_moe_1b_a400m", "arctic_480b"]
 INIT_ARCHS = ARCHS + ["phi3_medium_14b", "codeqwen1p5_7b"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _models(arch):
@@ -73,10 +84,14 @@ def test_registry_names_the_roadmap_item():
     assert get_model(smoke_model(get_config("mamba2_1p3b").model)) is mamba2
     assert get_model(smoke_model(get_config("granite_moe_1b_a400m").model)) \
         is lm
-    for fam in ("encdec",):
-        cfg = smoke_model(get_config("qwen2_7b").model).replace(family=fam)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model(cfg)
+    # every family trains; serving a config with a frontend or an encoder
+    # waits for its item
+    for arch in ("internvl2_2b", "seamless_m4t_large_v2"):
+        cfg = smoke_model(get_config(arch).model)
+        assert get_model(cfg) is lm
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, modules to port, item 4"):
+            Engine(cfg, lm.init(cfg, seed=0, device="cpu"), device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

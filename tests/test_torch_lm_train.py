@@ -43,6 +43,16 @@ VARIANTS = {"smollm": ("smollm_135m", {}),
             "arctic": ("arctic_480b", {})}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(variant, seed=0, B=2, S=40):
     arch, kw = VARIANTS[variant]
     jcfg = j_smoke(j_get_config(arch).model).replace(**kw)
@@ -105,9 +115,28 @@ def test_layers_as_a_list_give_the_stacked_result():
 
 
 def test_other_families_raise_naming_the_roadmap():
-    cfg = smoke_model(get_config("smollm_135m").model).replace(
-        family="encdec")
-    params = lm.init(smoke_model(get_config("smollm_135m").model), seed=0,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.forward(cfg, params, {"tokens": torch.zeros((1, 4), dtype=int)})
+    """lm trains the dense, moe and encdec families with the two frontend
+    stubs; it refuses another frontend (item 6) and the paged serving
+    path of a config with a frontend or an encoder (item 4)."""
+    base = smoke_model(get_config("smollm_135m").model)
+    params = lm.init(base, seed=0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, modules to port, item 6"):
+        lm.forward(base.replace(frontend="video_stub"), params,
+                   {"tokens": tokens})
+    with pytest.raises(ValueError, match="families"):
+        lm.forward(base.replace(family="ssm"), params, {"tokens": tokens})
+    for arch in ("internvl2_2b", "seamless_m4t_large_v2"):
+        cfg = smoke_model(get_config(arch).model)
+        p = lm.init(cfg, seed=0, device="cpu")
+        cache = lm.init_paged_cache(cfg, 3, 4, device="cpu")
+        table = torch.ones((1, 2), dtype=torch.int32)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, modules to port, item 4"):
+            lm.prefill_paged(cfg, p, {"tokens": tokens}, cache, table,
+                             torch.tensor([4], dtype=torch.int32))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, modules to port, item 4"):
+            lm.decode_step_paged(cfg, p, cache, tokens[:, :1], table,
+                                 torch.tensor([4], dtype=torch.int32))

@@ -34,6 +34,16 @@ VARIANTS = {"smoke": {}, "groups2": dict(ssm_groups=2),
                                           num_layers=3)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(**kw):
     """(reference cfg, port cfg): smoke_model of mamba2_1p3b with kw."""
     return (j_smoke(j_get_config("mamba2_1p3b").model).replace(**kw),

@@ -38,6 +38,7 @@ from repro_torch.data.synthetic import synthetic_tokens  # noqa: E402
 from repro_torch.fl import baselines as tbase  # noqa: E402
 from repro_torch.fl import cost_model as tcost  # noqa: E402
 from repro_torch.fl.heterogeneity import HeterogeneityModel  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
 
 ROUNDS, TAU, Q, SEQ, N_SEQ = 4, 4, 2, 33, 32
@@ -55,6 +56,19 @@ HIST_RTOL = {"loss": 1e-5, "rho_mean": 1e-6, "theta_mean": 1e-6,
              "time": 1e-6, "energy": 1e-6}
 G2_RTOL, SIGMA2_RTOL = 1e-5, 1e-4
 STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+# XLA's backend optimisations off where only the reference's outputs are
+# compared: its round steps compile in a fraction of the time
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_bits(tau, n):
@@ -92,10 +106,12 @@ def _init_state(jcfg, hcef, jtopo):
 
 
 def _history(port: bool, arch: str = "mamba2_1p3b", rounds: int = ROUNDS,
-             q: int = Q, compiler_options=None):
+             q: int = Q, compiler_options=None, extra=None):
     """``rounds`` rounds of each package's make_round_step on ``arch``'s
     smoke model, gossip every ``q``-th, driven as the train launcher
     drives it; the reference's steps compiled with ``compiler_options``.
+    ``extra(rnd, n)`` gives the frontend inputs of a round's n sequences
+    beside the tokens (numpy arrays, the same for both packages).
     Returns (history, final state as numpy, the state)."""
     hcef_kw, budget_kw = dict(HCEF, q=q), dict(BUDGET, q=q)
     jcfg = j_smoke(j_get_config(arch).model)
@@ -133,14 +149,17 @@ def _history(port: bool, arch: str = "mamba2_1p3b", rounds: int = ROUNDS,
         gossip = (rnd + 1) % q == 0
         idx = rng.integers(0, N_SEQ, (R, 2 * TAU))
         tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+        inputs = {"tokens": tokens,
+                  **(extra(rnd, len(tokens)) if extra else {})}
         if port:
-            state, m = steps[gossip](state, {"tokens": torch.from_numpy(
-                tokens)}, rho, theta, 1000 + rnd)
+            state, m = steps[gossip](
+                state, {k: torch.from_numpy(v) for k, v in inputs.items()},
+                rho, theta, 1000 + rnd)
             m = {k: v.numpy() for k, v in m.items()}
         else:
             keys = jax.random.split(jax.random.PRNGKey(1000 + rnd), R)
             state, m = steps[gossip](
-                state, {"tokens": jnp.asarray(tokens)},
+                state, {k: jnp.asarray(v) for k, v in inputs.items()},
                 jnp.asarray(rho, jnp.float32),
                 jnp.asarray(theta, jnp.float32), keys)
             m = jax.tree.map(np.asarray, m)
@@ -179,7 +198,8 @@ def _history(port: bool, arch: str = "mamba2_1p3b", rounds: int = ROUNDS,
 
 @pytest.fixture(scope="module")
 def histories():
-    return _history(port=False), _history(port=True)
+    return (_history(port=False, compiler_options=FAST_COMPILE),
+            _history(port=True))
 
 
 def test_four_round_history_matches_reference(histories):
@@ -220,9 +240,17 @@ def test_unported_options_raise_naming_the_roadmap():
     # the wire options are ported, with the reference's own checks
     with pytest.raises(ValueError, match="sparse_gossip"):
         HCEFConfig(wire_ef=True)
-    # the dense, moe, ssm and hybrid families train; encdec waits for its
-    # item
+    # every family trains, encdec and the frontend stubs included; a
+    # frontend the port does not compute raises naming its item, and so
+    # does serving a config with a frontend or an encoder (item 4)
+    for arch in ("internvl2_2b", "seamless_m4t_large_v2"):
+        cfg = smoke_model(get_config(arch).model)
+        tround.make_round_step(cfg, HCEFConfig(), FLTopology(2, 2))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, modules to port, item 4"):
+            lm.check_config(cfg, serving=True)
     cfg = smoke_model(get_config("smollm_135m").model).replace(
-        family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        frontend="video_stub")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, modules to port, item 6"):
         tround.make_round_step(cfg, HCEFConfig(), FLTopology(2, 2))

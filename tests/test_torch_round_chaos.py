@@ -57,8 +57,9 @@ from repro_torch.fl.heterogeneity import HeterogeneityModel  # noqa: E402
 from repro_torch.runtime import chaos as tchaos  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
 
-from test_torch_round import (G2_RTOL, HIST_RTOL, SIGMA2_RTOL,  # noqa: E402
-                              STATE_TOL, jax_bits)
+from test_torch_round import (FAST_COMPILE, G2_RTOL,  # noqa: E402
+                              HIST_RTOL, SIGMA2_RTOL, STATE_TOL, _jit,
+                              jax_bits)
 
 ROUNDS, TAU, Q, SEQ, N_SEQ, R, C, DEV = 2, 2, 2, 33, 32, 4, 2, 2
 HCEF = dict(tau=TAU, q=Q, eta=0.1, momentum=0.9)
@@ -71,6 +72,16 @@ CHAOS = dict(seed=2, dropout_prob=0.3, partition_prob=0.5,
 SPARSE_THETA = np.array([0.05, 0.1, 0.4, 0.6])
 FLIP_SHARE = 1e-4  # chip_smoke.py's Q_FLIP_SHARE
 LEVELS = (0.1, 0.6, 1.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _params0():
@@ -102,8 +113,9 @@ def _off_mesh_history(port: bool, chaos=CHAOS):
                                        tctrl.BudgetState, tchaos)
     else:
         state = jstate
-        steps = {g: jax.jit(jround.make_round_step(jcfg, JHCEF(**HCEF),
-                                                   JTopo(C, DEV), gossip=g))
+        steps = {g: _jit(jround.make_round_step(jcfg, JHCEF(**HCEF),
+                                                JTopo(C, DEV), gossip=g),
+                         FAST_COMPILE)
                  for g in (False, True)}
         ctrl, Het, cost, Budget, ch = (jbase, JHet, jcost, jctrl.BudgetState,
                                        jchaos)
@@ -278,9 +290,9 @@ def _fused_rounds(port: bool, masks_of):
             losses.append(m["loss"].numpy())
         else:
             if (gossip, cl) not in jsteps:
-                jsteps[gossip, cl] = jax.jit(jround.make_round_step(
+                jsteps[gossip, cl] = _jit(jround.make_round_step(
                     jcfg, jhcef, jtopo, jpolicy, gossip=gossip, impl="ref",
-                    cluster_levels=cl))
+                    cluster_levels=cl), FAST_COMPILE)
             keys = jax.random.split(jax.random.PRNGKey(1000 + rnd), R)
             with mesh:
                 state, m = jsteps[gossip, cl](

@@ -13,11 +13,13 @@ On the CPU the attention is the plain blockwise version under autograd.
 """
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
-from test_torch_round import (G2_RTOL, HIST_RTOL, ROUNDS,  # noqa: E402
-                              SIGMA2_RTOL, STATE_TOL, TAU, _history)
+from test_torch_round import (FAST_COMPILE, G2_RTOL,  # noqa: E402
+                              HIST_RTOL, ROUNDS, SIGMA2_RTOL, STATE_TOL, TAU,
+                              _history)
 
 # f32 on the CPU.  Measured over the 4 rounds: loss within 9.4e-8
 # relative, rho, theta, time and energy equal; g2 within 2.5e-6 and
@@ -25,9 +27,20 @@ from test_torch_round import (G2_RTOL, HIST_RTOL, ROUNDS,  # noqa: E402
 # 1.9e-5, EF within 2.6e-6.
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def histories():
-    return (_history(port=False, arch="smollm_135m"),
+    return (_history(port=False, arch="smollm_135m",
+                     compiler_options=FAST_COMPILE),
             _history(port=True, arch="smollm_135m"))
 
 

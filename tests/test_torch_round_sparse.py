@@ -49,6 +49,7 @@ from repro_torch.core.compression import (  # noqa: E402
 from repro_torch.dist.policies import make_train_policy  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
+from test_torch_round import FAST_COMPILE, _jit  # noqa: E402
 
 ROUNDS, TAU, Q, SEQ = 4, 2, 2, 33
 RHO = np.array([0.9, 0.7, 1.0, 0.8])
@@ -58,6 +59,16 @@ THETA = np.array([0.05, 0.1, 0.4, 0.6])
 LEVELS = (0.1, 0.6, 1.0)
 HIST_RTOL = 1e-5
 STATE_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_bits(tau, n):
@@ -104,9 +115,9 @@ def _run(wire_ef: bool, fallback: bool = True):
         cl = levels if gossip and not (rnd == 3 and fallback) else None
         tokens = rng.integers(0, cfg.vocab_size, (R * TAU * 2, SEQ))
         if (gossip, cl) not in jsteps:
-            jsteps[gossip, cl] = jax.jit(jround.make_round_step(
+            jsteps[gossip, cl] = _jit(jround.make_round_step(
                 jcfg, jhcef, jtopo, jpolicy, gossip=gossip, impl="ref",
-                cluster_levels=cl))
+                cluster_levels=cl), FAST_COMPILE)
         step = jsteps[gossip, cl]
         keys = jax.random.split(jax.random.PRNGKey(1000 + rnd), R)
         with mesh:

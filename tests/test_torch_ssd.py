@@ -29,6 +29,16 @@ GRID_IDS = ["g1", "g2", "g8", "g2-padded"]
 DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tol(name):
     # the reference's _tol (tests/test_kernels.py:12)
     return (dict(atol=2e-2, rtol=2e-2) if name == "bf16"

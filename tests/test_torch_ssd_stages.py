@@ -37,6 +37,16 @@ PAIR_RTOL_OF_MAX = 2e-5
 SINGLE_OVER_PAIR = 20.0  # one rounding is at least this much worse
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("case", GRID, ids=GRID_IDS)
 def test_stages_compose_to_the_plain_version(case):
     """In f64 the stages give ssd_chunked's y and, chunk by chunk, the

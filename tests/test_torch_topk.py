@@ -30,6 +30,16 @@ GRID = [(1, 2048, 256), (4, 4096, 512), (3, 1024, 1024)]  # test_kernels:144
 DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(a):
     """Raw bits of a JAX array or tensor (int32 for f32, int16 for bf16),
     so that +0 and -0 and every rounding differ."""

@@ -13,6 +13,16 @@ SMOKE = ["--device", "cpu", "--arch", "mamba2_1p3b", "--rounds", "2",
          "--seq", "40"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_launcher_runs_the_smoke_round_on_the_cpu(capsys):
     out = train.main(SMOKE)
     lines = [ln for ln in capsys.readouterr().out.splitlines()

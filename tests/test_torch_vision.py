@@ -38,6 +38,16 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(name, batch=4, seed=0):
     jcfg, tcfg = MODELS[name]
     init, jloss, jacc, jfwd = jvision.make_vision_model(jcfg)

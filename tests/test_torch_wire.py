@@ -37,6 +37,16 @@ PACK_GRID = [(1024, 1), (1024, 52), (1024, 205), (256, 8), (256, 200),
              (128, 7), (512, 26), (2048, 103)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size ops gain nothing from threads, and a pool of them per
+    test worker oversubscribes the cores the suite shares."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
