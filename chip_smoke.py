@@ -21,7 +21,10 @@ Phases (any failure ends the run with a non-zero exit):
    internvl2-2b's layer (INTERNVL_LAYER: B 2, S 2048, 16 heads of 128
    over 8, causal) and seamless-m4t-large-v2's non-causal one
    (SEAMLESS_LAYER: B 2, S 2048, 16 heads of 64 over 16), timed beside
-   SDPA; on every case the row log-sum-exp that both
+   SDPA; the cross-attention's shapes (CROSS_CASES, non-causal: Sq 1 over
+   Skv 512 at B 8, 16/16 heads of 64, in bf16 and f32, and at Dh 128 over
+   8 KV heads, as the encdec decode step calls it; a ragged Sq 37 over Skv
+   300), timed beside SDPA; on every case the row log-sum-exp that both
    kernels write for the training path (``return_lse``), held to the
    plain version's at the case's tolerance, beside the same out;
 3. the split paged decode (bf16 ``paged_decode_tc`` on the tensor cores,
@@ -296,7 +299,38 @@ Phases (any failure ends the run with a non-zero exit):
    attention launches of its three kinds counted apart, causal
    self-attention, the encoder's non-causal self-attention and the
    non-causal cross-attention (two forwards and one backward of each a
-   layer and step), and phase 30's gates.
+   layer and step), and phase 30's gates;
+32. the static serving path (``Engine.generate``), card against CPU in
+   f32: the smoke qwen2-7b, granite-moe-1b-a400m, mamba2-1.3B,
+   recurrentgemma-9b (window 16: a 40-token prompt wraps the ring, the
+   decode runs past it), internvl2-2b (8 patch positions, N(0, 1)) and
+   seamless-m4t-large-v2 (N(0, 1) frames) each run init_cache, prefill
+   and STATIC_SMALL_STEPS decode steps fed the CPU's greedy tokens:
+   logits within 1e-4, the attention kernel launches of each call by
+   kind (``static_launches``); then ``Engine.generate`` on both with the
+   weights times 10, the greedy tokens equal until a row's top two CPU
+   logits come within TOKEN_MARGIN; and the paged pool's int8 mode and
+   contiguous layout on the smoke qwen2-7b, card against CPU in
+   lockstep (logits and floats within 1e-4, int8 entries at most one
+   step apart in at most INT8_FLIP_SHARE of them), with no paged decode
+   kernel launch (the reference routes both modes to the gather);
+33. ``Engine.generate`` at full width (bf16, seeded random weights,
+   greedy, STATIC_NEW_TOKENS new tokens, the reference launcher's
+   stand-ins) for STATIC_FULL: qwen2-7b (B 8, 512-token prompts),
+   mamba2-1.3B (B 8, 512), recurrentgemma-9b at its full depth of 38
+   layers (B 2, 3072: the ring of 2048 wraps in prefill), internvl2-2b
+   (B 8, 512, the first 256 positions zero patch embeddings) and
+   seamless-m4t-large-v2 (B 8, 512 tokens and 512 N(0, 1) frames):
+   finite logits, output (B, 64), the attention launches of every
+   prefill and decode step by kind, peak <= PEAK_LIMIT_GB (gated); TTFT
+   (the prefill), TPOT p50 and tok/s printed; then the plain static
+   decode at qwen2-7b's static shape beside the paged kernel over an
+   identity table and the int8 pool's gather route
+   (``static_decode_routes``);
+34. phase 4's qwen2-7b stream over an int8 pool: every request
+   complete, the pool's bytes against phase 4's bf16 pool, TPOT p50
+   printed, and no paged decode kernel launch (the reference's
+   routing).
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -612,16 +646,18 @@ def sdpa_yardstick(q, k, v, causal, window):
 
 
 def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
-                 Skv=None, masked_library=False):
+                 Skv=None, masked_library=False, B=1, causal=True):
     """The forward kernel against its plain version on seeded inputs (out
     and, with ``return_lse``, the row log-sum-exp), timed beside the plain
     version, its bound and, without a window (or with
-    ``masked_library``), SDPA (``sdpa_yardstick``)."""
+    ``masked_library``), SDPA (``sdpa_yardstick``).  ``causal=False``
+    with Skv != S is the cross-attention's shape (S = 1 in its decode
+    step)."""
     Skv = Skv or S
-    q = torch.randn((1, S, H, Dh), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((1, Skv, KH, Dh), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((1, Skv, KH, Dh), generator=gen, device="cuda").to(dtype)
-    kw = dict(causal=True, window=window, q_offset=q_offset)
+    q = torch.randn((B, S, H, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KH, Dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KH, Dh), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     out = fa.flash_attention_cuda(q, k, v, **kw)
     out2, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
@@ -637,17 +673,18 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                        iters=3, warmup=1)
     library_ms = library_backend = None
-    if not q_offset and Skv == S and (not window or masked_library):
-        sdpa, library_backend = sdpa_yardstick(q, k, v, True, window)
+    if not q_offset and (Skv == S or not causal) and \
+            (not window or masked_library):
+        sdpa, library_backend = sdpa_yardstick(q, k, v, causal, window)
         library_ms = time_ms(sdpa)
-    pairs = live_pairs(S, Skv, True, window, q_offset)
-    flops = 4 * Dh * H * pairs  # q.k and p.v, 2 ops per multiply-add
+    pairs = live_pairs(S, Skv, causal, window, q_offset)
+    flops = 4 * Dh * H * pairs * B  # q.k and p.v, 2 ops per multiply-add
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     kernel = "flash_fwd_tc" if dtype == torch.bfloat16 else "flash_fwd_simt"
-    row = dict(kernel=kernel, S=S, Skv=Skv, H=H, KH=KH, Dh=Dh,
-               dtype=str(dtype)[6:], window=window, q_offset=q_offset,
-               max_abs_err=err, lse_max_abs_err=lse_err,
+    row = dict(kernel=kernel, B=B, S=S, Skv=Skv, H=H, KH=KH, Dh=Dh,
+               dtype=str(dtype)[6:], causal=causal, window=window,
+               q_offset=q_offset, max_abs_err=err, lse_max_abs_err=lse_err,
                tol=tol["atol"], ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                library_backend=library_backend)
@@ -655,6 +692,17 @@ def prefill_case(fa, gen, *, S, H, KH, Dh, dtype, window=0, q_offset=0,
     if not ok:
         fail(f"flash-attention kernel disagrees with the plain version: {row}")
     return row
+
+
+# the cross-attention's shapes (phase 2): seamless-m4t-large-v2's decode
+# step (Sq 1 over the encoder's 512 frames, B 8, 16/16 heads of 64) in both
+# types, Sq 1 at Dh 128 over 8 KV heads, and a ragged prefill Sq != Skv
+CROSS_CASES = (
+    dict(B=8, S=1, Skv=512, H=16, KH=16, Dh=64, dtype=torch.bfloat16),
+    dict(B=8, S=1, Skv=512, H=16, KH=16, Dh=64, dtype=torch.float32),
+    dict(B=8, S=1, Skv=512, H=16, KH=8, Dh=128, dtype=torch.bfloat16),
+    dict(B=2, S=37, Skv=300, H=16, KH=16, Dh=64, dtype=torch.bfloat16),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -735,9 +783,15 @@ class Recorder:
 
     def __init__(self, model):
         self.model = model
-        self.init_paged_cache = model.init_paged_cache
         self.ms = {"prefill": [], "decode": []}
         self.finite = []
+        self.pool_bytes = None
+
+    def init_paged_cache(self, *a, **kw):
+        cache = self.model.init_paged_cache(*a, **kw)
+        self.pool_bytes = sum(t.numel() * t.element_size()
+                              for t in cache.values())
+        return cache
 
     @property
     def prefills(self):
@@ -822,10 +876,11 @@ def serve_requests(poisson_requests, cfg, vocab):
             for r in reqs]
 
 
-def serve_engine(lm, engine_mod, cfg, poisson_requests):
-    """The engine phases 4 and 26 serve with: ``cfg`` at full width with
-    seeded random weights, SLOTS decode slots, pages of PAGE, after one
-    warm-up serve (cuBLAS handles, allocator pools, the decode graphs)."""
+def serve_engine(lm, engine_mod, cfg, poisson_requests, kv_dtype=None):
+    """The engine phases 4, 26 and 34 serve with: ``cfg`` at full width
+    with seeded random weights, SLOTS decode slots, pages of PAGE, a pool
+    of ``kv_dtype``, after one warm-up serve (cuBLAS handles, allocator
+    pools, the decode graphs)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = lm.init(cfg, gen, device="cuda")
@@ -836,18 +891,78 @@ def serve_engine(lm, engine_mod, cfg, poisson_requests):
           f"{time.perf_counter() - t0:.1f} s")
     eng = engine_mod.Engine(cfg, params, device="cuda",
                             paged=engine_mod.PagedConfig(page_size=PAGE,
-                                                         max_slots=SLOTS))
+                                                         max_slots=SLOTS,
+                                                         kv_dtype=kv_dtype))
     eng.serve(poisson_requests(2, 1e6, 32, 4, cfg.vocab_size, seed=7))
     return eng
 
 
+# phase 34: the int8 pool's logits against the bf16 pool's over a prefill
+# and this many decode steps; the limit is the reference's own bound on
+# the int8 pool's logit error (tests/test_serving.py
+# test_bounded_logit_error: max |logit error| < 1.0)
+INT8_STEPS = 8
+INT8_LOGIT_LIMIT = 1.0
+
+
+def int8_against_bf16(lm, cfg, params, reqs):
+    """The first SLOTS requests of ``reqs`` prefilled together into a bf16
+    pool and an int8 one through one permuted page table, then INT8_STEPS
+    decode steps on each, both fed the bf16 side's greedy tokens.
+    Returns the largest |logit diff|, the bf16 logits' largest magnitude
+    (the vocabulary's padding columns left out) and the share of (step,
+    row) whose argmax agree."""
+    rows = reqs[:SLOTS]
+    B = len(rows)
+    plen = np.array([len(r.prompt) for r in rows], np.int32)
+    S = -(-int(plen.max()) // PAGE) * PAGE
+    width = -(-(S + INT8_STEPS) // PAGE)
+    NP = 1 + B * width
+    perm = np.random.default_rng(9).permutation(np.arange(1, NP))
+    table = torch.as_tensor(perm.astype(np.int32).reshape(B, width),
+                            device="cuda")
+    toks = np.zeros((B, S), np.int64)
+    for i, r in enumerate(rows):
+        toks[i, :len(r.prompt)] = r.prompt
+    toks = torch.as_tensor(toks, device="cuda")
+    kv_len = torch.as_tensor(plen, device="cuda")
+    pools, logits = {}, {}
+    diff, scale, agree = 0.0, 0.0, 0
+    with torch.inference_mode():
+        for kv in (None, "int8"):
+            pools[kv] = lm.init_paged_cache(cfg, NP, PAGE, kv_dtype=kv,
+                                            device="cuda")
+            logits[kv], pools[kv] = lm.prefill_paged(
+                cfg, params, {"tokens": toks}, pools[kv], table, kv_len)
+        for step in range(INT8_STEPS + 1):
+            a, b = (logits[kv][:, -1, :cfg.vocab_size].float()
+                    for kv in (None, "int8"))
+            diff = max(diff, float((a - b).abs().max()))
+            scale = max(scale, float(a.abs().max()))
+            tok = a.argmax(-1)
+            agree += int((tok == b.argmax(-1)).sum())
+            if step == INT8_STEPS:
+                break
+            for kv in pools:
+                logits[kv], pools[kv] = lm.decode_step_paged(
+                    cfg, params, pools[kv], tok[:, None], table, kv_len)
+            kv_len = kv_len + 1
+    return dict(rows=B, steps=INT8_STEPS, max_abs_logit_diff=diff,
+                max_abs_logit=scale, top1_agree=agree / (B * (INT8_STEPS + 1)))
+
+
 def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests,
-               tpot_limit_ms=None):
-    """Serve ``reqs`` with ``cfg`` (qwen2-7b in phase 4, granite in phase
-    26) at full width; check and print the serve's numbers, failing on a
-    TPOT p50 over ``tpot_limit_ms`` where given; return the kernels'
-    launch counts of that serve."""
-    eng = serve_engine(lm, engine_mod, cfg, poisson_requests)
+               tpot_limit_ms=None, kv_dtype=None):
+    """Serve ``reqs`` with ``cfg`` (qwen2-7b in phases 4 and 34, granite in
+    phase 26) at full width over a pool of ``kv_dtype``; check and print
+    the serve's numbers, failing on a TPOT p50 over ``tpot_limit_ms``
+    where given; return the kernels' launch counts of that serve (with
+    the pool's bytes, TPOT p50 and every request's tokens beside them).
+    An int8 pool takes the reference's routing: the gather, the
+    dequantization and the direct decode, and no paged decode kernel; its
+    logits are then held to a bf16 pool's (``int8_against_bf16``) within
+    INT8_LOGIT_LIMIT."""
+    eng = serve_engine(lm, engine_mod, cfg, poisson_requests, kv_dtype)
     rec = Recorder(eng.model)
     eng.model = rec
     torch.cuda.synchronize()
@@ -869,11 +984,12 @@ def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests,
         fail("non-finite logits on the serve path")
     if rec.prefills != len(reqs):
         fail(f"{rec.prefills} prefills for {len(reqs)} requests")
+    paged_calls = 0 if kv_dtype == "int8" else L * rec.decode_steps
     if not (launches["flash_attention"] == L * rec.prefills > 0
-            and launches["paged_decode_attention"] == L * rec.decode_steps
-            > 0 and launches["flash_attention_bwd"] == 0):
+            and launches["paged_decode_attention"] == paged_calls
+            and rec.decode_steps > 0 and launches["flash_attention_bwd"] == 0):
         fail(f"launch counts {launches} != {L} x ({rec.prefills} prefills, "
-             f"{rec.decode_steps} decode steps)")
+             f"{rec.decode_steps} decode steps), kv_dtype {kv_dtype}")
     n_tok = sum(len(o.tokens) for o in outs.values())
     ttft = np.array([o.ttft for o in outs.values()]) * 1e3
     tpot = np.array([o.tpot for o in outs.values()]) * 1e3
@@ -888,7 +1004,8 @@ def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests,
                  decode_ms_total=sum(rec.ms["decode"]),
                  decode_step_ms_p50=float(np.percentile(rec.ms["decode"],
                                                         50)),
-                 launches=launches,
+                 launches=launches, kv_dtype=kv_dtype,
+                 pool_bytes=rec.pool_bytes,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  prompt_lens=[len(r.prompt) for r in reqs],
                  max_new=[r.max_new_tokens for r in reqs])
@@ -899,7 +1016,15 @@ def serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests,
               f" TTFT p99 {stats['ttft_p99_ms']:.1f} ms (not gated)")
         if not p50 <= tpot_limit_ms:
             fail(f"{cfg.name} TPOT p50 {p50:.2f} ms over {tpot_limit_ms} ms")
-    return launches
+    if kv_dtype == "int8":
+        cmp = int8_against_bf16(lm, cfg, eng.params, reqs)
+        print(f"int8 against bf16 {cfg.name} " + json.dumps(cmp))
+        if not cmp["max_abs_logit_diff"] < INT8_LOGIT_LIMIT:
+            fail(f"the int8 pool's logits are {cmp['max_abs_logit_diff']:.3f}"
+                 f" from the bf16 pool's, over {INT8_LOGIT_LIMIT}")
+    return dict(launches, pool_bytes=rec.pool_bytes,
+                tpot_p50_ms=stats["tpot_p50_ms"],
+                tokens={rid: list(o.tokens) for rid, o in outs.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1357,7 +1482,7 @@ def layer_inputs(configs, mamba2, gen):
                            device="cuda")
     with torch.no_grad():
         x = params["emb"][tokens].to(dtype_of(cfg.compute_dtype))
-        _, xs, Bm, Cm, dt = mamba2._block_core(
+        _, xs, Bm, Cm, dt, _ = mamba2._block_core(
             cfg, rms_norm(x, w["ln"], cfg.norm_eps), w)
         A = -torch.exp(w["A_log"])
     return [t.contiguous() for t in (xs, dt, A, Bm, Cm)], cfg.ssm_chunk
@@ -4367,6 +4492,26 @@ def counted_calls(module, name, counts):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def synced_calls(module, name, ms):
+    """Times each call of ``module.name`` between two synchronisations of
+    the card, adding its ms to ms[name], while open."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+    setattr(module, name, timed)
+    try:
+        yield ms
+    finally:
+        setattr(module, name, fn)
+
+
 def full_width_rounds(name, cfg, hcef, topo, *, rounds, seq, seqs_per_step,
                       n_params_want, rnd_mod, train, synthetic, fa, tk):
     """``rounds`` rounds of ``cfg`` (full width) through
@@ -4614,6 +4759,469 @@ def multimodal_full(arch, configs, rnd_mod, base, train, synthetic, fa, tk):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 32-34: the static path (Engine.generate) of every family, the
+# paged pool's int8 and contiguous modes
+# ---------------------------------------------------------------------------
+
+# phase 32: (arch, prompt length, cache positions) of the smoke configs;
+# recurrentgemma-9b's window of 16 wraps in its 40-token prefill and its
+# decode runs on past it
+STATIC_SMALL = (("qwen2_7b", 24, 40), ("granite_moe_1b_a400m", 24, 40),
+                ("mamba2_1p3b", 24, 40), ("recurrentgemma_9b", 40, 64),
+                ("internvl2_2b", 24, 40), ("seamless_m4t_large_v2", 24, 40))
+STATIC_SMALL_STEPS = 8
+# greedy tokens of the two sides are compared until a row's top two CPU
+# logits are closer than this (a near tie may break either way)
+TOKEN_MARGIN = 1e-3
+# phase 32's int8 pool in lockstep: the share of the written int8 entries
+# one step apart (a value within f32 noise of a rounding boundary)
+INT8_FLIP_SHARE = 1e-3
+# leaves the generate check's weight scaling leaves alone (norms and the
+# recurrent families' per-channel constants)
+UNSCALED = ("ln", "norm", "A_log", "dt_bias", "D_skip", "log_lambda",
+            "conv_b")
+# phase 33: (arch, batch, prompt length); 64 new tokens each
+STATIC_FULL = (("qwen2_7b", 8, 512), ("mamba2_1p3b", 8, 512),
+               ("recurrentgemma_9b", 2, 3072), ("internvl2_2b", 8, 512),
+               ("seamless_m4t_large_v2", 8, 512))
+STATIC_NEW_TOKENS = 64
+# phase 33's TTFT: the median of this many prefills at the timed shape
+TTFT_SAMPLES = 3
+
+
+def _to(tree, device, scale=1.0, path=""):
+    """A nested dict of tensors on ``device``, every leaf but UNSCALED
+    ones times ``scale``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device, scale, f"{path}/{k}")
+                for k, v in tree.items()}
+    keep = scale == 1.0 or any(u in path for u in UNSCALED)
+    return tree.to(device) if keep else (tree * scale).to(device)
+
+
+def static_launches(cfg, model):
+    """{(call, kind): attention kernel launches} of one static prefill and
+    one decode step of ``cfg`` (``model`` its module): causal
+    self-attention (windowed in griffin), the encoder's non-causal
+    self-attention and the non-causal cross-attention; the decode steps'
+    self-attention is the plain ``ops.decode_attention`` (no kernel, as
+    in the reference)."""
+    if cfg.family == "ssm":
+        return {}
+    if cfg.family == "hybrid":
+        return {("prefill", "causal"): model._layout(cfg)[-1]}
+    out = {("prefill", "causal"): cfg.num_layers}
+    if cfg.enc_layers:
+        out.update({("prefill", "encoder"): cfg.enc_layers,
+                    ("prefill", "cross"): cfg.num_layers,
+                    ("decode", "cross"): cfg.num_layers})
+    return out
+
+
+class StaticRecorder:
+    """Stands in for a model module under ``Engine.generate``: times each
+    prefill and decode step to its logits (host clock after a
+    synchronise), keeps a device flag per call that the logits are
+    finite, the logits themselves on request, and the attention kernel
+    launches of each call by kind (``fa.NONCAUSAL`` and the
+    cross-attention's calls apart)."""
+
+    def __init__(self, model, fa, keep_logits=False):
+        self.model, self.fa = model, fa
+        self.ms = {"prefill": [], "decode": []}
+        self.finite, self.logits, self.calls = [], [], []
+        self.keep_logits = keep_logits
+
+    def init_cache(self, *a, **kw):
+        return self.model.init_cache(*a, **kw)
+
+    def _call(self, kind, fn, *a):
+        fa = self.fa
+        before = (fa.LAUNCHES["flash_attention"],
+                  fa.NONCAUSAL["flash_attention"])
+        cross = {}
+        t0 = time.perf_counter()
+        with counted_calls(sys.modules["repro_torch.models.lm"],
+                           "_cross_attention", cross):
+            logits, cache = fn(*a)
+            torch.cuda.synchronize()
+        self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+        self.finite.append(torch.isfinite(logits).all())
+        if self.keep_logits:
+            self.logits.append(logits[:, -1].float().cpu())
+        total = fa.LAUNCHES["flash_attention"] - before[0]
+        noncausal = fa.NONCAUSAL["flash_attention"] - before[1]
+        n_cross = cross.get("_cross_attention", 0)
+        got = {"causal": total - noncausal,
+               "encoder": noncausal - n_cross, "cross": n_cross}
+        self.calls.append((kind, {k: v for k, v in got.items() if v}))
+        return logits, cache
+
+    def prefill(self, *a):
+        return self._call("prefill", self.model.prefill, *a)
+
+    def decode_step(self, *a):
+        return self._call("decode", self.model.decode_step, *a)
+
+
+def _static_inputs(cfg, B, S, seed):
+    """Phase 32's seeded prompts and frontend stand-ins: N(0, 1) patch
+    embeddings and N(0, 1) frames of the prompt's length (nonzero, so the
+    card-vs-CPU check reads the patch path; phase 33 feeds the launcher's
+    own, ``launch.serve.stand_ins``)."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (B, S))
+    extra = {}
+    if cfg.frontend == "vit_stub":
+        extra["patch_embeds"] = rng.normal(
+            size=(B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.enc_layers:
+        extra["frames"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
+    return prompts, extra
+
+
+def _tokens_agree(ours, theirs, logits):
+    """Rows of greedy tokens on two devices: equal until the first step
+    whose reference logits (``logits``: one (B, V) a step) have their top
+    two within TOKEN_MARGIN, where the rest of the row is not compared.
+    Returns (agree, tokens compared)."""
+    n = 0
+    for r in range(ours.shape[0]):
+        for t in range(ours.shape[1]):
+            top2 = torch.topk(logits[t][r], 2).values
+            if float(top2[0] - top2[1]) < TOKEN_MARGIN:
+                break
+            if ours[r, t] != theirs[r, t]:
+                return False, n
+            n += 1
+    return True, n
+
+
+def static_small(configs, registry, engine_mod, fa, card="cuda"):
+    """Phase 32, the static path card against CPU in f32: each of
+    STATIC_SMALL's smoke configs runs init_cache, prefill and
+    STATIC_SMALL_STEPS decode steps on both, fed the CPU's greedy tokens:
+    logits within 1e-4, the attention kernel launches of each call as
+    ``static_launches`` says; then ``Engine.generate`` on both with the
+    weights times 10, the greedy tokens equal where the margins allow."""
+    for arch, S, max_len in STATIC_SMALL:
+        cfg = configs.smoke_model(configs.get_config(arch).model)
+        model = registry.get_model(cfg)
+        params = model.init(cfg, seed=1, device="cpu")
+        B = 3
+        prompts, extra = _static_inputs(cfg, B, S, seed=1)
+        batch = dict(tokens=prompts, **extra)
+        enc = S if cfg.enc_layers else 0
+        runs = {}
+        for side, dev in (("cpu", "cpu"), ("card", card)):
+            rec = StaticRecorder(model, fa, keep_logits=True)
+            p = _to(params, dev)
+            cache = rec.init_cache(cfg, B, max_len, enc_len=enc, device=dev)
+            with torch.inference_mode():
+                _, cache = rec.prefill(cfg, p, {
+                    k: torch.as_tensor(v, device=dev)
+                    for k, v in batch.items()}, cache)
+                for step in range(STATIC_SMALL_STEPS):
+                    tok = (runs["cpu"].logits[step] if side == "card"
+                           else rec.logits[step]).argmax(-1)
+                    _, cache = rec.decode_step(cfg, p, cache,
+                                               tok[:, None].to(dev))
+            runs[side] = rec
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(runs["cpu"].logits, runs["card"].logits))
+        want = static_launches(cfg, model)
+        calls = runs["card"].calls
+        got_ok = all(c == {k[1]: v for k, v in want.items() if k[0] == kind}
+                     for kind, c in calls)
+        # Engine.generate, the weights times 10
+        toks, taps = {}, {}
+        for side, dev in (("cpu", "cpu"), ("card", card)):
+            eng = engine_mod.Engine(
+                cfg, _to(params, dev, 10.0), device=dev, max_len=max_len,
+                batch_size=B, serve=engine_mod.ServeConfig(
+                    max_new_tokens=STATIC_SMALL_STEPS))
+            taps[side] = eng.model = StaticRecorder(model, fa,
+                                                    keep_logits=True)
+            toks[side] = eng.generate(prompts, extra_inputs=extra or None)
+        agree, n = _tokens_agree(toks["card"], toks["cpu"],
+                                 taps["cpu"].logits)
+        print(f"static small {arch}: card vs CPU max |logit diff| "
+              f"{diff:.3e} over 1 prefill + {STATIC_SMALL_STEPS} decode "
+              f"steps; launches a call {calls[0][1]} / {calls[1][1]}; "
+              f"generate's greedy tokens equal: {agree} ({n} of "
+              f"{toks['cpu'].size} compared)")
+        if not diff <= 1e-4:
+            fail(f"{arch}: the static path on the card disagrees with the "
+                 f"CPU")
+        if not got_ok:
+            fail(f"{arch}: attention launches {calls}, expected {want}")
+        if not agree or n == 0:
+            fail(f"{arch}: generate's greedy tokens differ on the card")
+
+
+def _paged_lockstep(lm, cfg, params, kv_dtype, contiguous, card):
+    """prefill_paged and STATIC_SMALL_STEPS decode_step_paged of ``cfg``
+    card against CPU, the CPU's greedy tokens fed to both; before each
+    decode step the card's pool is set to the CPU's (an int8 entry within
+    f32 noise of a rounding boundary may round either way), so each step
+    is held alone and a flip cannot carry into the next.  Returns (max
+    |logit diff|, the largest share of int8 entries one step apart among
+    the positions written below kv_len, the largest int8 step anywhere)."""
+    rng = np.random.default_rng(5)
+    B, S, ps, P = 3, 32, 8, 6
+    NP = 1 + B * P
+    table = (np.arange(1, NP) if contiguous
+             else rng.permutation(np.arange(1, NP))).astype(np.int32)
+    table = table.reshape(B, P)
+    plen = np.array([5, 17, 32], np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    state = {}
+    for side, dev in (("cpu", "cpu"), ("card", card)):
+        pool = lm.init_paged_cache(cfg, NP, ps, kv_dtype=kv_dtype, device=dev)
+        p = _to(params, dev)
+        with torch.inference_mode():
+            logits, pool = lm.prefill_paged(
+                cfg, p, {"tokens": torch.as_tensor(toks, device=dev)}, pool,
+                torch.as_tensor(table, device=dev),
+                torch.as_tensor(plen, device=dev))
+        state[side] = [p, pool, [logits.cpu()], dev]
+    kv_len = plen.copy()
+    diff, share, step = 0.0, 0.0, 0
+    for _ in range(STATIC_SMALL_STEPS + 1):
+        cpu_pool, gpu_pool = state["cpu"][1], state["card"][1]
+        written = torch.zeros((NP, ps), dtype=torch.bool)
+        for b in range(B):
+            pos = np.arange(kv_len[b])
+            written[torch.as_tensor(table[b, pos // ps]).long(),
+                    torch.as_tensor(pos % ps)] = True
+        for name, t in cpu_pool.items():
+            g = gpu_pool[name].cpu()
+            if t.dtype == torch.int8:
+                d = (g.int() - t.int()).abs()
+                share = max(share, float(
+                    (d[:, written] > 0).float().mean()))
+                step = max(step, int(d.max()))
+            else:
+                diff = max(diff, float((g - t).abs().max()))
+            gpu_pool[name].copy_(t)
+        diff = max(diff, float((state["cpu"][2][-1]
+                                - state["card"][2][-1]).abs().max()))
+        if len(state["cpu"][2]) > STATIC_SMALL_STEPS:
+            break
+        tok = state["cpu"][2][-1][:, -1].argmax(-1)
+        for p, pool, out, dev in state.values():
+            with torch.inference_mode():
+                logits, _ = lm.decode_step_paged(
+                    cfg, p, pool, tok[:, None].to(dev),
+                    torch.as_tensor(table, device=dev),
+                    torch.as_tensor(kv_len, device=dev),
+                    contiguous=contiguous)
+            out.append(logits.cpu())
+        kv_len += 1
+    return diff, share, step
+
+
+def paged_modes_small(configs, lm, fa, card="cuda"):
+    """Phase 32's paged modes, card against CPU in f32 on the smoke
+    qwen2-7b: the int8 pool (permuted table, ragged lengths) and the
+    contiguous layout (identity table) in lockstep, logits and the pool's
+    floats within 1e-4, int8 entries at most one step apart, in at most
+    INT8_FLIP_SHARE of the written ones; neither launches the paged
+    decode kernel (the reference's routing), the dense pool over the same
+    table does."""
+    cfg = configs.smoke_model(configs.get_config("qwen2_7b").model)
+    params = lm.init(cfg, seed=2, device="cpu")
+    for kv_dtype, contiguous in (("int8", False), (None, True),
+                                 ("int8", True)):
+        fa.reset_launches()
+        diff, share, step = _paged_lockstep(lm, cfg, params, kv_dtype,
+                                            contiguous, card)
+        n = fa.LAUNCHES["paged_decode_attention"]
+        print(f"paged small kv_dtype={kv_dtype} contiguous={contiguous}: "
+              f"card vs CPU max diff {diff:.3e}, int8 entries a step apart "
+              f"{share:.2e} (largest step {step}); paged decode kernel "
+              f"launches {n}")
+        if not (diff <= 1e-4 and share <= INT8_FLIP_SHARE and step <= 1):
+            fail(f"the paged path (kv_dtype {kv_dtype}, contiguous "
+                 f"{contiguous}) on the card disagrees with the CPU")
+        if n:
+            fail(f"the paged decode kernel ran {n} times in a mode the "
+                 f"reference routes to the gather")
+
+
+def prefill_parts(cfg, ops, ref):
+    """(module, function) pairs phase 33 times inside ``cfg``'s prefill:
+    mamba2's chunked scan (``ref.ssd_chunked``, plain PyTorch), griffin's
+    RG-LRU (``ops.rglru``, plain PyTorch) and every family's attention
+    kernel (``ops.flash_attention``)."""
+    if cfg.family == "ssm":
+        return ((ref, "ssd_chunked"),)
+    if cfg.family == "hybrid":
+        return ((ops, "rglru"), (ops, "flash_attention"))
+    return ((ops, "flash_attention"),)
+
+
+def static_full(arch, B, S, configs, registry, engine_mod, fa, stand_ins,
+                profiling, ops, ref):
+    """Phase 33: ``Engine.generate`` of ``arch`` at full width and depth
+    (bf16, seeded random weights, greedy) on B prompts of S tokens with
+    the launcher's prompts and stand-ins (``launch.serve.stand_ins``),
+    STATIC_NEW_TOKENS out, after a warm-up generate at the same shape:
+    finite logits, output (B, STATIC_NEW_TOKENS), the attention launches
+    of every call as ``static_launches`` says, peak <= PEAK_LIMIT_GB;
+    TTFT (the median of TTFT_SAMPLES prefills at that shape, the timed
+    generate's first), TPOT p50 and tok/s printed.  Then where a
+    prefill's time goes: one traced with torch.profiler (the device's
+    busy share, its kernels by time), one with ``prefill_parts`` timed
+    between synchronisations.  Returns the row and the attention
+    launches of the timed generate."""
+    cfg = configs.get_config(arch).model
+    model = registry.get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{cfg.name} full width, {cfg.num_layers} layers: {n_params} "
+          f"params ({n_params * 2 / 1e9:.2f} GB bf16) initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, S))
+    extra = stand_ins(cfg, B, S, rng) or None
+    new = STATIC_NEW_TOKENS
+
+    def engine(max_new, model=model):
+        eng = engine_mod.Engine(cfg, params, device="cuda", max_len=S + new,
+                                batch_size=B, serve=engine_mod.ServeConfig(
+                                    max_new_tokens=max_new))
+        eng.model = model
+        return eng
+
+    def generate(eng):
+        out = eng.generate(prompts, extra_inputs=extra)
+        torch.cuda.synchronize()
+        return out
+
+    generate(engine(2))  # first-call costs at this shape fall here
+    rec = StaticRecorder(model, fa)
+    eng = engine(new, rec)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = generate(eng)
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    one = engine(1, rec)  # a generate of one token: the prefill, a sample
+    for _ in range(TTFT_SAMPLES - 1):
+        generate(one)
+    one.model = model
+    with torch.profiler.profile(
+            activities=profiling.activities(torch.device("cuda"))) as prof:
+        t0 = time.perf_counter()
+        generate(one)
+        traced = time.perf_counter() - t0
+    print(f"prefill trace {arch}:")
+    profiling.print_profile(prof, traced, top=6)
+    parts = {}
+    with contextlib.ExitStack() as stack:
+        for mod, name in prefill_parts(cfg, ops, ref):
+            stack.enter_context(synced_calls(mod, name, parts))
+        t0 = time.perf_counter()
+        generate(one)
+        synced = (time.perf_counter() - t0) * 1e3
+    want = static_launches(cfg, model)
+    bad = [(kind, c) for kind, c in rec.calls
+           if c != {k[1]: v for k, v in want.items() if k[0] == kind}]
+    ttft = rec.ms["prefill"]
+    row = dict(arch=arch, layers=cfg.num_layers, params=n_params, B=B,
+               prompt=S, new_tokens=new, out_shape=list(out.shape),
+               ttft_ms=float(np.median(ttft)), ttft_samples_ms=ttft,
+               tpot_p50_ms=float(np.percentile(rec.ms["decode"], 50)),
+               tok_per_s=out.size / wall, wall_s=wall,
+               decode_steps=len(rec.ms["decode"]),
+               launches_prefill=rec.calls[0][1],
+               launches_decode=rec.calls[1][1] if len(rec.calls) > 1 else {},
+               peak_mem_gb=peak, prefill_synced_ms=synced,
+               prefill_parts_ms=parts)
+    print("generate " + json.dumps(row))
+    if not bool(torch.stack(rec.finite).all()):
+        fail(f"{arch}: non-finite logits on the static path")
+    if out.shape != (B, new) or len(rec.ms["decode"]) != new - 1:
+        fail(f"{arch}: output {out.shape}, {len(rec.ms['decode'])} decode "
+             f"steps for {new} tokens")
+    if len(ttft) != TTFT_SAMPLES:
+        fail(f"{arch}: {len(ttft)} prefills timed, not {TTFT_SAMPLES}")
+    if bad:
+        fail(f"{arch}: attention launches {bad[:2]}, expected {want}")
+    if not peak <= PEAK_LIMIT_GB:
+        fail(f"{arch}: peak {peak:.2f} GB over {PEAK_LIMIT_GB} GB")
+    del eng, one, params, rec, prof
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def static_decode_routes(fa, ops, ref, gen, cfg):
+    """The plain static decode (``ops.decode_attention``, the reference's
+    jnp route on every backend) at qwen2-7b's static shape of phase 33 (B
+    8, 576 cached positions, 4 KV heads of 128, G 7, bf16) beside the
+    paged decode kernel over an identity page table on the same K and V,
+    and the int8 pool's route (gather, dequantize, direct decode) over
+    that table: each timed, against its bound and the kernel's output."""
+    B, T, KH, Dh = SLOTS, 512 + STATIC_NEW_TOKENS, cfg.num_kv_heads, \
+        cfg.head_dim
+    H = cfg.num_heads
+    q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, T, KH, Dh), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    kl = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    P = T // PAGE
+    pages = [torch.cat([torch.zeros_like(t[0, :PAGE])[None],
+                        t.reshape(B * P, PAGE, KH, Dh)]) for t in (k, v)]
+    table = torch.arange(1, 1 + B * P, dtype=torch.int32,
+                         device="cuda").view(B, P)
+    quant = [ref.kv_quantize_int8(t) for t in pages]
+    routes = {
+        "static_plain": lambda: ops.decode_attention(
+            q, k, v, kv_len=kl, return_stats=True),
+        "paged_kernel": lambda: fa.paged_decode_attention_cuda(
+            q, pages[0], pages[1], table, kl),
+        "int8_gather": lambda: ops.paged_decode_attention(
+            q, quant[0][0], quant[1][0], table, kl, k_scale=quant[0][1],
+            v_scale=quant[1][1]),
+    }
+    ref_out = routes["static_plain"]()[0]
+    kv_bytes = {"static_plain": 2 * k.numel() * 2,
+                "paged_kernel": 2 * k.numel() * 2,
+                "int8_gather": 2 * k.numel() * (1 + 4 / Dh)}
+    rows = {}
+    for name, fn in routes.items():
+        err = float((fn()[0].float() - ref_out.float()).abs().max())
+        ms = time_ms(fn)
+        nbytes = kv_bytes[name] + 2 * q.numel() * 2
+        bound_ms, bound_by = bound(4 * Dh * H * B * T, nbytes,
+                                   torch.bfloat16)
+        rows[name] = dict(B=B, positions=T, KH=KH, G=H // KH, Dh=Dh,
+                          ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err_vs_static=err)
+    print("static_decode_routes " + json.dumps(rows))
+    if rows["paged_kernel"]["max_abs_err_vs_static"] > BF16_TOL["atol"]:
+        fail("the paged kernel over an identity table disagrees with the "
+             "static decode")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -4637,8 +5245,9 @@ def main():
     from repro_torch.launch import fedsim, profiling, train
     from repro_torch.models import mamba2
     from repro_torch.models.vision import make_vision_model
-    from repro_torch.launch.serve import poisson_requests
-    from repro_torch.models import lm
+    from repro_torch.launch.serve import poisson_requests, stand_ins
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm, registry
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.page_manager import pages_for
     from repro_torch.runtime import chaos as chaos_mod
@@ -4705,6 +5314,10 @@ def main():
                                  ("seamless", SEAMLESS_LAYER))}
     for name, row in layer_fwd.items():
         print(f"attention_fwd_train {name} " + json.dumps(row))
+    # the cross-attention's shapes: Sq 1 in the encdec decode step, Sq !=
+    # Skv in its prefill
+    cross_rows = [prefill_case(fa, gen, causal=False, **c)
+                  for c in CROSS_CASES]
 
     # -- phase 3 -------------------------------------------------------------
     kv_len = [0, 1, 16, 100, 257, 333, S_pad + 31, width * PAGE - 1]
@@ -4730,7 +5343,8 @@ def main():
     # -- phase 4 -------------------------------------------------------------
     small_path_agrees(lm, configs)
     decode_graphs_agree(lm, fa, cfg)
-    launches = serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests)
+    m4 = serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests)
+    launches = {k: m4[k] for k in fa.LAUNCHES}
 
     # -- phase 5 -------------------------------------------------------------
     init = lambda m: make_vision_model(fedsim.vision_config(m))[0](
@@ -4861,6 +5475,39 @@ def main():
                   "topk_compress"):
             launches[k] += layer_runs[name][k]
 
+    # -- phases 32-34: Engine.generate of every family, the paged modes ------
+    t0 = time.perf_counter()
+    static_small(configs, registry, engine_mod, fa)
+    paged_modes_small(configs, lm, fa)
+    print(f"phase 32 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    static_rows = {}
+    for arch, B, S in STATIC_FULL:
+        static_rows[arch], m33 = static_full(arch, B, S, configs, registry,
+                                             engine_mod, fa, stand_ins,
+                                             profiling, ops, ref)
+        launches["flash_attention"] += m33["flash_attention"]
+    decode_routes = static_decode_routes(fa, ops, ref, gen, cfg)
+    print(f"phase 33 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m34 = serve_full(lm, engine_mod, cfg, fa, reqs, poisson_requests,
+                     kv_dtype="int8")
+    ratio = m4["pool_bytes"] / m34["pool_bytes"]
+    print(f"phase 34: int8 pool {m34['pool_bytes']} bytes against the "
+          f"bf16 pool's {m4['pool_bytes']} ({ratio:.4f}x), TPOT p50 "
+          f"{m34['tpot_p50_ms']:.2f} ms (bf16 "
+          f"{m4['tpot_p50_ms']:.2f}), paged decode kernel launches "
+          f"{m34['paged_decode_attention']} (the reference's routing)")
+    launches["flash_attention"] += m34["flash_attention"]
+    same = [next((i for i, (a, b) in enumerate(zip(m4["tokens"][rid], toks))
+                  if a != b), len(toks))
+            for rid, toks in m34["tokens"].items()]
+    print(f"phase 34: the int8 serve's greedy tokens equal the bf16 serve's "
+          f"for the first {same} of each request's tokens ("
+          f"{sum(same)} of {sum(map(len, m34['tokens'].values()))}; not "
+          f"gated: one near tie parts the rest of a row)")
+    print(f"phase 34 took {time.perf_counter() - t0:.1f} s")
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -4912,10 +5559,15 @@ def main():
                           "(phases 11-13 decode in wire_decode_mix); this "
                           "kernel (a warp a block up to wb 1024) serves "
                           "ops.unpack_offsets and wire_decode")
-    kernels[0]["note"] = ("launches: the serves' prefills (phases 4, 26) "
-                          "and the training forwards of phases 16, 20, 23, "
+    kernels[0]["note"] = ("launches: the serves' prefills (phases 4, 26, "
+                          "34), the static prefills and seamless's decode "
+                          "steps' cross-attention (phase 33) and the "
+                          "training forwards of phases 16, 20, 23, "
                           "25, 28, 30 and 31 (two a layer and step: "
-                          "remat); griffin_layer: recurrentgemma-9b's "
+                          "remat); cross_attention: the encdec decode "
+                          "step's shape (Sq 1) and a ragged Sq != Skv, "
+                          "non-causal, library_ms SDPA; griffin_layer: "
+                          "recurrentgemma-9b's "
                           "training layer (16/1 heads of 256, S 4096, "
                           "window 2048), library_ms SDPA with the window "
                           "as a boolean mask; internvl_layer (B 2, S 2048, "
@@ -4924,6 +5576,21 @@ def main():
                           "its encoder's and cross-attention's shape), "
                           "with the launches a round of phases 30 and 31 "
                           "(seamless: its non-causal ones apart)")
+    kernels[0]["cross_attention"] = [
+        {k: row[k] for k in ("B", "S", "Skv", "H", "KH", "Dh", "dtype", "ms",
+                             "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "max_abs_err")} for row in cross_rows]
+    kernels[0]["cross_attention_launches_per_decode_step"] = \
+        static_rows["seamless_m4t_large_v2"]["launches_decode"]
+    kernels[0]["smollm_train_layer"] = {k: fwd_train[k] for k in (
+        "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+        "launches")}
+    kernels[1]["static_decode_routes"] = decode_routes
+    kernels[1]["note"] = ("launches: the serves of phases 4 and 26; none in "
+                          "phase 34's int8 pool nor on the static path, "
+                          "which the reference routes to its jnp decode "
+                          "on every backend (static_decode_routes: no "
+                          "kernel but paged_kernel)")
     kernels[0]["griffin_layer"] = {k: griffin_fwd[k] for k in (
         "ms", "bound_ms", "bound_by", "library_ms", "library_backend",
         "max_abs_err")}
@@ -4958,6 +5625,7 @@ def main():
                           "replaces the gossip's decode chain; under a "
                           "backhaul partition the conn mask rides in its "
                           "per-destination coefficients (phases 17, 18)")
+    print("generate_full " + json.dumps(static_rows))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -71,6 +71,22 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         kv_len=kv_len, softmax_scale=softmax_scale)
 
 
+def decode_attention(q, k, v, *, kv_len=None, window=0, softmax_scale=None,
+                     impl=None, return_stats=False):
+    """One-token attention over a dense cache (port of ``ops.py:47``).
+    The reference routes it to ``ref.decode_attention_jnp`` on every
+    backend, the TPU included: it has no Pallas kernel, so plain PyTorch
+    (``ref.decode_attention_direct``) is its whole port, on the card too.
+    q: (B, 1, H, Dh); k, v: (B, Skv, KH, Dh); kv_len: (B,) entries live
+    (with ``window``, the last ``window`` of them)."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"decode_attention: impl {impl!r} not in (None, "
+                         f"'plain'): the reference has no kernel for it")
+    return ref.decode_attention_direct(q, k, v, kv_len=kv_len, window=window,
+                                       softmax_scale=softmax_scale,
+                                       return_stats=return_stats)
+
+
 def decode_attention_combine(q, out_old, m_old, l_old, k_new, v_new, *,
                              softmax_scale=None):
     return ref.decode_attention_combine(q, out_old, m_old, l_old, k_new,
@@ -78,22 +94,43 @@ def decode_attention_combine(q, out_old, m_old, l_old, k_new, v_new, *,
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
+                           k_scale=None, v_scale=None, contiguous=False,
                            softmax_scale=None, impl=None):
-    """Decode attention over the paged KV pool.  Returns (out, m, l) so the
-    caller folds the current token's (k, v) in with
-    ``decode_attention_combine`` and the page write stays write-only.
+    """Decode attention over the paged KV pool (port of ``ops.py:66``).
+    Returns (out, m, l) so the caller folds the current token's (k, v) in
+    with ``decode_attention_combine`` and the page write stays write-only.
 
-    Only the dense-type, gathered case is ported (the reference's kernel
-    case at ops.py:84); int8 KV and ``contiguous=True`` are not.
+    The reference's routing by mode, which it makes on the TPU too
+    (``ops.py:84-97``): the kernel takes the dense-type, gathered case
+    only.  ``k_scale`` / ``v_scale`` (NP, ps, KH) f32 (the int8 pool) and
+    ``contiguous=True`` (slot b owns pages [1 + b P, 1 + (b + 1) P): the
+    gather is a view) gather, dequantize with ``q``'s type, then run the
+    direct decode (``ref.decode_attention_direct``) on any device, and
+    launch no kernel.  On the CPU the dense-type case runs the kernel's
+    plain version, which is that same route.
     """
-    if _route(impl, q) == "kernel":
-        return paged_decode_attention_cuda(q, k_pages, v_pages, page_table,
-                                           kv_len,
-                                           softmax_scale=softmax_scale)
-    if impl == "ref":
-        raise ValueError("paged_decode_attention has no 'ref' impl")
-    return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                        kv_len, softmax_scale=softmax_scale)
+    if k_scale is None and not contiguous:
+        if _route(impl, q) == "kernel":
+            return paged_decode_attention_cuda(q, k_pages, v_pages,
+                                               page_table, kv_len,
+                                               softmax_scale=softmax_scale)
+        if impl == "ref":
+            raise ValueError("paged_decode_attention has no 'ref' impl")
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
+                                            kv_len,
+                                            softmax_scale=softmax_scale)
+    if impl == "kernel":
+        raise ValueError("paged_decode_attention: the kernel takes neither "
+                         "an int8 pool nor the contiguous layout")
+    gather = functools.partial(ref.gather_kv_pages, page_table=page_table,
+                               contiguous=contiguous)
+    k, v = gather(k_pages), gather(v_pages)
+    if k_scale is not None:
+        k = ref.kv_dequantize_int8(k, gather(k_scale), q.dtype)
+        v = ref.kv_dequantize_int8(v, gather(v_scale), q.dtype)
+    return ref.decode_attention_direct(q, k, v, kv_len=kv_len,
+                                       softmax_scale=softmax_scale,
+                                       return_stats=True)
 
 
 def ssd(x, dt, A, B, C, *, chunk=64, impl=None):

@@ -18,6 +18,25 @@ from repro_torch.kernels.wire_pack import quantize_vals
 NEG_INF = -1e30
 
 
+# int8 block-scaled KV (reference models/common.py:80-99): one f32 scale
+# per (token, head) head_dim vector, q = round(x / scale * 127), the int8
+# wire's scheme.
+
+def kv_quantize_int8(x):
+    """x: (..., Dh) -> (q int8 (..., Dh), scale f32 (...,)).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does, so the
+    bytes are the reference's."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1)
+    q = torch.round(xf / torch.clamp_min(scale, 1e-30)[..., None] * 127.0)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize_int8(q, scale, dtype):
+    """Inverse of ``kv_quantize_int8`` into ``dtype``."""
+    return (q.float() * (scale / 127.0)[..., None]).to(dtype)
+
+
 def _mask(Sq, Skv, k0, *, causal, window, q_offset, device):
     qpos = q_offset + torch.arange(Sq, device=device)
     kpos = k0 + torch.arange(Skv, device=device)
@@ -194,19 +213,25 @@ def decode_attention_combine(q, out_old, m_old, l_old, k_new, v_new, *,
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
-def gather_kv_pages(pages, page_table):
+def gather_kv_pages(pages, page_table, *, contiguous=False):
     """Assemble per-request KV views from the paged pool
-    (flash_attention.py:28-47, gather form).
+    (flash_attention.py:28-47).
 
     pages: (NP, ps, ...) physical page pool (page 0 = null); page_table:
     (B, P) int32 physical page ids per request.  Returns (B, P * ps, ...):
     request b's logical positions in order.
+
+    ``contiguous=True`` is the reference's dense fallback: the caller
+    asserts that slot b owns pages [1 + b P, 1 + (b + 1) P), so the
+    gather is a view of the pool (no copy), the gather's bits.
     """
     B, P = page_table.shape
     ps = pages.shape[1]
-    tail = pages.shape[2:]
+    tail = tuple(pages.shape[2:])
+    if contiguous:
+        return pages[1:1 + B * P].reshape((B, P * ps) + tail)
     flat = torch.index_select(pages, 0, page_table.reshape(-1))
-    return flat.reshape((B, P * ps) + tuple(tail))
+    return flat.reshape((B, P * ps) + tail)
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +333,20 @@ def ssd_ref(x, dt, A, B, C, *, initial_state=None):
         ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
     y = torch.stack(ys, dim=1)
     return y.to(x.dtype), state
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One decode step of the SSD recurrence (ref.py:285).  state: (b, h,
+    p, n) f32; x_t: (b, h, p); dt_t: (b, h) f32; A: (h,); B_t, C_t: (b, g,
+    n).  Returns (state f32, y (b, h, p) in x_t's type)."""
+    rep = x_t.shape[-2] // B_t.shape[-2]
+    Bh = torch.repeat_interleave(B_t, rep, dim=-2).float()
+    Ch = torch.repeat_interleave(C_t, rep, dim=-2).float()
+    dec = torch.exp(dt_t * A[None, :]).float()
+    state = state * dec[..., None, None] + torch.einsum(
+        "bhp,bhn->bhpn", (x_t * dt_t[..., None]).float(), Bh)
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return state, y.to(x_t.dtype)
 
 
 def _segsum(x):

@@ -1,18 +1,21 @@
-"""Serving launcher: continuous batching over the paged KV cache, on the
-card unless ``--device cpu`` (port of the ``--continuous`` path of
+"""Serving launcher, on the card unless ``--device cpu`` (port of
 ``repro/launch/serve.py``).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch recurrentgemma_9b --batch 2 --prompt-len 3072
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
-        --arch qwen2_7b
-    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --full \
-        --arch granite_moe_1b_a400m
+        --arch qwen2_7b [--kv-dtype int8]
 
-serves a synthetic Poisson request stream (per-request prompt and output
-lengths) through ``Engine.serve``.  ``--full`` runs the architecture at
-its published width with random weights; the default is the CPU-sized
-smoke config.  The paged families (``engine.PAGED_FAMILIES``: dense and
-moe) are served, but for a config with a frontend (internvl2-2b's
-``vit_stub``), whose stand-ins prefill does not take yet.
+Without ``--continuous`` it runs ``Engine.generate`` (the static batch)
+on ``--batch`` random prompts of ``--prompt-len`` tokens, for every
+architecture, with the reference's stand-ins: zero patch embeddings for
+the ViT stub and N(0, 1) frames of the prompt's length for the encoder.
+With ``--continuous`` it serves a synthetic Poisson request stream
+(per-request prompt and output lengths) through ``Engine.serve``, for the
+paged families (``engine.PAGED_FAMILIES``: dense and moe) without a
+frontend; ``--kv-dtype int8`` stores the pool block-quantized.
+``--full`` runs the architecture at its published width with random
+weights; the default is the CPU-sized smoke config.
 """
 from __future__ import annotations
 
@@ -25,23 +28,19 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, smoke_model
 from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.registry import get_model
-from repro_torch.serving.engine import (PAGED_FAMILIES, Engine,
-                                        PagedConfig, ServeConfig)
+from repro_torch.serving.engine import (FRONTEND_NOT_PAGED, PAGED_FAMILIES,
+                                        Engine, PagedConfig, ServeConfig)
 from repro_torch.serving.scheduler import Request
 
-# family -> what serving it needs; the paged engine serves PAGED_FAMILIES
+# what --continuous (Engine.serve) cannot take, and why
 NOT_SERVED = {
-    "ssm": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
-           "mamba2's prefill and decode_step",
-    "hybrid": "ROADMAP.md, modules to port, item 4: Engine.generate, and "
-              "griffin's prefill and decode_step",
-    "encdec": "ROADMAP.md, modules to port, item 4: Engine.generate, "
-              "the encdec cross-attention cache and the frontend "
-              "stand-ins in prefill",
+    "ssm": "no KV cache: the continuous engine serves PAGED_FAMILIES "
+           "(reference serving/engine.py:41)",
+    "hybrid": "no paged KV cache: the continuous engine serves "
+              "PAGED_FAMILIES (reference serving/engine.py:41)",
+    "encdec": "the paged path has no cross-attention (reference "
+              "serving/engine.py:41, ROADMAP.md §3)",
 }
-# a paged family's config that is not served yet: its frontend
-FRONTEND_NOT_SERVED = ("ROADMAP.md, modules to port, item 4: the frontend "
-                       "stand-ins in prefill")
 
 
 def poisson_requests(n, rate, prompt_len, new_tokens, vocab, seed=0,
@@ -66,6 +65,20 @@ def _sync(engine):
         torch.cuda.synchronize(engine.device)
 
 
+def stand_ins(cfg, batch, prompt_len, rng):
+    """The reference launcher's frontend inputs for ``generate``: zero
+    patch embeddings (B, frontend_tokens, D) for the ViT stub, N(0, 1)
+    frames (B, prompt_len, D) for the encoder."""
+    extra = {}
+    if cfg.frontend == "vit_stub":
+        extra["patch_embeds"] = np.zeros(
+            (batch, cfg.frontend_tokens, cfg.d_model), np.float32)
+    if cfg.family == "encdec":
+        extra["frames"] = rng.normal(0, 1, (batch, prompt_len,
+                                            cfg.d_model)).astype(np.float32)
+    return extra
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2_7b", choices=ARCH_IDS)
@@ -74,12 +87,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; no CPU fallback)")
     ap.add_argument("--batch", type=int, default=4,
-                    help="decode slots (max concurrent requests)")
+                    help="the static batch, or decode slots (max concurrent "
+                         "requests) with --continuous")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV cache")
+    ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"],
+                    help="paged KV storage dtype (--continuous only)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--requests", type=int, default=16,
                     help="stream length for --continuous")
@@ -90,43 +106,73 @@ def main(argv=None):
                          "warm-up serve) and print the device's busy share "
                          "and its kernels by device time")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("only the --continuous path is ported (the static-batch "
-                 "Engine.generate path is not)")
 
     cfg = get_config(args.arch).model
-    if cfg.family not in PAGED_FAMILIES:
-        ap.error(f"--arch {args.arch}: serving the {cfg.family} family is "
-                 f"not ported yet ({NOT_SERVED[cfg.family]})")
-    if cfg.frontend:
-        ap.error(f"--arch {args.arch}: serving the {cfg.frontend} frontend "
-                 f"is not ported yet ({FRONTEND_NOT_SERVED})")
+    if args.continuous:
+        if cfg.family not in PAGED_FAMILIES:
+            ap.error(f"--continuous cannot serve --arch {args.arch}: "
+                     f"{NOT_SERVED[cfg.family]}; serve it without "
+                     f"--continuous (Engine.generate)")
+        if cfg.frontend:
+            ap.error(f"--continuous cannot serve --arch {args.arch}: "
+                     f"{FRONTEND_NOT_PAGED}")
+    elif args.kv_dtype:
+        ap.error("--kv-dtype stores the paged pool: --continuous only")
     if args.smoke:
         cfg = smoke_model(cfg)
+    if not args.continuous and cfg.frontend_tokens > args.prompt_len:
+        ap.error(f"--arch {args.arch}: a prompt of {args.prompt_len} "
+                 f"tokens is shorter than the ViT stub's "
+                 f"{cfg.frontend_tokens} patch positions (the reference's "
+                 f"launcher would prefill them into a smaller cache; "
+                 f"ROADMAP.md §3)")
     params = get_model(cfg).init(cfg, seed=0, device=args.device)
     engine = Engine(cfg, params, device=args.device,
-                    serve=ServeConfig(temperature=args.temperature),
+                    max_len=args.prompt_len + args.new_tokens,
+                    batch_size=args.batch,
+                    serve=ServeConfig(max_new_tokens=args.new_tokens,
+                                      temperature=args.temperature),
                     paged=PagedConfig(page_size=args.page_size,
-                                      max_slots=args.batch))
-    reqs = poisson_requests(args.requests, args.rate, args.prompt_len,
-                            args.new_tokens, cfg.vocab_size)
+                                      max_slots=args.batch,
+                                      kv_dtype=args.kv_dtype))
+    if args.continuous:
+        reqs = poisson_requests(args.requests, args.rate, args.prompt_len,
+                                args.new_tokens, cfg.vocab_size)
+        warm = lambda: engine.serve(poisson_requests(  # noqa: E731
+            2, 1e6, 32, 4, cfg.vocab_size, seed=1))
+        work = lambda: engine.serve(reqs)  # noqa: E731
+    else:
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (args.batch, args.prompt_len))
+        extra = stand_ins(cfg, args.batch, args.prompt_len, rng) or None
+        warm = work = lambda: engine.generate(  # noqa: E731
+            prompts, extra_inputs=extra)
     if args.profile:
-        engine.serve(poisson_requests(2, 1e6, 32, 4, cfg.vocab_size, seed=1))
+        warm()
         with torch.profiler.profile(
                 activities=activities(engine.device)) as prof:
             t0 = time.perf_counter()
-            outs = engine.serve(reqs)
+            outs = work()
             _sync(engine)
             dt = time.perf_counter() - t0
         print_profile(prof, dt)
     else:
         t0 = time.perf_counter()
-        outs = engine.serve(reqs)
+        outs = work()
         dt = time.perf_counter() - t0
+    if not args.continuous:
+        print(f"arch={args.arch} family={cfg.family} batch={args.batch}: "
+              f"generated {outs.size} tokens in {dt:.2f}s "
+              f"({outs.size / dt:.1f} tok/s on {engine.device})")
+        for i, row in enumerate(outs[:4]):
+            print(f"  req{i}: {row[:12].tolist()}")
+        return
     n_tok = sum(len(o.tokens) for o in outs.values())
     ttft = np.array([o.ttft for o in outs.values()])
     print(f"continuous: {len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
-          f"({n_tok / dt:.1f} tok/s on {engine.device}), "
+          f"({n_tok / dt:.1f} tok/s on {engine.device}, "
+          f"kv_dtype={args.kv_dtype or 'dense'}), "
           f"TTFT p50 {np.percentile(ttft, 50) * 1e3:.1f} ms")
     for rid in sorted(outs)[:4]:
         o = outs[rid]

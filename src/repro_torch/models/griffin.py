@@ -21,8 +21,15 @@ also be a list of per-layer dicts (the round step differentiates with
 respect to each layer's slices).  With ``cfg.remat`` each block runs under
 ``torch.utils.checkpoint`` (per layer, where the reference checkpoints a
 group and each trailing block): its forward runs again in the backward.
-``prefill``, ``decode_step`` and ``init_cache`` wait for
-``Engine.generate`` (ROADMAP.md, modules to port, item 4).
+
+Serving (reference :192-391): ``init_cache`` holds each recurrent block's
+conv window and f32 LRU state and each attention block's rolling K / V
+ring of min(window, max_len) slots.  ``prefill`` runs the blocks as the
+forward does (the attention through the window kernel), keeps the states,
+and rolls the last W keys into slots pos % W (zero-padded while S < W);
+``decode_step`` writes the token's K and V at slot pos % W and then
+attends with kv_len = min(pos + 1, W) through ``ops.decode_attention``
+(write-then-attend, the reference's order, unlike lm's).
 """
 from __future__ import annotations
 
@@ -38,11 +45,9 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops, ref
 from repro_torch.models import lm
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
-                                       mask_padded_logits, rms_norm, softcap,
-                                       stack_list)
+                                       mask_padded_logits, rms_norm, rope,
+                                       softcap, stack_list)
 
-SERVING = ("ROADMAP.md, modules to port, item 4 (Engine.generate: the "
-           "hybrid family's rolling-window decode)")
 LOSS_CHUNK = 1024  # positions a checkpointed piece of the loss holds
 
 
@@ -130,8 +135,10 @@ def _mlp(cfg, x, w):
 
 
 def _rec_temporal(cfg, h, w):
-    """The recurrent branch of h (B, S, D), from a zero state (reference
-    ``_rec_temporal`` with no conv or LRU state)."""
+    """The recurrent branch of h (B, S, D) from a zero state (reference
+    ``_rec_temporal`` with no conv or LRU state): (out, the conv window
+    (B, conv_width - 1, W), the last LRU state (B, W) f32).  A prompt
+    shorter than the window leaves zeros at the window's head."""
     cd = dtype_of(cfg.compute_dtype)
     S = h.shape[1]
     y = _gelu((h @ w["w_y"]).float()).to(cd)
@@ -143,13 +150,13 @@ def _rec_temporal(cfg, h, w):
         conv = conv + xp[:, i:i + S] * w["conv_w"][i][None, None, :]
     conv = (conv + w["conv_b"][None, None, :]).to(cd)
     log_a, gated = ref.rglru_gates(conv, w["wa"], w["wg"], w["log_lambda"])
-    hs, _ = ops.rglru(log_a, gated)
-    return (y * hs.to(cd)) @ w["w_out"]
+    hs, h_last = ops.rglru(log_a, gated)
+    return (y * hs.to(cd)) @ w["w_out"], xp[:, -(K - 1):], h_last
 
 
 def _rec_block(cfg, x, w, tables):
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    x = x + _rec_temporal(cfg, h, w)
+    x = x + _rec_temporal(cfg, h, w)[0]
     return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
 
 
@@ -161,22 +168,27 @@ def _attn_block(cfg, x, w, tables):
     return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
 
 
-def _blocks(cfg, params):
-    """(block, weights) in the reference's order: each group's recurrent
-    blocks then its attention blocks, then the trailing recurrent
-    blocks (``_split_groups``)."""
+def _order(cfg):
+    """The blocks in the reference's order (``_split_groups``): each
+    group's recurrent blocks, then its attention blocks, then the
+    trailing recurrent blocks; ("rglru", i) or ("attn", j), an index
+    into its stack."""
     n_groups, rem, rpg, apg, _, _ = _layout(cfg)
-    rec = stack_list(params["rec_layers"])
-    attn = stack_list(params["attn_layers"])
-    rec_block = functools.partial(_rec_block, cfg)
-    attn_block = functools.partial(_attn_block, cfg)
     out = []
     for g in range(n_groups):
-        out += [(rec_block, rec[g * rpg + i]) for i in range(rpg)]
-        out += [(attn_block, attn[g * apg + i]) for i in range(apg)]
+        out += [("rglru", g * rpg + i) for i in range(rpg)]
+        out += [("attn", g * apg + i) for i in range(apg)]
     n_rem_rec = sum(1 for p in rem if p == "rglru")
-    out += [(rec_block, rec[n_groups * rpg + j]) for j in range(n_rem_rec)]
-    return out
+    return out + [("rglru", n_groups * rpg + j) for j in range(n_rem_rec)]
+
+
+def _blocks(cfg, params):
+    """(block, weights) in ``_order``."""
+    stacks = {"rglru": (functools.partial(_rec_block, cfg),
+                        stack_list(params["rec_layers"])),
+              "attn": (functools.partial(_attn_block, cfg),
+                       stack_list(params["attn_layers"]))}
+    return [(stacks[kind][0], stacks[kind][1][i]) for kind, i in _order(cfg)]
 
 
 def _trunk(cfg, params, batch):
@@ -240,16 +252,114 @@ def loss_fn(cfg: ModelConfig, params, batch):
     return total / labels.numel()
 
 
-def init_cache(cfg: ModelConfig, batch_size: int, max_len: int = 0):
-    raise NotImplementedError(f"griffin.init_cache is not ported yet: "
-                              f"{SERVING}")
+# ---------------------------------------------------------------------------
+# serving (reference griffin.py:192-391)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int = 0,
+               enc_len: int = 0, device=None):
+    """``conv`` (L_rec, B, conv_width - 1, W) in the compute type, ``lru``
+    (L_rec, B, W) f32, the rings ``k`` / ``v`` (L_attn, B, min(window,
+    max_len), KH, Dh) and ``pos``."""
+    dev = resolve(device)
+    *_, L_rec, L_attn = _layout(cfg)
+    cd = dtype_of(cfg.compute_dtype)
+    W = min(cfg.window, max_len) if max_len else cfg.window
+    ring = (L_attn, batch_size, W, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "conv": torch.zeros((L_rec, batch_size, cfg.conv_width - 1,
+                             cfg.lru_width), dtype=cd, device=dev),
+        "lru": torch.zeros((L_rec, batch_size, cfg.lru_width),
+                           dtype=torch.float32, device=dev),
+        "k": torch.zeros(ring, dtype=cd, device=dev),
+        "v": torch.zeros(ring, dtype=cd, device=dev),
+        "pos": 0,
+    }
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
-    raise NotImplementedError(f"griffin.prefill is not ported yet: "
-                              f"{SERVING}")
+    """Run the prompt (B, S) block by block, keeping each recurrent
+    block's conv window and LRU state and each attention block's last W
+    keys and values, rolled into slots pos % W (S >= W) or zero-padded
+    (S < W), all IN PLACE in ``cache``.  Returns (last-position logits
+    (B, 1, V), cache)."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    W = cache["k"].shape[2]
+    x = params["emb"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    tables = lm._rope_tables(cfg, torch.arange(S, device=x.device))
+    stacks = {"rglru": stack_list(params["rec_layers"]),
+              "attn": stack_list(params["attn_layers"])}
+    for kind, i in _order(cfg):
+        w = stacks[kind][i]
+        h = rms_norm(x, w["ln1"], cfg.norm_eps)
+        if kind == "rglru":
+            out, cache["conv"][i], cache["lru"][i] = _rec_temporal(cfg, h, w)
+        else:
+            out, (k, v) = lm._attention(cfg, h, w, tables, causal=True,
+                                        window=cfg.window)
+            for name, t in (("k", k), ("v", v)):
+                if S >= W:
+                    cache[name][i] = torch.roll(t[:, -W:], S % W, dims=1)
+                else:
+                    cache[name][i, :, :S] = t
+                    cache[name][i, :, S:] = 0
+        x = x + out
+        x = x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
+    cache["pos"] = S
+    return _head(cfg, params["final_norm"], params["emb"], x[:, -1:]), cache
+
+
+def _decode_rec(cfg, x, w, conv_st, lru_st):
+    """One token through a recurrent block; its conv window and LRU state
+    advance IN PLACE."""
+    cd = dtype_of(cfg.compute_dtype)
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    y = _gelu((h @ w["w_y"]).float()).to(cd)
+    xi = (h @ w["w_x"]).to(cd)  # (B, 1, W)
+    window = torch.cat([conv_st, xi], dim=1)  # (B, K, W)
+    conv = torch.einsum("bkw,kw->bw", window.float(), w["conv_w"].float())
+    conv = (conv + w["conv_b"].float())[:, None].to(cd)
+    log_a, gated = ref.rglru_gates(conv, w["wa"], w["wg"], w["log_lambda"])
+    hs, h_last = ref.rglru_ref(log_a, gated, h0=lru_st)
+    conv_st.copy_(window[:, 1:])
+    lru_st.copy_(h_last)
+    x = x + (y * hs.to(cd)) @ w["w_out"]
+    return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
+
+
+def _decode_attn(cfg, x, w, k_l, v_l, pos):
+    """One token through an attention block: its K and V written at slot
+    pos % W of the ring first, then attended with kv_len = min(pos + 1,
+    W), the reference's order."""
+    B = x.shape[0]
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = k_l.shape[1]
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    tables = lm._rope_tables(cfg, torch.full((B, 1), pos, device=x.device))
+    q, k, v = lm._qkv(cfg, h, w)
+    q = rope(q.reshape(B, 1, H, Dh), tables)
+    k_l[:, pos % W] = rope(k.reshape(B, 1, KH, Dh), tables)[:, 0]
+    v_l[:, pos % W] = v.reshape(B, KH, Dh)
+    kv_len = torch.full((B,), min(pos + 1, W), dtype=torch.int32,
+                        device=x.device)
+    o = ops.decode_attention(q, k_l, v_l, kv_len=kv_len)
+    x = x + o.reshape(B, 1, H * Dh) @ w["wo"]
+    return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):
-    raise NotImplementedError(f"griffin.decode_step is not ported yet: "
-                              f"{SERVING}")
+    """One token (B, 1) through every block, the states and rings
+    advanced IN PLACE.  Returns (logits (B, 1, V), cache)."""
+    pos = cache["pos"]
+    x = params["emb"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    stacks = {"rglru": stack_list(params["rec_layers"]),
+              "attn": stack_list(params["attn_layers"])}
+    for kind, i in _order(cfg):
+        w = stacks[kind][i]
+        if kind == "rglru":
+            x = _decode_rec(cfg, x, w, cache["conv"][i], cache["lru"][i])
+        else:
+            x = _decode_attn(cfg, x, w, cache["k"][i], cache["v"][i], pos)
+    cache["pos"] = pos + 1
+    return _head(cfg, params["final_norm"], params["emb"], x), cache

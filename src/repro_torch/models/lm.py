@@ -1,11 +1,12 @@
 """Transformer LM, the dense, moe and encdec families with the modality
-frontend stubs: init, the training forward and loss, and the paged
-serving path of the decoder-only configs (port of ``repro/models/lm.py``).
+frontend stubs: init, the training forward and loss, and both serving
+paths, the static cache and the paged pool (port of
+``repro/models/lm.py``).
 
 Parameters are a plain dict with the reference's leaf names and shapes:
 layers stacked on a leading L dim, weights in ``x @ w`` orientation.  The
 reference's ``lax.scan``/``fori_loop`` over layers is a Python loop here,
-and the paged cache is updated in place.  ``params["layers"]`` may also be
+and both caches are updated in place.  ``params["layers"]`` may also be
 a list of per-layer dicts (the round step differentiates each layer's
 slices).  With ``cfg.remat`` each layer of ``forward`` runs under
 ``torch.utils.checkpoint``, so its attention forward runs again in the
@@ -20,10 +21,13 @@ puts ``batch["patch_embeds"]`` in the first ``frontend_tokens`` positions
 and the loss leaves their labels out; ``audio_stub`` (seamless-m4t) feeds
 ``batch["frames"]`` to the encoder (``enc_layers``: non-causal blocks with
 RoPE), whose output each decoder layer's cross-attention reads through
-its own K and V projections.  Serving a frontend or an encoder config
-(the encoder's cache, the stand-ins in prefill) is not ported yet:
-``prefill_paged`` and ``decode_step_paged`` raise, naming ROADMAP.md's
-item.
+its own K and V projections.  The static path (``init_cache``,
+``prefill``, ``decode_step``) serves every config of the module: prefill
+takes the stand-ins, and keeps each layer's K and V of the encoder output
+in ``xk`` / ``xv``.  The paged path (``init_paged_cache``,
+``prefill_paged``, ``decode_step_paged``) has no cross-attention, as in
+the reference, so it refuses an encoder config (``check_config(...,
+paged=True)``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import kv_quantize_int8
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        layer_list, rms_norm, rope,
                                        rope_tables, softcap, stack_list)
@@ -43,16 +48,18 @@ from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
 FAMILIES = ("dense", "moe", "encdec")
 # the frontend stubs lm computes: "audio_stub" is the encoder's input
 FRONTENDS = ("", "vit_stub", "audio_stub")
-SERVING = ("ROADMAP.md, modules to port, item 4 (Engine.generate, the "
-           "encdec cross-attention cache and the frontend stand-ins in "
-           "prefill)")
+PAGED_NO_ENCODER = (
+    "the paged path has no cross-attention, as the reference's paged "
+    "functions have none (lm.py:426-564; serving/engine.py:41 "
+    "PAGED_FAMILIES): it would compute another model (ROADMAP.md §3); "
+    "serve an encoder config through Engine.generate")
 
 
-def check_config(cfg: ModelConfig, serving: bool = False):
+def check_config(cfg: ModelConfig, paged: bool = False):
     """Refuses a config lm does not compute: another family, a frontend
     other than ``FRONTENDS``, an encoder without its ``audio_stub``
-    frames or the reverse; with ``serving``, any frontend or encoder (the
-    paged path embeds tokens alone and keeps no cross-attention cache)."""
+    frames or the reverse; with ``paged``, an encoder (the paged path
+    keeps no cross-attention cache)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"lm runs the families {FAMILIES}, not "
                          f"{cfg.family!r} (models/registry.py)")
@@ -65,10 +72,8 @@ def check_config(cfg: ModelConfig, serving: bool = False):
             encdec != (cfg.frontend == "audio_stub"):
         raise ValueError(f"{cfg.name}: the encdec family, enc_layers and "
                          f"the audio_stub frontend go together")
-    if serving and (cfg.frontend or encdec):
-        raise NotImplementedError(
-            f"serving {cfg.name} ({cfg.family}, frontend "
-            f"{cfg.frontend!r}) is not ported yet: {SERVING}")
+    if paged and encdec:
+        raise ValueError(f"{cfg.name}: {PAGED_NO_ENCODER}")
 
 
 # ---------------------------------------------------------------------------
@@ -513,19 +518,153 @@ def loss_fn(cfg: ModelConfig, params, batch):
 
 
 # ---------------------------------------------------------------------------
-# serving: paged cache / prefill / decode
+# serving: the static cache (reference lm.py:388-400, 567-681)
 # ---------------------------------------------------------------------------
 
+def _embed_tokens(cfg, params, tokens):
+    """The embeddings of ``tokens`` alone (a decode step's: the frontend
+    stand-ins enter in prefill only)."""
+    return params["emb"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               enc_len: int = 0, device=None):
+    """The static KV cache: ``k`` / ``v`` (L, B, max_len, KH, Dh) in the
+    compute type and ``pos`` (a Python int, the positions written); with
+    an encoder, ``xk`` / ``xv`` (L, B, enc_len, KH, Dh), each layer's K
+    and V of the encoder output, written once by ``prefill``."""
+    check_config(cfg)
+    dev = resolve(device)
+    L, KH, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    cd = dtype_of(cfg.compute_dtype)
+    zeros = lambda n: torch.zeros((L, batch_size, n, KH, Dh), dtype=cd,
+                                  device=dev)
+    cache = {"k": zeros(max_len), "v": zeros(max_len), "pos": 0}
+    if cfg.enc_layers:
+        cache["xk"], cache["xv"] = zeros(enc_len), zeros(enc_len)
+    return cache
+
+
+def prefill(cfg: ModelConfig, params, batch, cache):
+    """Run the prompt ``batch["tokens"]`` (B, S) (with the frontend's
+    ``patch_embeds`` or ``frames``), write its K and V at positions 0..S-1
+    of ``cache`` IN PLACE (with an encoder, also each layer's ``xk`` /
+    ``xv``), set ``pos`` to S.  Returns (last-position logits (B, 1, V),
+    cache)."""
+    check_config(cfg)
+    x = _embed(cfg, params, batch)
+    B, S, D = x.shape
+    if S > cache["k"].shape[2]:
+        raise ValueError(f"prompt of {S} positions over a cache of "
+                         f"{cache['k'].shape[2]}")
+    tables = _rope_tables(cfg, torch.arange(S, device=x.device))
+    mem = None
+    if cfg.enc_layers:
+        mem = _encode(cfg, params, batch["frames"].to(x.device))
+        if mem.shape[1] != cache["xk"].shape[2]:
+            raise ValueError(f"{mem.shape[1]} frames for a cross-attention "
+                             f"cache of {cache['xk'].shape[2]}")
+    for l, w in enumerate(layer_list(params)):
+        h = rms_norm(x, w["ln1"], cfg.norm_eps)
+        attn_out, (k_new, v_new) = _attention(cfg, h, w, tables,
+                                              causal=True, window=cfg.window)
+        x = x + attn_out
+        cache["k"][l, :, :S] = k_new
+        cache["v"][l, :, :S] = v_new
+        if mem is not None:
+            xk, xv = _cross_kv(cfg, mem, w)
+            cache["xk"][l] = xk
+            cache["xv"][l] = xv
+            h = rms_norm(x, w["lnx"], cfg.norm_eps)
+            x = x + _cross_attention(cfg, h, w, (xk, xv))
+        x = _ffn_half(cfg, x, w)
+    cache["pos"] = S
+    return _logits(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """One-token decode over the static cache, IN PLACE.  tokens: (B, 1).
+    Returns (logits (B, 1, V), cache).
+
+    As the reference: each layer attends the PRE-update cache at kv_len =
+    min(pos, max_len) through ``ops.decode_attention`` (plain PyTorch on
+    every device, as the reference's jnp route is on the TPU), folds the
+    token in with ``decode_attention_combine``, then writes its K and V at
+    slot ``pos`` (``pos % max_len`` with ``cfg.window``).  With an encoder
+    the cross-attention reads ``xk`` / ``xv``: Sq = 1 over the encoder's
+    length, through ``ops.flash_attention`` (the kernel on the card)."""
+    check_config(cfg)
+    B = tokens.shape[0]
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pos, T = cache["pos"], cache["k"].shape[2]
+    if pos >= T and not cfg.window:
+        raise ValueError(f"decode at position {pos} past a cache of {T}")
+    slot = pos % T if cfg.window else pos
+    x = _embed_tokens(cfg, params, tokens)
+    tables = _rope_tables(cfg, torch.full((B, 1), pos, device=x.device))
+    kv_len = torch.full((B,), min(pos, T), dtype=torch.int32,
+                        device=x.device)
+    for l, w in enumerate(layer_list(params)):
+        h = rms_norm(x, w["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, h, w)
+        q = rope(q.reshape(B, 1, H, Dh), tables)
+        k = rope(k.reshape(B, 1, KH, Dh), tables)
+        v = v.reshape(B, 1, KH, Dh)
+        k_l, v_l = cache["k"][l], cache["v"][l]
+        o_old, m_old, l_old = ops.decode_attention(q, k_l, v_l, kv_len=kv_len,
+                                                   return_stats=True)
+        o = ops.decode_attention_combine(q, o_old, m_old, l_old, k, v)
+        k_l[:, slot] = k[:, 0]
+        v_l[:, slot] = v[:, 0]
+        x = x + o.reshape(B, 1, H * Dh) @ w["wo"]
+        if cfg.enc_layers:
+            h = rms_norm(x, w["lnx"], cfg.norm_eps)
+            x = x + _cross_attention(cfg, h, w,
+                                     (cache["xk"][l], cache["xv"][l]))
+        x = _ffn_half(cfg, x, w)
+    cache["pos"] = pos + 1
+    return _logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# serving: the paged pool (reference lm.py:403-564)
+# ---------------------------------------------------------------------------
+
+KV_DTYPES = (None, "int8")
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device=None):
+                     kv_dtype: str = None, device=None):
     """Paged KV pool: one (L, num_pages, page_size, KH, Dh) buffer per K/V
-    in the compute type, page 0 reserved as the null page."""
+    in the compute type, page 0 reserved as the null page.  ``kv_dtype=
+    "int8"`` stores block-scaled int8 values and ``k_scale`` / ``v_scale``
+    (L, num_pages, page_size, KH) f32, one scale a (page, position, head)
+    head_dim block (``ref.kv_quantize_int8``)."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
     dev = resolve(device)
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
-    cd = dtype_of(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=cd, device=dev),
-            "v": torch.zeros(shape, dtype=cd, device=dev)}
+    vd = torch.int8 if kv_dtype == "int8" else dtype_of(cfg.compute_dtype)
+    cache = {"k": torch.zeros(shape, dtype=vd, device=dev),
+             "v": torch.zeros(shape, dtype=vd, device=dev)}
+    if kv_dtype == "int8":
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=dev)
+    return cache
+
+
+def _write_kv(cache, l, idx, k, v):
+    """Write K and V rows at ``idx`` (an index tuple into a layer's pool)
+    of layer l, quantized where the pool is int8."""
+    for name, t in (("k", k), ("v", v)):
+        if "k_scale" in cache:
+            tq, ts = kv_quantize_int8(t)
+            cache[name][l].index_put_(idx, tq)
+            cache[name + "_scale"][l].index_put_(idx, ts)
+        else:
+            cache[name][l].index_put_(idx, t.to(cache[name].dtype))
 
 
 def prefill_paged(cfg: ModelConfig, params, batch, cache, page_table,
@@ -533,9 +672,11 @@ def prefill_paged(cfg: ModelConfig, params, batch, cache, page_table,
     """Prompt prefill writing KV through the page table, IN PLACE.
 
     batch["tokens"]: (B, S_pad) right-padded prompts with S_pad a multiple
-    of the page size; page_table: (B, P) physical page ids; prompt_len:
-    (B,) true prompt lengths.  Returns logits at position prompt_len-1 per
-    row (B, 1, V); ``cache`` is updated in place and returned.
+    of the page size (and ``patch_embeds`` for the ViT stub, as the
+    reference's function takes them); page_table: (B, P) physical page
+    ids; prompt_len: (B,) true prompt lengths.  Returns logits at position
+    prompt_len-1 per row (B, 1, V); ``cache`` is updated in place (int8
+    with its scales where the pool is) and returned.
 
     Positions >= prompt_len hold pad garbage in the written pages: reads
     are masked by kv_len and decode overwrites them as the request grows.
@@ -543,7 +684,7 @@ def prefill_paged(cfg: ModelConfig, params, batch, cache, page_table,
     several rows may write page 0 in one call; which write lands does not
     matter, because page 0 is never read unmasked.
     """
-    check_config(cfg, serving=True)
+    check_config(cfg, paged=True)
     x = _embed(cfg, params, batch)
     B, S, D = x.shape
     ps = cache["k"].shape[2]
@@ -553,47 +694,52 @@ def prefill_paged(cfg: ModelConfig, params, batch, cache, page_table,
     Pp = S // ps
     KH, Dh = cfg.num_kv_heads, cfg.head_dim
     tables = _rope_tables(cfg, torch.arange(S, device=x.device))
-    phys = page_table[:, :Pp].long()  # (B, Pp)
+    phys = (page_table[:, :Pp].long(),)  # (B, Pp)
     for l in range(cfg.num_layers):
         w = _layer(params, l)
         h = rms_norm(x, w["ln1"], cfg.norm_eps)
         attn_out, (k_new, v_new) = _attention(cfg, h, w, tables,
                                               causal=True, window=cfg.window)
         x = _ffn_half(cfg, x + attn_out, w)
-        cache["k"][l].index_put_(
-            (phys,), k_new.reshape(B, Pp, ps, KH, Dh).to(cache["k"].dtype))
-        cache["v"][l].index_put_(
-            (phys,), v_new.reshape(B, Pp, ps, KH, Dh).to(cache["v"].dtype))
+        _write_kv(cache, l, phys, k_new.reshape(B, Pp, ps, KH, Dh),
+                  v_new.reshape(B, Pp, ps, KH, Dh))
     idx = (prompt_len.long() - 1)[:, None, None].expand(B, 1, D)
     logits = _logits(cfg, params, torch.gather(x, 1, idx))
     return logits, cache
 
 
 def decode_step_paged(cfg: ModelConfig, params, cache, tokens, page_table,
-                      kv_len, graphs: DecodeGraphs = None):
+                      kv_len, graphs: DecodeGraphs = None,
+                      contiguous: bool = False):
     """One-token decode through the page table, updating ``cache`` IN PLACE.
 
     tokens: (B, 1); page_table: (B, P) int32; kv_len: (B,) int32 per-request
     lengths (0 for empty decode slots: their reads are fully masked and
     their writes land on the null page).  Returns (logits (B, 1, V), cache).
 
-    Attend-then-write, as the reference: the kernel reads the pre-update
-    pages, ``decode_attention_combine`` folds the current token in, and
-    only then is the token's (k, v) written at (phys, off).  Empty slots
-    all write page 0 at offset 0; their order does not matter, because
-    page 0 is never read unmasked.  With ``graphs`` (a ``DecodeGraphs``,
-    on the card) each layer's FFN half replays as a CUDA graph.
+    Attend-then-write, as the reference: ``ops.paged_decode_attention``
+    reads the pre-update pages (the kernel on the card for a pool in the
+    compute type; the gather, the dequantization and the direct decode for
+    an int8 pool or ``contiguous``, the reference's routing),
+    ``decode_attention_combine`` folds the current token in, and only
+    then is the token's (k, v) written at (phys, off), quantized in an
+    int8 pool.  Empty slots all write page 0 at offset 0; their order does
+    not matter, because page 0 is never read unmasked.  ``contiguous``
+    asserts that slot b owns pages [1 + b P, 1 + (b + 1) P).  With
+    ``graphs`` (a ``DecodeGraphs``, on the card) each layer's FFN half
+    replays as a CUDA graph.
     """
-    check_config(cfg, serving=True)
+    check_config(cfg, paged=True)
     B = tokens.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ps = cache["k"].shape[2]
     kv_len = kv_len.to(torch.int32)
     tables = _rope_tables(cfg, kv_len[:, None])  # per-request positions
-    x = _embed(cfg, params, {"tokens": tokens})
+    x = _embed_tokens(cfg, params, tokens)
     pj = torch.div(kv_len, ps, rounding_mode="floor")
     phys = torch.gather(page_table, 1, pj[:, None].long())[:, 0].long()
     off = (kv_len % ps).long()
+    quant = "k_scale" in cache
     for l in range(cfg.num_layers):
         w = _layer(params, l)
         h = rms_norm(x, w["ln1"], cfg.norm_eps)
@@ -601,12 +747,13 @@ def decode_step_paged(cfg: ModelConfig, params, cache, tokens, page_table,
         q = rope(q.reshape(B, 1, H, Dh), tables)
         k = rope(k.reshape(B, 1, KH, Dh), tables)
         v = v.reshape(B, 1, KH, Dh)
-        kp, vp = cache["k"][l], cache["v"][l]
+        scales = (dict(k_scale=cache["k_scale"][l],
+                       v_scale=cache["v_scale"][l]) if quant else {})
         o_old, m_old, l_old = ops.paged_decode_attention(
-            q, kp, vp, page_table, kv_len)
+            q, cache["k"][l], cache["v"][l], page_table, kv_len,
+            contiguous=contiguous, **scales)
         o = ops.decode_attention_combine(q, o_old, m_old, l_old, k, v)
-        kp.index_put_((phys, off), k[:, 0].to(kp.dtype))
-        vp.index_put_((phys, off), v[:, 0].to(vp.dtype))
+        _write_kv(cache, l, (phys, off), k[:, 0], v[:, 0])
         x = x + o.reshape(B, 1, H * Dh) @ w["wo"]
         x = (_ffn_half(cfg, x, w) if graphs is None
              else graphs.ffn_half(cfg, x, w, l))

@@ -10,8 +10,14 @@ may also be a list of per-layer dicts (the round step differentiates with
 respect to each layer's slices, so that no stacked gradient is formed).
 With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``: its
 forward runs again in the backward, as ``jax.checkpoint`` does.
-``prefill`` and ``decode_step`` wait for the ssm serving slice (ROADMAP.md,
-modules to port, item 4: ``Engine.generate``).
+
+Serving (reference :129-222): ``init_cache`` holds each layer's conv
+window (the last conv_width - 1 pre-conv inputs) and its f32 SSM state,
+O(1) in the sequence length.  ``prefill`` runs the chunked scan's plain
+version, ``ref.ssd_chunked``, for y and the final state, as the
+reference calls ``ssd_chunked_jnp`` there and not its Pallas kernel (the
+forward kernel keeps no final state); ``decode_step`` advances both
+states by one token (``ref.ssd_decode_step``).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        layer_list, mask_padded_logits,
                                        rms_norm)
@@ -96,32 +102,48 @@ def _split_proj(cfg, proj):
             proj[..., Din + conv_ch:])
 
 
-def _block_core(cfg, h, w):
-    """Projection, conv and split. h: (B, S, D)."""
+def _split_xbc(cfg, xBC):
+    """The conv's output (..., conv_ch) -> xs (..., H, P), B and C (...,
+    G, N)."""
     Din, G, N, H, conv_ch = _dims(cfg)
-    B, S, _ = h.shape
+    lead = xBC.shape[:-1]
+    return (xBC[..., :Din].reshape(*lead, H, cfg.ssm_head_dim),
+            xBC[..., Din:Din + G * N].reshape(*lead, G, N),
+            xBC[..., Din + G * N:].reshape(*lead, G, N))
+
+
+def _block_core(cfg, h, w):
+    """Projection, conv and split. h: (B, S, D).  Returns (z, xs, B, C,
+    dt, the conv's input xBC)."""
     cd = dtype_of(cfg.compute_dtype)
-    proj = (h @ w["w_in"]).to(cd)
-    z, xBC, dt_raw = _split_proj(cfg, proj)
-    xBC = F.silu(_conv1d(xBC, w["conv_w"], w["conv_b"]).float()).to(cd)
-    xs = xBC[..., :Din].reshape(B, S, H, cfg.ssm_head_dim)
-    Bm = xBC[..., Din:Din + G * N].reshape(B, S, G, N)
-    Cm = xBC[..., Din + G * N:].reshape(B, S, G, N)
+    z, xBC, dt_raw = _split_proj(cfg, (h @ w["w_in"]).to(cd))
+    conv = F.silu(_conv1d(xBC, w["conv_w"], w["conv_b"]).float()).to(cd)
     dt = F.softplus(dt_raw.float() + w["dt_bias"])
-    return z, xs, Bm, Cm, dt
+    return (z, *_split_xbc(cfg, conv), dt, xBC)
+
+
+def _gated_out(cfg, x, y, xs, z, w):
+    """x + out_proj(rms_norm((y + D xs) silu(z))): the block's output
+    from the scan's y (..., H, P)."""
+    cd = dtype_of(cfg.compute_dtype)
+    y = y + xs * w["D_skip"][:, None].to(cd)
+    y = y.reshape(*x.shape[:2], cfg.d_inner)
+    y = rms_norm(y * F.silu(z.float()).to(cd), w["norm_w"], cfg.norm_eps)
+    return x + y @ w["w_out"]
 
 
 def _block(cfg, x, w):
-    Din = cfg.d_inner
-    cd = dtype_of(cfg.compute_dtype)
     h = rms_norm(x, w["ln"], cfg.norm_eps)
-    z, xs, Bm, Cm, dt = _block_core(cfg, h, w)
+    z, xs, Bm, Cm, dt, _ = _block_core(cfg, h, w)
     A = -torch.exp(w["A_log"])
     y = ops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    y = y + xs * w["D_skip"][None, None, :, None].to(cd)
-    y = y.reshape(*x.shape[:2], Din)
-    y = rms_norm(y * F.silu(z.float()).to(cd), w["norm_w"], cfg.norm_eps)
-    return x + y @ w["w_out"]
+    return _gated_out(cfg, x, y, xs, z, w)
+
+
+def _head(cfg, params, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["emb"].T if cfg.tie_embeddings else params["out_head"]
+    return mask_padded_logits(cfg, x @ head.to(x.dtype))
 
 
 def forward(cfg: ModelConfig, params, batch):
@@ -134,11 +156,71 @@ def forward(cfg: ModelConfig, params, batch):
                            preserve_rng_state=False)
         else:
             x = block(x, w)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["emb"].T if cfg.tie_embeddings else params["out_head"]
-    return mask_padded_logits(cfg, x @ head.to(x.dtype))
+    return _head(cfg, params, x)
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
     logits = forward(cfg, params, batch)
     return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# serving (reference mamba2.py:129-222)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int = 0,
+               enc_len: int = 0, device=None):
+    """O(1)-size decode state: ``conv`` (L, B, conv_width - 1, conv_ch) in
+    the compute type, ``ssm`` (L, B, H, P, N) f32 and ``pos``."""
+    dev = resolve(device)
+    Din, G, N, H, conv_ch = _dims(cfg)
+    L = cfg.num_layers
+    return {
+        "conv": torch.zeros((L, batch_size, cfg.conv_width - 1, conv_ch),
+                            dtype=dtype_of(cfg.compute_dtype), device=dev),
+        "ssm": torch.zeros((L, batch_size, H, cfg.ssm_head_dim, N),
+                           dtype=torch.float32, device=dev),
+        "pos": 0,
+    }
+
+
+def prefill(cfg: ModelConfig, params, batch, cache):
+    """Run the prompt (B, S); write each layer's conv window (its last
+    conv_width - 1 pre-conv inputs) and final SSM state into ``cache`` IN
+    PLACE.  Returns (last-position logits (B, 1, V), cache)."""
+    S = batch["tokens"].shape[1]
+    K = cfg.conv_width
+    x = params["emb"][batch["tokens"].long()].to(dtype_of(cfg.compute_dtype))
+    for l, w in enumerate(layer_list(params)):
+        h = rms_norm(x, w["ln"], cfg.norm_eps)
+        z, xs, Bm, Cm, dt, xBC = _block_core(cfg, h, w)
+        # the last K - 1 pre-conv inputs; a prompt shorter than that
+        # leaves zeros at the window's head
+        cache["conv"][l, :, max(0, K - 1 - S):] = xBC[:, -(K - 1):]
+        y, cache["ssm"][l] = ref.ssd_chunked(xs, dt, -torch.exp(w["A_log"]),
+                                             Bm, Cm, chunk=cfg.ssm_chunk)
+        x = _gated_out(cfg, x, y, xs, z, w)
+    cache["pos"] = S
+    return _head(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """One token (B, 1) through every layer's conv window and SSM state,
+    both advanced IN PLACE.  Returns (logits (B, 1, V), cache)."""
+    cd = dtype_of(cfg.compute_dtype)
+    x = params["emb"][tokens.long()].to(cd)  # (B, 1, D)
+    for l, w in enumerate(layer_list(params)):
+        h = rms_norm(x, w["ln"], cfg.norm_eps)
+        z, xBC, dt_raw = _split_proj(cfg, (h @ w["w_in"]).to(cd))
+        window = torch.cat([cache["conv"][l], xBC], dim=1)  # (B, K, C)
+        conv = torch.einsum("bkc,kc->bc", window.float(),
+                            w["conv_w"].float())
+        xs, Bm, Cm = _split_xbc(cfg, F.silu(conv + w["conv_b"].float())
+                                .to(cd))
+        dt = F.softplus(dt_raw[:, 0].float() + w["dt_bias"])
+        cache["ssm"][l], y = ref.ssd_decode_step(
+            cache["ssm"][l], xs, dt, -torch.exp(w["A_log"]), Bm, Cm)
+        cache["conv"][l] = window[:, 1:]
+        x = _gated_out(cfg, x, y, xs, z, w)
+    cache["pos"] += 1
+    return _head(cfg, params, x), cache

@@ -1,22 +1,35 @@
-"""Serving engine: continuous batching over a paged KV cache (port of the
-``Engine.serve`` path of ``repro/serving/engine.py``; DESIGN.md §Serving
-contract).
+"""Serving engine (port of ``repro/serving/engine.py``; DESIGN.md §Serving
+contract).  Two paths:
 
-A ``Scheduler`` admits requests from a queue into a fixed set of decode
-slots (per-decode-step admit/retire: a finished request's pages are
-released and its slot refilled by a waiting prefill the same step).  Each
-admitted request is prefilled alone (B=1, padded to the page size); then
-one batched decode step runs over all slots, empty ones included.
+  * ``Engine.serve(requests)``, continuous batching over a paged KV pool.
+    A ``Scheduler`` admits requests from a queue into a fixed set of
+    decode slots (per-decode-step admit/retire: a finished request's
+    pages are released and its slot refilled by a waiting prefill the
+    same step).  Each admitted request is prefilled alone (B=1, padded to
+    the page size); then one batched decode step runs over all slots,
+    empty ones included.  ``PagedConfig.kv_dtype="int8"`` stores the pool
+    block-quantized.  ``PagedConfig.contiguous`` is refused
+    (``CONTIGUOUS_NOT_SERVED``).  The paged families only
+    (``PAGED_FAMILIES``), and no frontend: the reference's serve feeds
+    tokens alone to prefill.
+  * ``Engine.generate(prompts)``, the static batch (a dense cache, one
+    shared ``pos``) of every family: ``lm`` (dense, moe, the ViT stub and
+    the encoder-decoder, whose stand-ins come in ``extra_inputs``),
+    ``mamba2`` and ``griffin``.  Partial batches are padded with copies
+    of the last row; larger ones are served in chunks of ``batch_size``;
+    rows that hit EOS emit ``pad_id`` while the rest of the batch drains.
 
-On the card each decode step replays every layer's FFN half as a CUDA
-graph (``lm.DecodeGraphs``, captured in the first decode step); the
-attention kernels run, and are counted, as launched.
+On the card each paged decode step replays every layer's FFN half as a
+CUDA graph (``lm.DecodeGraphs``, captured in the first decode step); the
+attention kernels run, and are counted, as launched.  The static decode
+step is eager.
 
-Sampling is deterministic per request: token t of request rid draws from a
-``torch.Generator`` seeded with (seed, rid, t), so outputs do not depend on
-batch composition or admission order.  The draws are not the reference's
-(``jax.random.fold_in`` bits cannot be reproduced); greedy decoding is
-argmax, as in the reference.  ``eos_id=-1`` never stops early.
+Sampling: greedy is argmax, as in the reference.  A temperature draw of
+``serve`` comes from a ``torch.Generator`` seeded with (seed, rid, t), so
+outputs do not depend on batch composition or admission order; one of
+``generate`` from a generator seeded with (seed, step) for the batch.
+Neither is the reference's bits (``jax.random`` keys cannot be
+reproduced).  ``eos_id=-1`` never stops early.
 
 Held to the reference's ``serve`` as it runs, this keeps its decode
 positions: the scheduler counts a sampled token in ``kv_len`` before the
@@ -27,7 +40,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,13 +54,24 @@ from repro_torch.serving.page_manager import PageManager, pages_for
 from repro_torch.serving.scheduler import Request, RequestOutput, Scheduler
 
 PAGED_FAMILIES = ("dense", "moe")  # families with a self-attention KV cache
+FRONTEND_NOT_PAGED = (
+    "Engine.serve feeds tokens alone to prefill_paged, as the reference's "
+    "serve does (engine.py:194-196), so a frontend's stand-ins have no "
+    "way in; serve it through Engine.generate")
+CONTIGUOUS_NOT_SERVED = (
+    "PagedConfig.contiguous makes decode_step_paged read slot b's pages as "
+    "[1 + b P, 1 + (b + 1) P), but the page manager hands out pages in "
+    "free-list order, so the serve would attend other requests' K/V "
+    "(ROADMAP.md §3); the contiguous layout is decode_step_paged's "
+    "contiguous=True over an identity page table")
 
 
 @dataclass
 class ServeConfig:
+    max_new_tokens: int = 32  # generate's tokens a row
     temperature: float = 0.0  # 0 => greedy
     eos_id: int = -1  # -1 => explicit "never stops early" sentinel
-    pad_id: int = 0   # prompt padding and the token of empty decode slots
+    pad_id: int = 0   # padding, and generate's token of finished rows
     seed: int = 0
 
 
@@ -60,6 +84,10 @@ class PagedConfig:
     page_size: int = 16
     num_pages: int = 0
     max_slots: int = 8
+    kv_dtype: Optional[str] = None  # None => compute dtype; "int8" quantized
+    # the reference's static identity page layout; serve refuses it
+    # (CONTIGUOUS_NOT_SERVED)
+    contiguous: bool = False
 
 
 def _align(n: int, m: int) -> int:
@@ -73,23 +101,28 @@ def _row_seed(seed: int, rid: int, tok_idx: int) -> int:
 
 
 class Engine:
-    def __init__(self, cfg: ModelConfig, params, *, serve: ServeConfig = None,
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int = None,
+                 batch_size: int = None, serve: ServeConfig = None,
                  paged: PagedConfig = None, device=None):
+        """``max_len`` (cache positions) and ``batch_size`` size
+        ``generate``'s static cache; ``serve`` needs neither."""
         self.cfg = cfg
         self.model = get_model(cfg)
-        if self.model is lm:  # no frontend, no encoder: item 4
-            lm.check_config(cfg, serving=True)
         self.serve_cfg = serve or ServeConfig()
         self.paged = paged or PagedConfig()
+        self.max_len = max_len
+        self.batch_size = batch_size
         self.device = resolve(device)
         emb = params["emb"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params live on {emb.device}, engine device "
                              f"is {self.device}")
-        # each layer's views taken once, not in every decode step
-        self.params = dict(params, layers=layer_list(params))
-        # on the card the decode step replays each layer's FFN half as a
-        # CUDA graph (the paged families' model, ``lm``)
+        # lm's layer views taken once, not in every decode step (mamba2's
+        # and griffin's stacks are not lm's layout)
+        self.params = (dict(params, layers=layer_list(params))
+                       if self.model is lm else params)
+        # on the card the paged decode step replays each layer's FFN half
+        # as a CUDA graph (the paged families' model, ``lm``)
         self._graphs = (self.model.DecodeGraphs()
                         if self.device.type == "cuda"
                         and cfg.family in PAGED_FAMILIES else None)
@@ -112,6 +145,89 @@ class Engine:
             out[i] = int(torch.multinomial(probs, 1, generator=gen)[0])
         return out
 
+    def _sample(self, logits, step) -> np.ndarray:
+        """logits (B, 1, V) -> generate's tokens (B,) int64: argmax, or at
+        a temperature one draw a row from a generator seeded with (seed,
+        step)."""
+        lg = logits[:, -1, :]
+        sc = self.serve_cfg
+        if sc.temperature <= 0:
+            return torch.argmax(lg, dim=-1).cpu().numpy()
+        gen = torch.Generator(device=lg.device)
+        ss = np.random.SeedSequence([int(sc.seed), int(step)])
+        gen.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
+        probs = torch.softmax(lg.float() / sc.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # static-batch path
+    # ------------------------------------------------------------------
+
+    def generate(self, prompts: np.ndarray,
+                 extra_inputs: Optional[dict] = None) -> np.ndarray:
+        """prompts: (B, S_prompt) int, any B >= 1; ``extra_inputs``: the
+        frontend's arrays by batch key (``patch_embeds``, ``frames``), B
+        rows each.  Returns (B, max_new_tokens) int64; rows finish at EOS
+        and hold ``pad_id`` afterwards.  B < batch_size is padded with
+        copies of the last row; B > batch_size is served in consecutive
+        chunks."""
+        if self.batch_size is None or self.max_len is None:
+            raise ValueError("generate needs Engine(..., batch_size=, "
+                             "max_len=)")
+        B = prompts.shape[0]
+        bs = self.batch_size
+        if B > bs:
+            return np.concatenate([self.generate(
+                prompts[i:i + bs], None if extra_inputs is None else
+                {k: v[i:i + bs] for k, v in extra_inputs.items()})
+                for i in range(0, B, bs)], axis=0)
+        pad_rows = bs - B
+        if pad_rows:
+            fill = lambda a: np.concatenate(  # noqa: E731
+                [a, np.repeat(a[-1:], pad_rows, axis=0)], axis=0)
+            prompts = fill(prompts)
+            if extra_inputs:
+                extra_inputs = {k: fill(v) for k, v in extra_inputs.items()}
+        return self._generate_full(prompts, extra_inputs)[:B]
+
+    @torch.inference_mode()
+    def _generate_full(self, prompts, extra_inputs):
+        cfg, sc = self.cfg, self.serve_cfg
+        B, S = prompts.shape
+        if B != self.batch_size:
+            raise ValueError(f"{B} rows for a batch of {self.batch_size}")
+        batch = {"tokens": self._tensor(prompts, torch.int64)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = self._tensor(v, torch.float32)
+        enc_len = batch["frames"].shape[1] if cfg.enc_layers else 0
+        cache = self.model.init_cache(cfg, B, self.max_len, enc_len=enc_len,
+                                      device=self.device)
+        logits, cache = self.model.prefill(cfg, self.params, batch, cache)
+        out = []
+        done = np.zeros(B, bool)
+        pad = np.full(B, sc.pad_id, np.int64)
+        tok = self._sample(logits, 0)
+        for step in range(1, sc.max_new_tokens + 1):
+            out.append(np.where(done, pad, tok))  # done rows emit pad only
+            # eos_id=-1 sentinel: no token id is negative => never done
+            done |= (sc.eos_id >= 0) & (tok == sc.eos_id)
+            if done.all() or step == sc.max_new_tokens:
+                break
+            logits, cache = self.model.decode_step(
+                cfg, self.params, cache,
+                self._tensor(tok[:, None], torch.int64))
+            tok = self._sample(logits, step)
+        res = np.stack(out, axis=1)
+        if res.shape[1] < sc.max_new_tokens:  # early exit: pad to contract
+            res = np.concatenate([res, np.full(
+                (B, sc.max_new_tokens - res.shape[1]), sc.pad_id,
+                res.dtype)], axis=1)
+        return res
+
+    # ------------------------------------------------------------------
+    # continuous-batching path
+    # ------------------------------------------------------------------
+
     @torch.inference_mode()
     def serve(self, requests: Sequence[Request],
               clock=time.perf_counter) -> Dict[int, RequestOutput]:
@@ -130,6 +246,10 @@ class Engine:
             raise ValueError(
                 f"continuous batching needs a KV-cache family "
                 f"{PAGED_FAMILIES}, got {cfg.family!r}")
+        if cfg.frontend:
+            raise ValueError(f"{cfg.name}: {FRONTEND_NOT_PAGED}")
+        if pc.contiguous:
+            raise ValueError(CONTIGUOUS_NOT_SERVED)
         S_pad = _align(max(len(r.prompt) for r in reqs), pc.page_size)
         budget = S_pad + max(r.max_new_tokens for r in reqs)
         width = pages_for(budget, pc.page_size)
@@ -144,6 +264,7 @@ class Engine:
         for r in reqs:
             sched.submit(r)
         cache = self.model.init_paged_cache(cfg, num_pages, pc.page_size,
+                                            kv_dtype=pc.kv_dtype,
                                             device=self.device)
 
         t0 = clock()

@@ -166,9 +166,10 @@ def test_gradients_match_reference(remat):
 
 
 def test_guard_refuses_what_the_port_does_not_compute():
-    """An unknown frontend raises naming item 6, before any output; the
-    paged serving path refuses ``vit_stub`` naming item 4; a ViT-stub
-    config never runs as a plain decoder without its patch embeddings."""
+    """An unknown frontend raises naming item 6, before any output; a
+    ViT-stub config never runs as a plain decoder without its patch
+    embeddings, in the paged prefill neither (it takes them, as the
+    reference's ``prefill_paged`` does)."""
     _, cfg, _, params, batch = _setup()
     tokens = {"tokens": torch.from_numpy(batch["tokens"])}
     with pytest.raises(NotImplementedError,
@@ -178,7 +179,9 @@ def test_guard_refuses_what_the_port_does_not_compute():
         lm.loss_fn(cfg, params, tokens)
     cache = lm.init_paged_cache(cfg, 8, 8, device="cpu")
     table = torch.arange(1, 4, dtype=torch.int32)[None].expand(B, 3)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, modules to port, item 4"):
-        lm.prefill_paged(cfg, params, _torch(batch), cache, table,
+    with pytest.raises(KeyError, match="patch_embeds"):
+        lm.prefill_paged(cfg, params, tokens, cache, table,
                          torch.full((B,), S, dtype=torch.int32))
+    logits, _ = lm.prefill_paged(cfg, params, _torch(batch), cache, table,
+                                 torch.full((B,), S, dtype=torch.int32))
+    assert logits.shape == (B, 1, cfg.vocab_padded)

@@ -28,6 +28,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import lm, mamba2  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
+from repro_torch.serving.scheduler import Request  # noqa: E402
 
 # Sums run in a different order in torch and in XLA on the CPU (matmul
 # blocking, einsum contraction order), so f32 results agree to a few ulps
@@ -84,14 +85,15 @@ def test_registry_names_the_roadmap_item():
     assert get_model(smoke_model(get_config("mamba2_1p3b").model)) is mamba2
     assert get_model(smoke_model(get_config("granite_moe_1b_a400m").model)) \
         is lm
-    # every family trains; serving a config with a frontend or an encoder
-    # waits for its item
+    # every family trains and is served (item 4 done): the engine takes a
+    # config with a frontend or an encoder; its continuous path does not
     for arch in ("internvl2_2b", "seamless_m4t_large_v2"):
         cfg = smoke_model(get_config(arch).model)
         assert get_model(cfg) is lm
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, modules to port, item 4"):
-            Engine(cfg, lm.init(cfg, seed=0, device="cpu"), device="cpu")
+        eng = Engine(cfg, lm.init(cfg, seed=0, device="cpu"), device="cpu")
+        with pytest.raises(ValueError, match="tokens alone|KV-cache family"):
+            eng.serve([Request(rid=0, prompt=np.zeros(4, np.int32),
+                               max_new_tokens=2)])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

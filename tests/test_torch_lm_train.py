@@ -116,8 +116,9 @@ def test_layers_as_a_list_give_the_stacked_result():
 
 def test_other_families_raise_naming_the_roadmap():
     """lm trains the dense, moe and encdec families with the two frontend
-    stubs; it refuses another frontend (item 6) and the paged serving
-    path of a config with a frontend or an encoder (item 4)."""
+    stubs; it refuses another frontend (item 6), and the paged serving
+    path refuses an encoder (it has no cross-attention, as the
+    reference's); a frontend's paged decode step embeds tokens alone."""
     base = smoke_model(get_config("smollm_135m").model)
     params = lm.init(base, seed=0, device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
@@ -132,11 +133,15 @@ def test_other_families_raise_naming_the_roadmap():
         p = lm.init(cfg, seed=0, device="cpu")
         cache = lm.init_paged_cache(cfg, 3, 4, device="cpu")
         table = torch.ones((1, 2), dtype=torch.int32)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, modules to port, item 4"):
+        if cfg.frontend == "vit_stub":
+            logits, _ = lm.decode_step_paged(
+                cfg, p, cache, tokens[:, :1], table,
+                torch.tensor([4], dtype=torch.int32))
+            assert logits.shape == (1, 1, cfg.vocab_padded)
+            continue
+        with pytest.raises(ValueError, match="no cross-attention"):
             lm.prefill_paged(cfg, p, {"tokens": tokens}, cache, table,
                              torch.tensor([4], dtype=torch.int32))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, modules to port, item 4"):
+        with pytest.raises(ValueError, match="no cross-attention"):
             lm.decode_step_paged(cfg, p, cache, tokens[:, :1], table,
                                  torch.tensor([4], dtype=torch.int32))

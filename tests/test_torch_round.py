@@ -241,14 +241,17 @@ def test_unported_options_raise_naming_the_roadmap():
     with pytest.raises(ValueError, match="sparse_gossip"):
         HCEFConfig(wire_ef=True)
     # every family trains, encdec and the frontend stubs included; a
-    # frontend the port does not compute raises naming its item, and so
-    # does serving a config with a frontend or an encoder (item 4)
+    # frontend the port does not compute raises naming its item; the
+    # paged serving path refuses an encoder (it has no cross-attention)
     for arch in ("internvl2_2b", "seamless_m4t_large_v2"):
         cfg = smoke_model(get_config(arch).model)
         tround.make_round_step(cfg, HCEFConfig(), FLTopology(2, 2))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, modules to port, item 4"):
-            lm.check_config(cfg, serving=True)
+        lm.check_config(cfg)
+        if cfg.enc_layers:
+            with pytest.raises(ValueError, match="no cross-attention"):
+                lm.check_config(cfg, paged=True)
+        else:
+            lm.check_config(cfg, paged=True)
     cfg = smoke_model(get_config("smollm_135m").model).replace(
         frontend="video_stub")
     with pytest.raises(NotImplementedError,

@@ -139,6 +139,9 @@ def test_stand_ins_draw_from_their_own_generator(arch, key, shape):
 
 @pytest.mark.parametrize("arch", ["internvl2_2b", "seamless_m4t_large_v2"])
 def test_serve_launcher_refuses_naming_item_4(arch, capsys):
+    """Item 4 is done: --continuous refuses both (the paged path takes no
+    stand-ins and has no cross-attention), the static path serves both
+    (test_torch_generate.py)."""
     with pytest.raises(SystemExit):
         serve.main(["--continuous", "--device", "cpu", "--arch", arch])
-    assert "ROADMAP.md, modules to port, item 4" in capsys.readouterr().err
+    assert "--continuous cannot serve" in capsys.readouterr().err

@@ -311,5 +311,5 @@ def test_launcher_serves_on_cpu(capsys):
                        "smollm_135m", "--requests", "3", "--rate", "1000"])
     out = capsys.readouterr().out
     assert "continuous: 3 requests" in out and "on cpu" in out
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--device", "cpu"])  # only --continuous ported
+    launch_serve.main(["--device", "cpu"])  # the static path: generate
+    assert "generated 64 tokens" in capsys.readouterr().out

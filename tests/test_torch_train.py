@@ -88,4 +88,4 @@ def test_serve_launcher_refuses_the_ssm_family(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--continuous", "--device", "cpu", "--arch",
                     "mamba2_1p3b"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert "--continuous cannot serve" in capsys.readouterr().err
