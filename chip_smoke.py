@@ -39,8 +39,8 @@ Phases (any failure ends the run with a non-zero exit):
    also at the host's pace (``call_ms``);
 4. the serving path: first a small f32 model's prefill and decode steps on
    the card (kernels) must give the CPU's logits (plain versions) within
-   1e-4, each decode layer's FFN half replayed as a CUDA graph on the
-   card as the engine runs it; the graphed decode step against the eager
+   1e-4, each decode layer's work but the pool's read and write replayed
+   as CUDA graphs on the card as the engine runs it; the graphed decode step against the eager
    one at qwen2-7b's width with 2 layers (phase 26's check); then
    qwen2-7b at full width (bf16, seeded random weights) serves 16
    Poisson requests, with every launch counted;
@@ -245,9 +245,9 @@ Phases (any failure ends the run with a non-zero exit):
    launches a round, p50 and peak); then one local step of its round
    traced as the launchers' ``--profile`` traces: the device's busy
    share and its kernels by time;
-26. the decode step with each layer's FFN half replayed as a CUDA graph
-   (``lm.DecodeGraphs``, as the engine runs it on the card) against the
-   eager step, at granite's width with 2 layers: logits and pages within
+26. the decode step with each layer's work but the pool's read and write
+   replayed as CUDA graphs (``lm.DecodeGraphs``, as the engine runs it on
+   the card) against the eager step, at granite's width with 2 layers: logits and pages within
    the bf16 tolerance, the paged decode kernel launched eagerly in both;
    then phase 4's serve on granite-moe-1b-a400m at full width (bf16,
    random weights; the stream's prompts taken into its vocabulary):
@@ -330,7 +330,41 @@ Phases (any failure ends the run with a non-zero exit):
 34. phase 4's qwen2-7b stream over an int8 pool: every request
    complete, the pool's bytes against phase 4's bf16 pool, TPOT p50
    printed, and no paged decode kernel launch (the reference's
-   routing).
+   routing);
+35. the paper's campaign (``repro_torch/experiments``, the ports of the
+   reference's ``benchmarks/`` scripts) with ``common.RESULTS`` in a
+   temporary directory and ``benchmarks/`` and ``BENCH_kernels.json``
+   hashed before and after (gated unchanged): first HCEF's first
+   GATE_ROUNDS rounds of ``common.make_sim`` (CIFAR, 16 devices in 8
+   clusters, 16,384 images, GATE_BUDGETS) on the card against the CPU
+   from the same parameters and bits (history within FEDSIM_RTOL, the
+   parameters within ROUND_ATOL but for Q_FLIP_SHARE top-k flips); then
+   ``fig2_3_convergence.main(CAMPAIGN_ROUNDS)`` (Table 2 and Figs. 2, 3
+   and 8 on CIFAR and FEMNIST, five schemes each, CEF calibrating the
+   budgets) and the Fig. 4, 5 and 6/7 sweeps at SWEEP_ROUNDS, every
+   FedSim's rounds, top-k launches (one a round, gated) and p50 round
+   wall printed, Table 2 in simulated seconds and joules (Eq. 8/9); then
+   ``cfel_cifar_train`` for its 30 rounds, its last checkpoint restored
+   into a fresh sim continuing one round bit for bit;
+36. the serving bench: the paged decode kernel against its plain version
+   at the bench's page size 8 (smollm-135M's and qwen2-7b's heads, bf16
+   and f32); then ``serving_bench.bench_rows(smoke=False)`` on
+   smollm-135M and qwen2-7b at full width (static batches, continuous
+   over a bf16 and an int8 pool on one Poisson stream): every request
+   its budget (the bench's own assertion), the attention launches by
+   mode (static: the prefill kernel, no paged kernel; continuous: a
+   prefill a request and layer, paged launches; int8: none paged),
+   ``kv_bytes_ratio``; goodput, TTFT and TPOT p50 / p99 and the
+   continuous / static ratio beside the reference's ``--require 1.5``
+   printed, not gated;
+37. the sweeps: the overlap sweep's staleness-0 rounds card against CPU
+   within ROUND_RTOL, ``overlap_sweep.main``; the cohort bench's swaps
+   and the cohort sweep's, each verified (``elastic.verified_swap``);
+38. the train launcher's ``--ckpt-dir`` on smollm-135M at full width (R
+   = 4, CKPT_ROUNDS rounds) in a temporary directory: a checkpoint a
+   round, ``latest_checkpoint`` naming the last, its ``load_pytree``
+   into the live state bit for bit (bf16 leaves included); bytes and
+   write times printed.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -340,10 +374,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -818,8 +854,8 @@ class Recorder:
 
 def small_path_agrees(lm, configs):
     """prefill_paged + 5 decode_step_paged of a small f32 qwen2-shaped model
-    on the card (kernels, each decode layer's FFN half replayed as a CUDA
-    graph as the engine runs it) against the same calls on the CPU (plain
+    on the card (kernels, each decode layer's work but the pool's read and
+    write replayed as CUDA graphs, as the engine runs it) against the same calls on the CPU (plain
     versions, which the CPU tests hold to the JAX package), fed the same
     tokens: logits within 1e-4.  One decode slot is empty (kv_len 0)."""
     cfg = configs.smoke_model(configs.get_config("qwen2_7b").model)
@@ -4295,8 +4331,8 @@ def moe_layer_phase(configs, lm):
 def decode_graphs_agree(lm, fa, cfg):
     """Phases 4 and 26's check of ``lm.DecodeGraphs``: three decode steps
     of ``cfg`` at full width with 2 layers (8 slots, ragged lengths, one
-    empty), with each layer's FFN half replayed as a CUDA graph and run
-    eagerly, from the same cache: logits and the written pages within the
+    empty), with each layer's work but the pool's read and write replayed
+    as CUDA graphs and run eagerly, from the same cache: logits and the written pages within the
     bf16 tolerance (the same bits printed), and the paged decode kernel
     launched eagerly, once a layer and step, in both."""
     cfg = cfg.replace(num_layers=2)
@@ -5222,6 +5258,416 @@ def static_decode_routes(fa, ops, ref, gen, cfg):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 35-38: the paper's experiments (repro_torch/experiments)
+# ---------------------------------------------------------------------------
+
+CAMPAIGN_ROUNDS = 60  # phase 35: Fig. 2/3 and Table 2 at run.py --full's
+SWEEP_ROUNDS = 40     # the Fig. 4-7 sweeps at run.py --full's
+GATE_ROUNDS = 3       # phase 35: HCEF card vs CPU
+# budgets under which HCEF's theta falls to theta_min on the harness's
+# CIFAR MLP (tests/test_torch_experiments.py's)
+GATE_BUDGETS = dict(time_budget=2e4, energy_budget=2e3)
+CFEL_CKPT = "ckpt_000030.npz"  # the example's last, after its 30 rounds
+# phase 36: the paged decode kernel at the serving bench's page size, at
+# smollm-135M's heads and qwen2-7b's; its pool of 11 pages a slot (24 +
+# 64 positions)
+BENCH_PAGE, BENCH_WIDTH = 8, 11
+BENCH_DECODE = (("smollm_135m", 3, 3, 64), ("qwen2_7b", 4, 7, 128))
+BENCH_KV_LEN = [0, 1, 7, 8, 9, 33, 80, 88]
+BENCH_ARCHS = ("smollm_135m", "qwen2_7b")
+BENCH_REQUIRE = 1.5  # the reference's --require, printed, not gated
+OVERLAP_SWEEP_ROUNDS = 10  # phase 37: run.py's
+COHORT_SWEEP_ROUNDS = 8
+CKPT_ROUNDS = 2  # phase 38
+
+
+def _digest(paths):
+    """sha256 of every file under ``paths`` (caches left out)."""
+    out = {}
+    for root in paths:
+        files = ([root] if root.is_file() else sorted(
+            f for f in root.rglob("*")
+            if f.is_file() and "__pycache__" not in f.parts))
+        for f in files:
+            out[str(f.relative_to(ROOT))] = hashlib.sha256(
+                f.read_bytes()).hexdigest()
+    return out
+
+
+@contextlib.contextmanager
+def results_elsewhere(common, label):
+    """``common.RESULTS`` in a temporary directory while open; the JAX
+    package's records (``benchmarks/``, ``BENCH_kernels.json``) hashed
+    before and after, and the phase failed if they changed."""
+    guarded = [ROOT / "benchmarks", ROOT / "BENCH_kernels.json"]
+    guarded = [p for p in guarded if p.exists()]
+    before = _digest(guarded)
+    saved = common.RESULTS
+    with tempfile.TemporaryDirectory(prefix="experiments_") as td:
+        common.RESULTS = Path(td)
+        try:
+            yield Path(td)
+        finally:
+            common.RESULTS = saved
+    after = _digest(guarded)
+    print(f"{label}: {len(before)} files of benchmarks/ and "
+          f"BENCH_kernels.json {'unchanged' if after == before else 'CHANGED'}")
+    if after != before:
+        fail(f"{label} changed the JAX package's records: "
+             f"{sorted(k for k in set(before) | set(after) if before.get(k) != after.get(k))}")
+
+
+@contextlib.contextmanager
+def recorded_sims(common, tk):
+    """Every FedSim ``common.make_sim`` makes while open: its ``run``
+    counts its rounds, top-k launches and round walls into a record."""
+    runs = []
+    make = common.make_sim
+
+    def make_sim(scheme, **kw):
+        sim = make(scheme, **kw)
+        rec = dict(scheme=scheme, **{k: kw[k] for k in (
+            "dataset", "beta", "backhaul", "p_edge", "q", "tau")
+            if k in kw})
+        if np.isfinite(kw.get("time_budget", np.inf)):
+            rec.update(time_budget=kw["time_budget"],
+                       energy_budget=kw["energy_budget"])
+        run = sim.run
+
+        def counted_run(*a, **k):
+            l0, n0 = tk.LAUNCHES["topk_compress"], len(sim.round_ms)
+            hist = run(*a, **k)
+            walls = sim.round_ms[n0:]
+            rec.update(rounds=len(walls),
+                       launches=tk.LAUNCHES["topk_compress"] - l0,
+                       round_ms_p50=float(np.percentile(walls, 50)),
+                       best_acc=max((h.get("acc", 0.0) for h in hist),
+                                    default=0.0),
+                       sim_time_s=hist[-1]["time"],
+                       sim_energy_j=hist[-1]["energy"])
+            return hist
+        sim.run = counted_run
+        runs.append(rec)
+        return sim
+    common.make_sim = make_sim
+    try:
+        yield runs
+    finally:
+        common.make_sim = make
+
+
+def _same_bits(a, b):
+    a, b = a.detach(), b.detach()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        iview = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.contiguous().view(iview[a.element_size()])
+        b = b.contiguous().view(iview[b.element_size()])
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def campaign_gate(common, vision, tk):
+    """HCEF's first GATE_ROUNDS rounds from ``common.make_sim`` (CIFAR, 16
+    devices in 8 clusters, 16,384 images, GATE_BUDGETS) on the card and on
+    the CPU from the same parameters and masked-step bits: the history
+    within FEDSIM_RTOL, the parameters within ROUND_ATOL but for
+    Q_FLIP_SHARE top-k threshold flips, one top-k launch a card round."""
+    params0 = vision(common.mlp_config("cifar"))[0](
+        torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sim = common.make_sim("hcef", params0=params0, device=dev,
+                              **GATE_BUDGETS)
+        tk.reset_launches()
+        hist = [sim.run_round() for _ in range(GATE_ROUNDS)]
+        runs[dev] = (hist, {k: v.cpu() for k, v in sim.params.items()},
+                     tk.LAUNCHES["topk_compress"])
+    (cpu, p_cpu, _), (card, p_card, launches) = runs["cpu"], runs["cuda"]
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                for a, b in zip(card, cpu) for k in HIST_KEYS)
+    flips = sum(int(((p_card[k] - v).abs() > ROUND_ATOL).sum())
+                for k, v in p_cpu.items())
+    total = sum(v.numel() for v in p_cpu.values())
+    allowed = int(Q_FLIP_SHARE * total)
+    print(f"campaign gate: HCEF card vs CPU over {GATE_ROUNDS} rounds of "
+          f"common.make_sim (cifar, 16 devices in 8 clusters), largest "
+          f"relative deviation of {HIST_KEYS} {worst:.3e} (tolerance "
+          f"{FEDSIM_RTOL}); parameters above {ROUND_ATOL}: {flips} of "
+          f"{total} (allowed {allowed}); theta_mean "
+          f"{[round(h['theta_mean'], 4) for h in card]}; top-k launches "
+          f"{launches}")
+    if not (worst <= FEDSIM_RTOL and flips <= allowed):
+        fail("the harness's HCEF rounds on the card disagree with the CPU")
+    if not max(h["theta_mean"] for h in card) < 1.0:
+        fail("theta_mean is 1 in every gate round: Q dropped nothing")
+    if launches != GATE_ROUNDS:
+        fail(f"{launches} top-k launches in {GATE_ROUNDS} card rounds")
+
+
+def campaign(common, figs, cfel, ckpt_mod, vision, tk):
+    """Phase 35: the paper's campaign on the card (see the module
+    docstring).  Returns the top-k launches of its runs."""
+    fig23, fig4, fig5, fig67 = figs
+    t0 = time.perf_counter()
+    with results_elsewhere(common, "phase 35") as out_dir:
+        campaign_gate(common, vision, tk)
+        tk.reset_launches()
+        with recorded_sims(common, tk) as runs:
+            fig23.main(CAMPAIGN_ROUNDS)
+            tables = {ds: json.loads((out_dir / f"fig23_{ds}.json")
+                                     .read_text())
+                      for ds in ("cifar", "femnist")}
+            t_fig23 = time.perf_counter() - t0
+            fig4.main(SWEEP_ROUNDS)
+            fig5.main(SWEEP_ROUNDS)
+            fig67.main(SWEEP_ROUNDS)
+        launches = tk.LAUNCHES["topk_compress"]
+        for i, rec in enumerate(runs):
+            print(f"campaign run {i} " + json.dumps(rec))
+        bad = [i for i, r in enumerate(runs)
+               if "rounds" not in r or r["launches"] != r["rounds"]
+               or not r["rounds"]]
+        if bad:
+            fail(f"campaign runs without one top-k launch a round: {bad}")
+        n_rounds = sum(r["rounds"] for r in runs)
+        for ds, out in tables.items():
+            print(f"table2 {ds} (target acc {out['target_acc']}, simulated "
+                  f"budgets {out['time_budget']:.1f} s / "
+                  f"{out['energy_budget']:.1f} J; times and energies are "
+                  f"the cost model's simulated seconds and joules, Eq. "
+                  f"8/9) " + json.dumps(out["table2"]))
+            for scheme, hist in out["histories"].items():
+                if not all(np.isfinite(h["loss"]) for h in hist):
+                    fail(f"non-finite loss in {ds} {scheme}")
+        for name in ("fig4_noniid", "fig5_topology", "fig67_periods"):
+            print(f"{name} " + (out_dir / f"{name}.json").read_text()
+                  .replace("\n", ""))
+        t_sweeps = time.perf_counter() - t0 - t_fig23
+        # the CFEL example, then its last checkpoint into a fresh sim
+        t1 = time.perf_counter()
+        ck = out_dir / "cfel_ckpts"
+        tk.reset_launches()
+        sim = cfel.main(["--ckpt-dir", str(ck)])
+        cfel_rounds, cfel_launches = sim.round, tk.LAUNCHES["topk_compress"]
+        last = ckpt_mod.latest_checkpoint(ck)
+        if last is None or last.name != CFEL_CKPT:
+            fail(f"the CFEL example's last checkpoint is {last}")
+        fresh = cfel.make_cfel_sim("hcef")
+        fresh.restore(last)
+        a, b = sim.run_round(), fresh.run_round()
+        same = a == b and all(
+            _same_bits(getattr(fresh, f)[k], v)
+            for f in ("params", "ef", "mom")
+            for k, v in getattr(sim, f).items())
+        cfel_launches_all = tk.LAUNCHES["topk_compress"]
+        print(f"cfel_cifar_train: {cfel_rounds} rounds, {cfel_launches} "
+              f"top-k launches; restored {last.name} into a fresh sim, "
+              f"round {a['round']} {'equal' if same else 'NOT EQUAL'} bit "
+              f"for bit ({time.perf_counter() - t1:.1f} s)")
+        if not same:
+            fail("a restored CFEL checkpoint does not continue bit for bit")
+        if cfel_launches != cfel_rounds:
+            fail(f"{cfel_launches} top-k launches in the CFEL example's "
+                 f"{cfel_rounds} rounds")
+    print(f"phase 35: {len(runs)} FedSim runs, {n_rounds} rounds and "
+          f"{launches} top-k launches; Fig. 2/3 {t_fig23:.1f} s, Fig. 4-7 "
+          f"{t_sweeps:.1f} s")
+    return launches + cfel_launches_all
+
+
+@contextlib.contextmanager
+def launches_by_mode(engine_cls, fa, counts):
+    """Each ``Engine.generate`` / ``Engine.serve`` call's attention
+    launches, added to counts[mode] (static, cont, cont_int8kv) with the
+    calls counted, while open."""
+    originals = {n: getattr(engine_cls, n) for n in ("generate", "serve")}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def call(self, *a, **kw):
+            mode = ("static" if name == "generate" else
+                    "cont_int8kv" if self.paged.kv_dtype == "int8"
+                    else "cont")
+            before = dict(fa.LAUNCHES)
+            out = fn(self, *a, **kw)
+            c = counts.setdefault(mode, {k: 0 for k in before})
+            c["calls"] = c.get("calls", 0) + 1
+            for k in before:
+                c[k] += fa.LAUNCHES[k] - before[k]
+            return out
+        return call
+
+    for n in originals:
+        setattr(engine_cls, n, wrap(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in originals.items():
+            setattr(engine_cls, n, fn)
+
+
+def serving_bench_phase(sb, fa, configs, engine_mod, wf, gen):
+    """Phase 36 (see the module docstring).  Returns the attention
+    launches of the benches and the decode kernel's rows at page size
+    8."""
+    ps8 = []
+    for arch, KH, G, Dh in BENCH_DECODE:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = decode_case(fa, gen, B=SLOTS, P=BENCH_WIDTH,
+                              ps=BENCH_PAGE, KH=KH, G=G, Dh=Dh, dtype=dtype,
+                              kv_len=BENCH_KV_LEN)
+            ps8.append(dict({k: row[k] for k in (
+                "KH", "G", "Dh", "dtype", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err")}, arch=arch))
+    total = {k: 0 for k in fa.LAUNCHES}
+    for arch in BENCH_ARCHS:
+        t0 = time.perf_counter()
+        cfg = configs.get_config(arch).model
+        counts = {}
+        with launches_by_mode(engine_mod.Engine, fa, counts):
+            rows, detail = sb.bench_rows(smoke=False, arch=arch,
+                                         device="cuda")
+        L, wl = cfg.num_layers, detail["workload"]
+        n_prefill = wl["n_requests"] + 2  # and the two warm-up requests
+        st, co, i8 = counts["static"], counts["cont"], counts["cont_int8kv"]
+        ok = (st["flash_attention"] == L * st["calls"]
+              and st["paged_decode_attention"] == 0
+              and co["flash_attention"] == L * n_prefill
+              and co["paged_decode_attention"] > 0
+              and co["paged_decode_attention"] % L == 0
+              and i8["flash_attention"] == L * n_prefill
+              and i8["paged_decode_attention"] == 0
+              and all(c["flash_attention_bwd"] == 0
+                      for c in counts.values()))
+        ratio = (2 * cfg.num_kv_heads * cfg.head_dim * 4) / (
+            2 * cfg.num_kv_heads * (cfg.head_dim + 4))
+        speedup = detail["speedup_cont_vs_static"]
+        for name, us, derived in rows:
+            print(f"serving_bench {name},{us:.1f},{derived}")
+        modes = {tag: {k: detail[tag][k] for k in (
+            "tokens_per_s", "wall_s", "ttft_p50_ms", "ttft_p99_ms",
+            "tpot_p50_ms", "tpot_p99_ms")}
+            for tag in ("static", "continuous", "continuous_int8kv")}
+        print(f"serving_bench {arch} " + json.dumps(dict(
+            modes, launches=counts, kv_bytes_ratio=detail[
+                "continuous_int8kv"]["kv_bytes_ratio"],
+            speedup_cont_vs_static=speedup, workload=wl)))
+        print(f"serving_bench {arch}: continuous vs static {speedup:.2f}x "
+              f"(the reference's --require {BENCH_REQUIRE}: "
+              f"{'OK' if speedup >= BENCH_REQUIRE else 'FAIL'}; not gated) "
+              f"in {time.perf_counter() - t0:.1f} s")
+        if not ok:
+            fail(f"serving bench {arch}: attention launches by mode "
+                 f"{counts} (L {L}, {n_prefill} prefills a serve)")
+        if detail["continuous_int8kv"]["kv_bytes_ratio"] != ratio or \
+                wf.kv_token_bytes(cfg.num_kv_heads, cfg.head_dim) != \
+                2 * cfg.num_kv_heads * cfg.head_dim * 4:
+            fail(f"serving bench {arch}: kv_bytes_ratio "
+                 f"{detail['continuous_int8kv']['kv_bytes_ratio']} != "
+                 f"{ratio}")
+        for c in counts.values():
+            for k in total:
+                total[k] += c[k]
+        torch.cuda.empty_cache()
+    return total, ps8
+
+
+def sweeps_phase(common, ov, cb, registry, tk, fa):
+    """Phase 37 (see the module docstring).  Returns its kernel
+    launches."""
+    t0 = time.perf_counter()
+    cfg, topo, hcef = ov.sweep_setup()
+    params0 = registry.get_model(cfg).init(cfg, seed=0, device="cpu")
+    a = ov._run(0, GATE_ROUNDS, cfg, topo, hcef, params0=params0,
+                device="cuda")
+    b = ov._run(0, GATE_ROUNDS, cfg, topo, hcef, params0=params0,
+                device="cpu")
+    worst = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    print(f"overlap sweep: staleness 0 card vs CPU over {GATE_ROUNDS} "
+          f"rounds, losses {a} against {b}, largest relative deviation "
+          f"{worst:.3e} (tolerance {ROUND_RTOL})")
+    if not worst <= ROUND_RTOL:
+        fail("the overlap sweep's rounds on the card disagree with the CPU")
+    fa.reset_launches()
+    tk.reset_launches()
+    with results_elsewhere(common, "phase 37"):
+        out = ov.main(OVERLAP_SWEEP_ROUNDS)
+        checks = []
+        rows = cb.bench_rows(smoke=True, device="cuda", checks=checks)
+        for name, us, derived in rows:
+            print(f"cohort_bench {name},{us:.1f},{derived}")
+        sims = {}
+        res = cb.sweep(rounds=COHORT_SWEEP_ROUNDS, verify_conservation=True,
+                       on_sim=sims.__setitem__)
+    launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES["topk_compress"])
+    swaps = [h["swap_check"] for s in sims.values()
+             for h in s.history if "swap_check" in h]
+    ok = all(c["equal"] for c in checks + swaps)
+    print(f"phase 37: overlap sweep modeled speedup "
+          f"{out['modeled_speedup']:.4f}, final losses "
+          f"{out['losses']['0'][-1]:.4f} / {out['losses']['1'][-1]:.4f}; "
+          f"cohort sweep final (loss, acc) {json.dumps(res)}; "
+          f"{len(checks)} bench swaps and {len(swaps)} sweep swaps "
+          f"verified ({'equal' if ok else 'NOT EQUAL'}); launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        fail("a cohort swap did not keep the population's sums")
+    if len(swaps) != 2 * (COHORT_SWEEP_ROUNDS - 1):
+        fail(f"{len(swaps)} sweep swaps verified, expected "
+             f"{2 * (COHORT_SWEEP_ROUNDS - 1)}")
+    if not (launches["flash_attention"] and launches["flash_attention_bwd"]
+            and launches["topk_compress"]):
+        fail(f"the sweeps ran without the kernels: {launches}")
+    return launches
+
+
+def ckpt_full(train, ckpt_mod, fa, tk):
+    """Phase 38 (see the module docstring).  Returns its kernel
+    launches."""
+    from repro_torch.tree import flatten
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ckpt_full_") as td:
+        d = Path(td)
+        fa.reset_launches()
+        tk.reset_launches()
+        out = train.main(["--arch", "smollm_135m", "--full", "--rounds",
+                          str(CKPT_ROUNDS), "--seq", "2047",
+                          "--ckpt-dir", td])
+        launches = dict(fa.LAUNCHES,
+                        topk_compress=tk.LAUNCHES["topk_compress"])
+        tree = train.state_tree(out["state"])
+        leaves = flatten(tree)
+        est = sum(v.numel() * v.element_size() for v in leaves.values())
+        names = sorted(p.name for p in d.glob("*.npz"))
+        want = [f"ckpt_{r:06d}.npz" for r in range(CKPT_ROUNDS)]
+        last = ckpt_mod.latest_checkpoint(d)
+        t1 = time.perf_counter()
+        back, meta = ckpt_mod.load_pytree(last, tree)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        got = flatten(back)
+        same = set(got) == set(leaves) and all(
+            _same_bits(got[k], v) for k, v in leaves.items())
+        bf16 = sum(v.dtype == torch.bfloat16 for v in leaves.values())
+        print("ckpt_full " + json.dumps(dict(
+            files=names, latest=last.name if last else None, meta=meta,
+            state_bytes=est, ckpts=[dict(c, path=Path(c["path"]).name)
+                                    for c in out["ckpts"]],
+            load_s=load_s, leaves=len(leaves), bf16_leaves=int(bf16),
+            bit_for_bit=same, launches=launches,
+            round_ms=out["round_ms"], s=time.perf_counter() - t0)))
+    if names != want or last is None or last.name != want[-1]:
+        fail(f"checkpoints {names}, latest {last}; expected {want}")
+    if meta != {"round": CKPT_ROUNDS - 1}:
+        fail(f"the last checkpoint's meta {meta}")
+    if not (same and bf16):
+        fail("the checkpoint does not load back bit for bit")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -5251,6 +5697,12 @@ def main():
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.page_manager import pages_for
     from repro_torch.runtime import chaos as chaos_mod
+    from repro_torch.runtime import checkpoint as ckpt_mod
+    from repro_torch.experiments import (cfel_cifar_train, cohort_bench,
+                                         common, fig2_3_convergence,
+                                         fig4_noniid, fig5_topology,
+                                         fig67_periods, overlap_sweep,
+                                         serving_bench)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 compared at 2e-5
     torch.backends.cudnn.allow_tf32 = False
@@ -5508,6 +5960,28 @@ def main():
           f"gated: one near tie parts the rest of a row)")
     print(f"phase 34 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phases 35-38: the paper's experiments -------------------------------
+    t0 = time.perf_counter()
+    launches["topk_compress"] += campaign(
+        common, (fig2_3_convergence, fig4_noniid, fig5_topology,
+                 fig67_periods), cfel_cifar_train, ckpt_mod,
+        make_vision_model, tk)
+    print(f"phase 35 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m36, ps8_rows = serving_bench_phase(serving_bench, fa, configs,
+                                        engine_mod, wf, gen)
+    print(f"phase 36 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m37 = sweeps_phase(common, overlap_sweep, cohort_bench, registry, tk, fa)
+    print(f"phase 37 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m38 = ckpt_full(train, ckpt_mod, fa, tk)
+    print(f"phase 38 took {time.perf_counter() - t0:.1f} s")
+    for k in ("flash_attention", "paged_decode_attention"):
+        launches[k] += m36[k]
+    for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
+        launches[k] += m37[k] + m38[k]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -5560,11 +6034,11 @@ def main():
                           "kernel (a warp a block up to wb 1024) serves "
                           "ops.unpack_offsets and wire_decode")
     kernels[0]["note"] = ("launches: the serves' prefills (phases 4, 26, "
-                          "34), the static prefills and seamless's decode "
-                          "steps' cross-attention (phase 33) and the "
-                          "training forwards of phases 16, 20, 23, "
-                          "25, 28, 30 and 31 (two a layer and step: "
-                          "remat); cross_attention: the encdec decode "
+                          "34, 36), the static prefills and seamless's "
+                          "decode steps' cross-attention (phase 33) and "
+                          "the training forwards of phases 16, 20, 23, "
+                          "25, 28, 30, 31, 37 and 38 (two a layer and "
+                          "step: remat); cross_attention: the encdec decode "
                           "step's shape (Sq 1) and a ragged Sq != Skv, "
                           "non-causal, library_ms SDPA; griffin_layer: "
                           "recurrentgemma-9b's "
@@ -5586,8 +6060,10 @@ def main():
         "ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
         "launches")}
     kernels[1]["static_decode_routes"] = decode_routes
-    kernels[1]["note"] = ("launches: the serves of phases 4 and 26; none in "
-                          "phase 34's int8 pool nor on the static path, "
+    kernels[1]["page_size_8"] = ps8_rows
+    kernels[1]["note"] = ("launches: the serves of phases 4, 26 and 36 "
+                          "(page size 8 there); none in phase 34's or "
+                          "36's int8 pool nor on the static path, "
                           "which the reference routes to its jnp decode "
                           "on every backend (static_decode_routes: no "
                           "kernel but paged_kernel)")

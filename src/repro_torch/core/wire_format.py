@@ -115,6 +115,21 @@ def encoding_reaches_dense(k_b: int, L: int, wire_block: int,
                 >= int(L) * int(dense_itemsize))
 
 
+def kv_token_bytes(num_kv_heads: int, head_dim: int, *,
+                   kv_dtype: str = None, dense_itemsize: int = 4) -> int:
+    """Bytes one token's K+V occupy per layer in the paged serving cache.
+    ``kv_dtype=None`` is the dense cache at ``dense_itemsize`` bytes an
+    entry; ``"int8"`` the block-scaled cache: int8 values plus one f32
+    scale per (token, head) head_dim block, the int8 wire's value/scale
+    split."""
+    if kv_dtype is None:
+        return 2 * num_kv_heads * head_dim * int(dense_itemsize)
+    if kv_dtype != "int8":
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in (None, 'int8')")
+    return 2 * num_kv_heads * (head_dim * _VAL_BITS["int8"] // 8
+                               + _SCALE_BYTES["int8"])
+
+
 def compression_ratio_bytes(theta, *, wire_dtype: str = "f32",
                             wire_block: int = 1024, dense_bits=16):
     """Wire bytes of the sparse encoding as a fraction of the dense

@@ -1,7 +1,10 @@
 """FedSim launcher: the HCEF round and its baselines on the paper's vision
-models, on the card unless ``--device cpu`` (port of
-``benchmarks/common.py:make_sim`` / ``run_scheme``; the reference has no
-FedSim launcher of its own).
+models at a configuration's topology, on the card unless ``--device cpu``.
+The reference has no FedSim launcher of its own; this is the port's.  The
+port of the reference's experiment harness, ``benchmarks/common.py``'s
+``make_sim`` (the MLP on 16 devices in 8 clusters, FedSimConfig's
+defaults), is ``repro_torch/experiments/common.py``, whose dataset table
+this launcher reads.
 
     PYTHONPATH=src python -m repro_torch.launch.fedsim --model resnet20 \
         --schemes hcef,cef --rounds 10
@@ -33,6 +36,8 @@ from repro_torch.configs.vision import (FEMNIST_CNN, RESNET20_CIFAR10,
                                         VisionConfig)
 from repro_torch.data.synthetic import (client_image_shard,
                                         dirichlet_partition, synthetic_images)
+from repro_torch.experiments.common import _DATASETS as DATASETS
+from repro_torch.experiments.common import mlp_config
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
 from repro_torch.fl.heterogeneity import HeterogeneityModel
 from repro_torch.launch.profiling import activities, print_profile
@@ -40,12 +45,6 @@ from repro_torch.models.vision import make_vision_model, param_count
 from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.runtime.driver import FedSim, FedSimConfig
 
-# benchmarks/common.py:_DATASETS
-DATASETS = {
-    "cifar": dict(kind="cifar", n_train=16384, n_test=1024, noise=4.0),
-    "femnist": dict(kind="femnist", n_train=16384, n_test=1024,
-                    noise=1.25),
-}
 MODELS = {"resnet20": RESNET20_CIFAR10, "femnist_cnn": FEMNIST_CNN,
           "mlp": RESNET20_CIFAR10}
 SHARD_SIZE = 64  # images a client holds in population mode
@@ -53,10 +52,7 @@ SHARD_SIZE = 64  # images a client holds in population mode
 
 def vision_config(model: str) -> VisionConfig:
     if model == "mlp":
-        v = RESNET20_CIFAR10.vision
-        return VisionConfig(name="mlp-cifar", kind="mlp",
-                            image_size=v.image_size, channels=v.channels,
-                            num_classes=v.num_classes)
+        return mlp_config("cifar")
     return MODELS[model].vision
 
 

@@ -95,8 +95,21 @@ not empty, and the round line gains stale=k/C.  The steps are kept by
 (gossip, stale set); cohort swaps and chaos act on the working buffer,
 and ``pending`` stays on the mesh.
 
-Not ported, each exits naming its ROADMAP.md item: ``--mesh
-single|multi`` (more than one rank) and checkpoints.
+``--ckpt-dir DIR`` saves the round state after every round, as the
+reference does: ``ckpt_{round:06d}.npz`` (``runtime/checkpoint.
+save_pytree`` of ``state_tree``: the working buffer's params, momentum,
+EF, round_idx and wire-EF estimates under the reference's key paths, bf16
+leaves as their 16-bit patterns) with ``meta = {"round": round}``, and
+with a population the store's manifest ``ckpt_{round:06d}.pop.npz`` and
+the cohort's ids in the meta.  The manifest pins page versions under the
+store's root, which is ``DIR/pop_store`` unless ``--store-root`` names
+another, so that the pages outlive the run.  Its bytes and write time
+are kept in the result's ``ckpts``, outside the round's wall time;
+``--profile`` refuses ``--ckpt-dir``, whose host writes would fall in
+the traced window.
+
+Not ported: ``--mesh single|multi`` (more than one rank) exits naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -131,16 +144,22 @@ from repro_torch.launch.profiling import activities, print_profile
 from repro_torch.models.lm import param_count
 from repro_torch.models.registry import get_model
 from repro_torch.runtime.chaos import ChaosConfig, FaultPlan, controls_on_live
+from repro_torch.runtime.checkpoint import save_pytree
 from repro_torch.runtime.elastic import cohort_swap, verified_swap
 from repro_torch.runtime.population import PopulationStore
 from repro_torch.tree import flatten
 
-# flag -> where it is ported; giving any of them exits
-NOT_PORTED = {
-    "ckpt_dir": "ROADMAP.md, modules to port, item 7 (smokes and "
-                "launchers: train checkpoints)",
-}
 N_SEQ = 32  # sequences per device in the corpus (train.py)
+
+
+def state_tree(fl) -> dict:
+    """The checkpoint's tree of an ``FLState``: the reference's
+    ``FLState._asdict()`` (train.py:375), None fields left out as its
+    pytree flattening leaves them, ``round_idx`` an int32 scalar."""
+    tree = {f: getattr(fl, f) for f in ("params", "momentum", "ef",
+                                        "wire_ef")}
+    tree["round_idx"] = torch.tensor(int(fl.round_idx), dtype=torch.int32)
+    return {k: v for k, v in tree.items() if v is not None}
 
 
 def frontend_stand_ins(cfg, batch: int, seq: int, seed: int):
@@ -219,23 +238,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--stale-quantile", type=float, default=0.9,
                     help="straggler-deadline quantile deciding which "
                          "clusters run stale on gossip rounds")
-    ap.add_argument("--ckpt-dir", default=None, help="not ported")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save the round state here after every round")
     return ap
 
 
 def main(argv=None):
     """Run the launcher; returns {"history", "round_ms", "timings",
     "n_params", "cfg", "peak_mem_gb", "swap_bytes", "pop_store",
-    "cohort_ids", "state"} (``state`` an ``OverlapState`` with
-    ``--overlap``).  ``pop_store`` is None where its pages were
-    in a temporary directory, removed before the return."""
+    "cohort_ids", "state", "ckpts"} (``state`` an ``OverlapState`` with
+    ``--overlap``; ``ckpts`` a {"path", "bytes", "write_ms"} a checkpoint
+    written).  ``pop_store`` is None where its pages were in a temporary
+    directory, removed before the return."""
     ap = parser()
     args = ap.parse_args(argv)
-    for dest, where in NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            ap.error(f"--{dest.replace('_', '-')} is not ported yet: {where}")
     if args.mesh != "host":
         ap.error(f"--mesh {args.mesh} is not ported yet: {MULTI_RANK}")
+    if args.profile and args.ckpt_dir:
+        ap.error("--profile with --ckpt-dir: the checkpoints' host writes "
+                 "would fall in the traced wall time")
     bundle = get_config(args.arch)
     cfg = smoke_model(bundle.model) if args.smoke else bundle.model
     hcef = bundle.hcef
@@ -298,6 +319,8 @@ def main(argv=None):
     if args.population:
         if args.store_root:
             root = Path(args.store_root)
+        elif args.ckpt_dir:  # the manifests' pages outlive the run
+            root = Path(args.ckpt_dir) / "pop_store"
         else:
             tmp = tempfile.TemporaryDirectory(prefix="pop_store_")
             root = Path(tmp.name)
@@ -494,6 +517,21 @@ def main(argv=None):
               f"{extra}{mem}", flush=True)
         return rec
 
+    ckpts = []
+
+    def save(rnd):
+        """The reference's checkpoint of the round (train.py:368-376)."""
+        d = Path(args.ckpt_dir)
+        meta = {"round": rnd}
+        if pop_store is not None:
+            meta["cohort_ids"] = [int(c) for c in cohort_ids]
+            pop_store.save(d / f"ckpt_{rnd:06d}.pop.npz")
+        path = d / f"ckpt_{rnd:06d}.npz"
+        t0 = time.perf_counter()
+        save_pytree(path, state_tree(fl()), meta=meta)
+        ckpts.append({"path": str(path), "bytes": path.stat().st_size,
+                      "write_ms": (time.perf_counter() - t0) * 1e3})
+
     prof, t_prof = None, 0.0
     try:
         with contextlib.ExitStack() as stack:
@@ -503,6 +541,8 @@ def main(argv=None):
                         activities=activities(dev)))
                     t_prof = time.perf_counter()
                 history.append(one_round(rnd))
+                if args.ckpt_dir:
+                    save(rnd)
             wall = time.perf_counter() - t_prof
     finally:
         if tmp is not None:
@@ -515,7 +555,7 @@ def main(argv=None):
             "n_params": n_params, "cfg": cfg, "peak_mem_gb": peak,
             "swap_bytes": swap_bytes,
             "pop_store": pop_store if tmp is None else None,
-            "cohort_ids": cohort_ids, "state": state}
+            "cohort_ids": cohort_ids, "state": state, "ckpts": ckpts}
 
 
 if __name__ == "__main__":

@@ -380,47 +380,101 @@ def _ffn_half(cfg, x, w):
     return x + _ffn(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
 
 
-class DecodeGraphs:
-    """The FFN half of each decode layer (``_ffn_half``: its RMS norm,
-    the dense or MoE FFN, the residual add) as CUDA graphs, one a layer
-    and input shape, captured at first use; for one set of weights, which
-    keep their addresses between calls (an engine's).
+def _decode_in(cfg, w, x, cos, sin):
+    """A decode layer's attention input: RMS norm, then q (B, 1, H, Dh)
+    and k with RoPE at the step's positions ``(cos, sin)``, and v (B, 1,
+    KH, Dh)."""
+    B = x.shape[0]
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(cfg, rms_norm(x, w["ln1"], cfg.norm_eps), w)
+    return (rope(q.reshape(B, 1, H, Dh), (cos, sin)),
+            rope(k.reshape(B, 1, KH, Dh), (cos, sin)), v.reshape(B, 1, KH, Dh))
 
-    The half holds no hand-written kernel, so no counted launch moves
-    into a graph.  A decode step is bound by the host's launches: a
-    replay takes two (the input's copy and the graph) where the half
-    takes about 15 eagerly, several dozen with the MoE's routing.  A
-    layer's output holds until that layer's next replay."""
+
+def _decode_out(cfg, w, x, q, o_old, m_old, l_old, k, v):
+    """The rest of a decode layer: the current token's (k, v) folded into
+    the pool's partial attention (o_old, m_old, l_old), the output
+    projection, the residual add and the FFN half."""
+    o = ops.decode_attention_combine(q, o_old, m_old, l_old, k, v)
+    x = x + o.reshape(x.shape[0], 1, -1) @ w["wo"]
+    return _ffn_half(cfg, x, w)
+
+
+def _same_tensor(a, b):
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
+class DecodeGraphs:
+    """A decode layer's work around its read of the pool, as CUDA graphs,
+    two a layer and input shape, captured at first use: ``_decode_in``
+    (RMS norm, q, k, v, RoPE) before the read and ``_decode_out`` (the
+    combine, the output projection, the FFN half) after it.  For one set
+    of weights, which keep their addresses between calls (an engine's).
+
+    What touches the pool stays eager, since its address changes from
+    serve to serve: the paged decode kernel (so no counted launch moves
+    into a graph) and the K/V write.  A decode step is bound by the host's
+    launches: a layer takes about ten where it took several dozen
+    eagerly, more with the MoE's routing.  An input that is another
+    graph's input or output, or a ``stage``d tensor, is read in place;
+    any other is copied into the graph's own.  Outputs hold until their
+    graph's next replay."""
 
     def __init__(self):
         self._graphs = {}
+        self._staged = {}
+        self._owned = set()  # data_ptrs that later captures read in place
         # every warm-up and capture on one side stream: cuBLAS keeps a
         # workspace for each stream it has run on, for the process's life
         self._stream = None
 
-    def ffn_half(self, cfg, x, w, layer):
-        key = (layer, tuple(x.shape), x.dtype)
+    def stage(self, *tensors):
+        """``tensors`` copied into buffers kept for their shapes, which
+        every graph reads in place: the step's RoPE tables, copied once a
+        step and not once a layer."""
+        out = []
+        for i, t in enumerate(tensors):
+            key = (i, tuple(t.shape), t.dtype)
+            if key not in self._staged:
+                self._staged[key] = t.clone()
+                self._owned.add(self._staged[key].data_ptr())
+            else:
+                self._staged[key].copy_(t)
+            out.append(self._staged[key])
+        return tuple(out)
+
+    def run(self, name, layer, fn, cfg, w, *args):
+        """``fn(cfg, w, *args)`` replayed as layer ``layer``'s graph
+        ``name``."""
+        key = (name, layer) + tuple((tuple(a.shape), a.dtype) for a in args)
         if key not in self._graphs:
-            self._graphs[key] = self._capture(cfg, x, w)
-        static_x, out, graph = self._graphs[key]
-        static_x.copy_(x)
+            self._graphs[key] = self._capture(fn, cfg, w, args)
+        static, out, graph = self._graphs[key]
+        for s, a in zip(static, args):
+            if not _same_tensor(s, a):
+                s.copy_(a)
         graph.replay()
         return out
 
-    def _capture(self, cfg, x, w):
+    def _capture(self, fn, cfg, w, args):
+        static = tuple(a if a.data_ptr() in self._owned else a.clone()
+                       for a in args)
+        dev = args[0].device
         if self._stream is None:
-            self._stream = torch.cuda.Stream(x.device)
-        side, main = self._stream, torch.cuda.current_stream(x.device)
-        static_x = x.clone()
+            self._stream = torch.cuda.Stream(dev)
+        side, main = self._stream, torch.cuda.current_stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):  # cuBLAS handle and workspace, pools
             for _ in range(2):
-                _ffn_half(cfg, static_x, w)
+                fn(cfg, w, *static)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
-            out = _ffn_half(cfg, static_x, w)
-        return static_x, out, graph
+            out = fn(cfg, w, *static)
+        for t in static + (out if isinstance(out, tuple) else (out,)):
+            self._owned.add(t.data_ptr())
+        return static, out, graph
 
 
 def _embed(cfg, params, batch):
@@ -726,12 +780,10 @@ def decode_step_paged(cfg: ModelConfig, params, cache, tokens, page_table,
     int8 pool.  Empty slots all write page 0 at offset 0; their order does
     not matter, because page 0 is never read unmasked.  ``contiguous``
     asserts that slot b owns pages [1 + b P, 1 + (b + 1) P).  With
-    ``graphs`` (a ``DecodeGraphs``, on the card) each layer's FFN half
-    replays as a CUDA graph.
+    ``graphs`` (a ``DecodeGraphs``, on the card) each layer's work before
+    and after its read of the pool replays as two CUDA graphs.
     """
     check_config(cfg, paged=True)
-    B = tokens.shape[0]
-    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ps = cache["k"].shape[2]
     kv_len = kv_len.to(torch.int32)
     tables = _rope_tables(cfg, kv_len[:, None])  # per-request positions
@@ -740,21 +792,19 @@ def decode_step_paged(cfg: ModelConfig, params, cache, tokens, page_table,
     phys = torch.gather(page_table, 1, pj[:, None].long())[:, 0].long()
     off = (kv_len % ps).long()
     quant = "k_scale" in cache
+    if graphs is None:
+        run = lambda name, l, fn, *args: fn(*args)  # noqa: E731
+    else:
+        tables, run = graphs.stage(*tables), graphs.run
     for l in range(cfg.num_layers):
         w = _layer(params, l)
-        h = rms_norm(x, w["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, h, w)
-        q = rope(q.reshape(B, 1, H, Dh), tables)
-        k = rope(k.reshape(B, 1, KH, Dh), tables)
-        v = v.reshape(B, 1, KH, Dh)
+        q, k, v = run("in", l, _decode_in, cfg, w, x, *tables)
         scales = (dict(k_scale=cache["k_scale"][l],
                        v_scale=cache["v_scale"][l]) if quant else {})
         o_old, m_old, l_old = ops.paged_decode_attention(
             q, cache["k"][l], cache["v"][l], page_table, kv_len,
             contiguous=contiguous, **scales)
-        o = ops.decode_attention_combine(q, o_old, m_old, l_old, k, v)
+        x = run("out", l, _decode_out, cfg, w, x, q, o_old, m_old, l_old, k,
+                v)
         _write_kv(cache, l, (phys, off), k[:, 0], v[:, 0])
-        x = x + o.reshape(B, 1, H * Dh) @ w["wo"]
-        x = (_ffn_half(cfg, x, w) if graphs is None
-             else graphs.ffn_half(cfg, x, w, l))
     return _logits(cfg, params, x), cache

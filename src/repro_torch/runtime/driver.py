@@ -140,8 +140,11 @@ class FedSim:
         self.H = torch.as_tensor(self.H_np, device=self.device)
 
         stack = lambda t: t[None].repeat((N,) + (1,) * t.ndim)
-        self.params = {k: stack(_as_tensor(p, self.device))
-                       for k, p in params0.items()}
+        # leaves in sorted key order, the order of jax.tree.leaves and of
+        # load_pytree's dicts: Algorithm 2's sums over the leaves run in
+        # the reference's order, and a restored sim continues bit for bit
+        self.params = {k: stack(_as_tensor(params0[k], self.device))
+                       for k in sorted(params0)}
         self.mom = ({k: torch.zeros_like(p) for k, p in self.params.items()}
                     if cfg.momentum else None)
         self.ef = {k: torch.zeros_like(p) for k, p in self.params.items()}

@@ -19,9 +19,10 @@ contract).  Two paths:
     of the last row; larger ones are served in chunks of ``batch_size``;
     rows that hit EOS emit ``pad_id`` while the rest of the batch drains.
 
-On the card each paged decode step replays every layer's FFN half as a
-CUDA graph (``lm.DecodeGraphs``, captured in the first decode step); the
-attention kernels run, and are counted, as launched.  The static decode
+On the card each paged decode step replays every layer's work but the
+pool's read and write as two CUDA graphs (``lm.DecodeGraphs``, captured
+in the first decode step); the attention kernels run, and are counted,
+as launched.  The static decode
 step is eager.
 
 Sampling: greedy is argmax, as in the reference.  A temperature draw of
@@ -121,8 +122,8 @@ class Engine:
         # and griffin's stacks are not lm's layout)
         self.params = (dict(params, layers=layer_list(params))
                        if self.model is lm else params)
-        # on the card the paged decode step replays each layer's FFN half
-        # as a CUDA graph (the paged families' model, ``lm``)
+        # on the card the paged decode step replays each layer's work
+        # around the pool as CUDA graphs (the paged families' model, lm)
         self._graphs = (self.model.DecodeGraphs()
                         if self.device.type == "cuda"
                         and cfg.family in PAGED_FAMILIES else None)

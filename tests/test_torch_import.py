@@ -22,12 +22,14 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
-# the gossip wire's modules and the last two architectures' configs must
-# be among those imported
+# the gossip wire's modules, the last two architectures' configs and the
+# experiments' harness and serving bench must be among those imported
 missing = {"repro_torch.dist.collectives", "repro_torch.dist.policies",
            "repro_torch.kernels.wire_pack",
            "repro_torch.configs.internvl2_2b",
-           "repro_torch.configs.seamless_m4t_large_v2"} - set(names)
+           "repro_torch.configs.seamless_m4t_large_v2",
+           "repro_torch.experiments.common",
+           "repro_torch.experiments.serving_bench"} - set(names)
 print(len(names), bad + sorted(missing))
 """
 
@@ -39,8 +41,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
                          capture_output=True, text=True, check=True,
                          timeout=120).stdout.split(maxsplit=1)
     n_modules, bad = int(out[0]), out[1].strip()
-    # serving, FedSim, the round step, the gossip wire, every architecture
-    assert n_modules >= 66
+    # serving, FedSim, the round step, the gossip wire, every architecture,
+    # the experiments
+    assert n_modules >= 77
     assert bad == "[]", f"repro_torch imported (or is missing) {bad}"
 
 
