@@ -364,7 +364,35 @@ Phases (any failure ends the run with a non-zero exit):
    = 4, CKPT_ROUNDS rounds) in a temporary directory: a checkpoint a
    round, ``latest_checkpoint`` naming the last, its ``load_pytree``
    into the live state bit for bit (bf16 leaves included); bytes and
-   write times printed.
+   write times printed;
+39. the three examples (``repro_torch/experiments``): the quickstart's
+   first QS_ROUNDS rounds on the card and on the CPU in lockstep (each
+   round's row within ROUND_RTOL, the state within ROUND_ATOL but for
+   Q_FLIP_SHARE top-k flips, then the card's state written into the
+   CPU's), its attention forward and backward and top-k launches gated;
+   ``paper_models_demo`` (ResNet-20, 269,722 parameters, and the FEMNIST
+   CNN, 6,603,710, three SGD steps each at full size) on both, the counts
+   gated and the losses within DEMO_RTOL; ``serve_lm``'s greedy tokens on
+   both for one family of each kind (SERVE_KINDS, weights times 10 but
+   the norms and the recurrent constants) and ``--continuous`` on
+   SERVE_CONTINUOUS, the same tokens gated, the attention kernels'
+   launches counted (the paged kernel's on the continuous path);
+40. ``kernels_bench.bench(smoke=True)`` on the card: every row of the
+   reference's benchmark printed, each kernel row (the attention forward,
+   the SSD scan, the top-k, the round rows through the top-k and wire
+   kernels) held to its ``_plain`` twin at the kernel's gate (F32_TOL,
+   the SSD's atol a share of y's largest entry; top-k bit for bit; a
+   round's state within ROUND_ATOL but for Q_FLIP_SHARE flips and its
+   loss within ROUND_RTOL); the bench's launches are comparisons and are
+   not counted on the main paths;
+41. the dry run (``launch/dryrun.py``, on ``meta``) in a temporary
+   directory: DRYRUN_CELLS and smollm-135M's train cell on each wire
+   dtype, no cell in error; the wire report with ``--require
+   int8/int4:2.0``; the roofline over the cells; phase 16's smollm cell's
+   ``peak_est_bytes`` beside the peak phase 16 measured (not gated); the
+   roofline's ``model_flops`` of every training cell this run trained
+   (phases 9, 16, 25, 28, 30, 31) and the share of 989e12 FLOP/s its p50
+   round wall implies.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -455,6 +483,10 @@ TOPK_RAGGED = {blk: sorted({1, 31, blk - 1, blk, blk + 1, 2 * blk + 1,
 # may sit beyond ROUND_ATOL after a round (top-k threshold flips; the card
 # has shown 2 of the smoke model's 1,069,632 entries in a round)
 Q_FLIP_SHARE = 1e-4
+# the full-width training cells each phase ran (phases 9, 16, 25, 28, 30,
+# 31), by name: config, topology, tokens, params, round p50 and peak; phase
+# 41 sets the roofline's model FLOPs against them
+TRAIN_CELLS = {}
 
 
 def _demangled_name(mangled):
@@ -1820,6 +1852,11 @@ def mamba2_full(train, ss, tk, topk_per_round):
                  time_s=hist[-1]["time"], energy_j=hist[-1]["energy"],
                  peak_mem_gb=out["peak_mem_gb"])
     print("mamba2 " + json.dumps(stats))
+    TRAIN_CELLS["mamba2"] = dict(cfg=cfg, replicas=R, tau=tau,
+                                 seqs_per_step=2, positions=512,
+                                 params=out["n_params"],
+                                 p50_ms=stats["round_wall_ms_p50"],
+                                 peak_gb=out["peak_mem_gb"])
     return launches
 
 
@@ -3162,6 +3199,9 @@ def lm_full(train, fa, tk, topk_per_round, arch="smollm_135m"):
                  peak_mem_gb=out["peak_mem_gb"],
                  peak_limit_gb=PEAK_LIMIT_GB)
     print(f"{name} " + json.dumps(stats))
+    TRAIN_CELLS[name] = dict(cfg=cfg, replicas=R, tau=tau, seqs_per_step=2,
+                             positions=2048, params=out["n_params"],
+                             p50_ms=p50, peak_gb=out["peak_mem_gb"])
     print(f"{name} round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
           f"({'met' if p50 <= LM_ROUND_LIMIT_MS else 'missed'}); peak "
           f"{out['peak_mem_gb']:.2f} GB against {PEAK_LIMIT_GB} GB")
@@ -4688,6 +4728,9 @@ def full_width_rounds(name, cfg, hcef, topo, *, rounds, seq, seqs_per_step,
                  time_s=hist[-1]["time"], peak_mem_gb=peak,
                  peak_limit_gb=PEAK_LIMIT_GB)
     print(f"{name} " + json.dumps(stats))
+    TRAIN_CELLS[name] = dict(cfg=cfg, replicas=R, tau=hcef.tau,
+                             seqs_per_step=seqs_per_step, positions=seq + 1,
+                             params=n_params, p50_ms=p50, peak_gb=peak)
     print(f"{name} round p50 {p50:.1f} ms against {LM_ROUND_LIMIT_MS} ms "
           f"({'met' if p50 <= LM_ROUND_LIMIT_MS else 'missed'}); peak "
           f"{peak:.2f} GB against {PEAK_LIMIT_GB} GB")
@@ -5668,6 +5711,254 @@ def ckpt_full(train, ckpt_mod, fa, tk):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 39-41: the three examples, the kernel bench, the dry run
+# ---------------------------------------------------------------------------
+
+QS_ROUNDS = 3  # phase 39: the quickstart's rounds in lockstep
+DEMO_RTOL = 1e-4  # phase 39: the demo's losses, card against CPU
+# phase 39: serve_lm on one family of each kind (dense, MoE, SSM, hybrid,
+# the ViT stub, the encoder-decoder), greedy, weights times 10
+SERVE_KINDS = ("smollm_135m", "granite_moe_1b_a400m", "mamba2_1p3b",
+               "recurrentgemma_9b", "internvl2_2b", "seamless_m4t_large_v2")
+SERVE_CONTINUOUS = "granite_moe_1b_a400m"
+# phase 41: the dry run's cells (the --all run is recorded in PERF.md)
+DRYRUN_CELLS = (("smollm_135m", "train_4k"), ("smollm_135m", "prefill_32k"),
+                ("smollm_135m", "decode_32k"), ("smollm_135m", "long_500k"),
+                ("mamba2_1p3b", "long_500k"))
+PEAK_BF16_FLOPS = 989e12  # the roofline's peak
+
+
+def _state_fields(state):
+    from repro_torch.tree import flatten
+    return {f"{f}/{k}": v for f in ("params", "momentum", "ef")
+            if getattr(state, f) is not None
+            for k, v in flatten(getattr(state, f)).items()}
+
+
+def quickstart_lockstep(quickstart, fa, tk):
+    """The quickstart's first QS_ROUNDS rounds on the card and on the CPU
+    from the same weights and bits, in lockstep: each round's row within
+    ROUND_RTOL, the state within ROUND_ATOL but for Q_FLIP_SHARE top-k
+    flips, then the card's state written into the CPU's.  Every attention
+    launch, forward and backward, and every top-k launch of the card's
+    rounds counted."""
+    its = {dev: quickstart.rounds_iter(QS_ROUNDS, device=dev)
+           for dev in ("cuda", "cpu")}
+    cfg, topo, hcef = quickstart.setup()
+    fa.reset_launches()
+    tk.reset_launches()
+    worst, flips_max, rows = 0.0, 0, []
+    for rnd in range(QS_ROUNDS):
+        card_row, card = next(its["cuda"])
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES, topk_compress=tk.LAUNCHES[
+            "topk_compress"])
+        cpu_row, cpu = next(its["cpu"])
+        for k, v in card_row.items():
+            worst = max(worst, abs(v - cpu_row[k]) / max(abs(cpu_row[k]),
+                                                         1e-12))
+        a, b = _state_fields(card), _state_fields(cpu)
+        total = sum(v.numel() for v in b.values())
+        flips = sum(int(((a[k].cpu() - v).abs() > ROUND_ATOL
+                         + ROUND_RTOL * v.abs()).sum()) for k, v in b.items())
+        flips_max = max(flips_max, flips)
+        if flips > Q_FLIP_SHARE * total:
+            fail(f"quickstart round {rnd}: {flips} of {total} state entries "
+                 f"past ROUND_ATOL")
+        with torch.no_grad():
+            for k, v in b.items():
+                v.copy_(a[k].cpu())
+        rows.append(card_row)
+    steps = QS_ROUNDS * topo.num_devices * hcef.tau
+    want = {"flash_attention": steps * cfg.num_layers,
+            "flash_attention_bwd": steps * cfg.num_layers,
+            "paged_decode_attention": 0, "topk_compress": QS_ROUNDS}
+    print(f"quickstart on the card: {json.dumps(rows)}; card vs CPU in "
+          f"lockstep: largest relative deviation of a row {worst:.3e} "
+          f"(tolerance {ROUND_RTOL}), state entries past {ROUND_ATOL} at "
+          f"most {flips_max} a round; launches {launches}")
+    if worst > ROUND_RTOL:
+        fail("the quickstart's rounds on the card disagree with the CPU")
+    if launches != want:
+        fail(f"quickstart launches {launches}, expected {want}")
+    return launches
+
+
+def examples_phase(quickstart, demo, serve_lm, fa, tk):
+    """Phase 39: the three examples on the card (see the module
+    docstring).  Returns the kernel launches of their runs."""
+    t0 = time.perf_counter()
+    launches = quickstart_lockstep(quickstart, fa, tk)
+    t_qs = time.perf_counter() - t0
+    out = {dev: demo.run(device=dev, verbose=dev == "cuda")
+           for dev in ("cuda", "cpu")}
+    for name, want in (("resnet20_cifar10", 269_722),
+                       ("femnist_cnn", 6_603_710)):
+        card, cpu = out["cuda"][name], out["cpu"][name]
+        dev = max(abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                       cpu["losses"]))
+        print(f"paper_models_demo {name}: {card['count']:,} params, "
+              f"losses card {card['losses']} CPU {cpu['losses']}, largest "
+              f"relative deviation {dev:.3e} (tolerance {DEMO_RTOL})")
+        if card["count"] != want or cpu["count"] != want:
+            fail(f"{name}: {card['count']} parameters, expected {want}")
+        if dev > DEMO_RTOL:
+            fail(f"{name}: the demo's losses on the card disagree")
+    t_demo = time.perf_counter() - t0 - t_qs
+    from repro_torch.configs import get_config, smoke_model
+    from repro_torch.models.registry import get_model
+    serve_launches = {}
+    for arch in SERVE_KINDS + ("continuous",):
+        cont = arch == "continuous"
+        arch = SERVE_CONTINUOUS if cont else arch
+        cfg = smoke_model(get_config(arch).model)
+        p0 = get_model(cfg).init(cfg, seed=0, device="cpu")
+        got = {}
+        for dev in ("cpu", "cuda"):
+            fa.reset_launches()
+            _, o = serve_lm.run(arch, temperature=0.0, continuous=cont,
+                                device=dev, params=_to(p0, dev, 10.0),
+                                verbose=False)
+            got[dev] = ({r: v.tokens for r, v in o.items()} if cont
+                        else o.tolist())
+        torch.cuda.synchronize()
+        n = dict(fa.LAUNCHES)
+        serve_launches[("continuous " if cont else "") + arch] = n
+        for k in launches:
+            launches[k] += n.get(k, 0)
+        same = got["cuda"] == got["cpu"]
+        print(f"serve_lm {'--continuous ' if cont else ''}{arch} "
+              f"({cfg.family}{', ' + cfg.frontend if cfg.frontend else ''}"
+              f"): greedy tokens card {'==' if same else '!='} CPU; "
+              f"launches {n}")
+        if not same:
+            fail(f"serve_lm {arch}: card {got['cuda']} CPU {got['cpu']}")
+        attn = cfg.family not in ("ssm",)
+        if attn and not n["flash_attention"]:
+            fail(f"serve_lm {arch}: no attention kernel launch")
+        if cont and not n["paged_decode_attention"]:
+            fail("serve_lm --continuous: no paged decode kernel launch")
+    print(f"phase 39: quickstart {t_qs:.1f} s, demo {t_demo:.1f} s, "
+          f"serve_lm {time.perf_counter() - t0 - t_qs - t_demo:.1f} s")
+    return launches
+
+
+def _twin_agrees(name, a, b):
+    """(worst error, ok) of a kernel row's output against its _plain
+    twin's, at the kernel's gate."""
+    if name.startswith("topk"):  # bit for bit (phase 5)
+        ok = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                 for x, y in zip(a, b))
+        return 0.0, ok
+    if name.startswith("round"):  # the round gate, top-k flips allowed
+        (pa, la), (pb, lb) = a, b
+        total = sum(v.numel() for v in pb.values())
+        flips = sum(int(((pa[k] - v).abs() > ROUND_ATOL
+                         + ROUND_RTOL * v.abs()).sum())
+                    for k, v in pb.items())
+        dl = float(((la - lb).abs() / lb.abs().clamp_min(1e-12)).max())
+        return float(flips), flips <= Q_FLIP_SHARE * total and \
+            dl <= ROUND_RTOL
+    # attention and the SSD scan in f32: F32_TOL, the SSD's atol a share of
+    # y's largest entry (phase 8)
+    scale = float(b.abs().max()) if name.startswith("ssd") else 1.0
+    err = float((a - b).abs().max())
+    ok = bool(((a - b).abs() <= F32_TOL["atol"] * scale
+               + F32_TOL["rtol"] * b.abs()).all())
+    return err, ok
+
+
+def kernels_bench_phase(kb, fa, tk, ss, wp):
+    """Phase 40: ``kernels_bench --smoke`` on the card, every row printed,
+    each kernel row's output held to its ``_plain`` twin's.  Returns the
+    rows and their launches by kernel (the bench's own: not the main
+    path's)."""
+    for m in (fa, tk, ss, wp):
+        m.reset_launches()
+    rows = kb.bench(device="cuda", smoke=True)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES, **tk.LAUNCHES, **ss.LAUNCHES,
+                    **wp.LAUNCHES)
+    print("name,us_per_call,derived")
+    for name, us, derived, _ in rows:
+        print(f"{name},{us:.1f},{derived}")
+    by = {r[0]: r for r in rows}
+    for name, _, derived, out in rows:
+        if name.endswith("_plain") or name + "_plain" not in by:
+            continue
+        err, ok = _twin_agrees(name, out, by[name + "_plain"][3])
+        print(f"kernels_bench {name}: {derived.split('|')[0]} against "
+              f"plain {'agree' if ok else 'DISAGREE'} ({err:.3e})")
+        if not derived.startswith("kernel"):
+            fail(f"kernels_bench {name} did not run its kernel: {derived}")
+        if not ok:
+            fail(f"kernels_bench {name} disagrees with its plain twin")
+    print(f"kernels_bench launches (comparisons, not a main path): "
+          f"{launches}")
+    return rows
+
+
+def dryrun_phase(dryrun, roofline, wire_report):
+    """Phase 41: the dry run's DRYRUN_CELLS, one sparse train cell per
+    wire dtype, the wire report with --require int8/int4:2.0, the
+    roofline, phase 16's smollm cell beside its measured peak, and the
+    model FLOPs of every training cell the script ran beside its p50."""
+    from repro_torch.configs.base import FLTopology, ShapeConfig
+    t0 = time.perf_counter()
+    saved = dryrun.RESULTS_DIR
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as td:
+        dryrun.RESULTS_DIR = Path(td)
+        try:
+            cells = [dryrun.run_cell(a, s, verbose=False)
+                     for a, s in DRYRUN_CELLS]
+            sparse = [dryrun.run_cell("smollm_135m", "train_4k",
+                                      wire_dtype=wd, verbose=False)
+                      for wd in WIRE_DTYPES]
+            for c in cells + sparse:
+                print(f"dryrun {c['arch']} {c['shape']} "
+                      f"{c.get('wire_dtype', '')} {c['status']}: " +
+                      json.dumps({k: c[k] for k in (
+                          "count_s", "param_count", "memory", "fits_72gb",
+                          "hlo", "reason", "error") if k in c}))
+            bad = [c for c in cells + sparse if c["status"] == "error"]
+            if bad:
+                fail(f"dry-run cells in error: {bad}")
+            paths = [str(dryrun.cell_path("smollm_135m", "train_4k", wd))
+                     for wd in WIRE_DTYPES]
+            try:
+                wire_report.main(paths + ["--require", "int8/int4:2.0"])
+            except SystemExit as e:
+                fail(f"the wire report failed: exit {e.code}")
+            roofline.main(results=Path(td))
+        finally:
+            dryrun.RESULTS_DIR = saved
+    # phase 16's cell: smollm-135M, R = 4 in 2 x 2, tau 4, 2 x 2048 tokens
+    run16 = TRAIN_CELLS.get("smollm")
+    c16 = dryrun.lower_cell("smollm_135m", shape=ShapeConfig(
+        "phase16", "train", 2048, 4 * 4 * 2), topo=FLTopology(2, 2),
+        verbose=False)
+    print(f"dryrun phase 16's smollm cell (R 4, 2 x 2048 tokens a step): "
+          f"peak_est {c16['memory']['peak_est_bytes'] / 1e9:.2f} GB "
+          f"(arguments {c16['memory']['argument_bytes'] / 1e9:.2f} GB) "
+          f"beside the {run16['peak_gb']:.2f} GB phase 16 measured "
+          f"(ungated: the count runs the plain attention on meta)")
+    mfu = {}
+    for name, c in TRAIN_CELLS.items():
+        B = c["replicas"] * c["tau"] * c["seqs_per_step"]
+        mf = roofline.model_flops(c["cfg"], "train", B, c["positions"],
+                                  c["params"])
+        mfu[name] = dict(layers=c["cfg"].num_layers, replicas=c["replicas"],
+                         sequences=B, positions=c["positions"],
+                         params=c["params"], model_flops=mf,
+                         round_p50_ms=c["p50_ms"],
+                         share_of_peak=mf / (c["p50_ms"] / 1e3
+                                             * PEAK_BF16_FLOPS))
+    print("model_flops_share " + json.dumps(mfu))
+    print(f"phase 41: {len(cells) + len(sparse)} cells "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -5701,8 +5992,11 @@ def main():
     from repro_torch.experiments import (cfel_cifar_train, cohort_bench,
                                          common, fig2_3_convergence,
                                          fig4_noniid, fig5_topology,
-                                         fig67_periods, overlap_sweep,
-                                         serving_bench)
+                                         fig67_periods, kernels_bench,
+                                         overlap_sweep, paper_models_demo,
+                                         quickstart, roofline, serve_lm,
+                                         serving_bench, wire_bytes_report)
+    from repro_torch.launch import dryrun
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 compared at 2e-5
     torch.backends.cudnn.allow_tf32 = False
@@ -5982,6 +6276,20 @@ def main():
     for k in ("flash_attention", "flash_attention_bwd", "topk_compress"):
         launches[k] += m37[k] + m38[k]
 
+    # -- phases 39-41: the examples, the kernel bench, the dry run ----------
+    t0 = time.perf_counter()
+    m39 = examples_phase(quickstart, paper_models_demo, serve_lm, fa, tk)
+    for k in ("flash_attention", "flash_attention_bwd",
+              "paged_decode_attention", "topk_compress"):
+        launches[k] += m39[k]
+    print(f"phase 39 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels_bench_phase(kernels_bench, fa, tk, ss, wp)
+    print(f"phase 40 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_phase(dryrun, roofline, wire_bytes_report)
+    print(f"phase 41 took {time.perf_counter() - t0:.1f} s")
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -6101,6 +6409,9 @@ def main():
                           "replaces the gossip's decode chain; under a "
                           "backhaul partition the conn mask rides in its "
                           "per-destination coefficients (phases 17, 18)")
+    for i, k in ((0, "flash_attention"), (9, "flash_attention_bwd"),
+                 (1, "paged_decode_attention"), (2, "topk_compress")):
+        kernels[i]["examples_launches"] = m39[k]
     print("generate_full " + json.dumps(static_rows))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -6,7 +6,8 @@ The dense-residual FFN runs in parallel with the MoE branch in each layer
 (Arctic's dense-MoE hybrid), at the expert width 4864.  One replica is
 about a terabyte: the port trains and serves it at smoke size only.
 """
-from repro_torch.configs.base import ArchBundle, HCEFConfig, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, HCEFConfig, ModelConfig)
 
 MODEL = ModelConfig(
     name="arctic-480b",
@@ -25,5 +26,12 @@ MODEL = ModelConfig(
     state_dtype="",  # plain SGD locally: momentum buffer does not fit
 )
 
-CONFIG = ArchBundle(model=MODEL, hcef=HCEFConfig(momentum=0.0),
-                    source="hf:Snowflake/snowflake-arctic-base")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=1, devices_per_cluster=1, inner_dp=16),
+    fl_multi=FLTopology(clusters=2, devices_per_cluster=1, inner_dp=16),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    hcef=HCEFConfig(momentum=0.0),
+    source="hf:Snowflake/snowflake-arctic-base",
+)

@@ -8,6 +8,8 @@ encoder and cross-attention), with the modality frontend stubs, all
 trained by the HCEF round step.  ``FLTopology`` and ``HCEFConfig`` keep the
 fields the round step reads, the sparse gossip wire and its error
 feedback and the overlapped engine's bounded staleness included.
+``ShapeConfig``, ``LM_SHAPES`` and ``ArchBundle``'s topologies and shape
+cells are what the dry run (``launch/dryrun.py``) lowers.
 """
 from __future__ import annotations
 
@@ -82,12 +84,33 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: (kind, seq, batch) (base.py:79)."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4_096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    ShapeConfig("decode_32k", "decode", 32_768, 128),
+    ShapeConfig("long_500k", "decode", 524_288, 1),
+)
+
+
+@dataclass(frozen=True)
 class FLTopology:
     """The CFEL cluster/device structure: ``clusters`` edge servers, each
-    with ``devices_per_cluster`` devices, joined by ``backhaul``."""
+    with ``devices_per_cluster`` devices, joined by ``backhaul``.  On the
+    reference's mesh each device spans ``inner_dp`` data-parallel slots
+    (one process here: ``inner_dp`` only sizes the dry run's cells)."""
 
     clusters: int
     devices_per_cluster: int
+    inner_dp: int = 1
     backhaul: str = "ring"  # ring | complete | erdos_renyi
 
     @property
@@ -172,8 +195,23 @@ class HCEFConfig:
 
 @dataclass(frozen=True)
 class ArchBundle:
-    """What the launchers need of one architecture."""
+    """What the launchers and the dry run need of one architecture
+    (base.py:214): the topologies of the reference's single-pod (16 data
+    rows) and multi-pod (2 x 16) meshes, the shape cells and the ones
+    skipped, with the reason."""
 
     model: ModelConfig
+    fl_single: FLTopology
+    fl_multi: FLTopology
+    shapes: Tuple[ShapeConfig, ...] = LM_SHAPES
+    skip_shapes: Tuple[str, ...] = ()
+    skip_reason: str = ""
     hcef: HCEFConfig = field(default_factory=HCEFConfig)
     source: str = ""
+
+
+# Skip reason shared by all pure full-attention archs (base.py:228): the
+# long_500k cell runs only for sub-quadratic families.
+FULL_ATTN_LONG_SKIP = (
+    "long_500k requires sub-quadratic attention; this arch is pure "
+    "full-attention (see DESIGN.md Arch-applicability)")

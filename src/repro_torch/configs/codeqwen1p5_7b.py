@@ -2,7 +2,8 @@
 
 32L d_model=4096 32H (GQA kv=32) d_ff=13440 vocab=92416.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, ModelConfig)
 
 MODEL = ModelConfig(
     name="codeqwen1.5-7b",
@@ -18,4 +19,11 @@ MODEL = ModelConfig(
     tie_embeddings=False,
 )
 
-CONFIG = ArchBundle(model=MODEL, source="hf:Qwen/CodeQwen1.5-7B")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    source="hf:Qwen/CodeQwen1.5-7B",
+)

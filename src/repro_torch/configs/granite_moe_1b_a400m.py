@@ -3,7 +3,8 @@
 
 24L d_model=1024 16H (GQA kv=8) d_ff=512 (expert width) vocab=49155.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, ModelConfig)
 
 MODEL = ModelConfig(
     name="granite-moe-1b-a400m",
@@ -20,5 +21,11 @@ MODEL = ModelConfig(
     tie_embeddings=True,
 )
 
-CONFIG = ArchBundle(model=MODEL,
-                    source="hf:ibm-granite/granite-3.0-1b-a400m-base")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+)

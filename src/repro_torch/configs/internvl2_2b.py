@@ -5,7 +5,8 @@ stub: the first ``frontend_tokens`` positions take precomputed patch
 embeddings (``batch["patch_embeds"]``, (B, 256, d_model)) in place of the
 token embeddings, and the loss leaves their labels out.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, ModelConfig)
 
 MODEL = ModelConfig(
     name="internvl2-2b",
@@ -22,4 +23,11 @@ MODEL = ModelConfig(
     tie_embeddings=False,
 )
 
-CONFIG = ArchBundle(model=MODEL, source="arXiv:2404.16821")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    source="arXiv:2404.16821",
+)

@@ -3,7 +3,7 @@
 48L d_model=2048 (attention-free) d_ff=0 vocab=50280, ssm_state=128
 (own copy of ``repro/configs/mamba2_1p3b.py``).
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import ArchBundle, FLTopology, ModelConfig
 
 MODEL = ModelConfig(
     name="mamba2-1.3b",
@@ -23,4 +23,9 @@ MODEL = ModelConfig(
     tie_embeddings=True,
 )
 
-CONFIG = ArchBundle(model=MODEL, source="arXiv:2405.21060")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    source="arXiv:2405.21060",
+)

@@ -2,7 +2,8 @@
 
 40L d_model=5120 40H (GQA kv=10) d_ff=17920 vocab=100352.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, ModelConfig)
 
 MODEL = ModelConfig(
     name="phi3-medium-14b",
@@ -18,4 +19,11 @@ MODEL = ModelConfig(
     state_dtype="bfloat16",  # fp32 momentum would not leave temp headroom
 )
 
-CONFIG = ArchBundle(model=MODEL, source="arXiv:2404.14219")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    source="arXiv:2404.14219",
+)

@@ -2,7 +2,8 @@
 
 28L d_model=3584 28H (GQA kv=4) d_ff=18944 vocab=152064.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, ModelConfig)
 
 MODEL = ModelConfig(
     name="qwen2-7b",
@@ -18,4 +19,11 @@ MODEL = ModelConfig(
     tie_embeddings=False,
 )
 
-CONFIG = ArchBundle(model=MODEL, source="arXiv:2407.10671")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    source="arXiv:2407.10671",
+)

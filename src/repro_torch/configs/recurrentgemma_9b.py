@@ -5,7 +5,7 @@
 (rglru, rglru, attn) repeating (Griffin 1 attention per 2 recurrent); 38 = 12*3
 + 2 trailing recurrent blocks.  Local attention window 2048 => sub-quadratic.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import ArchBundle, FLTopology, ModelConfig
 
 MODEL = ModelConfig(
     name="recurrentgemma-9b",
@@ -24,4 +24,9 @@ MODEL = ModelConfig(
     logits_softcap=30.0,
 )
 
-CONFIG = ArchBundle(model=MODEL, source="arXiv:2402.19427")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    source="arXiv:2402.19427",
+)

@@ -6,7 +6,8 @@ audio frontend is a stub; precomputed frame embeddings
 (non-causal self-attention).  The decoder uses causal self-attention,
 then cross-attention over the encoder's output.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, ModelConfig)
 
 MODEL = ModelConfig(
     name="seamless-m4t-large-v2",
@@ -24,4 +25,11 @@ MODEL = ModelConfig(
     tie_embeddings=False,
 )
 
-CONFIG = ArchBundle(model=MODEL, source="arXiv:2308.11596")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    source="arXiv:2308.11596",
+)

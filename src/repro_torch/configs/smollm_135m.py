@@ -2,7 +2,8 @@
 
 30L d_model=576 9H (GQA kv=3) d_ff=1536 vocab=49152.
 """
-from repro_torch.configs.base import ArchBundle, ModelConfig
+from repro_torch.configs.base import (FULL_ATTN_LONG_SKIP, ArchBundle,
+                                      FLTopology, ModelConfig)
 
 MODEL = ModelConfig(
     name="smollm-135m",
@@ -17,4 +18,11 @@ MODEL = ModelConfig(
     tie_embeddings=True,
 )
 
-CONFIG = ArchBundle(model=MODEL, source="hf:HuggingFaceTB/SmolLM-135M")
+CONFIG = ArchBundle(
+    model=MODEL,
+    fl_single=FLTopology(clusters=8, devices_per_cluster=2),
+    fl_multi=FLTopology(clusters=8, devices_per_cluster=4),
+    skip_shapes=("long_500k",),
+    skip_reason=FULL_ATTN_LONG_SKIP,
+    source="hf:HuggingFaceTB/SmolLM-135M",
+)

@@ -27,6 +27,18 @@ class VisionBundle:
     hcef: HCEFConfig = field(default_factory=HCEFConfig)
     dataset: str = "cifar"  # data/synthetic.py kind
     source: str = ""
+    # the reference's ArchBundle fields: no LM shape cells, one topology
+    shapes: tuple = ()
+    skip_shapes: tuple = ()
+    skip_reason: str = ""
+
+    @property
+    def fl_single(self) -> FLTopology:
+        return self.fl
+
+    @property
+    def fl_multi(self) -> FLTopology:
+        return self.fl
 
 
 RESNET20_CIFAR10 = VisionBundle(

@@ -1,9 +1,10 @@
 """The HCEF round step (Algorithm 1, lines 4-19), synchronous and
 overlapped (port of ``repro/core/round.py``: ``FLState``, ``init_state``,
 ``_split_batch``, ``_global_norm2``, ``_check_cluster_levels``,
-``make_round_step``, :178-547, and ``OverlapState``,
+``make_round_step``, :178-547, ``OverlapState``,
 ``init_overlap_state`` and ``make_overlap_round_step``, :77-137,
-:557-713).
+:557-713, ``abstract_state``, ``abstract_overlap_state``,
+``make_serve_step`` and ``make_prefill_step``, :124-143, :716-733).
 
 Stacked-replica layout: every leaf of the state holds the R devices' copies
 on a leading dim.  One call is one edge round:
@@ -200,6 +201,42 @@ def init_overlap_state(cfg: ModelConfig, hcef: HCEFConfig,
     mix as of the synchronous one."""
     fl = init_state(cfg, hcef, topo, params0, device)
     return OverlapState(fl=fl, pending=tree_map(torch.clone, fl.params))
+
+
+def abstract_state(cfg: ModelConfig, hcef: HCEFConfig,
+                   topo: FLTopology) -> FLState:
+    """``init_state`` on ``meta`` (round.py:124): the state's shapes and
+    types with nothing allocated, for the dry run."""
+    params0 = get_model(cfg).init(cfg, device="meta")
+    return init_state(cfg, hcef, topo, params0, device="meta")
+
+
+def abstract_overlap_state(cfg: ModelConfig, hcef: HCEFConfig,
+                           topo: FLTopology) -> OverlapState:
+    """``init_overlap_state`` on ``meta`` (round.py:140)."""
+    params0 = get_model(cfg).init(cfg, device="meta")
+    return init_overlap_state(cfg, hcef, topo, params0, device="meta")
+
+
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, cache, tokens) -> (logits, cache): one decode
+    token across the batch, the family's ``decode_step`` (round.py:716;
+    one process, so no policy)."""
+    model = get_model(cfg)
+
+    def serve_step(params, cache, tokens):
+        return model.decode_step(cfg, params, cache, tokens)
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """prefill_step(params, batch, cache) -> (logits, cache): the family's
+    ``prefill`` (round.py:727)."""
+    model = get_model(cfg)
+
+    def prefill_step(params, batch, cache):
+        return model.prefill(cfg, params, batch, cache)
+    return prefill_step
 
 
 def _phase_timer(timings, dev):

@@ -3,17 +3,17 @@
     PYTHONPATH=src python -m repro_torch.experiments.run [--smoke|--full]
 
 Prints ``name,us_per_call,derived`` CSV blocks and the sweeps' lines:
-  1. the serving rows (continuous against static batching) and the
+  1. the kernel microbenchmarks (``kernels_bench``, one timed call a row
+     under ``--smoke``; it writes ``common.RESULTS / "kernels.json"``),
+     the serving rows (continuous against static batching) and the
      cohort engine's paging rows;
   2. the overlap sweep and the cohort sweep;
   3. unless ``--smoke``, the paper's reproduction: Fig. 2/3 and Table 2
      at 40 rounds (60 under ``--full``), then under ``--full`` the Fig.
-     4-7 sweeps at 40 rounds.
-The rows go to ``common.RESULTS / "run_rows.json"``.  Two sections of the
-reference are left out: its kernel microbenchmarks (``chip_smoke.py``'s
-kernels line measures the port's kernels) and its roofline summary (it
-reads XLA dry-run artifacts).  On the card unless ``--device`` says
-otherwise.
+     4-7 sweeps at 40 rounds, and last the roofline summary of the dry
+     run's cells (``roofline``; skipped when there are none).
+The serving and cohort rows go to ``common.RESULTS / "run_rows.json"``.
+On the card unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -33,8 +33,12 @@ def main(argv=None) -> None:
     common.DEVICE = args.device  # the figure scripts' FedSims
     t0 = time.time()
 
-    print("== kernel microbenchmarks: left out (chip_smoke.py's kernels "
-          "line measures the port's kernels) ==")
+    print("== kernel microbenchmarks ==")
+    from repro_torch.experiments import kernels_bench
+    kargs = ["--smoke"] if args.smoke else []
+    if args.device:
+        kargs += ["--device", args.device]
+    kernels_bench.main(kargs)
 
     print("\n== serving: continuous vs static batching ==")
     from repro_torch.experiments import serving_bench
@@ -79,7 +83,12 @@ def main(argv=None) -> None:
         from repro_torch.experiments import fig67_periods
         fig67_periods.main(rounds=40)
 
-    print("\n== roofline: left out (it reads XLA dry-run artifacts) ==")
+    print("\n== roofline (from the dry run's cells) ==")
+    from repro_torch.experiments import roofline
+    try:
+        roofline.main()
+    except Exception as e:  # the dry run's cells may be absent
+        print(f"roofline skipped: {e}")
     print(f"\ntotal time: {time.time() - t0:.0f}s")
 
 

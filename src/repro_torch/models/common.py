@@ -48,6 +48,16 @@ def rope(x, tables):
     return out.to(x.dtype)
 
 
+def seeded_generator(device: torch.device, seed: int):
+    """A generator on ``device`` seeded with ``seed``; None on ``meta``,
+    where nothing is drawn (``abstract_state``'s shapes alone)."""
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def dense_init(generator, shape, dtype, device, scale=0.02):
     """Normal(0, scale^2) weights drawn in f32 from ``generator``."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32,

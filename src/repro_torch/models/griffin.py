@@ -46,7 +46,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import lm
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        mask_padded_logits, rms_norm, rope,
-                                       softcap, stack_list)
+                                       seeded_generator, softcap, stack_list)
 
 LOSS_CHUNK = 1024  # positions a checkpointed piece of the loss holds
 
@@ -93,8 +93,7 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, seed=0,
     with ``convert.params_from_jax``."""
     dev = resolve(device)
     if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+        generator = seeded_generator(dev, seed)
     dt = dtype_of(cfg.param_dtype)
     *_, L_rec, L_attn = _layout(cfg)
 

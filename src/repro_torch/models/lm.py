@@ -43,7 +43,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import kv_quantize_int8
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        layer_list, rms_norm, rope,
-                                       rope_tables, softcap, stack_list)
+                                       rope_tables, seeded_generator,
+                                       softcap, stack_list)
 
 FAMILIES = ("dense", "moe", "encdec")
 # the frontend stubs lm computes: "audio_stub" is the encoder's input
@@ -115,8 +116,7 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, seed=0,
     """
     dev = resolve(device)
     if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+        generator = seeded_generator(dev, seed)
     dt = dtype_of(cfg.param_dtype)
 
     def draw(shape):

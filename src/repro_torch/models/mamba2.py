@@ -33,7 +33,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import (cross_entropy, dense_init, dtype_of,
                                        layer_list, mask_padded_logits,
-                                       rms_norm)
+                                       rms_norm, seeded_generator)
 
 
 def _dims(cfg: ModelConfig):
@@ -52,8 +52,7 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, seed=0,
     weights over with ``convert.params_from_jax``."""
     dev = resolve(device)
     if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+        generator = seeded_generator(dev, seed)
     dt = dtype_of(cfg.param_dtype)
     f32 = torch.float32
     D, L = cfg.d_model, cfg.num_layers

@@ -266,7 +266,8 @@ def test_cfel_example_checkpoints_restore(monkeypatch, tmp_path):
 
 def test_run_sections_in_the_reference_order(monkeypatch, tmp_path):
     from repro_torch.experiments import (fig2_3_convergence, fig4_noniid,
-                                         fig5_topology, fig67_periods)
+                                         fig5_topology, fig67_periods,
+                                         kernels_bench, roofline)
     seen = []
     monkeypatch.setattr(common, "DEVICE", None)  # run.main sets it
     monkeypatch.setattr(serving_bench, "bench_rows", lambda **kw: (
@@ -282,22 +283,29 @@ def test_run_sections_in_the_reference_order(monkeypatch, tmp_path):
                 fig67_periods):
         monkeypatch.setattr(mod, "main", lambda name=mod.__name__, **kw:
                             seen.append((name.rsplit(".", 1)[1], kw)))
+    monkeypatch.setattr(kernels_bench, "main", lambda argv: seen.append(
+        ("kernels_bench", argv)))
+    monkeypatch.setattr(roofline, "main", lambda: seen.append(
+        ("roofline", {})))
     run_mod.main(["--full", "--device", "cpu"])
     assert [s[0] for s in seen] == [
-        "serving_bench", "cohort_bench", "overlap_sweep", "cohort_sweep",
-        "fig2_3_convergence", "fig4_noniid", "fig5_topology",
-        "fig67_periods"]
-    assert seen[4][1] == {"rounds": 60}
-    assert all(s[1] == {"rounds": 40} for s in seen[5:])
+        "kernels_bench", "serving_bench", "cohort_bench", "overlap_sweep",
+        "cohort_sweep", "fig2_3_convergence", "fig4_noniid",
+        "fig5_topology", "fig67_periods", "roofline"]
+    assert seen[0][1] == ["--device", "cpu"]
+    assert seen[5][1] == {"rounds": 60}
+    assert all(s[1] == {"rounds": 40} for s in seen[6:9])
     assert common.DEVICE == "cpu"
     assert json.loads((tmp_path / "port" / "run_rows.json").read_text()) == {
         "serving_row": {"us_per_call": 1.5, "derived": "x"},
         "cohort_row": {"us_per_call": 2.0, "derived": "y"}}
     seen.clear()
     run_mod.main(["--smoke", "--device", "cpu"])
-    assert [s[0] for s in seen] == ["serving_bench", "cohort_bench",
-                                    "overlap_sweep", "cohort_sweep"]
+    assert [s[0] for s in seen] == ["kernels_bench", "serving_bench",
+                                    "cohort_bench", "overlap_sweep",
+                                    "cohort_sweep"]
+    assert seen[0][1] == ["--smoke", "--device", "cpu"]
     seen.clear()
     run_mod.main(["--device", "cpu"])
-    assert [s[0] for s in seen][4:] == ["fig2_3_convergence"]
-    assert seen[4][1] == {"rounds": 40}
+    assert [s[0] for s in seen][5:] == ["fig2_3_convergence", "roofline"]
+    assert seen[5][1] == {"rounds": 40}
