@@ -392,7 +392,36 @@ Phases (any failure ends the run with a non-zero exit):
    ``peak_est_bytes`` beside the peak phase 16 measured (not gated); the
    roofline's ``model_flops`` of every training cell this run trained
    (phases 9, 16, 25, 28, 30, 31) and the share of 989e12 FLOP/s its p50
-   round wall implies.
+   round wall implies;
+42. the collectives across 4 ranks sharing the card (``dist/mesh.py``:
+   gloo, CUDA tensors staged through pinned host buffers), spawned after
+   phase 1 built the kernels: ``mix_local`` (ring, complete, erdos_renyi)
+   in layout B (C 8 x Dev 2 over the 2 "data" ranks of each pod of a
+   (2, 2) ("pod", "data") mesh), layout A (C 2 x Dev 4 over 4 ranks,
+   R_local 2, g 2) and the multi-axis psum fallback (over ("pod",
+   "data")); the sparse wire at full theta on the f32 wire (bit for bit
+   the mix across ranks) and ``sparse_exchange_`` on the int4 wire at
+   per-cluster levels, without and with the wire EF and under a conn
+   mask, in layouts B and A: a leaf of MESH_COLS columns, each rank's
+   rows against the one-process result on the same card (bit for bit on
+   the wire, within 1e-6 of the rows' max for the mix); each case's ms a
+   call, messages, bytes and staged bytes;
+43. the main path across ranks: ``launch/train.py --mesh single`` on
+   smollm-135M at full width and depth (MESH_ARGV: fl_single R 16, the
+   int4 wire at per-cluster levels, tau = q = 2, MESH_ROUNDS rounds, the
+   second a gossip round) on a 1-rank
+   world in this process, each round's params and EF sampled to the
+   host (MESH_SAMPLE entries of each leaf row and its f64 sum), then on 2
+   ranks sharing the card (8 replicas a rank, layout B), each rank's
+   samples held to the 1-rank rows round by round (at most Q_FLIP_SHARE
+   beyond ROUND_ATOL) and its losses to the 1-rank losses; each rank's
+   round p50 <= 10 s, the sum of the ranks' peaks <= 72 GB, the first
+   loss within 1 of ln(vocab), every attention, top-k, encode and
+   decode-and-mix launch of a rank counted;
+44. the smoke smollm's ``--mesh multi`` on 4 ranks (fl_multi, R 32,
+   ("pod", "data") = (2, 2)) and layout A through the round step (C 2 x
+   Dev 4 on 4 ranks, the int4 wire with the wire EF), each held to its
+   1-rank run on the card.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -5959,6 +5988,485 @@ def dryrun_phase(dryrun, roofline, wire_report):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phases 42-44: the replica axis across ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_COLS = 1 << 22        # phase 42: the leaf's columns
+MESH_LEVELS = (0.1, 0.6)   # phase 42: per-cluster wire levels, alternating
+MESH_TIMEOUT_S = 300.0     # each world's timeout
+MESH_THREADS = 2           # torch threads a rank
+MESH_CALLS = 3             # phase 42: timed calls a case
+MESH_SAMPLE = 16384        # phase 43: entries of each leaf row compared
+# phase 43: smollm-135M at full width through the launcher, 2 ranks.
+# Three rounds (intra, gossip, intra): a fresh rank's first round carries
+# seconds of one-time warm-up (13.7 s against 4.8 for the next on the
+# H100), so the p50 of two rounds would be half warm-up
+MESH_ROUNDS = 3
+MESH_ARGV = ["--arch", "smollm_135m", "--full", "--mesh", "single",
+             "--rounds", str(MESH_ROUNDS), "--seq", "2047", "--tau", "2",
+             "--q", "2", "--sparse-gossip", "--wire-dtype", "int4"]
+# phase 44: the smoke smollm's --mesh multi (fl_multi, R 32) on 4 ranks
+MESH_MULTI_ARGV = ["--arch", "smollm_135m", "--mesh", "multi", "--rounds",
+                   "2", "--seq", "64", "--tau", "2", "--q", "2",
+                   "--sparse-gossip", "--wire-dtype", "int4"]
+MESH_A_TOPO = (2, 4)       # phase 44: layout A, C x Dev on 4 ranks
+
+
+def _mesh_cases():
+    """Phase 42's cases: (name, layout, op, C, Dev, hkind, levels, ef,
+    conn).  Layout B: C 8 x Dev 2 over 2 ranks (the "data" axis of a (2,
+    2) ("pod", "data") mesh: each pod its own 2-rank gossip); A: C 2 x Dev
+    4 over the 4 ranks (R_local 2, g 2); F: the multi-axis fallback, C 8
+    x Dev 2 over ("pod", "data")."""
+    out = []
+    for lay, C, Dev in (("B", 8, 2), ("A", 2, 4), ("F", 8, 2)):
+        for h in ("ring", "complete", "erdos_renyi"):
+            out.append((f"mix {lay} {C}x{Dev} {h}", lay, "mix", C, Dev, h,
+                        None, False, None))
+    for lay, C, Dev in (("B", 8, 2), ("A", 2, 4)):
+        lv = MESH_LEVELS * (C // 2)
+        conn = tuple(0.0 if c == 1 else 1.0 for c in range(C))
+        out += [(f"full-theta f32 {lay} {C}x{Dev}", lay, "full", C, Dev,
+                 "ring", None, False, None),
+                (f"int4 {lay} {C}x{Dev}", lay, "wire", C, Dev, "ring", lv,
+                 False, None),
+                (f"int4 {lay} {C}x{Dev} wire-EF", lay, "wire", C, Dev, "ring",
+                 lv, True, None),
+                (f"int4 {lay} {C}x{Dev} conn", lay, "wire", C, Dev, "ring",
+                 lv, False, conn)]
+    return out
+
+
+def _rank_sync(mesh):
+    torch.cuda.synchronize()
+    mesh.barrier()
+
+
+def mesh_collectives_rank(mesh):
+    """Phase 42 on one rank: every case's rows against the one-process
+    result on the same card (all R rows, then this rank's), a call's ms
+    (the ranks started together), messages, bytes and staged bytes."""
+    import zlib
+
+    from repro_torch.core.round import gossip_cols
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.mesh import RankMesh
+    from repro_torch.kernels import build
+    from repro_torch.kernels import wire_pack as wp
+    build.lib()  # loads phase 1's library
+    pd = RankMesh((2, 2), ("pod", "data"), rank=mesh.rank, world=mesh.world,
+                  device=mesh.device, backend=mesh.backend,
+                  staged=mesh.staged)
+    meshes = {"A": (mesh, ("data",)), "B": (pd, ("data",)),
+              "F": (pd, ("pod", "data"))}
+    out = []
+    for name, lay, op, C, Dev, h, lv, ef, conn in _mesh_cases():
+        m, axes = meshes[lay]
+        n, f = m.size(axes), m.flat_index(axes)
+        R, L = C * Dev, MESH_COLS
+        Rl = R // n
+        gen = torch.Generator(device="cuda").manual_seed(
+            zlib.crc32(name.encode()))
+        x = torch.randn((R, L), generator=gen, device="cuda")
+        if op == "wire":  # intra_done rows: each cluster's rows its mean
+            x = x.view(C, Dev, L)[:, :1].expand(C, Dev, L).reshape(R, L)
+        est = None
+        if ef:
+            est = [torch.randn((C, 1, L), generator=gen, device="cuda")
+                   .expand(C, Dev, L).reshape(R, L).contiguous()
+                   for _ in range(2)]
+        mine = lambda t: t[f * Rl:(f + 1) * Rl].clone()
+        wkw = dict(clusters=C, dev=Dev, hkind=h, wire_dtype="int4",
+                   cluster_theta=lv, chunk_cols=gossip_cols(C),
+                   conn=None if conn is None else np.asarray(conn, np.float32))
+
+        def one_process():
+            if op == "mix":
+                return col.mix_local(x, clusters=C, dev=Dev, hkind=h), None
+            if op == "full":
+                return col.mix_local(x, clusters=C, dev=Dev, hkind=h), None
+            y = x.clone()
+            e = None if est is None else [t.clone() for t in est]
+            col.sparse_exchange_(y, wire_ef=e, **wkw)
+            return y, e
+
+        def ranks(xs, es):
+            if op == "mix":
+                return col.mix_local(xs, clusters=C, dev=Dev, hkind=h,
+                                     axes=axes, mesh=m), None
+            if op == "full":
+                return col.sparse_neighbor_exchange(
+                    xs, clusters=C, dev=Dev, hkind=h, theta=1.0,
+                    wire_dtype="f32", axes=axes, mesh=m), None
+            col.sparse_exchange_(xs, wire_ef=es, axes=axes, mesh=m, **wkw)
+            return xs, es
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_e = one_process()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        want = want[f * Rl:(f + 1) * Rl]
+        got, got_e = ranks(mine(x), None if est is None
+                           else [mine(t) for t in est])
+        row = dict(name=name, rank=mesh.rank, plain_ms=plain_ms)
+        if op == "full":  # the reference pins it: bit for bit the mix
+            same = col.mix_local(mine(x), clusters=C, dev=Dev, hkind=h,
+                                 axes=axes, mesh=m)
+            row["exact"] = bool(torch.equal(got, same))
+            row["want_exact"] = True
+        elif op == "wire":  # the one-process order: bit for bit
+            row["exact"] = bool(torch.equal(got, want)) and (
+                got_e is None or all(torch.equal(a, b[f * Rl:(f + 1) * Rl])
+                                     for a, b in zip(got_e, want_e)))
+            row["want_exact"] = True
+        else:
+            row["want_exact"] = False
+        row["max_err"] = float((got.float() - want.float()).abs().max())
+        row["tol"] = 1e-6 * float(x.abs().max())
+        del want, want_e, got, got_e
+        ms, stats = [], None
+        for _ in range(MESH_CALLS):
+            xs = mine(x)
+            es = None if est is None else [mine(t) for t in est]
+            _rank_sync(m)
+            m.reset_stats()
+            wp.reset_launches()
+            t0 = time.perf_counter()
+            ranks(xs, es)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            stats = dict(m.stats)
+            launches = dict(wp.LAUNCHES)
+        row.update(ms=ms, stats=stats, launches=launches)
+        out.append(row)
+        del x, est
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_collectives_phase():
+    """Phase 42: the collectives across 4 ranks sharing the card."""
+    from repro_torch.dist.mesh import run_world
+    t0 = time.perf_counter()
+    got = run_world(mesh_collectives_rank, 4, timeout_s=MESH_TIMEOUT_S,
+                    threads=MESH_THREADS)
+    bad = []
+    for i, (name, lay, op, C, Dev, *_rest) in enumerate(_mesh_cases()):
+        rows = [g[i] for g in got]
+        exact = all(r.get("exact", False) for r in rows)
+        err = max(r["max_err"] for r in rows)
+        tol = rows[0]["tol"]
+        ms = float(np.median([v for r in rows for v in r["ms"]]))
+        st = rows[0]["stats"]
+        print(f"mesh {name}: {'bit for bit' if exact else 'not bit for bit'}"
+              f" {'(required)' if rows[0]['want_exact'] else ''} max |err| "
+              f"{err:.3e} against the one-process rows (tolerance "
+              f"{tol:.3e}); {ms:.2f} ms a call (one-process "
+              f"{rows[0]['plain_ms']:.2f} ms, first call); rank 0 a call: "
+              f"{st['calls']} transport calls, {st['messages']} "
+              f"point-to-point messages, {st['bytes']} bytes sent or "
+              f"all-reduced, {st['staged_bytes']} bytes staged; wire "
+              f"launches {rows[0]['launches']}")
+        if rows[0]["want_exact"] and not exact:
+            bad.append(name)
+        if err > tol and op in ("mix", "full"):
+            bad.append(name)
+        if op == "wire" and err != 0.0:
+            bad.append(name)
+    print(f"phase 42 took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"phase 42: the rows across ranks disagree: {bad}")
+
+
+def state_sample(state, fields=("params", "ef")):
+    """Every leaf row's MESH_SAMPLE entries (a stride over the row) and
+    its f64 sum, on the host: {field/leaf: (samples (R, n) f32, sums
+    (R,))}."""
+    from repro_torch.tree import flatten
+    out = {}
+    for fld in fields:
+        for k, v in flatten(getattr(state, fld)).items():
+            flat = v.view(v.shape[0], -1)
+            L = flat.shape[1]
+            idx = torch.arange(0, L, max(1, L // MESH_SAMPLE),
+                               device=v.device)[:MESH_SAMPLE]
+            out[f"{fld}/{k}"] = (
+                flat.index_select(1, idx).float().cpu(),
+                torch.sum(flat, dim=1, dtype=torch.float64).cpu())
+    return out
+
+
+def compare_samples(got, want, r0):
+    """Entries beyond ROUND_ATOL, entries compared, the largest |diff| and
+    the largest relative difference of the row sums, of this rank's rows
+    (from r0) against the 1-rank run's."""
+    far = total = 0
+    worst = sums = 0.0
+    for k, (s, rs) in got.items():
+        ws, wr = want[k]
+        ws, wr = ws[r0:r0 + s.shape[0]], wr[r0:r0 + s.shape[0]]
+        d = (s - ws).abs()
+        far += int((d > ROUND_ATOL).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+        sums = max(sums, float(((rs - wr).abs()
+                                / wr.abs().clamp_min(1e-30)).max()))
+    return far, total, worst, sums
+
+
+def mesh_launcher_rank(mesh, argv, want):
+    """Phase 43 on one rank: the launcher, each round's state sampled
+    against the 1-rank run's rows; the rank's counters."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    from repro_torch.launch import train
+    build.lib()
+    for mod in (fa, tk, wp):
+        mod.reset_launches()
+    checks = []
+
+    def on_round(rnd, state, rec):
+        # --mesh single: rank r holds rows [r R_local, (r + 1) R_local)
+        sample = state_sample(state)
+        n = next(iter(sample.values()))[0].shape[0]
+        checks.append(compare_samples(sample, want[rnd], mesh.rank * n))
+
+    torch.cuda.reset_peak_memory_stats()
+    out = train.main(argv, on_round=on_round)
+    torch.cuda.synchronize()
+    pol = out["policy"]
+    return dict(rank=mesh.rank, history=out["history"],
+                round_ms=out["round_ms"], timings=out["timings"],
+                peak_gb=out["peak_mem_gb"], checks=checks,
+                local=pol.local_replicas, first=pol.first_replica,
+                launches={**fa.LAUNCHES, **tk.LAUNCHES, **wp.LAUNCHES})
+
+
+def gossip_chunks(cfg, C, rnd_mod):
+    """The gossip's column chunks a round (every leaf's)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import flatten
+    cols = rnd_mod.gossip_cols(C)
+    shapes = [tuple(v.shape) for v in flatten(
+        get_model(cfg).init(cfg, device="meta")).values()]
+    return sum(-(-int(np.prod(s)) // cols) for s in shapes)
+
+
+def mesh_main_path(train, rnd_mod, fa, tk, wp, topk_per_round):
+    """Phase 43: smollm-135M at full width and depth through the
+    launcher's --mesh single on 2 ranks sharing the card (R 16, 8 a rank:
+    layout B, 4 whole clusters a rank), the int4 wire at per-cluster
+    levels, tau = q = 2, MESH_ROUNDS rounds (the second gossips); first
+    the same rounds on a 1-rank world in this process, its state sampled
+    to the host each round."""
+    from repro_torch.dist.mesh import run_world
+    t0 = time.perf_counter()
+    print("python -m repro_torch.launch.train " + " ".join(MESH_ARGV)
+          + " (1 rank, then 2)")
+    want = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    one = train.main(MESH_ARGV, on_round=lambda r, st, rec: want.append(
+        state_sample(st)))
+    cfg, R = one["cfg"], one["policy"].replicas
+    one_hist, one_ms = one["history"], one["round_ms"]
+    one_peak = one["peak_mem_gb"]
+    del one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    got = run_world(mesh_launcher_rank, 2, MESH_ARGV, want,
+                    timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS)
+    t2 = time.perf_counter()
+    tau, rounds = 2, MESH_ROUNDS
+    chunks = gossip_chunks(cfg, 8, rnd_mod) * (rounds // 2)
+    bad = []
+    med = lambda v: float(np.percentile(v, 50))
+    peaks = [g["peak_gb"] for g in got]
+    for g in got:
+        Rl = g["local"]
+        steps = rounds * Rl * tau
+        want_l = {"flash_attention": steps * cfg.num_layers * 2,
+                  "flash_attention_bwd": steps * cfg.num_layers,
+                  "topk_compress": rounds * topk_per_round,
+                  "wire_decode_mix": chunks}
+        for k, v in want_l.items():
+            if g["launches"][k] != v:
+                bad.append(f"rank {g['rank']} {k} {g['launches'][k]} != {v}")
+        if g["launches"]["wire_encode"] < chunks:
+            bad.append(f"rank {g['rank']} wire_encode "
+                       f"{g['launches']['wire_encode']} < {chunks}")
+        for r, (h, w) in enumerate(zip(g["history"], one_hist)):
+            if abs(h["loss"] - w["loss"]) > 1e-6 * abs(w["loss"]):
+                bad.append(f"rank {g['rank']} round {r} loss {h['loss']} "
+                           f"!= {w['loss']}")
+        for r, (far, total, worst, sums) in enumerate(g["checks"]):
+            print(f"mesh rank {g['rank']} round {r}: {far} of {total} "
+                  f"sampled entries beyond {ROUND_ATOL} of the 1-rank rows "
+                  f"(largest {worst:.3e}; {int(Q_FLIP_SHARE * total)} "
+                  f"allowed), row sums within {sums:.3e}")
+            if far > int(Q_FLIP_SHARE * total):
+                bad.append(f"rank {g['rank']} round {r}: {far} flips")
+        p50 = med(g["round_ms"])
+        h1 = g["history"][1]  # the gossip round
+        phases = {k: [round(x, 1) for x in v]
+                  for k, v in g["timings"].items()}
+        print(f"mesh rank {g['rank']}: rows {g['first']}.."
+              f"{g['first'] + Rl - 1}, round ms {g['round_ms']} (p50 "
+              f"{p50:.1f} against {LM_ROUND_LIMIT_MS}), phases "
+              f"{phases}, "
+              f"peak {g['peak_gb']:.2f} GB, gossip round staged "
+              f"{h1['rank_staged_bytes']} bytes in {h1['rank_messages']} "
+              f"messages (each rank), launches {g['launches']}")
+        if p50 > LM_ROUND_LIMIT_MS:
+            bad.append(f"rank {g['rank']} p50 {p50:.1f} ms")
+    first = got[0]["history"][0]["loss"]
+    if abs(first - np.log(cfg.vocab_size)) > 1.0:
+        bad.append(f"first loss {first} not within 1 of ln(vocab)")
+    if sum(peaks) > PEAK_LIMIT_GB:
+        bad.append(f"peaks {peaks} sum over {PEAK_LIMIT_GB} GB")
+    stats = dict(ranks=2, replicas=R, layers=cfg.num_layers,
+                 d_model=cfg.d_model, one_rank_round_ms=one_ms,
+                 one_rank_peak_gb=one_peak, rank_peaks_gb=peaks,
+                 rank_round_ms=[g["round_ms"] for g in got],
+                 gossip_ms=[g["timings"].get("gossip") for g in got],
+                 loss=[h["loss"] for h in got[0]["history"]],
+                 one_rank_loss=[h["loss"] for h in one_hist],
+                 staged_bytes=got[0]["history"][1]["rank_staged_bytes"],
+                 messages=got[0]["history"][1]["rank_messages"],
+                 one_rank_s=t1 - t0, world_s=t2 - t1)
+    print("mesh_single " + json.dumps(stats))
+    print(f"phase 43 took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"phase 43: {bad}")
+    return {k: sum(g["launches"][k] for g in got) for k in (
+        "flash_attention", "flash_attention_bwd", "topk_compress",
+        "wire_encode", "wire_decode_mix")}
+
+
+def _state_rows(state):
+    from repro_torch.tree import flatten
+    return {f: {k: v.float().cpu().numpy()
+                for k, v in flatten(getattr(state, f)).items()}
+            for f in ("params", "ef")}
+
+
+def layout_a_rounds(mesh=None):
+    """Phase 44's layout A: the smoke smollm's round step at C 2 x Dev 4,
+    2 rounds (intra, then the int4 wire at levels (0.1, 0.6) with the
+    wire EF), on ``mesh``'s 4 ranks (None: one process); this process's
+    rows."""
+    from repro_torch.configs import get_config, smoke_model
+    from repro_torch.configs.base import FLTopology, HCEFConfig
+    from repro_torch.core import round as rnd_mod
+    from repro_torch.dist.policies import make_train_policy
+    from repro_torch.models.registry import get_model
+    cfg = smoke_model(get_config("smollm_135m").model)
+    topo = FLTopology(*MESH_A_TOPO)
+    hcef = HCEFConfig(tau=2, q=2, eta=0.1, sparse_gossip=True,
+                      wire_dtype="int4", wire_ef=True,
+                      theta_levels=(0.1, 0.6, 1.0))
+    policy = (make_train_policy(topo) if mesh is None else
+              make_train_policy(mesh, topo, dp_axes=("data",)))
+    params0 = get_model(cfg).init(cfg, torch.Generator().manual_seed(3),
+                                  device="cpu")
+    state = rnd_mod.init_state(cfg, hcef, topo, params0, device="cuda",
+                               replicas=policy.local_replicas)
+    R = topo.num_devices
+    rng = np.random.default_rng(3)
+    rho = np.full(R, 0.8)
+    theta = np.where(np.arange(R) < R // 2, 0.08, 0.5)
+    hist = []
+    for r in range(2):
+        step = rnd_mod.make_round_step(
+            cfg, hcef, topo, policy, gossip=r == 1,
+            cluster_levels=(0.1, 0.6) if r == 1 else None)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (R * 4, 65)))
+        state, m = step(state, {"tokens": tokens}, rho, theta, 50 + r)
+        hist.append(float(m["loss"].mean()))
+    torch.cuda.synchronize()
+    return hist, _state_rows(state), policy.first_replica
+
+
+def mesh_smoke_rank(mesh, argv):
+    """Phase 44 on one rank: the launcher's --mesh multi, then layout A
+    through the round step; rows and counters."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    from repro_torch.launch import train
+    build.lib()
+    for mod in (fa, tk, wp):
+        mod.reset_launches()
+    out = train.main(argv)
+    pol = out["policy"]
+    multi = ([h["loss"] for h in out["history"]], _state_rows(out["state"]),
+             pol.first_replica)
+    del out
+    a = layout_a_rounds(mesh)
+    return dict(rank=mesh.rank, multi=multi, a=a,
+                launches={**fa.LAUNCHES, **tk.LAUNCHES, **wp.LAUNCHES})
+
+
+def _rows_agree(label, got, want):
+    """The ranks' rows (concatenated) against the 1-rank rows: entries
+    beyond ROUND_ATOL at most Q_FLIP_SHARE of them; returns the line."""
+    far = total = 0
+    worst = 0.0
+    for fld, leaves in want.items():
+        for k, w in leaves.items():
+            g = np.concatenate([x[fld][k] for x in got])
+            d = np.abs(g - w)
+            far += int((d > ROUND_ATOL).sum())
+            total += d.size
+            worst = max(worst, float(d.max()))
+    print(f"{label}: largest deviation from the 1-rank rows {worst:.3e}; "
+          f"{far} of {total} entries beyond {ROUND_ATOL} "
+          f"({int(Q_FLIP_SHARE * total)} allowed)")
+    return far <= int(Q_FLIP_SHARE * total)
+
+
+def mesh_smoke_phase(train):
+    """Phase 44: --mesh multi on 4 ranks (fl_multi, R 32, ("pod", "data")
+    = (2, 2): multi-axis replica dims) and layout A through the round step
+    (C 2 x Dev 4 on 4 ranks), each held to its 1-rank run on this card."""
+    from repro_torch.dist.mesh import run_world
+    t0 = time.perf_counter()
+    one = train.main(MESH_MULTI_ARGV)
+    one_multi = ([h["loss"] for h in one["history"]],
+                 _state_rows(one["state"]))
+    del one
+    one_a = layout_a_rounds()
+    torch.cuda.empty_cache()
+    got = run_world(mesh_smoke_rank, 4, MESH_MULTI_ARGV,
+                    timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS)
+    ok = True
+    for label, key, (loss1, rows1) in (
+            ("--mesh multi on 4 ranks", "multi", one_multi),
+            ("layout A on 4 ranks", "a", one_a[:2])):
+        parts = sorted((g[key] for g in got), key=lambda p: p[2])
+        ok &= _rows_agree(label, [p[1] for p in parts], rows1)
+        losses = [p[0] for p in parts]
+        print(f"{label}: losses {losses[0]} (1 rank {loss1})")
+        ok &= all(np.allclose(lv, loss1, rtol=ROUND_RTOL) for lv in losses)
+    launches = {k: sum(g["launches"][k] for g in got) for k in (
+        "flash_attention", "flash_attention_bwd", "topk_compress",
+        "wire_encode", "wire_decode_mix")}
+    print(f"phase 44 launches (4 ranks): {launches}")
+    print(f"phase 44 took {time.perf_counter() - t0:.1f} s")
+    if not ok or min(launches.values()) == 0:
+        fail("phase 44: the ranks disagree with the 1-rank runs or a "
+             f"kernel did not launch: {launches}")
+    return launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -6290,6 +6798,13 @@ def main():
     dryrun_phase(dryrun, roofline, wire_bytes_report)
     print(f"phase 41 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phases 42-44: the replica axis across ranks sharing the card -------
+    mesh_collectives_phase()
+    m43 = mesh_main_path(train, rnd_mod, fa, tk, wp, topk_lm)
+    m44 = mesh_smoke_phase(train)
+    for k in m43:
+        launches[k] += m43[k] + m44[k]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -6412,6 +6927,13 @@ def main():
     for i, k in ((0, "flash_attention"), (9, "flash_attention_bwd"),
                  (1, "paged_decode_attention"), (2, "topk_compress")):
         kernels[i]["examples_launches"] = m39[k]
+    for i, k in ((0, "flash_attention"), (9, "flash_attention_bwd"),
+                 (2, "topk_compress"), (5, "wire_encode"),
+                 (8, "wire_decode_mix")):
+        # the ranks' launches (each rank's counters summed): phase 43's
+        # main path, phase 44's smoke runs
+        kernels[i]["mesh_launches"] = {"phase_43": m43[k],
+                                       "phase_44": m44[k]}
     print("generate_full " + json.dumps(static_rows))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

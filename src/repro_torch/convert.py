@@ -6,7 +6,9 @@ parameter dict, leaf for leaf and bit for bit (bfloat16 included).
 ``client_half_from_jax`` does the same for per-client state: a reference
 ``FLState``'s client half (``ef``, ``momentum``, ``wire_ef``, None fields
 kept) or a reference ``PopulationStore.gather`` result, so that both
-packages start from one state.
+packages start from one state.  ``shard_rows`` / ``gather_rows`` take a
+rank's contiguous rows of a stacked state and put them back (a rank mesh,
+``dist/mesh.py``).
 """
 from __future__ import annotations
 
@@ -40,3 +42,34 @@ def client_half_from_jax(np_tree, device):
                    params_from_jax(leaf, device) if isinstance(leaf, dict)
                    else params_from_jax({name: leaf}, device)[name])
             for name, leaf in np_tree.items()}
+
+
+def shard_rows(tree, mesh, axes):
+    """This rank's contiguous rows of every leaf of a stacked (R, ...)
+    tree (nested dicts, None kept): rows [f R_local, (f + 1) R_local) for
+    the flat index f over ``axes`` of ``mesh``, as contiguous copies."""
+    n, f = mesh.size(axes), mesh.flat_index(axes)
+
+    def take(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: take(v) for k, v in x.items()}
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not tile {n} ranks")
+        r = x.shape[0] // n
+        return x[f * r:(f + 1) * r].contiguous()
+    return take(tree)
+
+
+def gather_rows(tree, mesh, axes):
+    """The inverse of ``shard_rows``: every rank's rows of each leaf
+    gathered over ``axes`` into the (R, ...) leaf, on every rank."""
+    def put(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        return mesh.all_gather(x, axes).reshape(
+            (-1,) + tuple(x.shape[1:]))
+    return put(tree)

@@ -49,11 +49,20 @@ local steps.  Where the reference leaves the scheduling to XLA, here the
 stale payloads of an all-stale sparse gossip are encoded on a side CUDA
 stream while the main stream runs the local steps.
 
+With a policy whose replica axes span n > 1 ranks (``dist.policies``,
+the reference's shard_map over the data axes) each rank holds its R / n
+contiguous rows of every leaf and runs those devices' local steps, one
+top-k launch over its rows, ``mix_local`` over the replica axes and the
+wire across ranks; the round's inputs stay the reference's (batch, rho,
+theta, the bits, the masks for all R; each rank takes its rows) and the
+metrics come back for all R through one all_gather, so that every rank's
+controller sees the same numbers.  The overlapped engine across ranks is
+left out (ROADMAP.md item 5).
+
 The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
 reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
--> (R, tau)``.  Left out: more than one rank (ROADMAP.md item 5).  The
-reference's R == 1 branch exists for ``vmap``; here the devices run in a
-loop and R = 1 takes the same path.
+-> (R, tau)``.  The reference's R == 1 branch exists for ``vmap``; here the
+devices run in a loop and R = 1 takes the same path.
 """
 from __future__ import annotations
 
@@ -69,8 +78,8 @@ from repro_torch.configs.base import FLTopology, HCEFConfig, ModelConfig
 from repro_torch.core.compression import compress_delta
 from repro_torch.core.mixing import make_mixing, participation_mixing
 from repro_torch.device import from_numpy, resolve
-from repro_torch.dist.collectives import (mix_local, sparse_exchange_,
-                                          stale_payloads)
+from repro_torch.dist.collectives import (MULTI_RANK, mix_local,
+                                          sparse_exchange_, stale_payloads)
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import get_model
 from repro_torch.optim.sgd import sgd_update_
@@ -163,14 +172,16 @@ def _global_norm2(tensors) -> torch.Tensor:
 
 
 def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
-               params0, device=None) -> FLState:
+               params0, device=None, replicas: Optional[int] = None
+               ) -> FLState:
     """Every device starts from ``params0`` (a nested dict of tensors or
     numpy arrays: the reference draws its own with ``jax.random``, so the
     weights are an input here); momentum in ``cfg.state_dtype`` and EF in
     the parameters' type start at zero, as do the f32 wire-EF estimates
-    with ``hcef.wire_ef``."""
+    with ``hcef.wire_ef``.  ``replicas``: the rows this process holds (a
+    rank's R / n, ``shard_rows`` of the whole state), default R."""
     dev = resolve(device)
-    R = topo.num_devices
+    R = topo.num_devices if replicas is None else int(replicas)
 
     def stack(x):
         t = x.to(dev) if isinstance(x, torch.Tensor) else from_numpy(
@@ -364,7 +375,11 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     updates fold into their EF; ``alive_w`` (R,) f32, the host's
     ``dist.collectives.participation_weights`` (the live-device mean);
     ``conn`` (C,) 0/1 backhaul links (``mixing.participation_mixing``).
-    Host arrays (numpy)."""
+    Host arrays (numpy).
+
+    A policy over n > 1 ranks: ``state`` holds this rank's R / n rows
+    (``convert.shard_rows``), every other input is the whole round's;
+    metrics are for all R."""
     model = get_model(cfg)
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
@@ -376,6 +391,13 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     if policy is not None and policy.replicas != R:
         raise ValueError(f"policy for {policy.replicas} replicas, topology "
                          f"has {R}")
+    ranks = 1 if policy is None or R == 1 else policy.ranks
+    if R % ranks:
+        raise ValueError(f"R={R} does not tile {ranks} ranks")
+    R_loc = R // ranks  # this rank's rows of the replica dim
+    r0 = policy.first_replica if ranks > 1 else 0
+    mesh_kw = (dict(mesh=policy.mesh, axes=policy.replica_axes)
+               if ranks > 1 else {})
     sparse = policy is not None and hcef.sparse_gossip and gossip and R > 1
     use_wef = bool(hcef.wire_ef) and sparse
     # the fused branch's mix before any gossip: the intra mean, or on a
@@ -385,7 +407,7 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     wire_kw = dict(clusters=C, dev=Dev, hkind=topo.backhaul,
                    wire_dtype=hcef.wire_dtype, wire_block=hcef.wire_block,
                    wire_ef_gamma=hcef.wire_ef_gamma, impl=impl,
-                   chunk_cols=gossip_cols(C))
+                   chunk_cols=gossip_cols(C), **mesh_kw)
     H = torch.as_tensor(make_mixing(topo.backhaul, C), dtype=torch.float32)
     M = torch.repeat_interleave(H / Dev, Dev, dim=1)  # (C, R)
     bits_fn = bits_fn or functools.partial(bernoulli_bits, tau=hcef.tau)
@@ -433,21 +455,21 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     "partitions (conn): a partitioned sender's neighbors "
                     "would zero its contribution while its own estimate "
                     "advances; the shared estimates desync")
-            alive = np.asarray(alive, np.float32)
-            alive_w = np.asarray(alive_w, np.float32)
+            alive = np.asarray(alive, np.float32)[r0:r0 + R_loc]
+            alive_w = np.asarray(alive_w, np.float32)[r0:r0 + R_loc]
             conn = None if conn is None else np.asarray(conn, np.float32)
         params = flatten(state.params)
         dev = next(iter(params.values())).device
         phase = _phase_timer(timings, dev)
-        batch = {k: v.to(dev)
+        batch = {k: v[r0:r0 + R_loc].to(dev)
                  for k, v in _split_batch(batch, R, hcef.tau).items()}
-        bits = torch.as_tensor(bits_fn(key, rho), dtype=torch.float32,
-                               device=dev)
+        bits = torch.as_tensor(np.asarray(bits_fn(key, rho))[r0:r0 + R_loc],
+                               dtype=torch.float32, device=dev)
         delta_tree = tree_map(torch.empty_like, state.params)
         delta = flatten(delta_tree)
         per_dev: List[Dict] = []
         with phase("device_round"):
-            for r in range(R):
+            for r in range(R_loc):
                 with torch.no_grad():
                     for k, d in delta.items():
                         d[r].copy_(params[k][r])
@@ -460,7 +482,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         _mark(events, "device_round_end", dev)
         # theta in float32 before Q, as the reference casts it: k is
         # computed from the f32 value
-        theta32 = torch.as_tensor(np.asarray(theta, np.float32), device=dev)
+        theta32 = torch.as_tensor(
+            np.asarray(theta, np.float32)[r0:r0 + R_loc], device=dev)
         with phase("compress"), torch.no_grad():
             comp, ef = compress_delta(delta, flatten(state.ef), theta32,
                                       block=hcef.block_size,
@@ -476,6 +499,12 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     del c2, e2
         metrics = {k: torch.stack([m[k] for m in per_dev])
                    for k in per_dev[0]}
+        if ranks > 1:  # every rank's host sees all R devices' metrics
+            names = sorted(metrics)
+            got = policy.mesh.all_gather(
+                torch.stack([metrics[k].float() for k in names], dim=1),
+                policy.replica_axes).reshape(R, len(names))
+            metrics = {k: got[:, i] for i, k in enumerate(names)}
         masks = (alive_w, conn) if chaos else None
         if policy is None:
             aggregate(params, comp, phase, masks)
@@ -514,12 +543,12 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     xc.view(C, Dev, -1).copy_(yc[:, None])
 
     def fused(params, comp, state, theta, metrics, phase, masks, events):
-        """The fused branch (:301-505) with the whole replica dim here:
-        per leaf x0 + Q in the parameters' type and its ``mix_local``,
-        then on sparse gossip rounds the wire gossip of the cluster
-        means, leaf by leaf, the wire-EF estimates advanced in place.
-        Under the masks ``mix_local`` takes alive_w (and conn on a dense
-        gossip round), the wire gossip conn (:337-480)."""
+        """The fused branch (:301-505) on this rank's rows: per leaf x0 +
+        Q in the parameters' type and its ``mix_local`` (over the replica
+        axes across ranks), then on sparse gossip rounds the wire gossip
+        of the cluster means, leaf by leaf, the wire-EF estimates advanced
+        in place.  Under the masks ``mix_local`` takes alive_w (and conn
+        on a dense gossip round), the wire gossip conn (:337-480)."""
         mix_kw, conn = {}, None
         if masks is not None:
             alive_w, conn = masks
@@ -527,12 +556,13 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                 conn if fused_hkind != "none" else None))
         with phase("aggregate"), torch.no_grad():
             for k, x0 in params.items():
-                xf, cf = x0.view(R, -1), comp[k].view(R, -1)
+                xf, cf = x0.view(R_loc, -1), comp[k].view(R_loc, -1)
                 for c0 in range(0, xf.shape[1], AGG_COLS):
                     xc = xf[:, c0:c0 + AGG_COLS]
                     upd = xc + cf[:, c0:c0 + AGG_COLS]
                     xc.copy_(mix_local(upd, clusters=C, dev=Dev,
-                                       hkind=fused_hkind, **mix_kw)
+                                       hkind=fused_hkind, **mix_kw,
+                                       **mesh_kw)
                              if R > 1 else upd)
         if not sparse:
             return
@@ -544,8 +574,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
             _mark(events, "gossip_start", dev)
             for k, x0 in params.items():
                 wef = (None if est is None
-                       else [e[k].view(R, -1) for e in est])
-                sparse_exchange_(x0.view(R, -1), wire_ef=wef, conn=conn,
+                       else [e[k].view(R_loc, -1) for e in est])
+                sparse_exchange_(x0.view(R_loc, -1), wire_ef=wef, conn=conn,
                                  **lv, **wire_kw)
             _mark(events, "gossip_end", dev)
         metrics["theta_wire"] = torch.tensor(theta_wire, dtype=torch.float32)
@@ -600,6 +630,9 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
     if not hcef.overlap:
         raise ValueError("make_overlap_round_step requires hcef.overlap "
                          "(use make_round_step for the synchronous engine)")
+    if policy is not None and topo.num_devices > 1 and policy.ranks > 1:
+        raise NotImplementedError(f"the overlapped engine on {policy.ranks} "
+                                  f"ranks is not ported yet: {MULTI_RANK}")
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
     if stale_clusters is not None:

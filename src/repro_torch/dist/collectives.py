@@ -53,11 +53,30 @@ the fresh mean.  A chunk's payloads come from ``_chunk_payloads``, so
 the round's local steps and ``sparse_exchange_(payloads=...)`` mix them
 later, with the in-line path's bits.
 
-The reference runs this on a shard_map mesh; at one shard its layout B
-rotations are these row rolls, and it encodes only a plan's sender rows,
-as here.  Not ported, each raising and naming its ROADMAP.md item: mesh
-``axes`` (torch.distributed rotations, layouts A and B across ranks, the
-psum fallback, multi-axis).
+Across ranks (``axes`` of a ``dist.mesh.RankMesh`` given as ``mesh=``,
+the reference's shard_map path, collectives.py:205-459, :758-1163): the
+(R, ...) replica dim is split contiguously over the flat index of
+``axes``, R = R_local * n, clusters contiguous runs of Dev replicas.
+  A. Dev % R_local == 0: a rank's rows lie in one cluster spanning g =
+     Dev / R_local ranks; the intra mean is a recursive-doubling (g a
+     power of two) or ring allreduce over the group, the bands rotations
+     by o * g ranks;
+  B. R_local % Dev == 0: a rank holds Cl = R_local / Dev whole clusters;
+     the intra mean is local, band o the rotations by o // Cl and o // Cl
+     + 1 ranks, stitched;
+  anything else, and ``mix_local`` over more than one axis: the masked
+  psum of the (C, ...) cluster sums, every rank then mixing all C rows
+  (the sparse wire's math locally, without its savings).
+The dense bands run in f32 (the reference's in x's type: the same for f32
+rows).  On the wire every plan (the one-process plans, over all C
+clusters) ships only its members' rows: a chunk's payloads go to the
+ranks whose rows read them, each rank's received rows landing, band by
+band and plan by plan, where the one-process kernel reads its rolled
+rows, so one ``wire_decode_mix`` launch sums them in the one-process
+order (bit for bit its rows).  More than one replica axis takes the
+largest of ``cluster_theta`` as the reference does.  Not ported, raising
+and naming ROADMAP.md item 5: ``stale=`` / ``payloads=`` across ranks
+(the overlap engine there).  A 1-rank mesh is the one-process path.
 """
 from __future__ import annotations
 
@@ -70,18 +89,32 @@ import torch
 from repro_torch.core import wire_format as wf
 from repro_torch.core.mixing import make_mixing, participation_mixing
 from repro_torch.kernels import ops
-from repro_torch.kernels.wire_pack import MixStep, decode_rows, pad_rows
+from repro_torch.kernels.wire_pack import (MixStep, _p4_sizes, decode_rows,
+                                          pad_rows)
 
 WIRE_DTYPES = wf.WIRE_DTYPES
-MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path, "
-              "multi-rank: torch.distributed rotations, layouts A/B at "
-              "n > 1, the psum fallback, multi-axis)")
+MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path: "
+              "the tensor axis, the overlap engine and the population "
+              "store across ranks, the dry run's mesh half, NCCL across "
+              "cards)")
 
 
-def _local_only(axes):
-    if axes:
-        raise NotImplementedError(f"mesh axes {axes!r} are not ported yet: "
-                                  f"{MULTI_RANK}")
+def _axes_tuple(axes) -> tuple:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _ranks(axes, mesh) -> int:
+    """The number of ranks over ``axes`` (1 without axes); axes need the
+    ``RankMesh`` they name."""
+    axes = _axes_tuple(axes)
+    if not axes:
+        return 1
+    if mesh is None:
+        raise ValueError(f"mesh axes {axes!r} need mesh=, the "
+                         f"dist.mesh.RankMesh they name")
+    return mesh.size(axes)
 
 
 def participation_weights(alive, *, clusters: int, dev: int) -> np.ndarray:
@@ -147,20 +180,39 @@ def _mixing_cached(hkind: str, C: int, p_edge: float, seed: int):
 # ---------------------------------------------------------------------------
 
 def mix_local(x, *, clusters: int, dev: int, axes=(), hkind: str = "ring",
-              p_edge: float = 0.4, seed: int = 0, alive=None, conn=None):
-    """W applied to the whole (R, *dims) replica array (the reference's
+              p_edge: float = 0.4, seed: int = 0, alive=None, conn=None,
+              mesh=None):
+    """W applied to the (R, *dims) replica array (the reference's
     ``_mix_dense_local``): per-cluster means in f32, the (C, C) H product
     unless ``hkind="none"``, every device of a cluster taking its row;
     same shape and type as x.
 
     ``alive``: (R,) ``participation_weights`` premultiplying the rows (the
     mean over live devices); ``conn``: (C,) backhaul mask, the product
-    then by ``participation_mixing(H, conn)``."""
-    _local_only(axes)
+    then by ``participation_mixing(H, conn)``.
+
+    With ``axes`` over more than one rank of ``mesh``: x is this rank's
+    (R_local, *dims) rows and ``alive`` their (R_local,) weights; layout
+    A, B or the psum fallback, as the reference dispatches (:205)."""
+    axes = _axes_tuple(axes)
+    n = _ranks(axes, mesh)
     C, Dev = clusters, dev
     conn = _conn_or_none(conn)
     if alive is not None:
         x = _alive_premultiply(x, alive)
+    if n > 1:
+        R_local = x.shape[0]
+        if R_local * n != C * Dev:
+            raise ValueError(f"{R_local} rows a rank on {n} ranks for {C} "
+                             f"clusters x {Dev} devices")
+        kw = dict(mesh=mesh, axes=axes, C=C, Dev=Dev, hkind=hkind,
+                  p_edge=p_edge, seed=seed, conn=conn)
+        single = len(axes) == 1
+        if single and R_local <= Dev and Dev % R_local == 0:
+            return _mix_layout_a(x, **kw)
+        if single and R_local % Dev == 0:
+            return _mix_layout_b(x, **kw)
+        return _mix_fallback(x, **kw)
     dims = tuple(x.shape[1:])
     means = x.float().reshape((C, Dev) + dims).mean(dim=1)
     if hkind != "none":
@@ -172,6 +224,160 @@ def mix_local(x, *, clusters: int, dev: int, axes=(), hkind: str = "ring",
         means = torch.tensordot(Hd, means, dims=([1], [0]))
     return means[:, None].expand((C, Dev) + dims).reshape(x.shape).to(
         x.dtype)
+
+
+def _group_allreduce_sum(x, mesh, axes, g: int):
+    """Sum over aligned groups of g consecutive ranks of the flat index
+    over ``axes`` (reference :154): log2 g XOR exchanges when g is a power
+    of two, else a ring of g - 1 steps.  Every rank of a group ends with
+    the same bits (the adds commute)."""
+    if g == 1:
+        return x
+    n = mesh.size(axes)
+    if g & (g - 1) == 0:
+        step = 1
+        while step < g:
+            perm = [(j, (j - j % g) + ((j % g) ^ step)) for j in range(n)]
+            x = x + mesh.ppermute([x], axes, perm)[0]
+            step *= 2
+        return x
+    acc, cur = x, x
+    perm = [(j, (j - j % g) + (j % g + 1) % g) for j in range(n)]
+    for _ in range(g - 1):
+        cur = mesh.ppermute([cur], axes, perm)[0]
+        acc = acc + cur
+    return acc
+
+
+def _col(v, t):
+    """A host vector as an f32 column broadcasting against t's rows."""
+    return torch.as_tensor(np.asarray(v, np.float32), device=t.device).view(
+        (-1,) + (1,) * (t.ndim - 1))
+
+
+def _weighted_bands(mean, rotate_fn, cl, C, hkind, p_edge, seed, conn=None):
+    """diag * mean plus one rotation a nonzero band of H (reference :326),
+    in f32: mean (m, *dims) this rank's cluster means, cl (m,) their
+    clusters, rotate_fn(mean, o) the band-o rotated means.  ``conn`` (a
+    host mask, replicated): band o's source link at receiver c is conn[(c
+    - o) % C]; a partitioned source's terms are zeroed, their weight added
+    to the receiver's own mean, a partitioned receiver keeps its mean."""
+    diag, bands, _ = _mixing_cached(hkind, C, p_edge, seed)
+    cl = np.asarray(cl, np.int64)
+    f32 = lambda v: np.asarray(v, np.float32)[cl]
+    y = _col(f32(diag), mean) * mean
+    cw = None if conn is None else np.asarray(_host(conn), np.float32)
+    absorbed = None
+    for o, coef in sorted(bands.items()):
+        rot = rotate_fn(mean, o)
+        if cw is None:
+            y = y + _col(f32(coef), mean) * rot
+        else:
+            c_o = cw[(cl - o) % C]
+            y = y + _col(f32(coef), mean) * (_col(c_o, mean) * rot)
+            a_o = f32(coef) * (np.float32(1.0) - c_o)
+            absorbed = a_o if absorbed is None else absorbed + a_o
+    if cw is not None and absorbed is not None:
+        if np.any(absorbed > 0):
+            y = torch.where(_col(absorbed > 0, mean) > 0,
+                            y + _col(absorbed, mean) * mean, y)
+        y = torch.where(_col(cw[cl] > 0, mean) > 0, y, mean)
+    return y
+
+
+def _complete_mix(means, total, divisor, cl, C, conn):
+    """H = 11^T / C: ``total`` the psum of the cluster means (conn-weighted
+    under a mask), counted ``divisor`` / C times each, the mix total /
+    divisor; under ``conn`` the partitioned columns' lost 1/C into each
+    receiver's own mean, a partitioned receiver keeping its own (reference
+    :373-385, :401-413)."""
+    y = (total / divisor).expand_as(means)
+    if conn is None:
+        return y
+    cw = np.asarray(_host(conn), np.float32)
+    dead = np.float32(C) - cw.sum(dtype=np.float32)
+    if dead > 0:
+        y = y + means * float(np.float32(dead) / np.float32(C))
+    my_c = cw[np.asarray(cl, np.int64)]
+    return torch.where(_col(my_c > 0, means) > 0, y, means)
+
+
+def _mix_layout_a(x, *, mesh, axes, C, Dev, hkind, p_edge, seed, conn):
+    """One cluster a rank, spanning g = Dev / R_local ranks (:363)."""
+    R_local = x.shape[0]
+    g = Dev // R_local
+    dims = tuple(x.shape[1:])
+    s = _group_allreduce_sum(x.float().sum(dim=0), mesh, axes, g)
+    mean = (s / Dev)[None]  # (1, *dims), the same on the group's ranks
+    if hkind != "none":
+        cl = np.array([mesh.flat_index(axes) // g])
+        if hkind == "complete":
+            # psum counts each cluster on each of its g ranks
+            w = mean if conn is None else mean * float(
+                np.asarray(_host(conn), np.float32)[cl[0]])
+            mean = _complete_mix(mean, mesh.psum(w, axes), g * C, cl, C,
+                                 conn)
+        else:
+            rot = lambda m, o: mesh.rotate([m], axes, o * g)[0]
+            mean = _weighted_bands(mean, rot, cl, C, hkind, p_edge, seed,
+                                   conn)
+    return mean.expand((R_local,) + dims).to(x.dtype)
+
+
+def _mix_layout_b(x, *, mesh, axes, C, Dev, hkind, p_edge, seed, conn):
+    """Cl = R_local / Dev whole clusters a rank (:393)."""
+    R_local = x.shape[0]
+    Cl = R_local // Dev
+    dims = tuple(x.shape[1:])
+    means = x.float().reshape((Cl, Dev) + dims).mean(dim=1)
+    cl = mesh.flat_index(axes) * Cl + np.arange(Cl)
+    if hkind == "complete":
+        w = means if conn is None else means * _col(
+            np.asarray(_host(conn), np.float32)[cl], means)
+        means = _complete_mix(means, mesh.psum(w.sum(dim=0), axes)[None],
+                              C, cl, C, conn)
+    elif hkind != "none":
+        def rot(m, o):
+            # band o in cluster space: the rotations by q and q + 1 ranks,
+            # the rm rows that wrap a rank boundary from the second
+            q, rm = divmod(o, Cl)
+            r_q = mesh.rotate([m], axes, q)[0]
+            if rm == 0:
+                return r_q
+            r_q1 = mesh.rotate([m], axes, q + 1)[0]
+            return torch.cat([r_q1[Cl - rm:], r_q[:Cl - rm]], dim=0)
+
+        means = _weighted_bands(means, rot, cl, C, hkind, p_edge, seed, conn)
+    return means[:, None].expand((Cl, Dev) + dims).reshape(x.shape).to(
+        x.dtype)
+
+
+def _cluster_sums(rows, mesh, axes, C, Dev):
+    """The (C, L) f32 sums of every cluster's rows over the ranks of
+    ``axes`` (this rank's rows (R_local, L)) and the local rows'
+    clusters."""
+    R_local = rows.shape[0]
+    cl = (mesh.flat_index(axes) * R_local + np.arange(R_local)) // Dev
+    part = torch.zeros((C,) + tuple(rows.shape[1:]), dtype=torch.float32,
+                       device=rows.device)
+    part.index_add_(0, torch.as_tensor(cl, device=rows.device),
+                    rows.float())
+    return mesh.psum(part, axes), cl
+
+
+def _mix_fallback(x, *, mesh, axes, C, Dev, hkind, p_edge, seed, conn):
+    """The masked cluster-sum psum (:442): O(C d) memory, one all_reduce
+    of the (C, *dims) cluster sums, the H product on every rank."""
+    sums, cl = _cluster_sums(x, mesh, axes, C, Dev)
+    means = sums / Dev
+    if hkind != "none":
+        _, _, H = _mixing_cached(hkind, C, p_edge, seed)
+        Hm = (np.asarray(H, np.float32) if conn is None
+              else participation_mixing(H, _host(conn)))
+        Hd = _on_device(tuple(Hm.ravel().tolist()), torch.float32,
+                        x.device).view(C, C)
+        means = torch.tensordot(Hd, means, dims=([1], [0]))
+    return means[torch.as_tensor(cl, device=x.device)].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +688,247 @@ def _sparse_mix_rows(means, layout: _Layout, *, wb, wire_dtype, dense_dtype,
     return y.mul_(wire_ef_gamma).add_(means), est_self, est_wsum
 
 
+# ---------------------------------------------------------------------------
+# the wire across ranks
+# ---------------------------------------------------------------------------
+
+class _RankRows(NamedTuple):
+    """Where the cluster rows lie across ``n`` ranks: layout A ("A", a
+    rank's one row of cluster f // g, g ranks a cluster) or B ("B", m =
+    Cl whole clusters a rank)."""
+    kind: str
+    n: int
+    m: int
+    g: int
+
+    def clusters(self, f: int) -> tuple:
+        if self.kind == "A":
+            return (f // self.g,)
+        return tuple(range(f * self.m, (f + 1) * self.m))
+
+    def source(self, f: int, i: int, o: int, C: int):
+        """(rank, row) of the band-o source of rank f's row i: in A the
+        rank at f's place in its source cluster's group (the rotation by o
+        * g), in B the rank holding that cluster."""
+        s = (self.clusters(f)[i] - o) % C
+        if self.kind == "A":
+            return s * self.g + f % self.g, 0
+        return s // self.m, s % self.m
+
+
+def _rank_rows(R_local: int, n: int, axes, mesh, Dev: int):
+    """The reference's sparse dispatch (:972-1101): layout A where a
+    cluster's group of g ranks lies in one run of the last axis (or one
+    axis), B where a rank holds whole clusters, else None (the psum
+    fallback)."""
+    if R_local <= Dev and Dev % R_local == 0:
+        g = Dev // R_local
+        if len(axes) == 1 or g == 1 or mesh.axis_size(axes[-1]) % g == 0:
+            return _RankRows("A", n, 1, g)
+        return None
+    if R_local % Dev == 0:
+        return _RankRows("B", n, R_local // Dev, 1)
+    return None
+
+
+class _RankTables(NamedTuple):
+    """A rank's host tables of the wire across ranks.  ``members`` per
+    plan: this rank's rows that send under it (its payload's rows);
+    ``steps`` per (band, plan), in the one-process order: (band index,
+    plan, pieces, senders), the pieces ((source rank, that rank's payload
+    rows), ...) concatenated into the step's payload and ``senders`` each
+    local row's row of it or -1; ``sends`` ((destination rank, ((step,
+    plan, payload rows), ...)), ...) what this rank ships; ``own`` per
+    plan each local row's row of this rank's payload or -1."""
+    members: tuple
+    steps: tuple
+    sends: tuple
+    own: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def _rank_tables(rr: _RankRows, me: int, C: int, offsets: tuple,
+                 plan_rows: tuple):
+    """``offsets``: H's band offsets in order; ``plan_rows`` each plan's
+    sender clusters (None: all)."""
+    src_sets = [None if rows is None else set(rows) for rows in plan_rows]
+
+    def member(f, p):
+        return tuple(i for i, c in enumerate(rr.clusters(f))
+                     if src_sets[p] is None or c in src_sets[p])
+
+    def need(f, o, p):  # rank f's rows whose band-o source sends under p
+        out = []
+        for i in range(rr.m):
+            sf, si = rr.source(f, i, o, C)
+            mem = member(sf, p)
+            if si in mem:
+                out.append((i, sf, mem.index(si)))
+        return out
+
+    steps, sends = [], {}
+    for bi, o in enumerate(offsets):
+        for p in range(len(plan_rows)):
+            k = len(steps)
+            mine = need(me, o, p)
+            pieces, senders, at = [], [-1] * rr.m, 0
+            for sf in sorted({sf for _, sf, _ in mine}):
+                rows = [(i, pos) for i, s2, pos in mine if s2 == sf]
+                pieces.append((sf, tuple(pos for _, pos in rows)))
+                for i, _ in rows:
+                    senders[i] = at
+                    at += 1
+            steps.append((bi, p, tuple(pieces), tuple(senders)))
+            for f in range(rr.n):
+                pos = tuple(pos for _, sf, pos in need(f, o, p) if sf == me)
+                if f != me and pos:
+                    sends.setdefault(f, []).append((k, p, pos))
+    members = tuple(member(me, p) for p in range(len(plan_rows)))
+    own = tuple(tuple(mem.index(i) if i in mem else -1 for i in range(rr.m))
+                for mem in members)
+    return _RankTables(members, tuple(steps),
+                       tuple((f, tuple(v)) for f, v in sorted(sends.items())),
+                       own)
+
+
+def _payload_specs(key, n: int, Lc: int, wb: int, wire_dtype: str,
+                   dense_dtype):
+    """The (shape, dtype) of each field of an ``n``-row payload of a chunk
+    of Lc columns under plan key ``key`` (None where a format has no
+    scale), as ``_chunk_payloads`` makes it."""
+    if key[0] == "dense":
+        return [((n, Lc), dense_dtype)]
+    k_b = max(1, min(int(key[1]), wb))
+    nb = -(-Lc // wb)
+    scale = ((n, nb), torch.float32)
+    if wire_dtype in ("int4", "fp8"):
+        k_out = -(-k_b // 2) if wire_dtype == "int4" else k_b
+        n_off = (k_b if wf.offset_mode(wb, k_b, wire_dtype) == "u8"
+                 else sum(_p4_sizes(wb, k_b)))
+        return [((n, nb, k_out), torch.uint8), ((n, nb, n_off), torch.uint8),
+                scale]
+    vals = {"f32": torch.float32, "bf16": torch.bfloat16,
+            "int8": torch.int8}[wire_dtype]
+    off = torch.int16 if wire_dtype == "int8" else torch.int32
+    return [((n, nb, k_b), vals), ((n, nb, k_b), off),
+            scale if wire_dtype == "int8" else None]
+
+
+def _rows_of(payload, pos, dev):
+    """Rows ``pos`` of a payload's fields (the payload itself where pos is
+    all of its rows in order)."""
+    if tuple(pos) == tuple(range(payload[0].shape[0])):
+        return payload
+    idx = _on_device(tuple(pos), torch.long, dev)
+    return tuple(None if t is None else t.index_select(0, idx)
+                 for t in payload)
+
+
+def _rank_mix_rows(means, rr: _RankRows, layout: _Layout, mesh, axes, *, wb,
+                   wire_dtype, dense_dtype, wire_ef=None, wire_ef_gamma=1.0,
+                   impl=None, conn=None):
+    """``_sparse_mix_rows`` on this rank's (m, Lc) f32 cluster means: each
+    plan's member rows encoded, one ``exchange`` of what each rank reads,
+    then the one-process steps on the received rows (one
+    ``wire_decode_mix``; with the wire EF two more for the estimates)."""
+    dev, Lc = means.device, means.shape[1]
+    me = mesh.flat_index(axes)
+    tables = _rank_tables(rr, me, len(layout.diag),
+                          tuple(o for o, _ in layout.bands),
+                          tuple(rows for _, rows, _ in layout.plans))
+    cl = rr.clusters(me)
+    bands, absorbed = layout.bands, None
+    if conn is not None:
+        if wire_ef is not None:
+            raise ValueError("wire_ef is incompatible with conn= "
+                             "partitions (sender and receiver estimate "
+                             "updates would desync)")
+        bands, absorbed = _conn_fold(layout, _host(conn))
+    send = means if wire_ef is None else means - wire_ef[0]
+    payloads = []
+    for (key, _, _), mem in zip(layout.plans, tables.members):
+        if not mem:
+            payloads.append(None)
+            continue
+        rows = None if len(mem) == rr.m else mem
+        if key[0] == "dense":
+            sub = send if rows is None else send.index_select(
+                0, _on_device(rows, torch.long, dev))
+            payloads.append((sub.to(dense_dtype).contiguous(),))
+        else:
+            payloads.append(tuple(_encode(send, rows, key[1], wb, wire_dtype,
+                                          impl)))
+    del send
+    specs = lambda p, n: _payload_specs(layout.plans[p][0], n, Lc, wb,
+                                        wire_dtype, dense_dtype)
+    sends = {mesh.rank_of(axes, f): [t for _, p, pos in lst
+                                     for t in _rows_of(payloads[p], pos, dev)
+                                     if t is not None]
+             for f, lst in tables.sends}
+    recvs = {}
+    for _, p, pieces, _ in tables.steps:
+        for sf, pos in pieces:
+            if sf != me:
+                recvs.setdefault(mesh.rank_of(axes, sf), []).extend(
+                    sp for sp in specs(p, len(pos)) if sp is not None)
+    got = {r: iter(v) for r, v in mesh.exchange(sends, recvs).items()}
+    # a one-row zero payload where no row reads a plan: the kernel takes
+    # no null payload
+    unread = lambda p: tuple(None if sp is None else torch.zeros(
+        sp[0], dtype=sp[1], device=dev) for sp in specs(p, 1))
+    steps = []
+    for bi, p, pieces, senders in tables.steps:
+        parts = []
+        for sf, pos in pieces:
+            if sf == me:
+                parts.append(_rows_of(payloads[p], pos, dev))
+            else:
+                it = got[mesh.rank_of(axes, sf)]
+                parts.append(tuple(None if sp is None else next(it)
+                                   for sp in specs(p, len(pos))))
+        if len(parts) == 1:
+            buf = parts[0]
+        elif parts:
+            buf = tuple(None if f[0] is None else torch.cat(f, dim=0)
+                        for f in zip(*parts))
+        else:  # no row of this rank reads the plan (every sender -1)
+            buf = unread(p)
+        key = layout.plans[p][0]
+        coef = bands[bi][1]
+        steps.append(MixStep(0, tuple(coef[c] for c in cl), buf,
+                             None if key[0] == "dense" else key[1], senders))
+    diag = np.asarray(layout.diag)[list(cl)]
+    mix = functools.partial(ops.wire_decode_mix, wb=wb,
+                            wire_dtype=wire_dtype, impl=impl)
+    if wire_ef is None:
+        y = mix(means, steps, diag=diag)
+        if absorbed is None:
+            return y
+        ab = absorbed[list(cl)]
+        if np.any(ab > 0):
+            y = torch.where(_col(ab > 0, y) > 0, y + _col(ab, y) * means, y)
+        cw = np.asarray(_host(conn), np.float32)[list(cl)]
+        if not np.all(cw > 0):
+            y = torch.where(_col(cw > 0, y) > 0, y, means)
+        return y
+
+    def own(coef):
+        out = []
+        for p, senders in enumerate(tables.own):
+            key = layout.plans[p][0]
+            pay = payloads[p] if payloads[p] is not None else unread(p)
+            out.append(MixStep(0, coef, pay, None if key[0] == "dense"
+                               else key[1], senders))
+        if len(out) == 1:
+            out.append(out[0]._replace(senders=(-1,) * rr.m))
+        return out
+
+    est_self = mix(wire_ef[0], own((1.0,) * rr.m))
+    est_wsum = mix(wire_ef[1], own(tuple(diag.tolist())) + steps)
+    y = torch.sub(est_wsum, est_self)
+    return y.mul_(wire_ef_gamma).add_(means), est_self, est_wsum
+
+
 def _level_plans(L: int, dense_itemsize: int, C: int, *, k, theta,
                  cluster_theta, wire_block, wire_dtype):
     """Check the static level arguments (exactly one of k / theta /
@@ -562,7 +1009,7 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
                      wire_ef_gamma: float = 1.0, impl=None,
                      chunk_cols: Optional[int] = None, conn=None,
                      stale=None, stale_clusters=None,
-                     payloads=None) -> None:
+                     payloads=None, mesh=None, axes=()) -> None:
     """The sparse gossip in place on intra-cluster means.
 
     x: (R, L), contiguous, every device row holding its cluster's mean
@@ -575,9 +1022,29 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
     mask (``_sparse_mix_rows``).  ``stale`` (R, L), cluster-uniform rows,
     with ``stale_clusters``: the set ships its row 0 of ``stale``;
     ``payloads``: ``stale_payloads`` of the same leaf and arguments, in
-    place of the encodes (every cluster stale)."""
+    place of the encodes (every cluster stale).
+
+    With ``axes`` over more than one rank of ``mesh`` x (and each wire-EF
+    estimate) is this rank's (R_local, L) rows; layouts A and B ship
+    each chunk's payloads to the ranks that read them, anything else
+    takes the psum fallback (``_sparse_fallback_``)."""
     C, Dev = clusters, dev
     conn = _conn_or_none(conn)
+    axes = _axes_tuple(axes)
+    if _ranks(axes, mesh) > 1:
+        if stale is not None or payloads is not None:
+            raise NotImplementedError(f"stale payloads across ranks are not "
+                                      f"ported yet: {MULTI_RANK}")
+        if cluster_theta is not None and len(axes) > 1:
+            # the reference's multi-axis collapse to the largest level
+            theta, cluster_theta = max(float(t) for t in cluster_theta), None
+        return _rank_exchange_(
+            x, mesh=mesh, axes=axes, C=C, Dev=Dev, k=k, theta=theta,
+            cluster_theta=cluster_theta, hkind=hkind, p_edge=p_edge,
+            seed=seed, wire_dtype=wire_dtype, wire_block=wire_block,
+            dense_dtype=dense_dtype or x.dtype, wire_ef=wire_ef,
+            wire_ef_gamma=wire_ef_gamma, impl=impl, chunk_cols=chunk_cols,
+            conn=conn)
     R, L = x.shape
     if R != C * Dev:
         raise ValueError(f"{R} rows for {C} clusters x {Dev} devices")
@@ -623,6 +1090,67 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
         del means, out  # free before the next chunk's rows
 
 
+def _rank_exchange_(x, *, mesh, axes, C, Dev, k, theta, cluster_theta,
+                    hkind, p_edge, seed, wire_dtype, wire_block, dense_dtype,
+                    wire_ef, wire_ef_gamma, impl, chunk_cols, conn) -> None:
+    """``sparse_exchange_`` on this rank's (R_local, L) rows."""
+    R_local, L = x.shape
+    n = mesh.size(axes)
+    if R_local * n != C * Dev:
+        raise ValueError(f"{R_local} rows a rank on {n} ranks for {C} "
+                         f"clusters x {Dev} devices")
+    layout, wb = _exchange_layout(
+        L, dense_dtype, C, k=k, theta=theta, cluster_theta=cluster_theta,
+        hkind=hkind, p_edge=p_edge, seed=seed, wire_block=wire_block,
+        wire_dtype=wire_dtype)
+    rr = _rank_rows(R_local, n, axes, mesh, Dev)
+    kw = dict(wb=wb, wire_dtype=wire_dtype, dense_dtype=dense_dtype,
+              wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn)
+    if rr is None:
+        return _sparse_fallback_(x, layout, mesh, axes, C, Dev, wire_ef,
+                                 _col_chunks(L, wb, chunk_cols), **kw)
+    xv = x.view(rr.m, R_local // rr.m, L)
+    ev = None if wire_ef is None else [e.view(rr.m, R_local // rr.m, L)
+                                       for e in wire_ef]
+    for c0, c1 in _col_chunks(L, wb, chunk_cols):
+        means = xv[:, 0, c0:c1].float()
+        ef_rows = None if ev is None else tuple(e[:, 0, c0:c1] for e in ev)
+        out = _rank_mix_rows(means, rr, layout, mesh, axes, wire_ef=ef_rows,
+                             **kw)
+        if ev is not None:
+            out, es, ew = out
+            ev[0][:, :, c0:c1].copy_(es[:, None])
+            ev[1][:, :, c0:c1].copy_(ew[:, None])
+            del es, ew
+        xv[:, :, c0:c1].copy_(out[:, None])
+        del means, out
+
+
+def _sparse_fallback_(x, layout, mesh, axes, C, Dev, wire_ef, chunks, *,
+                      wb, wire_dtype, dense_dtype, wire_ef_gamma, impl,
+                      conn):
+    """The reference's ``_sparse_fallback`` (:1114) in place, chunk by
+    chunk: the psum of the (C, Lc) cluster sums / Dev (raw rows sum to the
+    cluster's sum, intra means to Dev times the mean), the one-process
+    wire on all C rows on every rank, each rank taking its rows' clusters
+    (the estimates likewise)."""
+    for c0, c1 in chunks:
+        sums, cl = _cluster_sums(x[:, c0:c1], mesh, axes, C, Dev)
+        ef_rows = None if wire_ef is None else tuple(
+            _cluster_sums(e[:, c0:c1], mesh, axes, C, Dev)[0] / Dev
+            for e in wire_ef)
+        out = _sparse_mix_rows(sums / Dev, layout, wb=wb,
+                               wire_dtype=wire_dtype, dense_dtype=dense_dtype,
+                               wire_ef=ef_rows, wire_ef_gamma=wire_ef_gamma,
+                               impl=impl, conn=conn)
+        idx = torch.as_tensor(cl, device=x.device)
+        if wire_ef is not None:
+            out, es, ew = out
+            wire_ef[0][:, c0:c1].copy_(es[idx])
+            wire_ef[1][:, c0:c1].copy_(ew[idx])
+        x[:, c0:c1].copy_(out[idx])
+
+
 def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
                              k: Optional[int] = None,
                              theta: Optional[float] = None,
@@ -633,7 +1161,8 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
                              intra_done: bool = False, alive=None,
                              conn=None, stale=None, stale_clusters=None,
                              wire_ef: Optional[Tuple] = None,
-                             wire_ef_gamma: float = 1.0, impl=None):
+                             wire_ef_gamma: float = 1.0, impl=None,
+                             mesh=None):
     """Gossip mix where only wire-encoded cluster means cross the
     backhaul (the reference's ``axes=()`` path, collectives.py:758).
 
@@ -651,8 +1180,14 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
     non-empty subset of range(C)), both or neither, need ``intra_done``:
     the set's clusters ship their ``stale`` row, the self terms stay
     fresh (bounded-stale gossip).  Returns the mixed rows, delta's shape
-    and type."""
-    _local_only(axes)
+    and type.
+
+    With ``axes`` over more than one rank of ``mesh`` (reference :966):
+    delta, ``alive`` and the estimates are this rank's rows; raw rows'
+    intra means come from ``mix_local(hkind="none")`` (layouts A and B)
+    or the psum fallback; ``stale=`` raises (ROADMAP.md item 5)."""
+    axes = _axes_tuple(axes)
+    n = _ranks(axes, mesh)
     conn = _conn_or_none(conn)
     C, Dev = clusters, dev
     if (stale is None) != (stale_clusters is None):
@@ -678,19 +1213,44 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
             raise ValueError("wire_ef is incompatible with conn= "
                              "partitions (sender and receiver estimate "
                              "updates would desync)")
+    if stale is not None and n > 1:
+        raise NotImplementedError(f"stale payloads across ranks are not "
+                                  f"ported yet: {MULTI_RANK}")
     if alive is not None and not intra_done:
         delta = _alive_premultiply(delta, alive)
+    mesh_kw = dict(axes=axes, mesh=mesh) if n > 1 else {}
     if hkind == "none":
-        return mix_local(delta, clusters=C, dev=Dev, hkind="none")
+        return mix_local(delta, clusters=C, dev=Dev, hkind="none", **mesh_kw)
     R = delta.shape[0]
     L = delta[0].numel()
+    if cluster_theta is not None and len(axes) > 1 and n > 1:
+        # the relayed multi-axis rotations of the reference cannot filter
+        # by sender: it ships every cluster at the largest level
+        theta, cluster_theta = max(float(t) for t in cluster_theta), None
     level_kw = dict(k=k, theta=theta, cluster_theta=cluster_theta,
                     wire_block=wire_block, wire_dtype=wire_dtype)
     plans = _level_plans(L, delta.element_size(), C, **level_kw)
     if plans == [(("dense",), None)] and not intra_done:
         # the uniform dense fallback end to end is the dense mix
         return mix_local(delta, clusters=C, dev=Dev, hkind=hkind,
-                         p_edge=p_edge, seed=seed, conn=conn)
+                         p_edge=p_edge, seed=seed, conn=conn, **mesh_kw)
+    if n > 1:
+        rows = delta.float().reshape(R, L)
+        if intra_done or _rank_rows(R, n, axes, mesh, Dev) is None:
+            x = rows.clone()  # the fallback's psum / Dev takes either
+        else:
+            x = mix_local(rows, clusters=C, dev=Dev, hkind="none",
+                          **mesh_kw).contiguous()
+        est = None if wire_ef is None else [
+            e.float().reshape(R, L).clone() for e in wire_ef]
+        sparse_exchange_(x, clusters=C, dev=Dev, hkind=hkind, p_edge=p_edge,
+                         seed=seed, dense_dtype=delta.dtype, wire_ef=est,
+                         wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn,
+                         **level_kw, **mesh_kw)
+        y = x.to(delta.dtype).reshape(delta.shape)
+        if est is None:
+            return y
+        return y, est[0].reshape(delta.shape), est[1].reshape(delta.shape)
     if intra_done:
         x = delta.reshape(R, L).clone()
     else:  # f32 cluster means, rounded to delta's type only at the end

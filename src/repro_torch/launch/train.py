@@ -108,8 +108,29 @@ are kept in the result's ``ckpts``, outside the round's wall time;
 ``--profile`` refuses ``--ckpt-dir``, whose host writes would fall in
 the traced window.
 
-Not ported: ``--mesh single|multi`` (more than one rank) exits naming its
-ROADMAP.md item.
+``--mesh single|multi`` (reference train.py:107-114) runs the fused
+branch of the round step (``dist/policies.py``) over a rank mesh
+(``dist/mesh.py``) with the architecture's own topology: ``single`` the
+mesh ("data", "model") = (WORLD_SIZE, 1) with ``fl_single``, ``multi``
+("pod", "data", "model") = (2, WORLD_SIZE / 2, 1) with ``fl_multi`` (one
+pod on a 1-rank world): the reference's axis names, sized by the world
+instead of 256 chips.  WORLD_SIZE unset is a 1-rank world; more ranks
+come from torchrun, e.g. two sharing one card:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch smollm_135m --full --mesh single --sparse-gossip \
+        --wire-dtype int4 --tau 2 --q 2 --rounds 2 --seq 2047
+
+Each rank holds its R / n contiguous replicas, builds the same corpus,
+controller and fault plan, and takes its rows of each round's inputs;
+the first line names the transport (NCCL where each rank has a card of
+its own, else gloo through pinned host buffers), and rank 0 prints the
+round lines, which add each rank's peak memory and the bytes the round's
+transport staged.  Gossip rounds with ``--sparse-gossip`` pass the
+per-cluster levels (``cluster_levels_from_theta``), as the reference.
+On more than one rank ``--population``, ``--overlap`` and ``--ckpt-dir``
+exit with code 2 naming ROADMAP.md item 5.  ``--tau`` / ``--q`` override
+the configuration's round structure.
 """
 from __future__ import annotations
 
@@ -117,16 +138,19 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import os
 import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, smoke_model
 from repro_torch.configs.base import FLTopology
-from repro_torch.core.compression import quantize_theta
+from repro_torch.core.compression import (cluster_levels_from_theta,
+                                          quantize_theta)
 from repro_torch.core.controller import BudgetState, population_energy_caps
 from repro_torch.core.round import (client_template, init_overlap_state,
                                     init_state, make_overlap_round_step,
@@ -134,6 +158,8 @@ from repro_torch.core.round import (client_template, init_overlap_state,
 from repro_torch.data.synthetic import client_token_shard, synthetic_tokens
 from repro_torch.device import resolve
 from repro_torch.dist.collectives import MULTI_RANK, participation_weights
+from repro_torch.dist.mesh import describe, dp_axes, init_rank_mesh
+from repro_torch.dist.policies import make_train_policy
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
 from repro_torch.fl.cost_model import (decide_stale_clusters,
                                        overlap_round_time, per_device_energy,
@@ -240,20 +266,36 @@ def parser() -> argparse.ArgumentParser:
                          "clusters run stale on gossip rounds")
     ap.add_argument("--ckpt-dir", default=None,
                     help="save the round state here after every round")
+    ap.add_argument("--tau", type=int, default=None,
+                    help="local steps a round (default: the config's)")
+    ap.add_argument("--q", type=int, default=None,
+                    help="edge rounds a gossip round (default: the "
+                         "config's)")
     return ap
 
 
-def main(argv=None):
-    """Run the launcher; returns {"history", "round_ms", "timings",
+def main(argv=None, on_round=None):
+    """Run the launcher; ``on_round(rnd, state, record)`` (if given) is
+    called after each round, outside its wall time.  Returns {"history",
+    "round_ms", "timings",
     "n_params", "cfg", "peak_mem_gb", "swap_bytes", "pop_store",
-    "cohort_ids", "state", "ckpts"} (``state`` an ``OverlapState`` with
-    ``--overlap``; ``ckpts`` a {"path", "bytes", "write_ms"} a checkpoint
-    written).  ``pop_store`` is None where its pages were in a temporary
-    directory, removed before the return."""
+    "cohort_ids", "state", "ckpts", "policy"} (``state`` an
+    ``OverlapState`` with ``--overlap``, this rank's rows on a mesh;
+    ``ckpts`` a {"path", "bytes", "write_ms"} a checkpoint written).
+    ``pop_store`` is None where its pages were in a temporary directory,
+    removed before the return."""
     ap = parser()
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        ap.error(f"--mesh {args.mesh} is not ported yet: {MULTI_RANK}")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if args.mesh != "host" and world > 1:
+        for flag, on in (("--population", args.population),
+                         ("--overlap", args.overlap),
+                         ("--ckpt-dir", args.ckpt_dir)):
+            if on:
+                ap.exit(2, f"{flag} on {world} ranks is not ported yet: "
+                           f"{MULTI_RANK}\n")
+        if args.mesh == "multi" and world % 2:
+            ap.exit(2, f"--mesh multi needs an even world, got {world}\n")
     if args.profile and args.ckpt_dir:
         ap.error("--profile with --ckpt-dir: the checkpoints' host writes "
                  "would fall in the traced wall time")
@@ -266,8 +308,25 @@ def main(argv=None):
             wire_dtype=args.wire_dtype or hcef.wire_dtype,
             wire_ef=hcef.wire_ef or args.wire_ef, overlap=args.overlap,
             staleness=args.staleness if args.overlap else 0)
-    topo = FLTopology(clusters=2, devices_per_cluster=2)
+    if args.tau or args.q:
+        hcef = dataclasses.replace(hcef, tau=args.tau or hcef.tau,
+                                   q=args.q or hcef.q)
+    mesh = policy = None
+    owned = False  # this call made the process group (torchrun)
+    if args.mesh == "host":
+        topo = FLTopology(clusters=2, devices_per_cluster=2)
+    else:
+        pod = 2 if args.mesh == "multi" and world > 1 else 1
+        shape, axes = (((world, 1), ("data", "model")) if args.mesh ==
+                       "single" else ((pod, world // pod, 1),
+                                      ("pod", "data", "model")))
+        topo = bundle.fl_multi if args.mesh == "multi" else bundle.fl_single
+        owned = world > 1 and not dist.is_initialized()
+        mesh = init_rank_mesh(shape, axes, device=args.device)
+        policy = make_train_policy(mesh, topo, dp_axes=dp_axes(mesh))
     R = topo.num_devices
+    R_loc = policy.local_replicas if policy is not None else R
+    lead = mesh is None or mesh.rank == 0
     if args.population and args.population < R:
         ap.exit(2, f"--population {args.population} smaller than the mesh "
                    f"cohort R={R}\n")
@@ -277,29 +336,33 @@ def main(argv=None):
         ap.exit(2, "--wire-ef is incompatible with cohort sampling "
                    "(--population > R): neighbor estimates desync under "
                    "churn\n")
-    dev = resolve(args.device)
+    dev = resolve(args.device) if mesh is None else mesh.device
     torch.backends.cuda.matmul.allow_tf32 = False  # the reference is f32
 
     cluster_of = np.repeat(np.arange(topo.clusters), topo.devices_per_cluster)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params0 = get_model(cfg).init(cfg, gen, device=dev)
     n_params = param_count(params0)
-    state = (init_overlap_state if hcef.overlap else init_state)(
-        cfg, hcef, topo, params0, device=dev)
+    state = (init_overlap_state(cfg, hcef, topo, params0, device=dev)
+             if hcef.overlap else init_state(cfg, hcef, topo, params0,
+                                             device=dev, replicas=R_loc))
     del params0
     # the working buffer: the state of the synchronous engine, the
     # overlapped engine's fl
     fl = lambda: state.fl if hcef.overlap else state
-    steps = {}  # (gossip, stale set) -> step
+    steps = {}  # (gossip, stale set, cluster levels) -> step
 
-    def get_step(gossip, stale):
-        if (gossip, stale) not in steps:
-            steps[gossip, stale] = (
-                make_overlap_round_step(cfg, hcef, topo, gossip=gossip,
-                                        stale_clusters=stale)
-                if hcef.overlap else make_round_step(cfg, hcef, topo,
-                                                     gossip=gossip))
-        return steps[gossip, stale]
+    def get_step(gossip, stale, levels=None):
+        key = (gossip, stale, levels)
+        if key not in steps:
+            steps[key] = (
+                make_overlap_round_step(cfg, hcef, topo, policy,
+                                        gossip=gossip, stale_clusters=stale,
+                                        cluster_levels=levels)
+                if hcef.overlap else make_round_step(
+                    cfg, hcef, topo, policy, gossip=gossip,
+                    cluster_levels=levels))
+        return steps[key]
 
     for g in (False, True):  # the configuration's errors raise here
         get_step(g, None)
@@ -356,11 +419,17 @@ def main(argv=None):
     wire_kw = (dict(wire_dtype=hcef.wire_dtype, wire_block=hcef.wire_block,
                     dense_bits=16) if hcef.sparse_gossip else {})
 
-    print(f"arch={args.arch} ({cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}) mesh=host R={R} controller={args.controller} "
-          f"params/replica={n_params:,} seq={args.seq + 1} on {dev}"
-          + (f" population={args.population}" if args.population else "")
-          + (" chaos" if plan is not None else ""), flush=True)
+    if lead and mesh is not None:
+        print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))}: "
+              f"{describe(mesh)}; {R} replicas, {R_loc} a rank", flush=True)
+    if lead:
+        print(f"arch={args.arch} ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}) mesh={args.mesh} R={R} "
+              f"controller={args.controller} params/replica={n_params:,} "
+              f"seq={args.seq + 1} on {dev}"
+              + (f" population={args.population}" if args.population
+                 else "") + (" chaos" if plan is not None else ""),
+              flush=True)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -430,8 +499,12 @@ def main(argv=None):
         else:
             rho, theta = controller.controls(reports, budget)
         gossip = (rnd + 1) % hcef.q == 0
+        levels = None
         if hcef.sparse_gossip:  # the wire ships grid levels only
             theta = quantize_theta(theta, hcef.theta_levels)
+            if gossip and policy is not None:  # each cluster its own level
+                levels = cluster_levels_from_theta(theta, hcef.theta_levels,
+                                                   cluster_of)
         idx = rng.integers(0, N_SEQ, (R, b_per_dev))
         if pop_store is not None:
             tokens = np.concatenate([shard(int(cohort_ids[d]))[idx[d]]
@@ -460,7 +533,8 @@ def main(argv=None):
                                  alive, clusters=topo.clusters,
                                  dev=topo.devices_per_cluster),
                              conn=conn.astype(np.float32))
-        state, m = get_step(gossip, stale)(
+        stats0 = None if mesh is None else dict(mesh.stats)
+        state, m = get_step(gossip, stale, levels)(
             state, {"tokens": torch.from_numpy(tokens), **stand_ins()},
             rho, theta, 1000 + rnd, timings=timings, **masks)
         # a stale cluster's gossip runs during its local steps
@@ -508,13 +582,29 @@ def main(argv=None):
                       f"coord={faults.coordinator}"
                       + (f" cut={rec['n_partitioned']}"
                          if rec["n_partitioned"] else ""))
+        if "gossip" in timings and gossip and hcef.sparse_gossip \
+                and policy is not None:
+            names.append("gossip")
         split = "/".join(f"{timings[k][-1]:.0f}" for k in names)
-        mem = (f" peak={torch.cuda.max_memory_allocated(dev) / 1e9:.2f}GB"
-               if dev.type == "cuda" else "")
-        print(f"round {rnd:3d} loss={loss:7.4f} rho={rec['rho_mean']:.2f} "
-              f"theta={rec['theta_mean']:.2f} sim_t={rec['time']:9.0f}s "
-              f"wall={round_ms[-1]:.0f}ms ({'/'.join(names)} {split} ms)"
-              f"{extra}{mem}", flush=True)
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0)
+        mem = f" peak={peak / 1e9:.2f}GB" if dev.type == "cuda" else ""
+        if mesh is not None and mesh.world > 1:
+            moved = {k: mesh.stats[k] - stats0[k] for k in mesh.stats}
+            every = mesh.all_gather(torch.tensor(
+                [peak, moved["staged_bytes"], moved["messages"]],
+                dtype=torch.float64), mesh.axis_names).tolist()
+            rec["rank_peak_gb"] = [v[0] / 1e9 for v in every]
+            rec["rank_staged_bytes"] = [int(v[1]) for v in every]
+            rec["rank_messages"] = [int(v[2]) for v in every]
+            peaks = "/".join(f"{g:.2f}" for g in rec["rank_peak_gb"])
+            mem = (f" peaks={peaks}GB "
+                   f"staged={sum(rec['rank_staged_bytes']) / 1e6:.1f}MB")
+        if lead:
+            print(f"round {rnd:3d} loss={loss:7.4f} "
+                  f"rho={rec['rho_mean']:.2f} theta={rec['theta_mean']:.2f} "
+                  f"sim_t={rec['time']:9.0f}s wall={round_ms[-1]:.0f}ms "
+                  f"({'/'.join(names)} {split} ms){extra}{mem}", flush=True)
         return rec
 
     ckpts = []
@@ -541,13 +631,17 @@ def main(argv=None):
                         activities=activities(dev)))
                     t_prof = time.perf_counter()
                 history.append(one_round(rnd))
+                if on_round is not None:
+                    on_round(rnd, state, history[-1])
                 if args.ckpt_dir:
                     save(rnd)
             wall = time.perf_counter() - t_prof
     finally:
         if tmp is not None:
             tmp.cleanup()
-    if prof is not None:
+        if owned:
+            dist.destroy_process_group()
+    if prof is not None and lead:
         print_profile(prof, wall)
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else None)
@@ -555,7 +649,8 @@ def main(argv=None):
             "n_params": n_params, "cfg": cfg, "peak_mem_gb": peak,
             "swap_bytes": swap_bytes,
             "pop_store": pop_store if tmp is None else None,
-            "cohort_ids": cohort_ids, "state": state, "ckpts": ckpts}
+            "cohort_ids": cohort_ids, "state": state, "ckpts": ckpts,
+            "policy": policy}
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.dist import collectives as jcol  # noqa: E402
 from repro_torch.dist import collectives as tcol  # noqa: E402
+from repro_torch.dist.mesh import RankMesh  # noqa: E402
 
 ALL = ("f32", "bf16", "int8", "int4", "fp8")
 C, DEV, L = 4, 2, 2500  # L pads the last wire block
@@ -230,8 +231,14 @@ def test_argument_validation():
     with pytest.raises(ValueError, match="entries"):
         tcol.sparse_neighbor_exchange(tx, clusters=C, dev=DEV,
                                       cluster_theta=(0.5, 0.5))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # mesh axes name a rank mesh: without one they raise; a 1-rank mesh
+    # is the one-process path
+    with pytest.raises(ValueError, match="mesh="):
         tcol.sparse_neighbor_exchange(tx, axes=("data",), **base)
+    one = RankMesh((1, 1), ("data", "model"))
+    assert torch.equal(
+        tcol.sparse_neighbor_exchange(tx, axes=("data",), mesh=one, **base),
+        tcol.sparse_neighbor_exchange(tx, **base))
     # the stale payloads are ported, with the reference's own checks
     with pytest.raises(ValueError, match="intra_done"):
         tcol.sparse_neighbor_exchange(tx, stale=tx, stale_clusters=(0,),
@@ -244,5 +251,8 @@ def test_argument_validation():
     with pytest.raises(ValueError, match="conn"):
         tcol.sparse_neighbor_exchange(tx, intra_done=True, wire_ef=(z, z),
                                       conn=np.eye(C)[0], **base)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="mesh="):
         tcol.mix_local(tx, clusters=C, dev=DEV, axes=("data",))
+    assert torch.equal(
+        tcol.mix_local(tx, clusters=C, dev=DEV, axes=("data",), mesh=one),
+        tcol.mix_local(tx, clusters=C, dev=DEV))

@@ -46,6 +46,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import round as tround  # noqa: E402
 from repro_torch.core.compression import (  # noqa: E402
     cluster_levels_from_theta, quantize_theta)
+from repro_torch.dist.mesh import RankMesh  # noqa: E402
 from repro_torch.dist.policies import make_train_policy  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.tree import flatten  # noqa: E402
@@ -199,8 +200,11 @@ def test_fused_branch_raises_like_the_reference():
         tround.make_round_step(cfg, HCEFConfig(), topo,
                                make_train_policy(topo),
                                cluster_levels=(0.1, 0.6))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_train_policy(topo, world_size=2)
+    # the rank mesh's policy: R = 4 does not tile 3 data ranks (a mesh of
+    # 3 x 1 needs no process group to be made)
+    with pytest.raises(ValueError, match="do not tile"):
+        make_train_policy(RankMesh((3, 1), ("data", "model"), world=3),
+                          topo, dp_axes=("data",))
 
 
 def test_launcher_sparse_gossip_history_matches_reference_arithmetic(capsys):

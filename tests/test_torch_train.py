@@ -1,8 +1,9 @@
 """The port's train launcher on the CPU: it runs the smoke mamba2, smollm
 and qwen2-7b through the HCEF round step and prints finite losses;
-``--ckpt-dir`` saves the round state every round; every option it does
-not port exits and names the ROADMAP.md item that brings it; without a
-card it refuses to run unless asked for the CPU."""
+``--ckpt-dir`` saves the round state every round; a 1-rank ``--mesh
+single|multi`` runs the policy path, and every option it does not port
+exits and names the ROADMAP.md item that brings it; without a card it
+refuses to run unless asked for the CPU."""
 import math
 
 import pytest
@@ -44,9 +45,23 @@ def test_launcher_runs_the_smoke_round_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "single"], ["--mesh", "multi"]])
-def test_unported_options_exit_naming_the_roadmap(flag, capsys):
+def test_unported_options_exit_naming_the_roadmap(flag, capsys, monkeypatch):
+    """A 1-rank ``--mesh single|multi`` world (WORLD_SIZE unset) is today's
+    policy path: the fused branch over the architecture's own topology
+    (fl_single 8 x 2, fl_multi 8 x 4), all R replicas in this process.
+    What the mesh does not port exits on more ranks, naming ROADMAP.md
+    item 5 (tests/test_torch_launch_mesh.py runs the ranks)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    out = train.main(SMOKE[:-4] + ["--rounds", "1", "--seq", "24"] + flag)
+    pol = out["policy"]
+    R = 16 if flag[1] == "single" else 32
+    assert (pol.replicas, pol.ranks, pol.local_replicas) == (R, 1, R)
+    assert next(iter(flatten(out["state"].params).values())).shape[0] == R
+    assert math.isfinite(out["history"][0]["loss"])
+    assert "mesh=" + flag[1] in capsys.readouterr().out
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit) as exc:
-        train.main(SMOKE + flag)
+        train.main(SMOKE + flag + ["--overlap"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP.md" in err
