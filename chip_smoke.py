@@ -421,7 +421,26 @@ Phases (any failure ends the run with a non-zero exit):
 44. the smoke smollm's ``--mesh multi`` on 4 ranks (fl_multi, R 32,
    ("pod", "data") = (2, 2)) and layout A through the round step (C 2 x
    Dev 4 on 4 ranks, the int4 wire with the wire EF), each held to its
-   1-rank run on the card.
+   1-rank run on the card;
+45. the overlap engine across ranks: ``make_overlap_round_step`` on
+   smollm-135M at full width and depth (fl_single R 16, staleness 1,
+   every cluster stale, the int4 wire at per-cluster levels
+   OVERLAP_MESH_LEVELS, tau = q = 2, OVERLAP_MESH_ROUNDS rounds, the
+   second a gossip round, 2 x 2048 tokens a step, ``events=``) on one
+   rank in this process, then on 2 ranks sharing the card (layout B),
+   each rank encoding its own stale payloads on a side stream: each
+   rank's sampled rows against the 1-rank rows (at most Q_FLIP_SHARE
+   beyond ROUND_ATOL; bit for bit printed), its losses equal, its
+   overlap verdict (the side stream's last encode before the end of the
+   device round, CUDA events), p50 <= 10 s, the ranks' peaks summed <=
+   72 GB, its launches counted; stage 2's ms, its transport ms and
+   staged bytes printed;
+46. the launcher's ``--mesh multi`` at smoke size on 4 ranks with
+   ``--overlap --staleness 1`` and with ``--population 64 --ckpt-dir``
+   (``--verify-conservation``), each against its 1-rank run on the card:
+   histories, stale sets, cohorts and the swaps' sums equal, rows within
+   MESH_ROW_TOL, every checkpoint and manifest's arrays and every page
+   file's bytes equal.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -6466,6 +6485,340 @@ def mesh_smoke_phase(train):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 45-46: the overlap engine, the population store and checkpoints
+# across ranks sharing the card
+# ---------------------------------------------------------------------------
+
+OVERLAP_MESH_ROUNDS = 3          # phase 45: intra, stale gossip, intra
+OVERLAP_MESH_LEVELS = (0.1, 0.6)  # phase 45: per-cluster levels, alternating
+# phase 46: its rows against the 1-rank rows, at the largest deviation
+# layout A's sum order has given (phase 44)
+MESH_ROW_TOL = 3.576e-7
+# phase 46: the smoke smollm's --mesh multi (fl_multi, R 32) on 4 ranks,
+# 4 rounds (two stale gossip rounds; two cohort swaps checked)
+MESH_STATE_ARGV = ["--arch", "smollm_135m", "--mesh", "multi", "--rounds",
+                   "4", "--seq", "64", "--tau", "2", "--q", "2",
+                   "--sparse-gossip", "--wire-dtype", "int4"]
+MESH_STATE_RUNS = {
+    "overlap": ["--overlap", "--staleness", "1", "--stale-quantile", "0.2"],
+    "population": ["--population", "64", "--verify-conservation"]}
+
+
+def overlap_mesh_rounds(mesh=None, want=None):
+    """Phase 45's rounds in this process: smollm-135M at full width and
+    depth, fl_single (C 8 x Dev 2, R 16), ``make_overlap_round_step`` at
+    staleness 1 with every cluster stale on the int4 wire at per-cluster
+    levels OVERLAP_MESH_LEVELS, tau = q = 2, OVERLAP_MESH_ROUNDS rounds
+    (the second gossips), 2 x 2048 tokens a step, with ``events=``; on
+    ``mesh``'s ranks (None: all 16 rows here).  Each round's state is
+    sampled; with ``want`` (the 1-rank samples) compared on the spot."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.core import round as rnd_mod
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.dist.policies import make_train_policy
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.tree import flatten
+    bundle = get_config("smollm_135m")
+    cfg, topo = bundle.model, bundle.fl_single
+    C, Dev, R = topo.clusters, topo.devices_per_cluster, topo.num_devices
+    hcef = dc.replace(bundle.hcef, tau=2, q=2, sparse_gossip=True,
+                      wire_dtype="int4", overlap=True, staleness=1)
+    levels = tuple(OVERLAP_MESH_LEVELS[c % 2] for c in range(C))
+    theta, rho = np.repeat(levels, Dev), np.ones(R)
+    policy = (make_train_policy(topo) if mesh is None else
+              make_train_policy(mesh, topo, dp_axes=("data",)))
+    corpus = synthetic_tokens(cfg.vocab_size, n_seq=train.N_SEQ,
+                              seq_len=2048, n_devices=R, beta=0.5)
+    rng = np.random.default_rng(0)
+    params0 = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    state = rnd_mod.init_overlap_state(cfg, hcef, topo, params0,
+                                       device="cuda",
+                                       replicas=policy.local_replicas)
+    del params0
+    steps = {g: rnd_mod.make_overlap_round_step(
+        cfg, hcef, topo, policy, gossip=g,
+        cluster_levels=levels if g else None) for g in (False, True)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(loss=[], round_ms=[], timings={}, samples=[], checks=[],
+               verdict=[], first=policy.first_replica,
+               local=policy.local_replicas)
+    for rnd in range(OVERLAP_MESH_ROUNDS):
+        gossip = (rnd + 1) % hcef.q == 0
+        idx = rng.integers(0, train.N_SEQ, (R, hcef.tau * 2))
+        tokens = torch.from_numpy(np.concatenate(
+            [corpus[d, idx[d]] for d in range(R)]))
+        events = {}
+        stats0 = None if mesh is None else dict(mesh.stats)
+        t0 = time.perf_counter()
+        state, m = steps[gossip](state, {"tokens": tokens}, rho, theta,
+                                 1000 + rnd, timings=out["timings"],
+                                 events=events)
+        out["loss"].append(float(m["loss"].mean()))
+        torch.cuda.synchronize()
+        out["round_ms"].append((time.perf_counter() - t0) * 1e3)
+        if gossip:
+            v = dict(round=rnd, margin_ms=events["encode_end"].elapsed_time(
+                events["device_round_end"]),
+                encode_span_ms=events["encode_start"].elapsed_time(
+                    events["encode_end"]),
+                gossip_ms=events["gossip_start"].elapsed_time(
+                    events["gossip_end"]))
+            if mesh is not None:
+                v.update(transport_ms=mesh.stats["ms"] - stats0["ms"],
+                         staged_bytes=mesh.stats["staged_bytes"]
+                         - stats0["staged_bytes"],
+                         messages=mesh.stats["messages"]
+                         - stats0["messages"])
+            out["verdict"].append(v)
+        sample = state_sample(state.fl)
+        if want is None:
+            out["samples"].append(sample)
+        else:
+            out["checks"].append(compare_samples(sample, want[rnd],
+                                                 policy.first_replica))
+            out["exact"] = out.get("exact", True) and all(
+                torch.equal(s, want[rnd][k][0][policy.first_replica:
+                                               policy.first_replica
+                                               + s.shape[0]])
+                and torch.equal(rs, want[rnd][k][1][policy.first_replica:
+                                                    policy.first_replica
+                                                    + rs.shape[0]])
+                for k, (s, rs) in sample.items())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["pending_gb"] = sum(v.numel() * v.element_size() for v in
+                            flatten(state.pending).values()) / 1e9
+    out.update(layers=cfg.num_layers, remat=cfg.remat, tau=hcef.tau)
+    return out
+
+
+def overlap_mesh_rank(mesh, want):
+    """Phase 45 on one rank: the rounds and this rank's counters."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    build.lib()
+    for mod in (fa, tk, wp):
+        mod.reset_launches()
+    out = overlap_mesh_rounds(mesh, want)
+    out.update(rank=mesh.rank,
+               launches={**fa.LAUNCHES, **tk.LAUNCHES, **wp.LAUNCHES})
+    return out
+
+
+def overlap_mesh_phase(fa, tk, wp, topk_per_round):
+    """Phase 45: the overlap engine across 2 ranks sharing the card
+    (layout B, 4 whole clusters a rank) against the same rounds on 1
+    rank in this process: rows, losses, each rank's overlap verdict on
+    CUDA events, p50 and the ranks' summed peak gated."""
+    from repro_torch.dist.mesh import run_world
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    one = overlap_mesh_rounds()
+    want = one.pop("samples")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    got = run_world(overlap_mesh_rank, 2, want, timeout_s=MESH_TIMEOUT_S,
+                    threads=MESH_THREADS)
+    bad = []
+    med = lambda v: float(np.percentile(v, 50))
+    for g in got:
+        Rl = g["local"]
+        steps = OVERLAP_MESH_ROUNDS * Rl * g["tau"]
+        want_l = {"flash_attention": steps * g["layers"] * (
+                      2 if g["remat"] else 1),
+                  "flash_attention_bwd": steps * g["layers"],
+                  "topk_compress": OVERLAP_MESH_ROUNDS * topk_per_round}
+        for k, v in want_l.items():
+            if g["launches"][k] != v:
+                bad.append(f"rank {g['rank']} {k} {g['launches'][k]} != {v}")
+        for k in ("wire_encode", "wire_decode_mix"):
+            if g["launches"][k] == 0:
+                bad.append(f"rank {g['rank']} {k} never launched")
+        if g["loss"] != one["loss"]:
+            bad.append(f"rank {g['rank']} losses {g['loss']} != "
+                       f"{one['loss']}")
+        for r, (far, total, worst, sums) in enumerate(g["checks"]):
+            print(f"overlap mesh rank {g['rank']} round {r}: {far} of "
+                  f"{total} sampled entries beyond {ROUND_ATOL} of the "
+                  f"1-rank rows (largest {worst:.3e}; "
+                  f"{int(Q_FLIP_SHARE * total)} allowed), row sums within "
+                  f"{sums:.3e}")
+            if far > int(Q_FLIP_SHARE * total):
+                bad.append(f"rank {g['rank']} round {r}: {far} flips")
+        v = g["verdict"]
+        p50 = med(g["round_ms"])
+        print(f"overlap mesh rank {g['rank']}: rows {g['first']}.."
+              f"{g['first'] + Rl - 1}, {'bit for bit' if g['exact'] else 'not bit for bit'}"
+              f" the 1-rank samples; round ms {[round(x, 1) for x in g['round_ms']]} "
+              f"(p50 {p50:.1f} against {LM_ROUND_LIMIT_MS}); the side "
+              f"stream's encodes ended {[round(x['margin_ms'], 3) for x in v]}"
+              f" ms before the device round (spanning "
+              f"{[round(x['encode_span_ms'], 3) for x in v]} ms); stage 2 "
+              f"{[round(x['gossip_ms'], 3) for x in v]} ms on events; the "
+              f"round's host ms inside the transport (waits for the peer "
+              f"included) {[round(x['transport_ms'], 1) for x in v]}, "
+              f"{[x['staged_bytes'] for x in v]} bytes staged in "
+              f"{[x['messages'] for x in v]} messages; pending "
+              f"{g['pending_gb']:.2f} GB, peak {g['peak_gb']:.2f} GB; "
+              f"launches {g['launches']}")
+        if len(v) != 1 or not all(x["margin_ms"] > 0 for x in v):
+            bad.append(f"rank {g['rank']} overlap verdict {v}")
+        if p50 > LM_ROUND_LIMIT_MS:
+            bad.append(f"rank {g['rank']} p50 {p50:.1f} ms")
+    peaks = [g["peak_gb"] for g in got]
+    if sum(peaks) > PEAK_LIMIT_GB:
+        bad.append(f"peaks {peaks} sum over {PEAK_LIMIT_GB} GB")
+    stats = dict(ranks=2, one_rank_round_ms=one["round_ms"],
+                 one_rank_peak_gb=one["peak_gb"],
+                 one_rank_verdict=one["verdict"],
+                 one_rank_timings=one["timings"], loss=one["loss"],
+                 rank_round_ms=[g["round_ms"] for g in got],
+                 rank_verdict=[g["verdict"] for g in got],
+                 rank_timings=[g["timings"] for g in got],
+                 rank_peaks_gb=peaks, exact=[g["exact"] for g in got])
+    print("overlap_mesh " + json.dumps(stats))
+    print(f"phase 45 took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"phase 45: {bad}")
+    return {k: sum(g["launches"][k] for g in got) for k in (
+        "flash_attention", "flash_attention_bwd", "topk_compress",
+        "wire_encode", "wire_decode_mix")}
+
+
+def _digests(root):
+    """A digest of every file under ``root``, by relative path: of each
+    array's name, type, shape and bytes in a ``.npz`` (whose zip entries
+    carry their write time), of the bytes of any other file."""
+    root = Path(root)
+    out = {}
+    for p in sorted(root.rglob("*")):
+        if not p.is_file():
+            continue
+        h = hashlib.sha256()
+        if p.suffix == ".npz":
+            with np.load(p) as data:
+                for k in sorted(data.files):
+                    a = data[k]
+                    h.update(f"{k} {a.dtype.str} {a.shape}".encode())
+                    h.update(np.ascontiguousarray(a).tobytes())
+        else:
+            h.update(p.read_bytes())
+        out[p.relative_to(root).as_posix()] = h.hexdigest()
+    return out
+
+
+def _launch_state(train, argv):
+    """The launcher's history (host-only keys) and its state's rows."""
+    from repro_torch.tree import flatten
+    out = train.main(argv)
+    st = out["state"]
+    rows = _state_rows(st.fl if hasattr(st, "fl") else st)
+    if hasattr(st, "pending"):
+        rows["pending"] = {k: v.float().cpu().numpy()
+                           for k, v in flatten(st.pending).items()}
+    keep = ("loss", "gossip", "rho_mean", "theta_mean", "time", "energy",
+            "stale", "cohort", "swap_check")
+    hist = [{k: h[k] for k in keep if k in h} for h in out["history"]]
+    for h in hist:
+        if "swap_check" in h:
+            h["swap_check"] = {k: v for k, v in h["swap_check"].items()
+                               if k != "host_ms"}
+    return hist, rows, out["policy"].first_replica
+
+
+def mesh_state_rank(mesh, ckpt_dir):
+    """Phase 46 on one rank: each MESH_STATE_RUNS launcher run (the
+    population's with ``--ckpt-dir ckpt_dir``); rows and counters."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    from repro_torch.launch import train
+    build.lib()
+    for mod in (fa, tk, wp):
+        mod.reset_launches()
+    out = {}
+    for name, extra in MESH_STATE_RUNS.items():
+        ck = ["--ckpt-dir", ckpt_dir] if name == "population" else []
+        out[name] = _launch_state(train, MESH_STATE_ARGV + extra + ck)
+    out["launches"] = {**fa.LAUNCHES, **tk.LAUNCHES, **wp.LAUNCHES}
+    return out
+
+
+def mesh_state_phase(train):
+    """Phase 46: the launcher's ``--mesh multi`` at smoke size on 4 ranks
+    with ``--overlap --staleness 1`` and with ``--population 64
+    --ckpt-dir``, each against its 1-rank run on this card: histories
+    (the stale sets, the cohorts, the swaps' sums), the rows within
+    MESH_ROW_TOL, every checkpoint, manifest and page file equal (each
+    ``.npz``'s arrays, the other files' bytes)."""
+    from repro_torch.dist.mesh import run_world
+    t0 = time.perf_counter()
+    bad = []
+    with tempfile.TemporaryDirectory(prefix="mesh_state_") as tmp:
+        one = {}
+        for name, extra in MESH_STATE_RUNS.items():
+            ck = (["--ckpt-dir", str(Path(tmp) / "one")]
+                  if name == "population" else [])
+            one[name] = _launch_state(train, MESH_STATE_ARGV + extra + ck)
+        torch.cuda.empty_cache()
+        got = run_world(mesh_state_rank, 4, str(Path(tmp) / "ranks"),
+                        timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS)
+        files_one = _digests(Path(tmp) / "one")
+        files_ranks = _digests(Path(tmp) / "ranks")
+    for name in MESH_STATE_RUNS:
+        hist1, rows1, _ = one[name]
+        parts = sorted((g[name] for g in got), key=lambda p: p[2])
+        for p in parts:
+            for h, w in zip(p[0], hist1):
+                if {k: v for k, v in h.items() if k != "loss"} != \
+                        {k: v for k, v in w.items() if k != "loss"} or \
+                        abs(h["loss"] - w["loss"]) > 1e-6 * abs(w["loss"]):
+                    bad.append(f"{name}: history {h} != {w}")
+        worst = 0.0
+        for fld, leaves in rows1.items():
+            for k, w in leaves.items():
+                g = np.concatenate([p[1][fld][k] for p in parts])
+                worst = max(worst, float(np.abs(g - w).max()))
+        stale = [h.get("stale") for h in hist1]
+        checks = [h["swap_check"] for h in hist1 if "swap_check" in h]
+        print(f"--mesh multi {name} on 4 ranks: largest deviation from the "
+              f"1-rank rows {worst:.3e} (tolerance {MESH_ROW_TOL}); losses "
+              f"{[h['loss'] for h in parts[0][0]]} (1 rank "
+              f"{[h['loss'] for h in hist1]}); stale sets {stale}; swap "
+              f"sums {checks}")
+        if worst > MESH_ROW_TOL:
+            bad.append(f"{name}: rows {worst:.3e} from the 1-rank rows")
+        if name == "overlap" and not any(stale):
+            bad.append("overlap: no stale round")
+        if name == "population" and (not checks or not all(
+                c["equal"] for c in checks)):
+            bad.append(f"population: swap sums {checks}")
+    print(f"--ckpt-dir on 4 ranks: {len(files_ranks)} files (checkpoints, "
+          f"their meta, manifests, pages), "
+          f"{sum(files_ranks.get(k) == v for k, v in files_one.items())} "
+          f"of the 1-rank run's {len(files_one)} equal (each .npz's "
+          f"arrays, every other file's bytes)")
+    if files_one != files_ranks or not any(
+            k.endswith(".pop.npz") for k in files_one):
+        bad.append("the checkpoint directories differ")
+    launches = {k: sum(g["launches"][k] for g in got) for k in (
+        "flash_attention", "flash_attention_bwd", "topk_compress",
+        "wire_encode", "wire_decode_mix")}
+    print(f"phase 46 launches (4 ranks): {launches}")
+    print(f"phase 46 took {time.perf_counter() - t0:.1f} s")
+    if bad or min(launches.values()) == 0:
+        fail(f"phase 46: {bad} launches {launches}")
+    return launches
+
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -6802,8 +7155,13 @@ def main():
     mesh_collectives_phase()
     m43 = mesh_main_path(train, rnd_mod, fa, tk, wp, topk_lm)
     m44 = mesh_smoke_phase(train)
+
+    # -- phases 45-46: the overlap engine, the population store and
+    # checkpoints across ranks --------------------------------------------
+    m45 = overlap_mesh_phase(fa, tk, wp, topk_lm)
+    m46 = mesh_state_phase(train)
     for k in m43:
-        launches[k] += m43[k] + m44[k]
+        launches[k] += m43[k] + m44[k] + m45[k] + m46[k]
 
     # -- report --------------------------------------------------------------
     kernels = []
@@ -6931,9 +7289,12 @@ def main():
                  (2, "topk_compress"), (5, "wire_encode"),
                  (8, "wire_decode_mix")):
         # the ranks' launches (each rank's counters summed): phase 43's
-        # main path, phase 44's smoke runs
+        # main path, phase 44's smoke runs, phase 45's overlap engine,
+        # phase 46's launcher runs
         kernels[i]["mesh_launches"] = {"phase_43": m43[k],
-                                       "phase_44": m44[k]}
+                                       "phase_44": m44[k],
+                                       "phase_45": m45[k],
+                                       "phase_46": m46[k]}
     print("generate_full " + json.dumps(static_rows))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

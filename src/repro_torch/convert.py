@@ -8,7 +8,8 @@ parameter dict, leaf for leaf and bit for bit (bfloat16 included).
 kept) or a reference ``PopulationStore.gather`` result, so that both
 packages start from one state.  ``shard_rows`` / ``gather_rows`` take a
 rank's contiguous rows of a stacked state and put them back (a rank mesh,
-``dist/mesh.py``).
+``dist/mesh.py``); ``gather_rows_to_host`` puts them back in one rank's
+host memory.
 """
 from __future__ import annotations
 
@@ -73,3 +74,22 @@ def gather_rows(tree, mesh, axes):
         return mesh.all_gather(x, axes).reshape(
             (-1,) + tuple(x.shape[1:]))
     return put(tree)
+
+
+def gather_rows_to_host(tree, mesh, axes):
+    """Every rank's rows of each leaf, leaf by leaf, as the (R, ...) leaf
+    in host memory on the rank at flat index 0 over ``axes``
+    (``RankMesh.gather_to``; no rank's card holds another's rows); None on
+    the other ranks."""
+    lead = mesh.flat_index(axes) == 0
+
+    def put(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        got = mesh.gather_to(x, axes)
+        return None if got is None else got.reshape(
+            (-1,) + tuple(x.shape[1:]))
+    out = put(tree)
+    return out if lead else None

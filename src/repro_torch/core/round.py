@@ -56,8 +56,10 @@ top-k launch over its rows, ``mix_local`` over the replica axes and the
 wire across ranks; the round's inputs stay the reference's (batch, rho,
 theta, the bits, the masks for all R; each rank takes its rows) and the
 metrics come back for all R through one all_gather, so that every rank's
-controller sees the same numbers.  The overlapped engine across ranks is
-left out (ROADMAP.md item 5).
+controller sees the same numbers.  The overlapped engine runs there too
+(the reference's shard_map a leaf, :643): ``pending`` is the rank's rows,
+its stage 2 the wire across ranks on them, and with every cluster stale
+each rank encodes its own rows' stale payloads ahead of its local steps.
 
 The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
 reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
@@ -78,7 +80,7 @@ from repro_torch.configs.base import FLTopology, HCEFConfig, ModelConfig
 from repro_torch.core.compression import compress_delta
 from repro_torch.core.mixing import make_mixing, participation_mixing
 from repro_torch.device import from_numpy, resolve
-from repro_torch.dist.collectives import (MULTI_RANK, mix_local,
+from repro_torch.dist.collectives import (mix_local, payload_tensors,
                                           sparse_exchange_, stale_payloads)
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import get_model
@@ -205,12 +207,13 @@ def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
 
 
 def init_overlap_state(cfg: ModelConfig, hcef: HCEFConfig,
-                       topo: FLTopology, params0,
-                       device=None) -> OverlapState:
+                       topo: FLTopology, params0, device=None,
+                       replicas: Optional[int] = None) -> OverlapState:
     """``init_state`` and a copy of its parameters as ``pending``: round
     0's stale payload is the initial model, a fixed point of the stale
-    mix as of the synchronous one."""
-    fl = init_state(cfg, hcef, topo, params0, device)
+    mix as of the synchronous one.  ``replicas``: the rows this process
+    holds, as ``init_state``'s."""
+    fl = init_state(cfg, hcef, topo, params0, device, replicas=replicas)
     return OverlapState(fl=fl, pending=tree_map(torch.clone, fl.params))
 
 
@@ -626,13 +629,17 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
     decode-and-mix; ``pending`` is refreshed after that wait.  A partial
     set's fresh payloads wait on the local steps (reduced overlap): it
     encodes in line.  ``events`` gains encode_start and encode_end (on the
-    side stream) and gossip_start and gossip_end (stage 2)."""
+    side stream) and gossip_start and gossip_end (stage 2).
+
+    A policy over n > 1 ranks: ``state.fl`` and ``pending`` hold this
+    rank's R / n rows (``init_overlap_state(replicas=)``), the other
+    inputs are the whole round's and the metrics are for all R, as
+    ``make_round_step``'s.  Stage 2 runs the wire across the ranks; an
+    all-stale round encodes each rank's own payloads on its side stream
+    (``stale_payloads(mesh=)``) and ships them in stage 2."""
     if not hcef.overlap:
         raise ValueError("make_overlap_round_step requires hcef.overlap "
                          "(use make_round_step for the synchronous engine)")
-    if policy is not None and topo.num_devices > 1 and policy.ranks > 1:
-        raise NotImplementedError(f"the overlapped engine on {policy.ranks} "
-                                  f"ranks is not ported yet: {MULTI_RANK}")
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
     if stale_clusters is not None:
@@ -664,6 +671,8 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
         stale_clusters = tuple(range(C))
     inner = make_round_step(cfg, hcef, topo, policy, gossip=False,
                             impl=impl, bits_fn=bits_fn)
+    ranks = 1 if policy is None else policy.ranks
+    R_loc = R // ranks  # this rank's rows (make_round_step checked them)
     sparse = policy is not None and hcef.sparse_gossip
     levels = sorted({float(t) for t in hcef.theta_levels})
     # the sparse wire at the round's level, or the dense rows (reference
@@ -672,7 +681,9 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
                    chunk_cols=gossip_cols(C), **(
                        dict(wire_dtype=hcef.wire_dtype,
                             wire_block=hcef.wire_block) if sparse
-                       else dict(wire_dtype="f32", theta=1.0)))
+                       else dict(wire_dtype="f32", theta=1.0)),
+                   **(dict(mesh=policy.mesh, axes=policy.replica_axes)
+                      if ranks > 1 else {}))
     ahead = sparse and len(stale_clusters) == C
     side_streams = {}  # device -> the side stream of the stale encodes
 
@@ -680,24 +691,21 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
         """Every leaf's every chunk's stale payloads, and on the card the
         event after the side stream's last encode."""
         if dev.type != "cuda":
-            return {k: stale_payloads(p.view(R, -1), **kw)
+            return {k: stale_payloads(p.view(R_loc, -1), **kw)
                     for k, p in pending.items()}, None
         main = torch.cuda.current_stream(dev)
         side = side_streams.setdefault(dev, torch.cuda.Stream(dev))
         side.wait_stream(main)  # pending's last refresh
         with torch.cuda.stream(side), torch.no_grad():
             _mark(events, "encode_start", dev)
-            pre = {k: stale_payloads(p.view(R, -1), **kw)
+            pre = {k: stale_payloads(p.view(R_loc, -1), **kw)
                    for k, p in pending.items()}
             _mark(events, "encode_end", dev)
             done = torch.cuda.Event()
             done.record()
         for chunks in pre.values():  # made on the side stream, read on main
-            for chunk in chunks:
-                for payload, _ in chunk:
-                    for t in payload:
-                        if t is not None:
-                            t.record_stream(main)
+            for t in payload_tensors(chunks):
+                t.record_stream(main)
         return pre, done
 
     def round_step(state: OverlapState, batch, rho, theta, key,
@@ -722,11 +730,11 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
             _mark(events, "gossip_start", dev)
             for k, x0 in flatten(fl.params).items():
                 if pre is not None:
-                    sparse_exchange_(x0.view(R, -1), payloads=pre.pop(k),
+                    sparse_exchange_(x0.view(R_loc, -1), payloads=pre.pop(k),
                                      conn=conn_h, **kw)
                 else:
-                    sparse_exchange_(x0.view(R, -1),
-                                     stale=pending[k].view(R, -1),
+                    sparse_exchange_(x0.view(R_loc, -1),
+                                     stale=pending[k].view(R_loc, -1),
                                      stale_clusters=stale_clusters,
                                      conn=conn_h, **kw)
             _mark(events, "gossip_end", dev)

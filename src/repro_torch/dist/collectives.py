@@ -74,9 +74,12 @@ ranks whose rows read them, each rank's received rows landing, band by
 band and plan by plan, where the one-process kernel reads its rolled
 rows, so one ``wire_decode_mix`` launch sums them in the one-process
 order (bit for bit its rows).  More than one replica axis takes the
-largest of ``cluster_theta`` as the reference does.  Not ported, raising
-and naming ROADMAP.md item 5: ``stale=`` / ``payloads=`` across ranks
-(the overlap engine there).  A 1-rank mesh is the one-process path.
+largest of ``cluster_theta`` as the reference does.  The stale gossip
+runs there too: ``stale=`` rows are a rank's own, and a rank's
+``stale_payloads`` are the payloads of its own rows (in the psum
+fallback, of all C stale means), so each rank can encode them ahead of
+its local steps; ``sparse_exchange_(payloads=)`` then ships them as the
+in-line path would.  A 1-rank mesh is the one-process path.
 """
 from __future__ import annotations
 
@@ -94,9 +97,8 @@ from repro_torch.kernels.wire_pack import (MixStep, _p4_sizes, decode_rows,
 
 WIRE_DTYPES = wf.WIRE_DTYPES
 MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path: "
-              "the tensor axis, the overlap engine and the population "
-              "store across ranks, the dry run's mesh half, NCCL across "
-              "cards)")
+              "the tensor axis, sequence-sharded MoE routing, the serve "
+              "policy, the dry run's mesh half, NCCL across cards)")
 
 
 def _axes_tuple(axes) -> tuple:
@@ -824,27 +826,23 @@ def _rows_of(payload, pos, dev):
                  for t in payload)
 
 
-def _rank_mix_rows(means, rr: _RankRows, layout: _Layout, mesh, axes, *, wb,
-                   wire_dtype, dense_dtype, wire_ef=None, wire_ef_gamma=1.0,
-                   impl=None, conn=None):
-    """``_sparse_mix_rows`` on this rank's (m, Lc) f32 cluster means: each
-    plan's member rows encoded, one ``exchange`` of what each rank reads,
-    then the one-process steps on the received rows (one
-    ``wire_decode_mix``; with the wire EF two more for the estimates)."""
-    dev, Lc = means.device, means.shape[1]
-    me = mesh.flat_index(axes)
-    tables = _rank_tables(rr, me, len(layout.diag),
-                          tuple(o for o, _ in layout.bands),
-                          tuple(rows for _, rows, _ in layout.plans))
-    cl = rr.clusters(me)
-    bands, absorbed = layout.bands, None
-    if conn is not None:
-        if wire_ef is not None:
-            raise ValueError("wire_ef is incompatible with conn= "
-                             "partitions (sender and receiver estimate "
-                             "updates would desync)")
-        bands, absorbed = _conn_fold(layout, _host(conn))
-    send = means if wire_ef is None else means - wire_ef[0]
+def _stale_rank_select(send, stale, cl, stale_clusters):
+    """This rank's rows to ship (m, Lc) of the clusters ``cl``: the stale
+    set's stale means, the others' ``send`` rows (``_stale_row_select`` on
+    a rank's rows).  Every local cluster stale: the stale rows
+    themselves."""
+    sel = tuple(c in stale_clusters for c in cl)
+    if all(sel):
+        return stale
+    mask = _on_device(sel, torch.bool, send.device)
+    return torch.where(mask[:, None], stale, send)
+
+
+def _rank_payloads(send, rr: _RankRows, layout: _Layout, tables, *, wb,
+                   wire_dtype, dense_dtype, impl=None):
+    """Each plan's payload of this rank's (m, Lc) rows ``send``: its
+    member rows encoded (a dense plan's in ``dense_dtype``), None where no
+    local row sends under the plan."""
     payloads = []
     for (key, _, _), mem in zip(layout.plans, tables.members):
         if not mem:
@@ -853,12 +851,50 @@ def _rank_mix_rows(means, rr: _RankRows, layout: _Layout, mesh, axes, *, wb,
         rows = None if len(mem) == rr.m else mem
         if key[0] == "dense":
             sub = send if rows is None else send.index_select(
-                0, _on_device(rows, torch.long, dev))
+                0, _on_device(rows, torch.long, send.device))
             payloads.append((sub.to(dense_dtype).contiguous(),))
         else:
             payloads.append(tuple(_encode(send, rows, key[1], wb, wire_dtype,
                                           impl)))
-    del send
+    return payloads
+
+
+def _rank_tables_of(rr: _RankRows, layout: _Layout, mesh, axes):
+    return _rank_tables(rr, mesh.flat_index(axes), len(layout.diag),
+                        tuple(o for o, _ in layout.bands),
+                        tuple(rows for _, rows, _ in layout.plans))
+
+
+def _rank_mix_rows(means, rr: _RankRows, layout: _Layout, mesh, axes, *, wb,
+                   wire_dtype, dense_dtype, wire_ef=None, wire_ef_gamma=1.0,
+                   impl=None, conn=None, stale=None, stale_clusters=None,
+                   payloads=None):
+    """``_sparse_mix_rows`` on this rank's (m, Lc) f32 cluster means: each
+    plan's member rows encoded, one ``exchange`` of what each rank reads,
+    then the one-process steps on the received rows (one
+    ``wire_decode_mix``; with the wire EF two more for the estimates).
+    ``stale`` (m, Lc) f32 with ``stale_clusters``: the set's local rows
+    ship their stale mean, the self terms stay fresh; ``payloads``: this
+    rank's ``_rank_payloads`` of the chunk, encoded beforehand."""
+    dev, Lc = means.device, means.shape[1]
+    me = mesh.flat_index(axes)
+    tables = _rank_tables_of(rr, layout, mesh, axes)
+    cl = rr.clusters(me)
+    bands, absorbed = layout.bands, None
+    if conn is not None:
+        if wire_ef is not None:
+            raise ValueError("wire_ef is incompatible with conn= "
+                             "partitions (sender and receiver estimate "
+                             "updates would desync)")
+        bands, absorbed = _conn_fold(layout, _host(conn))
+    if payloads is None:
+        send = means if wire_ef is None else means - wire_ef[0]
+        if stale is not None:
+            send = _stale_rank_select(send, stale, cl, stale_clusters)
+        payloads = _rank_payloads(send, rr, layout, tables, wb=wb,
+                                  wire_dtype=wire_dtype,
+                                  dense_dtype=dense_dtype, impl=impl)
+        del send
     specs = lambda p, n: _payload_specs(layout.plans[p][0], n, Lc, wb,
                                         wire_dtype, dense_dtype)
     sends = {mesh.rank_of(axes, f): [t for _, p, pos in lst
@@ -972,33 +1008,78 @@ def _exchange_layout(L: int, dense_dtype, C: int, *, k, theta,
             wf.wire_block_of(L, wire_block))
 
 
+def _rank_levels(axes, theta, cluster_theta):
+    """The level arguments across ranks: more than one replica axis takes
+    the largest of ``cluster_theta``, as the reference's relayed
+    multi-axis rotations ship every cluster at it (:1039)."""
+    if cluster_theta is not None and len(axes) > 1:
+        return max(float(t) for t in cluster_theta), None
+    return theta, cluster_theta
+
+
 def stale_payloads(stale, *, clusters: int, dev: int, k=None, theta=None,
                    cluster_theta=None, hkind: str = "ring",
                    p_edge: float = 0.4, seed: int = 0,
                    wire_dtype: str = "f32", wire_block: int = 1024,
                    dense_dtype=None, impl=None,
-                   chunk_cols: Optional[int] = None) -> list:
+                   chunk_cols: Optional[int] = None, mesh=None,
+                   axes=()) -> list:
     """Every column chunk's payloads of a gossip in which every cluster is
     stale: ``_chunk_payloads`` of each cluster's row 0 of ``stale`` (R, L)
     (cluster-uniform rows, the overlapped engine's ``pending``), chunked
     and planned as ``sparse_exchange_`` does with the same arguments.
     Nothing here reads this round's means, so the encodes can run
     before (or beside) the local steps; ``sparse_exchange_(payloads=)``
-    then gives the bits of ``stale=`` with ``stale_clusters`` = all."""
+    then gives the bits of ``stale=`` with ``stale_clusters`` = all.
+
+    With ``axes`` over more than one rank of ``mesh``, ``stale`` is this
+    rank's (R_local, L) rows and each chunk's entry this rank's own
+    payloads: in layouts A and B each plan's member rows of this rank
+    (``_rank_payloads``, None where none sends), with nothing sent; in the
+    psum fallback the one-process payloads of all C stale means, which
+    take one all_reduce of the chunk's cluster sums."""
     C, Dev = clusters, dev
     R, L = stale.shape
-    if R != C * Dev:
-        raise ValueError(f"{R} rows for {C} clusters x {Dev} devices")
+    axes = _axes_tuple(axes)
+    n = _ranks(axes, mesh)
+    if R * n != C * Dev:
+        raise ValueError(f"{R} rows{f' a rank on {n} ranks' if n > 1 else ''}"
+                         f" for {C} clusters x {Dev} devices")
     dense_dtype = dense_dtype or stale.dtype
+    if n > 1:
+        theta, cluster_theta = _rank_levels(axes, theta, cluster_theta)
     layout, wb = _exchange_layout(
         L, dense_dtype, C, k=k, theta=theta, cluster_theta=cluster_theta,
         hkind=hkind, p_edge=p_edge, seed=seed, wire_block=wire_block,
         wire_dtype=wire_dtype)
-    sv = stale.view(C, Dev, L)
-    return [_chunk_payloads(sv[:, 0, c0:c1].float(), layout, wb=wb,
-                            wire_dtype=wire_dtype, dense_dtype=dense_dtype,
-                            impl=impl)
-            for c0, c1 in _col_chunks(L, wb, chunk_cols)]
+    chunks = _col_chunks(L, wb, chunk_cols)
+    enc = dict(wb=wb, wire_dtype=wire_dtype, dense_dtype=dense_dtype,
+               impl=impl)
+    if n == 1:
+        sv = stale.view(C, Dev, L)
+        return [_chunk_payloads(sv[:, 0, c0:c1].float(), layout, **enc)
+                for c0, c1 in chunks]
+    rr = _rank_rows(R, n, axes, mesh, Dev)
+    if rr is None:
+        return [_chunk_payloads(_cluster_sums(stale[:, c0:c1], mesh, axes,
+                                              C, Dev)[0] / Dev, layout,
+                                **enc) for c0, c1 in chunks]
+    tables = _rank_tables_of(rr, layout, mesh, axes)
+    sv = stale.view(rr.m, R // rr.m, L)
+    return [_rank_payloads(sv[:, 0, c0:c1].float(), rr, layout, tables,
+                           **enc) for c0, c1 in chunks]
+
+
+def payload_tensors(payloads):
+    """Every tensor of ``stale_payloads``' result (either form)."""
+    for chunk in payloads:
+        for entry in chunk:
+            if entry is None:
+                continue
+            fields = entry[0] if isinstance(entry[0], tuple) else entry
+            for t in fields:
+                if t is not None:
+                    yield t
 
 
 def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
@@ -1025,29 +1106,18 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
     place of the encodes (every cluster stale).
 
     With ``axes`` over more than one rank of ``mesh`` x (and each wire-EF
-    estimate) is this rank's (R_local, L) rows; layouts A and B ship
+    estimate, and ``stale``) is this rank's (R_local, L) rows and
+    ``payloads`` this rank's ``stale_payloads``; layouts A and B ship
     each chunk's payloads to the ranks that read them, anything else
     takes the psum fallback (``_sparse_fallback_``)."""
     C, Dev = clusters, dev
     conn = _conn_or_none(conn)
     axes = _axes_tuple(axes)
-    if _ranks(axes, mesh) > 1:
-        if stale is not None or payloads is not None:
-            raise NotImplementedError(f"stale payloads across ranks are not "
-                                      f"ported yet: {MULTI_RANK}")
-        if cluster_theta is not None and len(axes) > 1:
-            # the reference's multi-axis collapse to the largest level
-            theta, cluster_theta = max(float(t) for t in cluster_theta), None
-        return _rank_exchange_(
-            x, mesh=mesh, axes=axes, C=C, Dev=Dev, k=k, theta=theta,
-            cluster_theta=cluster_theta, hkind=hkind, p_edge=p_edge,
-            seed=seed, wire_dtype=wire_dtype, wire_block=wire_block,
-            dense_dtype=dense_dtype or x.dtype, wire_ef=wire_ef,
-            wire_ef_gamma=wire_ef_gamma, impl=impl, chunk_cols=chunk_cols,
-            conn=conn)
+    n = _ranks(axes, mesh)
     R, L = x.shape
-    if R != C * Dev:
-        raise ValueError(f"{R} rows for {C} clusters x {Dev} devices")
+    if R * n != C * Dev:
+        raise ValueError(f"{R} rows{f' a rank on {n} ranks' if n > 1 else ''}"
+                         f" for {C} clusters x {Dev} devices")
     if (stale is None) != (stale_clusters is None):
         raise ValueError("stale= and stale_clusters= go together")
     if wire_ef is not None and (stale is not None or payloads is not None):
@@ -1060,6 +1130,8 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
             raise ValueError(f"stale rows {tuple(stale.shape)} for x "
                              f"{(R, L)}")
     dense_dtype = dense_dtype or x.dtype
+    if n > 1:
+        theta, cluster_theta = _rank_levels(axes, theta, cluster_theta)
     layout, wb = _exchange_layout(
         L, dense_dtype, C, k=k, theta=theta, cluster_theta=cluster_theta,
         hkind=hkind, p_edge=p_edge, seed=seed, wire_block=wire_block,
@@ -1068,6 +1140,13 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
     if payloads is not None and len(payloads) != len(chunks):
         raise ValueError(f"{len(payloads)} chunks of payloads for "
                          f"{len(chunks)} chunks")
+    kw = dict(wb=wb, wire_dtype=wire_dtype, dense_dtype=dense_dtype,
+              wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn,
+              stale_clusters=stale_clusters)
+    if n > 1:
+        return _rank_exchange_(x, layout, chunks, mesh=mesh, axes=axes, C=C,
+                               Dev=Dev, wire_ef=wire_ef, stale=stale,
+                               payloads=payloads, **kw)
     xv = x.view(C, Dev, L)
     ev = None if wire_ef is None else [e.view(C, Dev, L) for e in wire_ef]
     sv = None if stale is None else stale.view(C, Dev, L)
@@ -1075,12 +1154,9 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
         means = xv[:, 0, c0:c1].float()
         ef_rows = None if ev is None else tuple(e[:, 0, c0:c1] for e in ev)
         out = _sparse_mix_rows(
-            means, layout, wb=wb, wire_dtype=wire_dtype,
-            dense_dtype=dense_dtype, wire_ef=ef_rows,
-            wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn,
+            means, layout, wire_ef=ef_rows,
             stale=None if sv is None else sv[:, 0, c0:c1].float(),
-            stale_clusters=stale_clusters,
-            payloads=None if payloads is None else payloads[i])
+            payloads=None if payloads is None else payloads[i], **kw)
         if ev is not None:
             out, es, ew = out
             ev[0][:, :, c0:c1].copy_(es[:, None])
@@ -1090,33 +1166,26 @@ def sparse_exchange_(x, *, clusters: int, dev: int, k=None, theta=None,
         del means, out  # free before the next chunk's rows
 
 
-def _rank_exchange_(x, *, mesh, axes, C, Dev, k, theta, cluster_theta,
-                    hkind, p_edge, seed, wire_dtype, wire_block, dense_dtype,
-                    wire_ef, wire_ef_gamma, impl, chunk_cols, conn) -> None:
+def _rank_exchange_(x, layout, chunks, *, mesh, axes, C, Dev, wire_ef,
+                    stale, payloads, **kw) -> None:
     """``sparse_exchange_`` on this rank's (R_local, L) rows."""
     R_local, L = x.shape
-    n = mesh.size(axes)
-    if R_local * n != C * Dev:
-        raise ValueError(f"{R_local} rows a rank on {n} ranks for {C} "
-                         f"clusters x {Dev} devices")
-    layout, wb = _exchange_layout(
-        L, dense_dtype, C, k=k, theta=theta, cluster_theta=cluster_theta,
-        hkind=hkind, p_edge=p_edge, seed=seed, wire_block=wire_block,
-        wire_dtype=wire_dtype)
-    rr = _rank_rows(R_local, n, axes, mesh, Dev)
-    kw = dict(wb=wb, wire_dtype=wire_dtype, dense_dtype=dense_dtype,
-              wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn)
+    rr = _rank_rows(R_local, mesh.size(axes), axes, mesh, Dev)
     if rr is None:
         return _sparse_fallback_(x, layout, mesh, axes, C, Dev, wire_ef,
-                                 _col_chunks(L, wb, chunk_cols), **kw)
-    xv = x.view(rr.m, R_local // rr.m, L)
-    ev = None if wire_ef is None else [e.view(rr.m, R_local // rr.m, L)
-                                       for e in wire_ef]
-    for c0, c1 in _col_chunks(L, wb, chunk_cols):
+                                 chunks, stale=stale, payloads=payloads,
+                                 **kw)
+    d = R_local // rr.m
+    xv = x.view(rr.m, d, L)
+    ev = None if wire_ef is None else [e.view(rr.m, d, L) for e in wire_ef]
+    sv = None if stale is None else stale.view(rr.m, d, L)
+    for i, (c0, c1) in enumerate(chunks):
         means = xv[:, 0, c0:c1].float()
         ef_rows = None if ev is None else tuple(e[:, 0, c0:c1] for e in ev)
-        out = _rank_mix_rows(means, rr, layout, mesh, axes, wire_ef=ef_rows,
-                             **kw)
+        out = _rank_mix_rows(
+            means, rr, layout, mesh, axes, wire_ef=ef_rows,
+            stale=None if sv is None else sv[:, 0, c0:c1].float(),
+            payloads=None if payloads is None else payloads[i], **kw)
         if ev is not None:
             out, es, ew = out
             ev[0][:, :, c0:c1].copy_(es[:, None])
@@ -1128,21 +1197,26 @@ def _rank_exchange_(x, *, mesh, axes, C, Dev, k, theta, cluster_theta,
 
 def _sparse_fallback_(x, layout, mesh, axes, C, Dev, wire_ef, chunks, *,
                       wb, wire_dtype, dense_dtype, wire_ef_gamma, impl,
-                      conn):
+                      conn, stale=None, stale_clusters=None, payloads=None):
     """The reference's ``_sparse_fallback`` (:1114) in place, chunk by
     chunk: the psum of the (C, Lc) cluster sums / Dev (raw rows sum to the
     cluster's sum, intra means to Dev times the mean), the one-process
     wire on all C rows on every rank, each rank taking its rows' clusters
-    (the estimates likewise)."""
-    for c0, c1 in chunks:
+    (the estimates likewise; ``stale`` rows through the same psum)."""
+    for i, (c0, c1) in enumerate(chunks):
         sums, cl = _cluster_sums(x[:, c0:c1], mesh, axes, C, Dev)
         ef_rows = None if wire_ef is None else tuple(
             _cluster_sums(e[:, c0:c1], mesh, axes, C, Dev)[0] / Dev
             for e in wire_ef)
+        smeans = None if stale is None else _cluster_sums(
+            stale[:, c0:c1], mesh, axes, C, Dev)[0] / Dev
         out = _sparse_mix_rows(sums / Dev, layout, wb=wb,
                                wire_dtype=wire_dtype, dense_dtype=dense_dtype,
                                wire_ef=ef_rows, wire_ef_gamma=wire_ef_gamma,
-                               impl=impl, conn=conn)
+                               impl=impl, conn=conn, stale=smeans,
+                               stale_clusters=stale_clusters,
+                               payloads=None if payloads is None
+                               else payloads[i])
         idx = torch.as_tensor(cl, device=x.device)
         if wire_ef is not None:
             out, es, ew = out
@@ -1185,7 +1259,7 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
     With ``axes`` over more than one rank of ``mesh`` (reference :966):
     delta, ``alive`` and the estimates are this rank's rows; raw rows'
     intra means come from ``mix_local(hkind="none")`` (layouts A and B)
-    or the psum fallback; ``stale=`` raises (ROADMAP.md item 5)."""
+    or the psum fallback; ``stale`` is this rank's rows likewise."""
     axes = _axes_tuple(axes)
     n = _ranks(axes, mesh)
     conn = _conn_or_none(conn)
@@ -1213,9 +1287,6 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
             raise ValueError("wire_ef is incompatible with conn= "
                              "partitions (sender and receiver estimate "
                              "updates would desync)")
-    if stale is not None and n > 1:
-        raise NotImplementedError(f"stale payloads across ranks are not "
-                                  f"ported yet: {MULTI_RANK}")
     if alive is not None and not intra_done:
         delta = _alive_premultiply(delta, alive)
     mesh_kw = dict(axes=axes, mesh=mesh) if n > 1 else {}
@@ -1223,10 +1294,8 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
         return mix_local(delta, clusters=C, dev=Dev, hkind="none", **mesh_kw)
     R = delta.shape[0]
     L = delta[0].numel()
-    if cluster_theta is not None and len(axes) > 1 and n > 1:
-        # the relayed multi-axis rotations of the reference cannot filter
-        # by sender: it ships every cluster at the largest level
-        theta, cluster_theta = max(float(t) for t in cluster_theta), None
+    if n > 1:
+        theta, cluster_theta = _rank_levels(axes, theta, cluster_theta)
     level_kw = dict(k=k, theta=theta, cluster_theta=cluster_theta,
                     wire_block=wire_block, wire_dtype=wire_dtype)
     plans = _level_plans(L, delta.element_size(), C, **level_kw)
@@ -1246,7 +1315,10 @@ def sparse_neighbor_exchange(delta, *, clusters: int, dev: int, axes=(),
         sparse_exchange_(x, clusters=C, dev=Dev, hkind=hkind, p_edge=p_edge,
                          seed=seed, dense_dtype=delta.dtype, wire_ef=est,
                          wire_ef_gamma=wire_ef_gamma, impl=impl, conn=conn,
-                         **level_kw, **mesh_kw)
+                         stale=None if stale is None
+                         else stale.reshape(R, L),
+                         stale_clusters=stale_clusters, **level_kw,
+                         **mesh_kw)
         y = x.to(delta.dtype).reshape(delta.shape)
         if est is None:
             return y

@@ -21,7 +21,12 @@ The transport is the reference's collectives on ranks (its axis helpers
   ``psum``  an all_reduce over the axes' group;
   ``exchange``  one ``batch_isend_irecv`` of a message a peer, each
       message the given tensors packed into one byte buffer (16-byte
-      aligned), unpacked as views on the receiving side.
+      aligned), unpacked as views on the receiving side;
+  ``gather_to`` / ``scatter_from``  a tensor's bytes from every rank of
+      some axes into host memory on one of them, and back: the launcher's
+      checkpoints and cohort swaps, which must not put one rank's rows on
+      another rank's card;
+  ``broadcast_object``  a picklable host value from one rank to all.
 
 Backends.  Where every rank of a host has a card of its own the backend
 is NCCL and CUDA tensors go as they are (unverified: no machine with more
@@ -30,7 +35,9 @@ refuses two ranks on one card and gloo has no CUDA send or receive, so a
 CUDA tensor is staged through a pinned host buffer for each message, both
 ways, and for each all_reduce.  A failure of either backend raises;
 nothing switches to the other.  ``stats`` counts each rank's calls,
-messages sent, bytes sent and bytes staged (both directions).
+messages sent, bytes sent and bytes staged (both directions), and the
+host ms spent inside the transport calls (``ms``: the staging copies and
+the waits for the peers included).
 
 ``run_world`` spawns an n-rank world (the ``spawn`` start method), each
 rank building its mesh over a ``file://`` store and running a function,
@@ -44,6 +51,7 @@ import itertools
 import os
 import pickle
 import tempfile
+import contextlib
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -108,7 +116,7 @@ class RankMesh:
                                                              self.shape))
         self._size = dict(zip(self.axis_names, self.shape))
         self.stats = {"calls": 0, "messages": 0, "bytes": 0,
-                      "staged_bytes": 0}
+                      "staged_bytes": 0, "ms": 0.0}
         self._groups: Dict[tuple, object] = {}
         if self.world > 1:
             timeout = datetime.timedelta(seconds=timeout_s)
@@ -181,6 +189,14 @@ class RankMesh:
 
     # -- the transport -----------------------------------------------------
 
+    @contextlib.contextmanager
+    def _timed(self):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stats["ms"] += (time.perf_counter() - t0) * 1e3
+
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         """t as the backend can send it: a pinned host copy of a CUDA
         tensor when staged."""
@@ -198,6 +214,10 @@ class RankMesh:
         one from each rank of ``recvs`` (the (shape, dtype) specs of the
         tensors it sends, in its order); returns {source rank: tensors on
         this rank's device}.  Both sides must agree on the specs."""
+        with self._timed():
+            return self._exchange(sends, recvs)
+
+    def _exchange(self, sends, recvs):
         self.stats["calls"] += 1
         if self.rank in sends or self.rank in recvs:
             raise ValueError("exchange: a rank sends nothing to itself")
@@ -275,6 +295,10 @@ class RankMesh:
         group), on every one of them; x is not written."""
         if self.size(axes) == 1:
             return x
+        with self._timed():
+            return self._psum(x, axes)
+
+    def _psum(self, x, axes):
         self.stats["calls"] += 1
         buf = (self._host(x) if self.staged and x.is_cuda
                else x.contiguous().clone())
@@ -291,6 +315,10 @@ class RankMesh:
         n = self.size(axes)
         if n == 1:
             return x[None]
+        with self._timed():
+            return self._all_gather(x, axes, n)
+
+    def _all_gather(self, x, axes, n):
         self.stats["calls"] += 1
         h = self._host(x.contiguous())
         parts = [torch.empty_like(h) for _ in range(n)]
@@ -302,9 +330,70 @@ class RankMesh:
             out = out.to(x.device)
         return out
 
+    def _bytes_on_host(self, x: torch.Tensor) -> torch.Tensor:
+        """x's bytes as a flat uint8 host tensor (staged from the card)."""
+        if x.is_cuda and not self.staged:
+            raise NotImplementedError(
+                "host gathers over NCCL are not ported yet (ROADMAP.md "
+                "item 5.7): the gloo transport stages them")
+        return self._host(x.contiguous()).view(-1).view(torch.uint8)
+
+    def gather_to(self, x: torch.Tensor, axes, dst: int = 0):
+        """x of every rank of ``axes`` stacked in flat order over ``axes``
+        (a new leading dim) in host memory on the rank at flat index
+        ``dst``, None on the others.  Every rank's x has one shape and
+        type; its bytes go as they are, any type."""
+        n = self.size(axes)
+        if n == 1:
+            return x.detach().to("cpu")[None].clone()
+        with self._timed():
+            self.stats["calls"] += 1
+            h = self._bytes_on_host(x)
+            root = self.rank_of(axes, dst)
+            parts = ([torch.empty_like(h) for _ in range(n)]
+                     if self.rank == root else None)
+            dist.gather(h, parts, dst=root, group=self.group(axes))
+            if self.rank != root:
+                self.stats["bytes"] += _nbytes(h)
+                return None
+            return torch.stack(parts).view(x.dtype).view(
+                (n,) + tuple(x.shape))
+
+    def scatter_from(self, stacked, axes, like: torch.Tensor,
+                     src: int = 0) -> torch.Tensor:
+        """The inverse of ``gather_to``: ``stacked`` (n, *like.shape) on
+        the rank at flat index ``src`` (None elsewhere); every rank gets
+        its row in host memory (like ``like``'s shape and type)."""
+        n = self.size(axes)
+        if n == 1:
+            return stacked[0]
+        with self._timed():
+            self.stats["calls"] += 1
+            root = self.rank_of(axes, src)
+            nb = _nbytes(like)
+            out = torch.empty(nb, dtype=torch.uint8)
+            parts = None
+            if self.rank == root:
+                flat = stacked.contiguous().view(n, -1).view(torch.uint8)
+                parts = [flat[i] for i in range(n)]
+                self.stats["bytes"] += nb * (n - 1)
+            dist.scatter(out, parts, src=root, group=self.group(axes))
+            return out.view(like.dtype).view(tuple(like.shape))
+
+    def broadcast_object(self, obj, src: int = 0):
+        """A picklable host value of world rank ``src`` on every rank."""
+        if self.world == 1:
+            return obj
+        with self._timed():
+            self.stats["calls"] += 1
+            box = [obj if self.rank == src else None]
+            dist.broadcast_object_list(box, src=src)
+            return box[0]
+
     def barrier(self):
         if self.world > 1:
-            dist.barrier()
+            with self._timed():
+                dist.barrier()
 
     def reset_stats(self):
         for k in self.stats:

@@ -128,9 +128,15 @@ its own, else gloo through pinned host buffers), and rank 0 prints the
 round lines, which add each rank's peak memory and the bytes the round's
 transport staged.  Gossip rounds with ``--sparse-gossip`` pass the
 per-cluster levels (``cluster_levels_from_theta``), as the reference.
-On more than one rank ``--population``, ``--overlap`` and ``--ckpt-dir``
-exit with code 2 naming ROADMAP.md item 5.  ``--tau`` / ``--q`` override
-the configuration's round structure.
+``--overlap``, ``--population`` and ``--ckpt-dir`` run on ranks too, with
+the 1-rank run's bits: every rank decides the same stale sets; the
+population store lives on rank 0 (``runtime/population.RankPopulation``:
+each cohort swap brings the slots' per-client rows to rank 0's host
+memory and back) with the same accounting on every rank; rank 0 writes
+each checkpoint with all R rows, gathered leaf by leaf into its host
+memory, while the others wait for it.  On ranks the round line also
+gives each rank's gossip phase ms and its ms inside the transport.
+``--tau`` / ``--q`` override the configuration's round structure.
 """
 from __future__ import annotations
 
@@ -157,7 +163,8 @@ from repro_torch.core.round import (client_template, init_overlap_state,
                                     make_round_step, split_state)
 from repro_torch.data.synthetic import client_token_shard, synthetic_tokens
 from repro_torch.device import resolve
-from repro_torch.dist.collectives import MULTI_RANK, participation_weights
+from repro_torch.convert import gather_rows_to_host
+from repro_torch.dist.collectives import participation_weights
 from repro_torch.dist.mesh import describe, dp_axes, init_rank_mesh
 from repro_torch.dist.policies import make_train_policy
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
@@ -172,7 +179,7 @@ from repro_torch.models.registry import get_model
 from repro_torch.runtime.chaos import ChaosConfig, FaultPlan, controls_on_live
 from repro_torch.runtime.checkpoint import save_pytree
 from repro_torch.runtime.elastic import cohort_swap, verified_swap
-from repro_torch.runtime.population import PopulationStore
+from repro_torch.runtime.population import PopulationStore, RankPopulation
 from repro_torch.tree import flatten
 
 N_SEQ = 32  # sequences per device in the corpus (train.py)
@@ -287,15 +294,8 @@ def main(argv=None, on_round=None):
     ap = parser()
     args = ap.parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE") or 1)
-    if args.mesh != "host" and world > 1:
-        for flag, on in (("--population", args.population),
-                         ("--overlap", args.overlap),
-                         ("--ckpt-dir", args.ckpt_dir)):
-            if on:
-                ap.exit(2, f"{flag} on {world} ranks is not ported yet: "
-                           f"{MULTI_RANK}\n")
-        if args.mesh == "multi" and world % 2:
-            ap.exit(2, f"--mesh multi needs an even world, got {world}\n")
+    if args.mesh == "multi" and world > 1 and world % 2:
+        ap.exit(2, f"--mesh multi needs an even world, got {world}\n")
     if args.profile and args.ckpt_dir:
         ap.error("--profile with --ckpt-dir: the checkpoints' host writes "
                  "would fall in the traced wall time")
@@ -326,6 +326,7 @@ def main(argv=None, on_round=None):
         policy = make_train_policy(mesh, topo, dp_axes=dp_axes(mesh))
     R = topo.num_devices
     R_loc = policy.local_replicas if policy is not None else R
+    ranked = policy is not None and policy.ranks > 1
     lead = mesh is None or mesh.rank == 0
     if args.population and args.population < R:
         ap.exit(2, f"--population {args.population} smaller than the mesh "
@@ -343,9 +344,8 @@ def main(argv=None, on_round=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params0 = get_model(cfg).init(cfg, gen, device=dev)
     n_params = param_count(params0)
-    state = (init_overlap_state(cfg, hcef, topo, params0, device=dev)
-             if hcef.overlap else init_state(cfg, hcef, topo, params0,
-                                             device=dev, replicas=R_loc))
+    state = (init_overlap_state if hcef.overlap else init_state)(
+        cfg, hcef, topo, params0, device=dev, replicas=R_loc)
     del params0
     # the working buffer: the state of the synchronous engine, the
     # overlapped engine's fl
@@ -380,16 +380,20 @@ def main(argv=None, on_round=None):
     pop_store = cohort_ids = tmp = None
     swap_bytes = []  # device<->host bytes of each round's swap
     if args.population:
-        if args.store_root:
+        root = None  # on ranks rank 0 holds the store (RankPopulation)
+        if lead and args.store_root:
             root = Path(args.store_root)
-        elif args.ckpt_dir:  # the manifests' pages outlive the run
+        elif lead and args.ckpt_dir:  # the manifests' pages outlive the run
             root = Path(args.ckpt_dir) / "pop_store"
-        else:
+        elif lead:
             tmp = tempfile.TemporaryDirectory(prefix="pop_store_")
             root = Path(tmp.name)
         tmpl = client_template(fl())
-        pop_store = PopulationStore(args.population, tmpl, root=root,
-                                    resident_max=4 * R)
+        pop_store = (RankPopulation(mesh, policy.replica_axes,
+                                    args.population, tmpl, root=root,
+                                    resident_max=4 * R) if ranked else
+                     PopulationStore(args.population, tmpl, root=root,
+                                     resident_max=4 * R))
         client_bytes = sum(t.numel() * t.element_size()
                            for t in flatten(tmpl).values())
 
@@ -443,6 +447,21 @@ def main(argv=None, on_round=None):
         new_ids = (het.sample_cohort(rnd, R, seed=args.cohort_seed)
                    if args.population > R else np.arange(R, dtype=np.int64))
         _, client = split_state(fl())
+        if ranked:  # the rows go to rank 0's store and back
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            moved, check = pop_store.swap(
+                client, old_ids, new_ids,
+                verify=args.verify_conservation and old_ids is not None)
+            swap_bytes.append(moved * client_bytes)
+            timings.setdefault("cohort_swap", []).append(
+                (time.perf_counter() - t0) * 1e3
+                - (check["host_ms"] if check else 0.0))
+            if check is not None and lead:
+                print_check(rnd, check)
+            cohort_ids = new_ids
+            return check
 
         def move():
             if dev.type == "cuda":
@@ -470,17 +489,20 @@ def main(argv=None, on_round=None):
         check = None
         if args.verify_conservation and old_ids is not None:
             check = verified_swap(move, pop_store, client, old_ids, new_ids)
-            print(f"cohort swap before round {rnd}: the population's EF "
-                  f"sum {check['ef_before']!r} before, "
-                  f"{check['ef_after']!r} after; its whole per-client "
-                  f"state (EF, momentum) {check['state_before']!r} before,"
-                  f" {check['state_after']!r} after ("
-                  f"{'equal' if check['equal'] else 'NOT EQUAL'}; checked "
-                  f"in {check['host_ms']:.0f} ms)", flush=True)
+            print_check(rnd, check)
         else:
             move()
         cohort_ids = new_ids
         return check
+
+    def print_check(rnd, check):
+        print(f"cohort swap before round {rnd}: the population's EF "
+              f"sum {check['ef_before']!r} before, "
+              f"{check['ef_after']!r} after; its whole per-client "
+              f"state (EF, momentum) {check['state_before']!r} before,"
+              f" {check['state_after']!r} after ("
+              f"{'equal' if check['equal'] else 'NOT EQUAL'}; checked "
+              f"in {check['host_ms']:.0f} ms)", flush=True)
 
     def one_round(rnd):
         nonlocal state
@@ -534,6 +556,7 @@ def main(argv=None, on_round=None):
                                  dev=topo.devices_per_cluster),
                              conn=conn.astype(np.float32))
         stats0 = None if mesh is None else dict(mesh.stats)
+        n_gossip = len(timings.get("gossip", ()))
         state, m = get_step(gossip, stale, levels)(
             state, {"tokens": torch.from_numpy(tokens), **stand_ins()},
             rho, theta, 1000 + rnd, timings=timings, **masks)
@@ -591,15 +614,24 @@ def main(argv=None, on_round=None):
         mem = f" peak={peak / 1e9:.2f}GB" if dev.type == "cuda" else ""
         if mesh is not None and mesh.world > 1:
             moved = {k: mesh.stats[k] - stats0[k] for k in mesh.stats}
+            # this round's gossip phase (the stage-2 fold when overlapped)
+            g_ms = (timings["gossip"][-1]
+                    if len(timings.get("gossip", ())) > n_gossip else 0.0)
             every = mesh.all_gather(torch.tensor(
-                [peak, moved["staged_bytes"], moved["messages"]],
-                dtype=torch.float64), mesh.axis_names).tolist()
+                [peak, moved["staged_bytes"], moved["messages"], g_ms,
+                 moved["ms"]], dtype=torch.float64),
+                mesh.axis_names).tolist()
             rec["rank_peak_gb"] = [v[0] / 1e9 for v in every]
             rec["rank_staged_bytes"] = [int(v[1]) for v in every]
             rec["rank_messages"] = [int(v[2]) for v in every]
+            rec["rank_gossip_ms"] = [v[3] for v in every]
+            rec["rank_transport_ms"] = [v[4] for v in every]
             peaks = "/".join(f"{g:.2f}" for g in rec["rank_peak_gb"])
+            ms = lambda key: "/".join(f"{v:.0f}" for v in rec[key])
             mem = (f" peaks={peaks}GB "
-                   f"staged={sum(rec['rank_staged_bytes']) / 1e6:.1f}MB")
+                   f"staged={sum(rec['rank_staged_bytes']) / 1e6:.1f}MB "
+                   f"gossip={ms('rank_gossip_ms')}ms "
+                   f"transport={ms('rank_transport_ms')}ms")
         if lead:
             print(f"round {rnd:3d} loss={loss:7.4f} "
                   f"rho={rec['rho_mean']:.2f} theta={rec['theta_mean']:.2f} "
@@ -610,7 +642,9 @@ def main(argv=None, on_round=None):
     ckpts = []
 
     def save(rnd):
-        """The reference's checkpoint of the round (train.py:368-376)."""
+        """The reference's checkpoint of the round (train.py:368-376).  On
+        ranks rank 0 writes all R rows, gathered leaf by leaf into its
+        host memory, and the others wait for the write."""
         d = Path(args.ckpt_dir)
         meta = {"round": rnd}
         if pop_store is not None:
@@ -618,7 +652,18 @@ def main(argv=None, on_round=None):
             pop_store.save(d / f"ckpt_{rnd:06d}.pop.npz")
         path = d / f"ckpt_{rnd:06d}.npz"
         t0 = time.perf_counter()
-        save_pytree(path, state_tree(fl()), meta=meta)
+        tree = state_tree(fl())
+        if ranked:
+            rows = gather_rows_to_host(
+                {k: v for k, v in tree.items() if k != "round_idx"},
+                mesh, policy.replica_axes)
+            if rows is not None:
+                save_pytree(path, dict(rows, round_idx=tree["round_idx"]),
+                            meta=meta)
+            del rows
+            mesh.barrier()
+        else:
+            save_pytree(path, tree, meta=meta)
         ckpts.append({"path": str(path), "bytes": path.stat().st_size,
                       "write_ms": (time.perf_counter() - t0) * 1e3})
 

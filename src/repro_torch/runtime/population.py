@@ -26,6 +26,15 @@ sums are kept until its state is written again.
 Leaves are the port's state dicts flattened in key order (``tree.
 flatten``).  The pages and manifests are the port's own (the reference's
 store does not read them; its pages are ``.npz`` archives).
+
+Across the ranks of a ``dist.mesh.RankMesh`` (``RankPopulation``, the
+train launcher's ``--population`` on more than one rank) there is still
+one store, on the rank at flat index 0 of the replica axes: one page
+root, one manifest.  Every rank keeps the same host accounting.  A cohort
+swap brings the slots' per-client rows of every rank into host memory on
+that rank, runs the one-process swap on all R rows in their order, and
+sends each rank its rows back; so the store sees the rows of the 1-rank
+run, and its pages, manifests and sums are that run's bits.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.checkpoint import CheckpointError, _atomic_write
+from repro_torch.runtime.elastic import cohort_swap, verified_swap
 from repro_torch.tree import flatten
 
 # a leaf row at least this large moves between the card and the host on
@@ -411,3 +421,95 @@ class PopulationStore:
                 raise CheckpointError(
                     f"{manifest}: pinned pages missing for clients "
                     f"{missing[:8]} (page dir does not match manifest)")
+
+
+class RankPopulation:
+    """The population store of a cohort split over the ranks of ``axes``
+    of ``mesh`` (they must span its world): the ``PopulationStore`` on
+    the rank at flat index 0 (``store``, None elsewhere), the accounting
+    on every rank.  ``root`` and ``resident_max`` are the store's; only
+    that rank writes pages and manifests."""
+
+    def __init__(self, mesh, axes, population: int, template: Any, *,
+                 root: Optional[Path] = None, resident_max: int = 256):
+        self.mesh, self.axes = mesh, tuple(axes)
+        if mesh.size(self.axes) != mesh.world:
+            raise ValueError(f"replica axes {self.axes} span "
+                             f"{mesh.size(self.axes)} of {mesh.world} ranks")
+        self.lead = mesh.flat_index(self.axes) == 0
+        self.population = int(population)
+        self.store = (PopulationStore(population, template, root=root,
+                                      resident_max=resident_max)
+                      if self.lead else None)
+        # the other ranks' accounting: a store that never holds a client
+        self._acct = self.store or PopulationStore(population, template)
+        self.resident_count = 0
+
+    @property
+    def rounds_participated(self) -> np.ndarray:
+        return self._acct.rounds_participated
+
+    @property
+    def energy_spent(self) -> np.ndarray:
+        return self._acct.energy_spent
+
+    @property
+    def last_round(self) -> np.ndarray:
+        return self._acct.last_round
+
+    @property
+    def time_spent(self) -> np.ndarray:
+        return self._acct.time_spent
+
+    def record_round(self, ids, round_idx: int, *, energy=None,
+                     time=None) -> None:
+        """``PopulationStore.record_round``, on every rank with the same
+        arguments."""
+        self._acct.record_round(ids, round_idx, energy=energy, time=time)
+
+    def swap(self, client, out_ids, in_ids, *, verify: bool = False):
+        """The cohort swap ``out_ids`` -> ``in_ids`` (``out_ids`` None:
+        the first cohort into zeroed slots) on this rank's slots
+        ``client`` (the client half of its rows), in place.  Returns
+        (clients moved between the card and the host, the
+        ``verified_swap`` record or None), the same on every rank."""
+        flat = _flat(client)
+        rows = {k: self.mesh.gather_to(v, self.axes) for k, v in
+                flat.items()}
+        info = None
+        if self.lead:
+            tree = _unflatten({k: v.reshape((-1,) + tuple(v.shape[2:]))
+                               for k, v in rows.items()})
+            store = self.store
+            held = store.touched | set(() if out_ids is None
+                                       else np.asarray(out_ids).tolist())
+            moved = sum(int(c) in held for c in in_ids)
+
+            def move():
+                if out_ids is None:
+                    store.gather(in_ids, out=tree)
+                else:
+                    cohort_swap(tree, out_ids, in_ids, store)
+            check = None
+            if verify and out_ids is not None:
+                check = verified_swap(move, store, tree, out_ids, in_ids)
+            else:
+                move()
+            if out_ids is not None:
+                moved += len(in_ids)
+            rows = _flat(tree)
+            info = (moved, check, store.resident_count)
+        moved, check, self.resident_count = self.mesh.broadcast_object(
+            info, src=self.mesh.rank_of(self.axes, 0))
+        n = self.mesh.size(self.axes)
+        for k, v in flat.items():
+            part = rows.get(k) if self.lead else None
+            if part is not None:
+                part = part.view((n,) + tuple(v.shape))
+            v.copy_(self.mesh.scatter_from(part, self.axes, v))
+        return moved, check
+
+    def save(self, manifest: Path) -> None:
+        """The store's manifest, written by the rank that holds it."""
+        if self.lead:
+            self.store.save(manifest)

@@ -12,8 +12,9 @@ rank's history is the whole round's, and the ranks' rows gathered in
 order are the 1-rank state: bit for bit on ``single`` (the sums run in
 the one-process order), within 1e-6 on ``multi`` (the psum adds the
 clusters' rows in its own order).  Also ``make_train_policy``'s tiling
-checks (tests/test_sharded_consistency.py:111) and the options that exit
-naming ROADMAP.md item 5 on more than one rank.
+checks (tests/test_sharded_consistency.py:111) and its "model" axis,
+which raises naming ROADMAP.md item 5 (``--overlap``, ``--population``
+and ``--ckpt-dir`` on ranks: tests/test_torch_launch_mesh_state.py).
 """
 import numpy as np
 import pytest
@@ -128,18 +129,6 @@ def test_model_axis_exits_naming_item_5():
     mesh = RankMesh((1, 2), ("data", "model"), world=2)  # no group needed
     with pytest.raises(NotImplementedError, match="item 5"):
         make_train_policy(mesh, FLTopology(2, 2), dp_axes=("data",))
-
-
-@pytest.mark.parametrize("flag", [["--population", "32"], ["--overlap"],
-                                  ["--ckpt-dir", "ckpt"]])
-def test_unported_options_on_ranks_exit_naming_item_5(flag, capsys,
-                                                      monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit) as exc:
-        train.main(ARGV + ["--mesh", "single"] + flag)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "item 5" in err
 
 
 def test_world_failure_raises(tmp_path):

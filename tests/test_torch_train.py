@@ -49,8 +49,9 @@ def test_unported_options_exit_naming_the_roadmap(flag, capsys, monkeypatch):
     """A 1-rank ``--mesh single|multi`` world (WORLD_SIZE unset) is today's
     policy path: the fused branch over the architecture's own topology
     (fl_single 8 x 2, fl_multi 8 x 4), all R replicas in this process.
-    What the mesh does not port exits on more ranks, naming ROADMAP.md
-    item 5 (tests/test_torch_launch_mesh.py runs the ranks)."""
+    What the mesh does not port raises naming ROADMAP.md item 5: a
+    "model" axis of more than one rank (tests/test_torch_launch_mesh.py
+    and tests/test_torch_launch_mesh_state.py run the ranks)."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     out = train.main(SMOKE[:-4] + ["--rounds", "1", "--seq", "24"] + flag)
     pol = out["policy"]
@@ -59,12 +60,14 @@ def test_unported_options_exit_naming_the_roadmap(flag, capsys, monkeypatch):
     assert next(iter(flatten(out["state"].params).values())).shape[0] == R
     assert math.isfinite(out["history"][0]["loss"])
     assert "mesh=" + flag[1] in capsys.readouterr().out
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit) as exc:
-        train.main(SMOKE + flag + ["--overlap"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err
+    from repro_torch.configs.base import FLTopology
+    from repro_torch.dist.mesh import RankMesh
+    from repro_torch.dist.policies import make_train_policy
+    model_axis = RankMesh((1, 2), ("data", "model"), world=2)  # no group
+    with pytest.raises(NotImplementedError) as exc:
+        make_train_policy(model_axis, FLTopology(2, 2), dp_axes=("data",))
+    assert "not ported yet" in str(exc.value)
+    assert "ROADMAP.md" in str(exc.value)
 
 
 @pytest.mark.parametrize("extra", [[], ["--population", "8"]])
