@@ -440,7 +440,28 @@ Phases (any failure ends the run with a non-zero exit):
    (``--verify-conservation``), each against its 1-rank run on the card:
    histories, stale sets, cohorts and the swaps' sums equal, rows within
    MESH_ROW_TOL, every checkpoint and manifest's arrays and every page
-   file's bytes equal.
+   file's bytes equal;
+47. the tensor ("model") axis: ``launch/train.py --mesh single
+   --model-axis 2`` on smollm-135M at full width, depth TENSOR_LAYERS
+   (TENSOR_ARGV: fl_single R 16, the int4 wire at per-cluster levels, tau =
+   q = 2, TENSOR_ROUNDS rounds, the second a gossip round) on 4 ranks,
+   ("data", "model") = (2, 2), in lockstep with its 1-rank run in this
+   process: after each round every rank's slabs (params, momentum, EF) are
+   sampled against the 1-rank state's (within BF16_TOL, and each entry's
+   update from the round's start within TENSOR_UPDATE_SHARE of its leaf's
+   largest 1-rank update; at most Q_FLIP_SHARE beyond either) and then set
+   to it through CUDA IPC handles of the 1-rank state kept on the card;
+   losses within TENSOR_LOSS_TOL; each rank's round ms and p50, peak, the
+   tensor axis's staged bytes apart from the aggregation's, and its
+   attention, top-k, encode and decode-and-mix launches, gated; then, in
+   the same world, the smoke smollm's ``--mesh multi --model-axis 2
+   --ckpt-dir``, its last checkpoint bit for bit the state gathered from
+   the ranks' slabs;
+48. the head split: the training attention forward and backward at a
+   model-3 rank's shape (B 2, S 2048, 3 heads over 1 KV head of 64, bf16)
+   against their plain versions, timed; ``--model-axis 3`` on 3 ranks,
+   (1, 3), at full width, depth TENSOR3_LAYERS, 2 rounds, in lockstep with
+   its 1-rank run as phase 47, its launches and losses gated.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -6199,35 +6220,35 @@ def mesh_collectives_phase():
         fail(f"phase 42: the rows across ranks disagree: {bad}")
 
 
-def state_sample(state, fields=("params", "ef")):
-    """Every leaf row's MESH_SAMPLE entries (a stride over the row) and
-    its f64 sum, on the host: {field/leaf: (samples (R, n) f32, sums
-    (R,))}."""
+def leaf_sample(v, n=MESH_SAMPLE):
+    """A stacked leaf's rows' n entries (a stride over each row) and f64
+    sums, on the host."""
+    flat = v.reshape(v.shape[0], -1)
+    L = flat.shape[1]
+    idx = torch.arange(0, L, max(1, L // n), device=v.device)[:n]
+    return (flat.index_select(1, idx).float().cpu(),
+            torch.sum(flat, dim=1, dtype=torch.float64).cpu())
+
+
+def state_sample(state, fields=("params", "ef"), n=MESH_SAMPLE):
+    """Every leaf row's n entries (a stride over the row) and its f64
+    sum, on the host: {field/leaf: (samples (R, n) f32, sums (R,))}."""
     from repro_torch.tree import flatten
-    out = {}
-    for fld in fields:
-        for k, v in flatten(getattr(state, fld)).items():
-            flat = v.view(v.shape[0], -1)
-            L = flat.shape[1]
-            idx = torch.arange(0, L, max(1, L // MESH_SAMPLE),
-                               device=v.device)[:MESH_SAMPLE]
-            out[f"{fld}/{k}"] = (
-                flat.index_select(1, idx).float().cpu(),
-                torch.sum(flat, dim=1, dtype=torch.float64).cpu())
-    return out
+    return {f"{fld}/{k}": leaf_sample(v, n)
+            for fld in fields for k, v in flatten(getattr(state, fld)).items()}
 
 
-def compare_samples(got, want, r0):
-    """Entries beyond ROUND_ATOL, entries compared, the largest |diff| and
-    the largest relative difference of the row sums, of this rank's rows
-    (from r0) against the 1-rank run's."""
+def compare_samples(got, want, r0, atol=ROUND_ATOL, rtol=0.0):
+    """Entries beyond atol + rtol |want|, entries compared, the largest
+    |diff| and the largest relative difference of the row sums, of this
+    rank's rows (from r0) against the 1-rank run's."""
     far = total = 0
     worst = sums = 0.0
     for k, (s, rs) in got.items():
         ws, wr = want[k]
         ws, wr = ws[r0:r0 + s.shape[0]], wr[r0:r0 + s.shape[0]]
         d = (s - ws).abs()
-        far += int((d > ROUND_ATOL).sum())
+        far += int((d > atol + rtol * ws.abs()).sum())
         total += d.numel()
         worst = max(worst, float(d.max()))
         sums = max(sums, float(((rs - wr).abs()
@@ -6820,6 +6841,476 @@ def mesh_state_phase(train):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 47-48: the tensor ("model") axis across ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# Phases 47-48 run smollm-135M at full width through the launcher on a
+# model axis, cut to its first TENSOR_LAYERS / TENSOR3_LAYERS layers
+# (``launcher_depth``: the launcher itself has no depth option).  A
+# rank's round there is bound by the staged transport, which grows with
+# depth: at all 30 layers a (2, 2) rank's round took 19.3-21.6 s and a
+# (1, 3) rank's 113 s (PERF.md section 5), and the script must end within
+# its time limit.  Phases 16, 20, 23, 38, 43 and 45 run all 30.
+TENSOR_LAYERS = 4
+TENSOR3_LAYERS = 2
+# phase 47: --mesh single --model-axis 2 on 4 ranks, ("data", "model") =
+# (2, 2), in lockstep with the 1-rank run of the same arguments: intra,
+# gossip, intra
+TENSOR_ROUNDS = 3
+TENSOR_ARGV = ["--arch", "smollm_135m", "--full", "--mesh", "single",
+               "--rounds", str(TENSOR_ROUNDS), "--seq", "2047", "--tau",
+               "2", "--q", "2", "--sparse-gossip", "--wire-dtype", "int4"]
+# phase 48: the head split, 3 of smollm's 9 heads and 1 of its 3 KV heads
+# a rank: --model-axis 3 on 3 ranks, (1, 3), 2 rounds (intra, gossip), in
+# lockstep as phase 47
+TENSOR3_ARGV = ["--arch", "smollm_135m", "--full", "--mesh", "single",
+                "--rounds", "2", "--seq", "2047", "--tau", "2", "--q", "2",
+                "--sparse-gossip", "--wire-dtype", "int4"]
+# phase 47, in its world: the smoke smollm's --mesh multi --model-axis 2,
+# ("pod", "data", "model") = (2, 1, 2), with --ckpt-dir
+TENSOR_CKPT_ARGV = ["--arch", "smollm_135m", "--mesh", "multi", "--rounds",
+                    "2", "--seq", "64", "--tau", "2", "--q", "2",
+                    "--sparse-gossip", "--wire-dtype", "int4",
+                    "--model-axis", "2"]
+TENSOR_FIELDS = ("params", "momentum", "ef")
+TENSOR_SAMPLE = 4096  # entries of each slab row compared
+TENSOR_LOSS_TOL = 2e-2  # the bf16 tolerance, on each round's losses
+# Each round's update (a sampled entry's value after the round less its
+# value in the state both runs began the round from) is held to the
+# 1-rank run's: within TENSOR_UPDATE_SHARE of the largest 1-rank update
+# of its leaf's sample, plus one rounding of its stored type (eps |x|),
+# at most Q_FLIP_SHARE of the entries beyond (top-k and wire-level
+# flips).  BF16_TOL, about one initial weight, cannot see a fault in the
+# tensor-parallel gradients, which moves an update by a share of its own
+# size.  On the H100 the share that leaves Q_FLIP_SHARE of phase 47's
+# entries beyond was 7.6e-3 to 1.01e-2 in every round and rank (intra and
+# gossip alike; PERF.md section 6): the gate sits at three times that.
+TENSOR_UPDATE_SHARE = 0.03
+
+
+@contextlib.contextmanager
+def launcher_depth(train, layers):
+    """Within the block, the train launcher's configurations cut to their
+    first ``layers`` layers (phases 47-48's depth)."""
+    real = train.get_config
+
+    def cut(arch):
+        bundle = real(arch)
+        return dataclasses.replace(
+            bundle, model=bundle.model.replace(num_layers=layers))
+    train.get_config = cut
+    try:
+        yield
+    finally:
+        train.get_config = real
+
+
+def _slab(x, rows, n, m):
+    """Rows ``rows`` of a stacked leaf and the m-th of n pieces of its
+    split dim (``dist.policies.leaf_split``), a view."""
+    from repro_torch.dist.policies import leaf_split
+    from repro_torch.dist.tensor import piece
+    return piece(x[rows], leaf_split(tuple(x.shape), n), n, m)
+
+
+def slab_chunks(cfg, R, n, C, rnd_mod, levels):
+    """The int4 gossip's column chunks a round over one rank's slabs of
+    every leaf on a model axis of n ranks, and of them the chunks of the
+    slabs that ship encoded at every level of ``levels``: the wire's plans
+    are decided on a slab's whole row, and one that a level ships dense
+    (smollm's norms at depth 4 and level 1.0) may take no encode."""
+    from repro_torch.dist.collectives import wire_ships_dense
+    from repro_torch.dist.policies import leaf_split
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import flatten
+    cols = rnd_mod.gossip_cols(C)
+    item = torch.empty(0, dtype=dtype_of(cfg.param_dtype)).element_size()
+    total = encoded = 0
+    for v in flatten(get_model(cfg).init(cfg, device="meta")).values():
+        shape = (R,) + tuple(v.shape)
+        L = int(np.prod(shape[1:]))
+        if leaf_split(shape, n) is not None:
+            L //= n
+        k = -(-L // cols)
+        total += k
+        if not any(wire_ships_dense(lv, L, wire_dtype="int4",
+                                    dense_itemsize=item) for lv in levels):
+            encoded += k
+    return total, encoded
+
+
+def _rank_launches(mods):
+    out = {}
+    for mod in mods:
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def start_samples(cfg, R, coords):
+    """Each rank's samples ({rank: {field/leaf: (samples, sums)}}) of the
+    state round 0 starts from: the launcher's weights (``--seed`` 0, drawn
+    as it draws them on the card) on every row, momentum and EF zero."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import flatten
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p0 = flatten(get_model(cfg).init(cfg, gen, device="cuda"))
+    out = {}
+    for rank, (rows, n, m) in coords.items():
+        out[rank] = {}
+        for k, v in p0.items():
+            s = leaf_sample(_slab(v.expand((R,) + tuple(v.shape)), rows, n,
+                                  m), TENSOR_SAMPLE)
+            zero = tuple(torch.zeros_like(t) for t in s)
+            out[rank].update({f"params/{k}": s, f"momentum/{k}": zero,
+                              f"ef/{k}": zero})
+    return out
+
+
+def compare_updates(got, want, start, eps):
+    """Each sampled entry's update this round (its value less ``start``'s,
+    the state both runs began the round from) against the 1-rank run's
+    (``want``): entries further than TENSOR_UPDATE_SHARE of the leaf's
+    largest 1-rank update plus eps[leaf] |want| (a rounding of the stored
+    type), entries compared, the share that leaves Q_FLIP_SHARE of them
+    beyond, and the largest share."""
+    far = total = 0
+    shares = []
+    for k, (s, _) in got.items():
+        ws, bs = want[k][0], start[k][0]
+        scale = max(float((ws - bs).abs().max()), 1e-30)
+        share = ((s - ws).abs() - eps[k] * ws.abs()).clamp_min(0.0) / scale
+        far += int((share > TENSOR_UPDATE_SHARE).sum())
+        total += share.numel()
+        shares.append(share.flatten().numpy())
+    shares = np.concatenate(shares)
+    return (far, total, float(np.quantile(shares, 1.0 - Q_FLIP_SHARE)),
+            float(shares.max()))
+
+
+def tensor_lockstep_rank(mesh, argv, layers, want, starts, snaps, coords,
+                         ckpt_dir):
+    """Phases 47-48 on one rank: the launcher at depth ``layers``, each
+    round's slabs sampled against the 1-rank run's (``want``, this
+    rank's): within BF16_TOL, and each entry's update from the round's
+    start (``starts``) against the 1-rank update (``compare_updates``);
+    then every slab set to the 1-rank run's state of that round
+    (``snaps``: CUDA IPC handles of its leaves) so that the next round
+    starts from it; then, with ``ckpt_dir``, in the same world,
+    ``tensor_ckpt_rank``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten
+    build.lib()
+    for mod in (fa, tk, wp):
+        mod.reset_launches()
+    rows, n, m = coords[mesh.rank]
+    checks = []
+
+    def on_round(rnd, state, rec):
+        eps = {f"{fld}/{k}": torch.finfo(v.dtype).eps for fld in TENSOR_FIELDS
+               for k, v in flatten(getattr(state, fld)).items()}
+        got = state_sample(state, TENSOR_FIELDS, TENSOR_SAMPLE)
+        want_r = want[mesh.rank][rnd]
+        checks.append(compare_samples(
+            got, want_r, 0, atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"])
+            + compare_updates(got, want_r, starts[mesh.rank][rnd], eps))
+        if rnd >= len(snaps):
+            return
+        with torch.no_grad():
+            for fld in TENSOR_FIELDS:
+                mine = flatten(getattr(state, fld))
+                for k, (rebuild, args) in snaps[rnd][fld].items():
+                    src = rebuild(*args)
+                    mine[k].copy_(_slab(src, rows, n, m))
+                    del src
+        torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    with launcher_depth(train, layers):
+        out = train.main(argv, on_round=on_round)
+    torch.cuda.synchronize()
+    return dict(rank=mesh.rank, history=out["history"],
+                round_ms=out["round_ms"], timings=out["timings"],
+                peak_gb=out["peak_mem_gb"], checks=checks,
+                launches=_rank_launches((fa, tk, wp)),
+                ckpt=ckpt_dir and tensor_ckpt_rank(mesh, ckpt_dir))
+
+
+def tensor_ckpt_rank(mesh, ckpt_dir):
+    """Phase 47's checkpoint run on one rank: the launcher on
+    TENSOR_CKPT_ARGV with ``--ckpt-dir ckpt_dir``; the state gathered from
+    every rank's slabs (on rank 0, as host tensors) and the counters."""
+    from repro_torch.convert import gather_slabs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten
+    for mod in (fa, tk, wp):
+        mod.reset_launches()
+    out = train.main(TENSOR_CKPT_ARGV + ["--ckpt-dir", ckpt_dir])
+    torch.cuda.synchronize()
+    st = out["state"]
+    whole = {f: gather_slabs(getattr(st, f), out["policy"], out["dims"])
+             for f in TENSOR_FIELDS}
+    return dict(launches=_rank_launches((fa, tk, wp)),
+                state=None if mesh.rank else {
+                    f"{f}/{k}": v.cpu() for f in TENSOR_FIELDS
+                    for k, v in flatten(whole[f]).items()})
+
+
+def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None):
+    """``argv`` through the launcher at depth ``layers``, on 1 rank in
+    this process and then with ``--model-axis n`` on nd * n ranks in
+    lockstep with it (``tensor_lockstep_rank``): the 1-rank run first,
+    each round's state sampled for every (data, model) slab and, before
+    the last round, kept on the card, its CUDA IPC handles passed to the
+    ranks.  Returns (the 1-rank run's {"cfg", "R", "history", "round_ms",
+    "peak_gb", "s"}, the ranks' results, the GB kept, the world's s)."""
+    from torch.multiprocessing.reductions import reduce_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.dist.mesh import run_world
+    from repro_torch.tree import flatten
+    t0 = time.perf_counter()
+    rounds = int(argv[argv.index("--rounds") + 1])
+    R = get_config(argv[argv.index("--arch") + 1]).fl_single.num_devices
+    R_loc = R // nd
+    coords = {}
+    for rank in range(nd * n):
+        d, m = divmod(rank, n)  # row-major, "model" minor
+        coords[rank] = (slice(d * R_loc, (d + 1) * R_loc), n, m)
+    want = {rank: [] for rank in coords}
+    snaps = []
+
+    def keep(rnd, state, rec):
+        with torch.no_grad():
+            for rank, (rows, _, m) in coords.items():
+                want[rank].append({
+                    f"{fld}/{k}": leaf_sample(_slab(v, rows, n, m),
+                                              TENSOR_SAMPLE)
+                    for fld in TENSOR_FIELDS
+                    for k, v in flatten(getattr(state, fld)).items()})
+            if rnd < rounds - 1:
+                snaps.append({fld: {k: v.clone() for k, v in flatten(
+                    getattr(state, fld)).items()} for fld in TENSOR_FIELDS})
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with launcher_depth(train, layers):
+        out = train.main(argv, on_round=keep)
+    one = dict(cfg=out["cfg"], R=out["policy"].replicas,
+               history=out["history"], round_ms=out["round_ms"],
+               peak_gb=out["peak_mem_gb"])
+    del out
+    base = start_samples(one["cfg"], R, coords)
+    starts = {rank: [base[rank]] + want[rank][:-1] for rank in coords}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    handles = [{fld: {k: reduce_tensor(v) for k, v in snap[fld].items()}
+                for fld in snap} for snap in snaps]
+    t1 = time.perf_counter()
+    got = run_world(tensor_lockstep_rank, nd * n,
+                    argv + ["--model-axis", str(n)], layers, want, starts,
+                    handles, coords, ckpt_dir, timeout_s=MESH_TIMEOUT_S,
+                    threads=MESH_THREADS)
+    world_s = time.perf_counter() - t1
+    del handles, snaps
+    torch.cuda.empty_cache()
+    one["s"] = t1 - t0
+    return one, got, held, world_s
+
+
+def _tensor_gates(got, cfg, rounds, R_loc, tau, topk_per_round, chunks,
+                  gossips, one_hist, bad, label):
+    """Each rank's launches (attention forward and backward, top-k,
+    decode-and-mix exactly, one a chunk; encode at least one a chunk of the
+    slabs that ship encoded at every level: ``chunks``, ``slab_chunks``'
+    pair), its losses
+    against the 1-rank run's, its round line and its lockstep checks (at
+    most Q_FLIP_SHARE of the sampled entries beyond BF16_TOL, and as many
+    beyond the update gate); {kernel: launches summed over the ranks}."""
+    med = lambda v: float(np.percentile(v, 50))
+    chunks, encoded = chunks
+    for g in got:
+        steps = rounds * R_loc * tau
+        want_l = {"flash_attention": steps * cfg.num_layers * 2,
+                  "flash_attention_bwd": steps * cfg.num_layers,
+                  "topk_compress": rounds * topk_per_round,
+                  "wire_decode_mix": chunks * gossips}
+        for k, v in want_l.items():
+            if g["launches"][k] != v:
+                bad.append(f"{label} rank {g['rank']} {k} "
+                           f"{g['launches'][k]} != {v}")
+        if g["launches"]["wire_encode"] < encoded * gossips:
+            bad.append(f"{label} rank {g['rank']} wire_encode "
+                       f"{g['launches']['wire_encode']} < "
+                       f"{encoded * gossips}")
+        for r, (h, w) in enumerate(zip(g["history"], one_hist)):
+            if abs(h["loss"] - w["loss"]) > TENSOR_LOSS_TOL:
+                bad.append(f"{label} rank {g['rank']} round {r} loss "
+                           f"{h['loss']} != {w['loss']}")
+        mine = lambda key: [round(h[key][g["rank"]], 1)
+                            for h in g["history"]]
+        phases = {k: [round(x, 1) for x in v]
+                  for k, v in g["timings"].items()}
+        print(f"{label} rank {g['rank']}: round ms {g['round_ms']} (p50 "
+              f"{med(g['round_ms']):.1f}), phases {phases}, peak "
+              f"{g['peak_gb']:.2f} GB, tensor-axis bytes staged a round "
+              f"{mine('rank_tensor_staged_bytes')}, the aggregation's (mix "
+              f"and gossip) {mine('rank_aggregate_staged_bytes')}, "
+              f"transport ms {mine('rank_transport_ms')}, gossip rounds "
+              f"{sum(h['gossip'] for h in g['history'])}, launches "
+              f"{g['launches']}")
+        for r, (far, total, worst, sums, ufar, _, need, top) in enumerate(
+                g["checks"]):
+            allowed = int(Q_FLIP_SHARE * total)
+            print(f"{label} rank {g['rank']} round {r}: {far} of {total} "
+                  f"sampled slab entries beyond the bf16 tolerance of the "
+                  f"1-rank state (largest |diff| {worst:.3e}), {ufar} beyond "
+                  f"{TENSOR_UPDATE_SHARE} of their leaf's largest 1-rank "
+                  f"update (the share that leaves {allowed} beyond "
+                  f"{need:.3e}, the largest {top:.3e}); {allowed} allowed; "
+                  f"row sums within {sums:.3e}")
+            if far > allowed or ufar > allowed:
+                bad.append(f"{label} rank {g['rank']} round {r}: {far} and "
+                           f"{ufar} beyond")
+    return {k: sum(g["launches"][k] for g in got) for k in (
+        "flash_attention", "flash_attention_bwd", "topk_compress",
+        "wire_encode", "wire_decode_mix")}
+
+
+def _tensor_stats(label, one, got, held, world_s, nd, n, bad):
+    """The phase's JSON line; the ranks' peaks and the 1-rank state kept
+    on the card gated against PEAK_LIMIT_GB."""
+    peaks = [g["peak_gb"] for g in got]
+    if sum(peaks) + held > PEAK_LIMIT_GB:
+        bad.append(f"peaks {peaks} and the {held:.2f} GB kept sum over "
+                   f"{PEAK_LIMIT_GB} GB")
+    cfg = one["cfg"]
+    print(f"{label} " + json.dumps(dict(
+        mesh=[nd, n], replicas=one["R"], layers=cfg.num_layers,
+        d_model=cfg.d_model, one_rank_round_ms=one["round_ms"],
+        one_rank_peak_gb=one["peak_gb"], kept_gb=held, rank_peaks_gb=peaks,
+        rank_round_ms=[g["round_ms"] for g in got],
+        loss=[h["loss"] for h in got[0]["history"]],
+        one_rank_loss=[h["loss"] for h in one["history"]],
+        tensor_staged_bytes=[h["rank_tensor_staged_bytes"]
+                             for h in got[0]["history"]],
+        aggregate_staged_bytes=[h["rank_aggregate_staged_bytes"]
+                                for h in got[0]["history"]],
+        launches_per_rank=got[0]["launches"], one_rank_s=one["s"],
+        world_s=world_s)))
+
+
+def tensor_axis_phase(train, rnd_mod, topk_per_round):
+    """Phase 47: smollm-135M at full width, depth TENSOR_LAYERS, through
+    the launcher's --mesh single --model-axis 2 on 4 ranks sharing the
+    card ((2, 2): 8 replicas a data rank, each replica's model split over
+    2 ranks; 9 heads over 3 KV heads do not split at 2, so the attention
+    runs whole on each rank, the FFN and the vocab split), in lockstep
+    with the 1-rank run of the same arguments (``tensor_lockstep``):
+    every round starts both runs from one state, and each rank's slabs
+    after it are held to the 1-rank state's (within BF16_TOL, and each
+    entry's update within TENSOR_UPDATE_SHARE of its leaf's, at most
+    Q_FLIP_SHARE beyond either).  Losses within TENSOR_LOSS_TOL, the
+    launches of every rank gated.  The same world then runs the smoke
+    smollm's --mesh multi --model-axis 2 with --ckpt-dir, whose last
+    checkpoint equals, bit for bit, the state gathered from the ranks'
+    slabs (``ckpt_agrees``)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    n, nd = 2, 2
+    print(f"python -m repro_torch.launch.train {' '.join(TENSOR_ARGV)} (at "
+          f"depth {TENSOR_LAYERS}; 1 rank, then --model-axis 2 on 4 ranks, "
+          f"in lockstep)")
+    bad = []
+    with tempfile.TemporaryDirectory(prefix="tensor_ckpt_") as tmp:
+        one, got, held, world_s = tensor_lockstep(
+            train, TENSOR_ARGV, TENSOR_LAYERS, nd, n, tmp)
+        ckpt_agrees(tmp, got[0]["ckpt"]["state"], bad)
+    cfg, R_loc = one["cfg"], one["R"] // nd
+    chunks = slab_chunks(cfg, R_loc, n, 8, rnd_mod,
+                         get_config("smollm_135m").hcef.theta_levels)
+    launches = _tensor_gates(got, cfg, TENSOR_ROUNDS, R_loc, 2,
+                             topk_per_round, chunks, TENSOR_ROUNDS // 2,
+                             one["history"], bad, "tensor (2, 2)")
+    for k in launches:
+        launches[k] += sum(g["ckpt"]["launches"][k] for g in got)
+    _tensor_stats("tensor_axis", one, got, held, world_s, nd, n, bad)
+    print(f"phase 47 took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"phase 47: {bad}")
+    return launches
+
+
+def tensor_heads_phase(train, rnd_mod, fa, topk_per_round):
+    """Phase 48: the attention forward and backward at the model-3 rank's
+    shape (B 2, S 2048, 3 heads over 1 KV head of 64, bf16, causal)
+    against their plain versions and timed; smollm-135M at full width,
+    depth TENSOR3_LAYERS, through --model-axis 3 on 3 ranks (1, 3): the
+    heads, the FFN and the vocab split, R 16 on every rank, in lockstep
+    with the 1-rank run of the same arguments as phase 47.  Returns the
+    launches and the attention rows."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(48)
+    fwd = attention_fwd_train(fa, gen, 2, 2048, 3, 1, 64)
+    print("attention_fwd_model3 " + json.dumps(fwd))
+    bwd = attention_bwd_case(fa, gen, 2, 2048, 3, 1, 64, torch.bfloat16,
+                             True, 0, timed=True)
+    print(f"python -m repro_torch.launch.train {' '.join(TENSOR3_ARGV)} (at "
+          f"depth {TENSOR3_LAYERS}; 1 rank, then --model-axis 3 on 3 ranks, "
+          f"in lockstep)")
+    bad = []
+    one, got, held, world_s = tensor_lockstep(train, TENSOR3_ARGV,
+                                              TENSOR3_LAYERS, 1, 3)
+    cfg, R = one["cfg"], one["R"]
+    chunks = slab_chunks(cfg, R, 3, 8, rnd_mod,
+                         get_config("smollm_135m").hcef.theta_levels)
+    launches = _tensor_gates(got, cfg, 2, R, 2, topk_per_round, chunks, 1,
+                             one["history"], bad, "tensor (1, 3)")
+    _tensor_stats("tensor_heads", one, got, held, world_s, 1, 3, bad)
+    print(f"phase 48 launches (3 ranks): {launches}")
+    print(f"phase 48 took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"phase 48: {bad}")
+    return launches, fwd, bwd
+
+
+def ckpt_agrees(ckpt_dir, whole, bad):
+    """The last checkpoint under ``ckpt_dir`` (TENSOR_CKPT_ARGV's, all R
+    rows) against ``whole``, the state gathered from the ranks' slabs:
+    bit for bit, or a line in ``bad``."""
+    from repro_torch.runtime.checkpoint import META_KEY
+    with np.load(Path(ckpt_dir) / "ckpt_000001.npz") as data:
+        files = sorted(k for k in data.files
+                       if k not in (META_KEY, "round_idx"))
+        same = files == sorted(whole) and all(
+            np.array_equal(data[k], _np_bits(whole[k])) for k in files)
+        rows = {data[k].shape[0] for k in files}
+    print(f"--mesh multi --model-axis 2 --ckpt-dir on 4 ranks: the last "
+          f"checkpoint's {len(files)} leaves "
+          f"{'equal' if same else 'DIFFER FROM'} the state gathered from "
+          f"the ranks' slabs, bit for bit; rows {sorted(rows)}")
+    if not same or rows != {32}:
+        bad.append("the model-axis checkpoint differs from the gathered "
+                   "state")
+
+
+def _np_bits(t):
+    """A host tensor as the checkpoint stores it (bf16 as 16-bit
+    patterns)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -7163,6 +7654,13 @@ def main():
     for k in m43:
         launches[k] += m43[k] + m44[k] + m45[k] + m46[k]
 
+    # -- phases 47-48: the tensor ("model") axis across ranks -------------
+    m47 = tensor_axis_phase(train, rnd_mod, topk_lm)
+    m48, fwd_model3, bwd_model3 = tensor_heads_phase(train, rnd_mod, fa,
+                                                     topk_lm)
+    for k in m47:
+        launches[k] += m47[k] + m48[k]
+
     # -- report --------------------------------------------------------------
     kernels = []
     for name, src, replaces, row in (
@@ -7290,11 +7788,19 @@ def main():
                  (8, "wire_decode_mix")):
         # the ranks' launches (each rank's counters summed): phase 43's
         # main path, phase 44's smoke runs, phase 45's overlap engine,
-        # phase 46's launcher runs
+        # phase 46's launcher runs, phases 47-48's tensor axis
         kernels[i]["mesh_launches"] = {"phase_43": m43[k],
                                        "phase_44": m44[k],
                                        "phase_45": m45[k],
-                                       "phase_46": m46[k]}
+                                       "phase_46": m46[k],
+                                       "phase_47": m47[k],
+                                       "phase_48": m48[k]}
+    # a model-3 rank's attention (phase 48: 3 of smollm's 9 heads over 1
+    # of its 3 KV heads)
+    for i, row in ((0, fwd_model3), (9, bwd_model3)):
+        kernels[i]["smollm_model3_layer"] = {k: row[k] for k in (
+            "H", "KH", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err") if k in row}
     print("generate_full " + json.dumps(static_rows))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -9,13 +9,18 @@ kept) or a reference ``PopulationStore.gather`` result, so that both
 packages start from one state.  ``shard_rows`` / ``gather_rows`` take a
 rank's contiguous rows of a stacked state and put them back (a rank mesh,
 ``dist/mesh.py``); ``gather_rows_to_host`` puts them back in one rank's
-host memory.
+host memory.  With a "model" axis (``dist.policies``) a rank holds a slab
+of each stacked leaf: its rows and its 1 / n of the leaf's ``leaf_split``
+dim, contiguous, the reference's shard-local layout; ``shard_slabs`` /
+``gather_slabs`` / ``gather_slabs_to_host`` are the slab counterparts,
+``slab_params`` a rank's pieces of an unstacked parameter dict.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import from_numpy, resolve
+from repro_torch.dist.tensor import piece
 
 
 def params_from_jax(np_tree, device, dtype: torch.dtype = None):
@@ -92,4 +97,72 @@ def gather_rows_to_host(tree, mesh, axes):
         return None if got is None else got.reshape(
             (-1,) + tuple(x.shape[1:]))
     out = put(tree)
+    return out if lead else None
+
+
+def _walk(fn, tree, dims):
+    """fn(leaf, dim) over a nested dict of leaves (None kept) beside a
+    dict of the same nesting (or a sub-nesting: a state field's dims are
+    the params')."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, dims[k] if isinstance(dims, dict) and k in
+                         dims else dims) for k, v in tree.items()}
+    return fn(tree, dims)
+
+
+def slab_params(params, policy, dims):
+    """This rank's model pieces of an unstacked parameter dict (the
+    initial weights every replica starts from): each leaf's 1 / n of its
+    stacked split dim less one, as contiguous copies; ``dims`` the
+    stacked leaves' ``policy.storage_dims``."""
+    n, i = policy.model, policy.model_index
+    return _walk(lambda x, d: piece(x, None if d is None else d - 1, n,
+                                     i).contiguous(), params, dims)
+
+
+def shard_slabs(tree, policy, dims):
+    """This rank's slab of every leaf of a stacked (R, ...) tree: its
+    rows over the replica axes (``shard_rows``), then its 1 / n of the
+    leaf's ``dims`` entry over the tensor axes, contiguous.  ``dims``:
+    ``policy.storage_dims`` of the params (every state field is
+    params-shaped)."""
+    rows = shard_rows(tree, policy.mesh, policy.replica_axes)
+    n, i = policy.model, policy.model_index
+    return _walk(lambda x, d: piece(x, d, n, i).contiguous(), rows, dims)
+
+
+def _join(parts, dim):
+    """The model pieces of a leaf (a list in rank order) put back on
+    ``dim`` (None: every piece is the whole leaf; the first is kept)."""
+    return parts[0] if dim is None else torch.cat(list(parts), dim=dim)
+
+
+def gather_slabs(tree, policy, dims):
+    """The inverse of ``shard_slabs``: every leaf's (R, ...) whole on
+    every rank, gathered over the tensor axes and then the rows."""
+    mesh, axes = policy.mesh, policy.tensor_axes
+    whole = _walk(lambda x, d: _join(mesh.all_gather(x, axes).unbind(0), d),
+                  tree, dims)
+    return gather_rows(whole, mesh, policy.replica_axes)
+
+
+def gather_slabs_to_host(tree, policy, dims):
+    """Every rank's slab of each leaf, leaf by leaf, reassembled as the
+    (R, ...) leaf in host memory on world rank 0 (``RankMesh.gather_to``
+    over the replica and the tensor axes; no card holds another rank's
+    slab); None on the other ranks."""
+    mesh = policy.mesh
+    rep, ten = tuple(policy.replica_axes), tuple(policy.tensor_axes)
+    nr, nm = mesh.size(rep), mesh.size(ten)
+    lead = mesh.rank == 0
+
+    def put(x, d):
+        got = mesh.gather_to(x, rep + ten)
+        if got is None:
+            return None
+        g = got.view((nr, nm) + tuple(x.shape))
+        return torch.cat([_join(g[r].unbind(0), d) for r in range(nr)])
+    out = _walk(put, tree, dims)
     return out if lead else None

@@ -1,5 +1,5 @@
 """The paper's compression operator Q on stacked-replica parameter dicts
-(port of ``repro/core/compression.py``, its plain branch).
+(port of ``repro/core/compression.py``).
 
 Each leaf of the per-replica delta (R, *shape) is flattened to (R, L),
 and all of them are compressed together with the block-local top-k kernel
@@ -7,9 +7,17 @@ with fused error feedback (``ops.topk_compress_leaves``: on the card one
 launch per (delta type, EF type) pair of the leaves, its plain version on
 the CPU), the compressed delta written over the delta and the residual
 over the EF buffer.  A leaf whose L is not a multiple of the block is
-compressed as if zero-padded to it, as the reference pads it.  The
-reference's per-shard ``shard_map`` branch waits for the multi-GPU slice
-(ROADMAP.md, multi-GPU mesh path).
+compressed as if zero-padded to it, as the reference pads it.
+
+The reference's per-shard branch (``compress_delta(mesh=, specs=)``,
+:86-105: a ``shard_map`` a leaf, each device compressing the blocks of
+its own shard's (R_local, -1) flattening) is this function given a
+rank's storage slabs (``convert.shard_slabs``: its R_local rows and its
+1 / n of each leaf's ``Policy.leaf_split`` dim, contiguous in the
+shard-local layout): the slab's flattening is the shard's, padded to the
+block where the shard's is.  Where the split leaves runs of whole blocks
+(the reference's ``block_align``), the blocks are the unsharded leaf's;
+elsewhere the partition shifts, as the reference's does.
 """
 from __future__ import annotations
 

@@ -61,6 +61,23 @@ controller sees the same numbers.  The overlapped engine runs there too
 its stage 2 the wire across ranks on them, and with every cluster stale
 each rank encodes its own rows' stale payloads ahead of its local steps.
 
+With a "model" axis of n > 1 ranks (the dense decoder family) each rank
+holds a slab of every leaf (``convert.shard_slabs``: its rows, and its 1
+/ n of the leaf's ``Policy.leaf_split`` dim in the reference's
+shard-local layout).  Each local replica's parameters and momentum go
+from that storage piece to the model's compute pieces
+(``models/lm.tensor_dims``, ``dist.tensor.to_compute``) once a round,
+the local steps run the model on the tensor axis (``lm.loss_fn(...,
+tp=)``), and the delta and momentum come back to storage
+(``to_storage``) before Q.  The gradient norm behind g2 and sigma2 sums
+each split leaf's squares over the axis and counts a leaf every rank
+computes whole once.  Q, x0 + Q, the intra mean and the gossip then run
+on the slab, over the replica axes only: each model index is its own
+group (the reference's per-leaf shard_map, :301-480).  The transport's
+bytes of the local steps and of the aggregation are kept apart
+(``RankMesh.counted``: "tensor", "aggregate").  The overlap engine and
+the chaos masks raise there (``policies.check_model_axis``).
+
 The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
 reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
 -> (R, tau)``.  The reference's R == 1 branch exists for ``vmap``; here the
@@ -82,11 +99,13 @@ from repro_torch.core.mixing import make_mixing, participation_mixing
 from repro_torch.device import from_numpy, resolve
 from repro_torch.dist.collectives import (mix_local, payload_tensors,
                                           sparse_exchange_, stale_payloads)
+from repro_torch.dist.policies import check_model_axis
+from repro_torch.dist.tensor import tensor_axis, to_compute, to_storage
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import get_model
 from repro_torch.optim.sgd import sgd_update_
 from repro_torch.runtime.chaos import fold_dropped_updates
-from repro_torch.tree import flatten, tree_map
+from repro_torch.tree import flatten, tree_map, unflatten
 
 AGG_COLS = 1 << 22  # columns of a leaf per aggregation chunk
 # columns of a leaf per gossip chunk, at most: the gossip's chunk loop is
@@ -171,6 +190,15 @@ def bernoulli_bits(key: int, rho, *, tau: int) -> torch.Tensor:
 def _global_norm2(tensors) -> torch.Tensor:
     """sum of squares of every tensor, in f32 (:95)."""
     return sum(torch.sum(torch.square(t.float())) for t in tensors)
+
+
+def _tensor_norm2(tensors, whole, ax) -> torch.Tensor:
+    """``_global_norm2`` of a model split over the tensor axis ``ax``:
+    the split tensors' squares summed over it, the ``whole`` ones (every
+    rank holds the same) once."""
+    split = [t for t, w in zip(tensors, whole) if not w]
+    total = ax.psum(_global_norm2(split).reshape(1))[0] if split else 0.0
+    return total + _global_norm2([t for t, w in zip(tensors, whole) if w])
 
 
 def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
@@ -322,6 +350,16 @@ def _per_layer(tree):
     return leaves, rebuild
 
 
+def _per_layer_keys(tree):
+    """The flat name of each of ``_per_layer``'s leaves, in its order."""
+    keys = sorted(k for k in tree if not isinstance(tree[k], dict))
+    for key in sorted(k for k in tree if isinstance(tree[k], dict)):
+        names = sorted(tree[key])
+        L = tree[key][names[0]].shape[0]
+        keys += [f"{key}/{n}" for _ in range(L) for n in names]
+    return keys
+
+
 def _check_cluster_levels(cluster_levels, hcef, C, policy, gossip):
     """Static per-cluster wire levels (:155): grid levels, one a cluster,
     on a sparse gossip step with a policy."""
@@ -382,7 +420,9 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
 
     A policy over n > 1 ranks: ``state`` holds this rank's R / n rows
     (``convert.shard_rows``), every other input is the whole round's;
-    metrics are for all R."""
+    metrics are for all R.  With a model axis of more than one rank it
+    holds the rank's slabs (``convert.shard_slabs``) and the metrics are
+    the same on every rank of the axis."""
     model = get_model(cfg)
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
@@ -415,13 +455,28 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     M = torch.repeat_interleave(H / Dev, Dev, dim=1)  # (C, R)
     bits_fn = bits_fn or functools.partial(bernoulli_bits, tau=hcef.tau)
     loss_fn = functools.partial(model.loss_fn, cfg)
+    norm2 = lambda grads, keys: _global_norm2(grads)
+    tensor = policy is not None and policy.model > 1
+    if tensor:
+        check_model_axis(policy, cfg)
+        ax = tensor_axis(policy.mesh, policy.tensor_axes)
+        cdims = model.tensor_dims(cfg, policy.model)
+        # each unstacked leaf's (storage, compute) split dims
+        layout = {}
+        for k, v in flatten(model.init(cfg, device="meta")).items():
+            sd = policy.leaf_split((R,) + tuple(v.shape))
+            layout[k] = (None if sd is None else sd - 1, cdims[k])
+        loss_fn = functools.partial(model.loss_fn, cfg, tp=ax)
+        norm2 = lambda grads, keys: _tensor_norm2(
+            grads, [layout[k][1] is None for k in keys], ax)
 
     def device_round(work, x0, mom, batch, bits):
         """One device's tau local iterations, in place.  work: a copy of
-        x0 on entry and the delta x_tau - x_0 on exit; mom: updated in
-        place; batch: {key: (tau, b_local, ...)}, tokens (tau, b_local,
-        S + 1); bits: (tau,)."""
+        x0 on entry and the delta x_tau - x_0 on exit (x0 None: x_tau);
+        mom: updated in place; batch: {key: (tau, b_local, ...)}, tokens
+        (tau, b_local, S + 1); bits: (tau,)."""
         leaves, rebuild = _per_layer(work)
+        keys = _per_layer_keys(work) if tensor else None
         moms = None if mom is None else _per_layer(mom)[0]
         losses, gn2s = [], []
         for t in range(hcef.tau):
@@ -431,23 +486,52 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                                {k: v[t] for k, v in batch.items()})
                 grads = torch.autograd.grad(loss, ps)
             with torch.no_grad():
-                gn2s.append(_global_norm2(grads))
+                gn2s.append(norm2(grads, keys))
                 for g in grads:
                     g.mul_(bits[t])
             sgd_update_(ps, grads, moms, lr=hcef.eta, momentum=hcef.momentum)
             losses.append(loss.detach())
-        with torch.no_grad():
-            for k, w in flatten(work).items():
-                w.sub_(x0[k])
+        if x0 is not None:
+            with torch.no_grad():
+                for k, w in flatten(work).items():
+                    w.sub_(x0[k])
         gn2 = torch.stack(gn2s)
         g2 = gn2.min()
         return {"loss": torch.stack(losses).mean(), "g2": g2,
                 "sigma2": torch.clamp_min(gn2.mean() - g2, 0.0),
                 "steps": bits.sum()}
 
+    def tensor_round(r, params, delta, mom, batch, bits):
+        """Replica r's local steps on the tensor axis: its parameters and
+        momentum from storage to compute pieces, ``device_round``, then
+        the delta into ``delta``'s row r and the momentum back, in
+        storage."""
+        moms = None if mom is None else flatten(mom)
+        with torch.no_grad():
+            work = unflatten({k: to_compute(v[r], *layout[k], ax)
+                              for k, v in params.items()})
+            mom_c = None if moms is None else unflatten(
+                {k: to_compute(m[r], *layout[k], ax)
+                 for k, m in moms.items()})
+        metrics = device_round(work, None, mom_c, batch, bits)
+        with torch.no_grad():
+            for k, w in flatten(work).items():
+                to_storage(w, *layout[k], ax, out=delta[k][r])
+                delta[k][r].sub_(params[k][r])
+            if mom_c is not None:
+                for k, m in flatten(mom_c).items():
+                    to_storage(m, *layout[k], ax, out=moms[k][r])
+        return metrics
+
+    def counted(tag):
+        return (policy.mesh.counted(tag) if policy is not None
+                else contextlib.nullcontext())
+
     def round_step(state: FLState, batch, rho, theta, key, timings=None,
                    alive=None, alive_w=None, conn=None, events=None):
         chaos = alive is not None
+        if chaos and tensor:
+            check_model_axis(policy, None, **{"chaos masks": True})
         if chaos:
             if alive_w is None:
                 raise ValueError("alive requires alive_w (host-computed "
@@ -471,8 +555,13 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         delta_tree = tree_map(torch.empty_like, state.params)
         delta = flatten(delta_tree)
         per_dev: List[Dict] = []
-        with phase("device_round"):
+        with phase("device_round"), counted("tensor"):
             for r in range(R_loc):
+                if tensor:
+                    per_dev.append(tensor_round(
+                        r, params, delta, state.momentum,
+                        {k: v[r] for k, v in batch.items()}, bits[r]))
+                    continue
                 with torch.no_grad():
                     for k, d in delta.items():
                         d[r].copy_(params[k][r])
@@ -512,8 +601,9 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         if policy is None:
             aggregate(params, comp, phase, masks)
         else:
-            fused(params, comp, state, theta, metrics, phase, masks,
-                  events)
+            with counted("aggregate"):
+                fused(params, comp, state, theta, metrics, phase, masks,
+                      events)
         return state._replace(round_idx=state.round_idx + 1), metrics
 
     def aggregate(params, comp, phase, masks):
@@ -640,6 +730,7 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
     if not hcef.overlap:
         raise ValueError("make_overlap_round_step requires hcef.overlap "
                          "(use make_round_step for the synchronous engine)")
+    check_model_axis(policy, cfg, **{"the overlap engine": True})
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
     if stale_clusters is not None:

@@ -97,8 +97,10 @@ from repro_torch.kernels.wire_pack import (MixStep, _p4_sizes, decode_rows,
 
 WIRE_DTYPES = wf.WIRE_DTYPES
 MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path: "
-              "the tensor axis, sequence-sharded MoE routing, the serve "
-              "policy, the dry run's mesh half, NCCL across cards)")
+              "5.2b, the tensor axis for the other families, the overlap "
+              "engine, the population store and chaos masks; "
+              "sequence-sharded MoE routing, the serve policy, the dry "
+              "run's mesh half, NCCL across cards)")
 
 
 def _axes_tuple(axes) -> tuple:

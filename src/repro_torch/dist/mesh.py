@@ -37,7 +37,8 @@ ways, and for each all_reduce.  A failure of either backend raises;
 nothing switches to the other.  ``stats`` counts each rank's calls,
 messages sent, bytes sent and bytes staged (both directions), and the
 host ms spent inside the transport calls (``ms``: the staging copies and
-the waits for the peers included).
+the waits for the peers included); ``counted(tag)`` also adds a body's
+share to ``stats_by[tag]`` (the round step's "tensor" and "gossip").
 
 ``run_world`` spawns an n-rank world (the ``spawn`` start method), each
 rank building its mesh over a ``file://`` store and running a function,
@@ -117,6 +118,7 @@ class RankMesh:
         self._size = dict(zip(self.axis_names, self.shape))
         self.stats = {"calls": 0, "messages": 0, "bytes": 0,
                       "staged_bytes": 0, "ms": 0.0}
+        self.stats_by: Dict[str, dict] = {}
         self._groups: Dict[tuple, object] = {}
         if self.world > 1:
             timeout = datetime.timedelta(seconds=timeout_s)
@@ -395,9 +397,22 @@ class RankMesh:
             with self._timed():
                 dist.barrier()
 
+    @contextlib.contextmanager
+    def counted(self, tag: str):
+        """What the body adds to ``stats``, also added to
+        ``stats_by[tag]``."""
+        before = dict(self.stats)
+        try:
+            yield
+        finally:
+            acc = self.stats_by.setdefault(tag, dict.fromkeys(self.stats, 0))
+            for k, v in self.stats.items():
+                acc[k] += v - before[k]
+
     def reset_stats(self):
         for k in self.stats:
             self.stats[k] = 0
+        self.stats_by.clear()
 
 
 def _env_int(name: str, default: int) -> int:

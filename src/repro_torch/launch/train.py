@@ -111,11 +111,14 @@ the traced window.
 ``--mesh single|multi`` (reference train.py:107-114) runs the fused
 branch of the round step (``dist/policies.py``) over a rank mesh
 (``dist/mesh.py``) with the architecture's own topology: ``single`` the
-mesh ("data", "model") = (WORLD_SIZE, 1) with ``fl_single``, ``multi``
-("pod", "data", "model") = (2, WORLD_SIZE / 2, 1) with ``fl_multi`` (one
-pod on a 1-rank world): the reference's axis names, sized by the world
-instead of 256 chips.  WORLD_SIZE unset is a 1-rank world; more ranks
-come from torchrun, e.g. two sharing one card:
+mesh ("data", "model") = (WORLD_SIZE / N, N) with ``fl_single``,
+``multi`` ("pod", "data", "model") = (2, WORLD_SIZE / (2 N), N) with
+``fl_multi`` (one pod where WORLD_SIZE / N is 1), N the ``--model-axis``
+(1 by default): the reference's axis names, sized by the world instead
+of 256 chips, and its production "model" axis (16 wide,
+``repro/launch/mesh.py``) reached by a world of a few ranks.
+WORLD_SIZE unset is a 1-rank world; more ranks come from torchrun, e.g.
+two sharing one card:
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch smollm_135m --full --mesh single --sparse-gossip \
@@ -136,6 +139,19 @@ memory and back) with the same accounting on every rank; rank 0 writes
 each checkpoint with all R rows, gathered leaf by leaf into its host
 memory, while the others wait for it.  On ranks the round line also
 gives each rank's gossip phase ms and its ms inside the transport.
+
+``--model-axis N`` > 1 splits each replica's model over N ranks (the
+tensor axis: the dense decoder family, smollm-135M, qwen2-7b,
+codeqwen1.5-7b, phi3-medium-14b): each rank holds a slab of every leaf
+(its rows and its 1 / N of the leaf's split dim) and runs its replicas'
+local steps tensor-parallel (``core/round.py``); the round line adds
+each rank's bytes staged by the tensor axis (tp=), apart from the
+aggregation's (agg=), and ``--ckpt-dir`` writes, on rank 0, the whole
+leaves reassembled from every rank's slab (``convert.
+gather_slabs_to_host``).  Still out on a model axis, exiting with
+ROADMAP.md item 5: the other families (MoE, mamba2, griffin, the
+frontends and the encoder-decoder), ``--overlap``, ``--population`` and
+``--chaos``; and the dry run's ``--mesh`` (``launch/dryrun.py``).
 ``--tau`` / ``--q`` override the configuration's round structure.
 """
 from __future__ import annotations
@@ -163,10 +179,11 @@ from repro_torch.core.round import (client_template, init_overlap_state,
                                     make_round_step, split_state)
 from repro_torch.data.synthetic import client_token_shard, synthetic_tokens
 from repro_torch.device import resolve
-from repro_torch.convert import gather_rows_to_host
+from repro_torch.convert import (gather_rows_to_host, gather_slabs_to_host,
+                                 slab_params)
 from repro_torch.dist.collectives import participation_weights
 from repro_torch.dist.mesh import describe, dp_axes, init_rank_mesh
-from repro_torch.dist.policies import make_train_policy
+from repro_torch.dist.policies import make_train_policy, model_axis_refusal
 from repro_torch.fl.baselines import CONTROLLERS, make_controller
 from repro_torch.fl.cost_model import (decide_stale_clusters,
                                        overlap_round_time, per_device_energy,
@@ -180,7 +197,7 @@ from repro_torch.runtime.chaos import ChaosConfig, FaultPlan, controls_on_live
 from repro_torch.runtime.checkpoint import save_pytree
 from repro_torch.runtime.elastic import cohort_swap, verified_swap
 from repro_torch.runtime.population import PopulationStore, RankPopulation
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, tree_map
 
 N_SEQ = 32  # sequences per device in the corpus (train.py)
 
@@ -223,6 +240,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="mamba2_1p3b", choices=ARCH_IDS)
     ap.add_argument("--mesh", default="host",
                     choices=["host", "single", "multi"])
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks of the mesh's \"model\" axis (the tensor "
+                         "axis; --mesh single|multi)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--rounds", type=int, default=8)
@@ -286,21 +306,35 @@ def main(argv=None, on_round=None):
     called after each round, outside its wall time.  Returns {"history",
     "round_ms", "timings",
     "n_params", "cfg", "peak_mem_gb", "swap_bytes", "pop_store",
-    "cohort_ids", "state", "ckpts", "policy"} (``state`` an
-    ``OverlapState`` with ``--overlap``, this rank's rows on a mesh;
+    "cohort_ids", "state", "ckpts", "policy", "dims"} (``state`` an
+    ``OverlapState`` with ``--overlap``, this rank's rows on a mesh, its
+    slabs on a model axis, split on ``dims``, the params' split dims;
     ``ckpts`` a {"path", "bytes", "write_ms"} a checkpoint written).
     ``pop_store`` is None where its pages were in a temporary directory,
     removed before the return."""
     ap = parser()
     args = ap.parse_args(argv)
     world = int(os.environ.get("WORLD_SIZE") or 1)
-    if args.mesh == "multi" and world > 1 and world % 2:
-        ap.exit(2, f"--mesh multi needs an even world, got {world}\n")
+    N = args.model_axis
+    if N < 1 or (N > 1 and args.mesh == "host"):
+        ap.error(f"--model-axis {N}: a positive count, above 1 with --mesh "
+                 f"single|multi")
     if args.profile and args.ckpt_dir:
         ap.error("--profile with --ckpt-dir: the checkpoints' host writes "
                  "would fall in the traced wall time")
     bundle = get_config(args.arch)
     cfg = smoke_model(bundle.model) if args.smoke else bundle.model
+    why = model_axis_refusal(cfg, N, **{"--overlap": args.overlap,
+                                        "--population": args.population,
+                                        "--chaos": args.chaos})
+    if why is not None:
+        ap.exit(2, why + "\n")
+    if world % N:
+        ap.exit(2, f"--model-axis {N} does not divide the world of "
+                   f"{world}\n")
+    if args.mesh == "multi" and world // N > 1 and (world // N) % 2:
+        ap.exit(2, f"--mesh multi needs an even world / model axis, got "
+                   f"{world} / {N}\n")
     hcef = bundle.hcef
     if args.sparse_gossip or args.wire_dtype or args.wire_ef or args.overlap:
         hcef = dataclasses.replace(
@@ -316,9 +350,9 @@ def main(argv=None, on_round=None):
     if args.mesh == "host":
         topo = FLTopology(clusters=2, devices_per_cluster=2)
     else:
-        pod = 2 if args.mesh == "multi" and world > 1 else 1
-        shape, axes = (((world, 1), ("data", "model")) if args.mesh ==
-                       "single" else ((pod, world // pod, 1),
+        pod = 2 if args.mesh == "multi" and world // N > 1 else 1
+        shape, axes = (((world // N, N), ("data", "model")) if args.mesh ==
+                       "single" else ((pod, world // (pod * N), N),
                                       ("pod", "data", "model")))
         topo = bundle.fl_multi if args.mesh == "multi" else bundle.fl_single
         owned = world > 1 and not dist.is_initialized()
@@ -344,6 +378,11 @@ def main(argv=None, on_round=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params0 = get_model(cfg).init(cfg, gen, device=dev)
     n_params = param_count(params0)
+    dims = None  # each stacked leaf's split dim on the model axis
+    if policy is not None and policy.model > 1:
+        dims = policy.storage_dims(
+            tree_map(lambda v: (R,) + tuple(v.shape), params0))
+        params0 = slab_params(params0, policy, dims)
     state = (init_overlap_state if hcef.overlap else init_state)(
         cfg, hcef, topo, params0, device=dev, replicas=R_loc)
     del params0
@@ -556,6 +595,8 @@ def main(argv=None, on_round=None):
                                  dev=topo.devices_per_cluster),
                              conn=conn.astype(np.float32))
         stats0 = None if mesh is None else dict(mesh.stats)
+        tagged0 = None if mesh is None else {
+            t: dict(v) for t, v in mesh.stats_by.items()}
         n_gossip = len(timings.get("gossip", ()))
         state, m = get_step(gossip, stale, levels)(
             state, {"tokens": torch.from_numpy(tokens), **stand_ins()},
@@ -617,20 +658,31 @@ def main(argv=None, on_round=None):
             # this round's gossip phase (the stage-2 fold when overlapped)
             g_ms = (timings["gossip"][-1]
                     if len(timings.get("gossip", ())) > n_gossip else 0.0)
+            tagged = {t: mesh.stats_by.get(t, {}).get("staged_bytes", 0)
+                      - tagged0.get(t, {}).get("staged_bytes", 0)
+                      for t in ("tensor", "aggregate")}
             every = mesh.all_gather(torch.tensor(
                 [peak, moved["staged_bytes"], moved["messages"], g_ms,
-                 moved["ms"]], dtype=torch.float64),
-                mesh.axis_names).tolist()
+                 moved["ms"], tagged["tensor"], tagged["aggregate"]],
+                dtype=torch.float64), mesh.axis_names).tolist()
             rec["rank_peak_gb"] = [v[0] / 1e9 for v in every]
             rec["rank_staged_bytes"] = [int(v[1]) for v in every]
             rec["rank_messages"] = [int(v[2]) for v in every]
             rec["rank_gossip_ms"] = [v[3] for v in every]
             rec["rank_transport_ms"] = [v[4] for v in every]
+            # staged by the tensor axis's collectives and layout moves,
+            # and by the aggregation (the mix and the wire)
+            rec["rank_tensor_staged_bytes"] = [int(v[5]) for v in every]
+            rec["rank_aggregate_staged_bytes"] = [int(v[6]) for v in every]
             peaks = "/".join(f"{g:.2f}" for g in rec["rank_peak_gb"])
             ms = lambda key: "/".join(f"{v:.0f}" for v in rec[key])
+            mb = lambda key: sum(rec[key]) / 1e6
             mem = (f" peaks={peaks}GB "
-                   f"staged={sum(rec['rank_staged_bytes']) / 1e6:.1f}MB "
-                   f"gossip={ms('rank_gossip_ms')}ms "
+                   f"staged={mb('rank_staged_bytes'):.1f}MB "
+                   + (f"(tp={mb('rank_tensor_staged_bytes'):.1f}MB "
+                      f"agg={mb('rank_aggregate_staged_bytes'):.1f}MB) "
+                      if N > 1 else "")
+                   + f"gossip={ms('rank_gossip_ms')}ms "
                    f"transport={ms('rank_transport_ms')}ms")
         if lead:
             print(f"round {rnd:3d} loss={loss:7.4f} "
@@ -653,7 +705,16 @@ def main(argv=None, on_round=None):
         path = d / f"ckpt_{rnd:06d}.npz"
         t0 = time.perf_counter()
         tree = state_tree(fl())
-        if ranked:
+        if dims is not None:  # every rank's slab, whole on rank 0's host
+            rows = gather_slabs_to_host(
+                {k: v for k, v in tree.items() if k != "round_idx"},
+                policy, dims)
+            if rows is not None:
+                save_pytree(path, dict(rows, round_idx=tree["round_idx"]),
+                            meta=meta)
+            del rows
+            mesh.barrier()
+        elif ranked:
             rows = gather_rows_to_host(
                 {k: v for k, v in tree.items() if k != "round_idx"},
                 mesh, policy.replica_axes)
@@ -695,7 +756,7 @@ def main(argv=None, on_round=None):
             "swap_bytes": swap_bytes,
             "pop_store": pop_store if tmp is None else None,
             "cohort_ids": cohort_ids, "state": state, "ckpts": ckpts,
-            "policy": policy}
+            "policy": policy, "dims": dims}
 
 
 if __name__ == "__main__":

@@ -72,13 +72,29 @@ def softcap(logits, cap):
     return (torch.tanh(lf / cap) * cap).to(logits.dtype)
 
 
-def cross_entropy(logits, labels, mask=None):
+def cross_entropy(logits, labels, mask=None, tp=None):
     """Mean token cross entropy in f32 (common.py:51).  logits (B, S, V),
     labels (B, S).  The label's logit is gathered where the reference sums
-    logits times a one-hot: the same value, without a (B, S, V) one-hot."""
+    logits times a one-hot: the same value, without a (B, S, V) one-hot.
+
+    ``tp`` (a ``dist.tensor.TensorAxis``): logits are this rank's V
+    columns of the vocab, from column index * V; the log-sum-exp is taken
+    about the max over every rank's columns, its sum of exponentials and
+    the label's logit (zero on the ranks without its column) reduced over
+    the axis, as the reference's CE of vocab-sharded logits is."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if tp is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    else:
+        V = lf.shape[-1]
+        top = tp.amax(lf.amax(dim=-1))
+        lse = top + torch.log(tp.reduce(torch.exp(lf - top[..., None]).sum(
+            dim=-1)))
+        local = labels.long() - tp.index * V
+        inside = (local >= 0) & (local < V)
+        ll = torch.gather(lf, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+        ll = tp.reduce(ll.masked_fill(~inside, 0.0))
     ce = lse - ll
     if mask is not None:
         m = mask.float()

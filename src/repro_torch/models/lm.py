@@ -16,6 +16,18 @@ With ``cfg.num_experts`` the FFN is the reference's MoE (``_moe_ffn``):
 top-k routing, capacity-bounded dispatch by gathers whose gradients are
 gathers too, and the expert products as batched GEMMs.
 
+On a tensor ("model") axis (``tp``, a ``dist.tensor.TensorAxis``: the
+dense decoder family, ``dist.policies.check_model_axis``) ``forward`` and
+``loss_fn`` compute where the reference's activation constraints put the
+work (policies.py:104-148): the heads split where the axis divides both
+H and KH, else the attention whole on every rank; the FFN hidden split,
+the down projection's partial sums reduced; the embedding looked up in
+the rank's vocab rows and reduced; the logits split over the vocab, the
+padded columns masked by their global index, and the cross entropy's
+log-sum-exp and label logit reduced (``common.cross_entropy``).  The
+residual stream is whole on every rank.  The weights are then each
+rank's compute pieces (``tensor_dims``); without ``tp`` nothing changes.
+
 The frontends are stubs, as in the reference: ``vit_stub`` (internvl2-2b)
 puts ``batch["patch_embeds"]`` in the first ``frontend_tokens`` positions
 and the loss leaves their labels out; ``audio_stub`` (seamless-m4t) feeds
@@ -143,6 +155,44 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, seed=0,
     return params
 
 
+HEADS, FFN, VOCAB = range(3)  # the parts ``_splits`` answers for
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(cfg, n: int):
+    """(heads, FFN hidden, vocab): which of them a model axis of n ranks
+    splits (a dim splits where n divides it)."""
+    ok = lambda d: n > 1 and d % n == 0 and d >= n
+    return (ok(cfg.num_heads) and ok(cfg.num_kv_heads), ok(cfg.d_ff),
+            ok(cfg.vocab_padded))
+
+
+def _split(cfg, tp, part: int) -> bool:
+    """Whether ``tp`` splits ``part`` (HEADS, FFN or VOCAB) of cfg."""
+    return tp is not None and _splits(cfg, tp.size)[part]
+
+
+def tensor_dims(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    """Where the dense decoder computes each leaf on a model axis of ``n``
+    ranks: {flat leaf name: the split dim of the unstacked leaf (a layer
+    leaf's counts its L dim), or None where every rank computes it
+    whole}.  The heads (wq, wk, wv and their biases on H * Dh, wo's rows)
+    where n divides H and KH (the reference's "heads", policies.py:129),
+    the FFN hidden F ("ffn_hidden"), the vocab ("logits", :124); the
+    norms whole."""
+    heads, ffn, vocab = _splits(cfg, n)
+    dims = {"emb": 0 if vocab else None, "final_norm": None}
+    if not cfg.tie_embeddings:
+        dims["out_head"] = 1 if vocab else None
+    split = {"wq": 2, "wk": 2, "wv": 2, "bq": 1, "bk": 1, "bv": 1,
+             "wo": 1} if heads else {}
+    if ffn:
+        split.update(w_gate=2, w_up=2, w_down=1)
+    for name in _layer_shapes(cfg, cross=cfg.cross_attention):
+        dims["layers/" + name] = split.get(name)
+    return dims
+
+
 def _enc_cfg(cfg):
     """The encoder's config: the decoder's, with a dense FFN."""
     return cfg.replace(num_experts=0)
@@ -182,18 +232,22 @@ def _rope_tables(cfg, positions):
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _attention(cfg, x, w, tables, *, causal, window=0):
+def _attention(cfg, x, w, tables, *, causal, window=0, tp=None):
     """Self-attention of x (B, S, D); ``tables``: ``_rope_tables`` at its
-    positions."""
+    positions.  The heads are the weights' (a rank's H / n and KH / n
+    where ``tp`` splits them, the output's partial sums reduced)."""
     B, S, D = x.shape
-    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    split = _split(cfg, tp, HEADS)
+    if split:
+        x = tp.copy(x)
     q, k, v = _qkv(cfg, x, w)
-    q = rope(q.reshape(B, S, H, Dh), tables)
-    k = rope(k.reshape(B, S, KH, Dh), tables)
-    v = v.reshape(B, S, KH, Dh)
+    q = rope(q.reshape(B, S, -1, Dh), tables)
+    k = rope(k.reshape(B, S, -1, Dh), tables)
+    v = v.reshape(B, S, -1, Dh)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    o = o.reshape(B, S, H * Dh) @ w["wo"]
-    return o, (k, v)
+    o = o.reshape(B, S, -1) @ w["wo"]
+    return (tp.reduce(o) if split else o), (k, v)
 
 
 def _cross_kv(cfg, mem, w):
@@ -219,11 +273,17 @@ def _cross_attention(cfg, x, w, mem_kv):
     return o.reshape(B, S, H * Dh) @ w["wxo"]
 
 
-def _dense_ffn(cfg, x, w):
+def _dense_ffn(cfg, x, w, tp=None):
+    """The gated FFN; where ``tp`` splits F, over the rank's F / n with
+    the down projection's partial sums reduced."""
+    split = _split(cfg, tp, FFN)
+    if split:
+        x = tp.copy(x)
     cd = dtype_of(cfg.compute_dtype)
     g = torch.nn.functional.silu((x @ w["w_gate"]).float()).to(cd)
     u = (x @ w["w_up"]).to(cd)
-    return (g * u) @ w["w_down"]
+    out = (g * u) @ w["w_down"]
+    return tp.reduce(out) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -371,13 +431,15 @@ def _moe_ffn(cfg, x, w):
     return y
 
 
-def _ffn(cfg, x, w):
-    return (_moe_ffn if cfg.num_experts else _dense_ffn)(cfg, x, w)
+def _ffn(cfg, x, w, tp=None):
+    if cfg.num_experts:
+        return _moe_ffn(cfg, x, w)
+    return _dense_ffn(cfg, x, w, tp)
 
 
-def _ffn_half(cfg, x, w):
+def _ffn_half(cfg, x, w, tp=None):
     """The FFN half of a block: x + FFN(rms_norm(x))."""
-    return x + _ffn(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
+    return x + _ffn(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w, tp)
 
 
 def _decode_in(cfg, w, x, cos, sin):
@@ -477,11 +539,23 @@ class DecodeGraphs:
         return static, out, graph
 
 
-def _embed(cfg, params, batch):
+def _embed(cfg, params, batch, tp=None):
     """The token embeddings of ``batch["tokens"]``; with the ``vit_stub``
     frontend the first ``frontend_tokens`` positions are
-    ``batch["patch_embeds"]`` (B, P, D), cast to the compute type."""
-    x = params["emb"][batch["tokens"].long()].to(dtype_of(cfg.compute_dtype))
+    ``batch["patch_embeds"]`` (B, P, D), cast to the compute type.  Where
+    ``tp`` splits the vocab, each rank looks up the tokens of its rows
+    (zeros elsewhere) and the lookups are reduced: exact, one nonzero
+    term an entry."""
+    tokens = batch["tokens"].long()
+    if _split(cfg, tp, VOCAB):
+        Vl = params["emb"].shape[0]
+        local = tokens - tp.index * Vl
+        inside = (local >= 0) & (local < Vl)
+        x = params["emb"][local.clamp(0, Vl - 1)].masked_fill(
+            ~inside[..., None], 0.0)
+        x = tp.reduce(x).to(dtype_of(cfg.compute_dtype))
+    else:
+        x = params["emb"][tokens].to(dtype_of(cfg.compute_dtype))
     if cfg.frontend == "vit_stub":
         P = cfg.frontend_tokens
         pe = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
@@ -489,13 +563,20 @@ def _embed(cfg, params, batch):
     return x
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, tp=None):
+    """The logits of x; where ``tp`` splits the vocab, the rank's columns,
+    the padded ones masked by their global index."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    split = _split(cfg, tp, VOCAB)
+    if split:
+        x = tp.copy(x)
     head = params["emb"].T if cfg.tie_embeddings else params["out_head"]
     logits = x @ head.to(x.dtype)
     logits = softcap(logits, cfg.logits_softcap)
     if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
+        V = logits.shape[-1]
+        c0 = tp.index * V if split else 0
+        pad = torch.arange(c0, c0 + V, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits
 
@@ -504,30 +585,32 @@ def _logits(cfg, params, x):
 # forward / loss (reference lm.py:293-385)
 # ---------------------------------------------------------------------------
 
-def _block(cfg, x, w, tables, mem=None, *, causal=True):
+def _block(cfg, x, w, tables, mem=None, *, causal=True, tp=None):
     """One block: self-attention (RoPE at ``tables``); with ``mem``, the
     encoder output, the cross-attention over this layer's K and V of it,
     made here (inside the layer's checkpoint, as in the reference's scan
     body); then the FFN half."""
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     attn_out, _ = _attention(cfg, h, w, tables, causal=causal,
-                             window=cfg.window)
+                             window=cfg.window, tp=tp)
     x = x + attn_out
     if mem is not None:
         h = rms_norm(x, w["lnx"], cfg.norm_eps)
         x = x + _cross_attention(cfg, h, w, _cross_kv(cfg, mem, w))
-    return _ffn_half(cfg, x, w)
+    return _ffn_half(cfg, x, w, tp)
 
 
-def _run_stack(cfg, layers, x, tables, mem=None, *, causal=True):
+def _run_stack(cfg, layers, x, tables, mem=None, *, causal=True, tp=None):
     """x through each block of ``layers`` (per-layer dicts), each under
     ``torch.utils.checkpoint`` with ``cfg.remat`` while autograd
-    records."""
-    block = functools.partial(_block, cfg, causal=causal)
+    records (on a tensor axis its psums' outputs are kept, not issued
+    again: ``TensorAxis.checkpoint_context``)."""
+    block = functools.partial(_block, cfg, causal=causal, tp=tp)
+    kw = {} if tp is None else dict(context_fn=tp.checkpoint_context)
     for w in layers:
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(block, x, w, tables, mem, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **kw)
         else:
             x = block(x, w, tables, mem)
     return x
@@ -544,31 +627,35 @@ def _encode(cfg, params, frames):
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, tp=None):
     """Teacher-forced logits (B, S, vocab_padded) of ``batch["tokens"]``
     (B, S), with the frontend's inputs: ``patch_embeds`` (B, P, D) for
-    ``vit_stub``, ``frames`` (B, S_enc, D) for the encoder."""
+    ``vit_stub``, ``frames`` (B, S_enc, D) for the encoder.  On a tensor
+    axis ``tp`` (the dense decoder; ``params`` the rank's compute
+    pieces), the rank's vocab columns where it splits the vocab."""
     check_config(cfg)
-    x = _embed(cfg, params, batch)
+    x = _embed(cfg, params, batch, tp)
     tables = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
     mem = (_encode(cfg, params, batch["frames"].to(x.device))
            if cfg.enc_layers else None)
-    x = _run_stack(cfg, layer_list(params), x, tables, mem)
-    return _logits(cfg, params, x)
+    x = _run_stack(cfg, layer_list(params), x, tables, mem, tp=tp)
+    return _logits(cfg, params, x, tp)
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, tp=None):
     """Mean next-token cross entropy of ``batch["tokens"]`` in f32; with
     the ``vit_stub`` frontend the labels at positions below
-    ``frontend_tokens`` are left out (reference lm.py:372-381)."""
+    ``frontend_tokens`` are left out (reference lm.py:372-381).  ``tp``:
+    as ``forward``'s, the same loss on every rank of the axis."""
     tokens = batch["tokens"]
-    logits = forward(cfg, params, batch)
+    logits = forward(cfg, params, batch, tp)
     labels = tokens[:, 1:]
     mask = None
     if cfg.frontend == "vit_stub":
         pos = torch.arange(labels.shape[1], device=labels.device)
         mask = (pos >= cfg.frontend_tokens).expand(labels.shape)
-    return cross_entropy(logits[:, :-1], labels, mask)
+    return cross_entropy(logits[:, :-1], labels, mask,
+                         tp=tp if _split(cfg, tp, VOCAB) else None)
 
 
 # ---------------------------------------------------------------------------

@@ -22,3 +22,15 @@ def tree_map(fn: Callable, tree):
     """The same nesting with ``fn`` applied to every leaf."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def unflatten(flat: Dict[str, Any]):
+    """The inverse of ``flatten``: {key path: leaf} -> nested dicts."""
+    out: Dict[str, Any] = {}
+    for key, v in flat.items():
+        *path, last = key.split("/")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out

@@ -12,9 +12,11 @@ rank's history is the whole round's, and the ranks' rows gathered in
 order are the 1-rank state: bit for bit on ``single`` (the sums run in
 the one-process order), within 1e-6 on ``multi`` (the psum adds the
 clusters' rows in its own order).  Also ``make_train_policy``'s tiling
-checks (tests/test_sharded_consistency.py:111) and its "model" axis,
-which raises naming ROADMAP.md item 5 (``--overlap``, ``--population``
-and ``--ckpt-dir`` on ranks: tests/test_torch_launch_mesh_state.py).
+checks (tests/test_sharded_consistency.py:111) and its "model" axis, on
+which a family other than the dense decoder raises naming ROADMAP.md
+item 5 (``--overlap``, ``--population`` and ``--ckpt-dir`` on ranks:
+tests/test_torch_launch_mesh_state.py; the model axis:
+tests/test_torch_tensor_axis.py and tests/test_torch_round_tensor.py).
 """
 import numpy as np
 import pytest
@@ -126,9 +128,18 @@ def test_train_policy_topology_tiling():
 
 
 def test_model_axis_exits_naming_item_5():
+    """A model axis builds a policy (the dense decoder runs on it,
+    tests/test_torch_tensor_axis.py); a family that does not raises
+    naming item 5 when its round step is made."""
+    from repro_torch.configs import get_config, smoke_model
+    from repro_torch.configs.base import HCEFConfig
+    from repro_torch.core.round import make_round_step
     mesh = RankMesh((1, 2), ("data", "model"), world=2)  # no group needed
+    p = make_train_policy(mesh, FLTopology(2, 2), dp_axes=("data",))
+    assert (p.model, p.tensor_axes) == (2, ("model",))
+    cfg = smoke_model(get_config("mamba2_1p3b").model)
     with pytest.raises(NotImplementedError, match="item 5"):
-        make_train_policy(mesh, FLTopology(2, 2), dp_axes=("data",))
+        make_round_step(cfg, HCEFConfig(), FLTopology(2, 2), p)
 
 
 def test_world_failure_raises(tmp_path):

@@ -50,8 +50,10 @@ def test_unported_options_exit_naming_the_roadmap(flag, capsys, monkeypatch):
     policy path: the fused branch over the architecture's own topology
     (fl_single 8 x 2, fl_multi 8 x 4), all R replicas in this process.
     What the mesh does not port raises naming ROADMAP.md item 5: a
-    "model" axis of more than one rank (tests/test_torch_launch_mesh.py
-    and tests/test_torch_launch_mesh_state.py run the ranks)."""
+    "model" axis of more than one rank under a family other than the
+    dense decoder (tests/test_torch_launch_mesh.py,
+    tests/test_torch_launch_mesh_state.py and
+    tests/test_torch_round_tensor.py run the ranks)."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     out = train.main(SMOKE[:-4] + ["--rounds", "1", "--seq", "24"] + flag)
     pol = out["policy"]
@@ -60,12 +62,16 @@ def test_unported_options_exit_naming_the_roadmap(flag, capsys, monkeypatch):
     assert next(iter(flatten(out["state"].params).values())).shape[0] == R
     assert math.isfinite(out["history"][0]["loss"])
     assert "mesh=" + flag[1] in capsys.readouterr().out
-    from repro_torch.configs.base import FLTopology
+    from repro_torch.configs import get_config, smoke_model
+    from repro_torch.configs.base import FLTopology, HCEFConfig
+    from repro_torch.core.round import make_round_step
     from repro_torch.dist.mesh import RankMesh
     from repro_torch.dist.policies import make_train_policy
     model_axis = RankMesh((1, 2), ("data", "model"), world=2)  # no group
+    pol = make_train_policy(model_axis, FLTopology(2, 2), dp_axes=("data",))
     with pytest.raises(NotImplementedError) as exc:
-        make_train_policy(model_axis, FLTopology(2, 2), dp_axes=("data",))
+        make_round_step(smoke_model(get_config("granite_moe_1b_a400m").model),
+                        HCEFConfig(), FLTopology(2, 2), pol)
     assert "not ported yet" in str(exc.value)
     assert "ROADMAP.md" in str(exc.value)
 
