@@ -461,7 +461,18 @@ Phases (any failure ends the run with a non-zero exit):
    model-3 rank's shape (B 2, S 2048, 3 heads over 1 KV head of 64, bf16)
    against their plain versions, timed; ``--model-axis 3`` on 3 ranks,
    (1, 3), at full width, depth TENSOR3_LAYERS, 2 rounds, in lockstep with
-   its 1-rank run as phase 47, its launches and losses gated.
+   its 1-rank run as phase 47, its launches and losses gated;
+49. the recurrent families on the tensor axis: the SSD kernels at a
+   model-2 rank's shapes (32 of mamba2-1.3B's heads over 4 groups, timed,
+   and over one whole group) and the attention kernels at
+   recurrentgemma-9b's layer (whole on each rank) against their plain
+   versions; mamba2-1.3B at full width, depth MAMBA_TENSOR_LAYERS, through
+   ``--mesh single --model-axis 2`` on 4 ranks, (2, 2), in lockstep with
+   its 1-rank run as phase 47; recurrentgemma-9b at full width, depth
+   GRIFFIN_TENSOR_LAYERS, R 2, through ``make_round_step`` on (2, 2)
+   against its 1-rank run round by round; each rank's SSD, attention,
+   top-k, encode and decode-and-mix launches, losses and the ranks' peaks
+   gated.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
 It needs one CUDA card and the repository's ``src/`` beside it.
@@ -1660,21 +1671,23 @@ def ssd_work(*, b, s, h, p, g, n, chunk, dtype, f32_pipes=False):
     return (fwd, io + states), (bwd, 2 * io + states)
 
 
-def ssd_case(ss, gen, args, *, label, chunk, zero_x=False, timed=False):
+def ssd_case(ss, gen, args, *, label, chunk, zero_x=False, timed=False,
+             route=None):
     """Both kernels against their plain versions on one input (x, dt, A, B,
     C); returns the worst (forward, backward) errors and, if ``timed``,
-    the timings."""
+    the timings.  ``route``: the plan's expected route (default: bf16 the
+    tensor-core kernels, f32 the SIMT ones)."""
     dtype = args[0].dtype
     b, s, h, p = args[0].shape
     g, n = args[3].shape[2:]
     shape = dict(b=b, s=s, h=h, p=p, g=g, n=n)
     plans = [ss.plan(dtype, b, s, h, p, g, n, chunk, backward=bwd)
              for bwd in (False, True)]
+    want_route = route or ("tc" if dtype == torch.bfloat16 else "simt")
     route = plans[0].route
-    if route != plans[1].route or route != (
-            "tc" if dtype == torch.bfloat16 else "simt"):
+    if route != plans[1].route or route != want_route:
         fail(f"SSD kernels: {dtype} ran {[q.route for q in plans]} "
-             f"({label}); bf16 runs the tensor-core kernels, f32 the SIMT")
+             f"({label}); expected {want_route}")
     y, states = ss.ssd_fwd_cuda(*args, chunk=chunk)
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
@@ -3095,6 +3108,8 @@ def attention_layers(cfg):
     """The attention calls that ``cfg``'s forward makes: every layer of
     the decoder LM (with an encoder, each encoder layer and each decoder
     layer's cross-attention too), griffin's groups' attention blocks."""
+    if cfg.family == "ssm":
+        return 0
     if cfg.family != "hybrid":
         return cfg.num_layers * (1 + cfg.cross_attention) + cfg.enc_layers
     from repro_torch.models import griffin
@@ -6874,6 +6889,10 @@ TENSOR_CKPT_ARGV = ["--arch", "smollm_135m", "--mesh", "multi", "--rounds",
                     "--sparse-gossip", "--wire-dtype", "int4",
                     "--model-axis", "2"]
 TENSOR_FIELDS = ("params", "momentum", "ef")
+# the kernels whose launches the tensor-axis phases count a rank
+TENSOR_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan_fwd",
+                  "ssd_scan_bwd", "topk_compress", "wire_encode",
+                  "wire_decode_mix")
 TENSOR_SAMPLE = 4096  # entries of each slab row compared
 TENSOR_LOSS_TOL = 2e-2  # the bf16 tolerance, on each round's losses
 # Each round's update (a sampled entry's value after the round less its
@@ -6887,6 +6906,12 @@ TENSOR_LOSS_TOL = 2e-2  # the bf16 tolerance, on each round's losses
 # entries beyond was 7.6e-3 to 1.01e-2 in every round and rank (intra and
 # gossip alike; PERF.md section 6): the gate sits at three times that.
 TENSOR_UPDATE_SHARE = 0.03
+# phase 49's recurrentgemma-9b, set the same way: the share that leaves
+# Q_FLIP_SHARE of its entries beyond was 0.0277-0.0320 in round 0 on the
+# H100 (the attention block's momentum: its one KV head's gradient sums 16
+# heads through the bf16 backward; PERF.md section 6), and its rounds are
+# not reset to the 1-rank state between rounds (``griffin_tensor_rounds``)
+GRIFFIN_UPDATE_SHARE = 0.1
 
 
 @contextlib.contextmanager
@@ -6948,6 +6973,15 @@ def _rank_launches(mods):
     return out
 
 
+def _rank_kernel_mods():
+    """The kernel modules whose launches a tensor-axis rank counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import wire_pack as wp
+    return fa, ss, tk, wp
+
+
 def start_samples(cfg, R, coords):
     """Each rank's samples ({rank: {field/leaf: (samples, sums)}}) of the
     state round 0 starts from: the launcher's weights (``--seed`` 0, drawn
@@ -6968,47 +7002,65 @@ def start_samples(cfg, R, coords):
     return out
 
 
-def compare_updates(got, want, start, eps):
+def compare_updates(got, want, start, eps, own_start=None, skip=(),
+                    limit=TENSOR_UPDATE_SHARE):
     """Each sampled entry's update this round (its value less ``start``'s,
     the state both runs began the round from) against the 1-rank run's
-    (``want``): entries further than TENSOR_UPDATE_SHARE of the leaf's
-    largest 1-rank update plus eps[leaf] |want| (a rounding of the stored
-    type), entries compared, the share that leaves Q_FLIP_SHARE of them
-    beyond, and the largest share."""
+    (``want``): entries further than ``limit`` (TENSOR_UPDATE_SHARE) of
+    the leaf's largest 1-rank update plus eps[leaf] |want| (a rounding of
+    the stored type), entries compared, the share that leaves
+    Q_FLIP_SHARE of them beyond, and the largest share.  ``own_start``:
+    where this run began the round from a state of its own (not reset to
+    the 1-rank run's), that state's samples: its update is then its value
+    less those, with one more rounding allowed.  ``skip``: field/leaf keys
+    left out of the count (``update_skips``); their entries beyond are
+    reported, by key, with the others', in the last element, {field/leaf:
+    entries beyond}."""
     far = total = 0
-    shares = []
+    shares, by_leaf = [], {}
     for k, (s, _) in got.items():
         ws, bs = want[k][0], start[k][0]
         scale = max(float((ws - bs).abs().max()), 1e-30)
-        share = ((s - ws).abs() - eps[k] * ws.abs()).clamp_min(0.0) / scale
-        far += int((share > TENSOR_UPDATE_SHARE).sum())
+        tol = eps[k] * ws.abs()
+        if own_start is not None:
+            os_ = own_start[k][0]
+            s = s - os_ + bs
+            tol = tol + eps[k] * os_.abs()
+        share = ((s - ws).abs() - tol).clamp_min(0.0) / scale
+        beyond = int((share > limit).sum())
+        if k in skip:
+            if beyond:
+                by_leaf[f"{k} (not gated)"] = beyond
+            continue
+        if beyond:
+            by_leaf[k] = beyond
+        far += beyond
         total += share.numel()
         shares.append(share.flatten().numpy())
     shares = np.concatenate(shares)
     return (far, total, float(np.quantile(shares, 1.0 - Q_FLIP_SHARE)),
-            float(shares.max()))
+            float(shares.max()), by_leaf)
 
 
 def tensor_lockstep_rank(mesh, argv, layers, want, starts, snaps, coords,
-                         ckpt_dir):
+                         ckpt_dir, unaligned=None):
     """Phases 47-48 on one rank: the launcher at depth ``layers``, each
     round's slabs sampled against the 1-rank run's (``want``, this
     rank's): within BF16_TOL, and each entry's update from the round's
     start (``starts``) against the 1-rank update (``compare_updates``);
     then every slab set to the 1-rank run's state of that round
-    (``snaps``: CUDA IPC handles of its leaves) so that the next round
-    starts from it; then, with ``ckpt_dir``, in the same world,
-    ``tensor_ckpt_rank``."""
+    (``snaps[rank]``: this rank's CUDA IPC handles of its leaves) so that
+    the next round starts from it; then, with ``ckpt_dir``, in the same
+    world, ``tensor_ckpt_rank``."""
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import topk_compress as tk
-    from repro_torch.kernels import wire_pack as wp
     from repro_torch.launch import train
     from repro_torch.tree import flatten
     build.lib()
-    for mod in (fa, tk, wp):
+    mods = _rank_kernel_mods()
+    for mod in mods:
         mod.reset_launches()
     rows, n, m = coords[mesh.rank]
+    snaps = snaps[mesh.rank]
     checks = []
 
     def on_round(rnd, state, rec):
@@ -7018,7 +7070,10 @@ def tensor_lockstep_rank(mesh, argv, layers, want, starts, snaps, coords,
         want_r = want[mesh.rank][rnd]
         checks.append(compare_samples(
             got, want_r, 0, atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"])
-            + compare_updates(got, want_r, starts[mesh.rank][rnd], eps))
+            + compare_updates(got, want_r, starts[mesh.rank][rnd], eps,
+                              skip=() if unaligned is None else update_skips(
+                                  flatten(state.params), unaligned,
+                                  rec["gossip"])))
         if rnd >= len(snaps):
             return
         with torch.no_grad():
@@ -7037,7 +7092,7 @@ def tensor_lockstep_rank(mesh, argv, layers, want, starts, snaps, coords,
     return dict(rank=mesh.rank, history=out["history"],
                 round_ms=out["round_ms"], timings=out["timings"],
                 peak_gb=out["peak_mem_gb"], checks=checks,
-                launches=_rank_launches((fa, tk, wp)),
+                launches=_rank_launches(mods),
                 ckpt=ckpt_dir and tensor_ckpt_rank(mesh, ckpt_dir))
 
 
@@ -7046,25 +7101,24 @@ def tensor_ckpt_rank(mesh, ckpt_dir):
     TENSOR_CKPT_ARGV with ``--ckpt-dir ckpt_dir``; the state gathered from
     every rank's slabs (on rank 0, as host tensors) and the counters."""
     from repro_torch.convert import gather_slabs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import topk_compress as tk
-    from repro_torch.kernels import wire_pack as wp
     from repro_torch.launch import train
     from repro_torch.tree import flatten
-    for mod in (fa, tk, wp):
+    mods = _rank_kernel_mods()
+    for mod in mods:
         mod.reset_launches()
     out = train.main(TENSOR_CKPT_ARGV + ["--ckpt-dir", ckpt_dir])
     torch.cuda.synchronize()
     st = out["state"]
     whole = {f: gather_slabs(getattr(st, f), out["policy"], out["dims"])
              for f in TENSOR_FIELDS}
-    return dict(launches=_rank_launches((fa, tk, wp)),
+    return dict(launches=_rank_launches(mods),
                 state=None if mesh.rank else {
                     f"{f}/{k}": v.cpu() for f in TENSOR_FIELDS
                     for k, v in flatten(whole[f]).items()})
 
 
-def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None):
+def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None,
+                    unaligned=None):
     """``argv`` through the launcher at depth ``layers``, on 1 rank in
     this process and then with ``--model-axis n`` on nd * n ranks in
     lockstep with it (``tensor_lockstep_rank``): the 1-rank run first,
@@ -7112,22 +7166,28 @@ def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 1e9
-    handles = [{fld: {k: reduce_tensor(v) for k, v in snap[fld].items()}
-                for fld in snap} for snap in snaps]
+    # a handle for each rank: each share's count expects one consumer, so
+    # a handle opened by more ranks than it was made for never frees its
+    # memory here (about 11 GB after phase 47 and 4.5 after 48)
+    handles = {rank: [{fld: {k: reduce_tensor(v)
+                             for k, v in snap[fld].items()}
+                       for fld in snap} for snap in snaps]
+               for rank in coords}
     t1 = time.perf_counter()
     got = run_world(tensor_lockstep_rank, nd * n,
                     argv + ["--model-axis", str(n)], layers, want, starts,
-                    handles, coords, ckpt_dir, timeout_s=MESH_TIMEOUT_S,
-                    threads=MESH_THREADS)
+                    handles, coords, ckpt_dir, unaligned,
+                    timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS)
     world_s = time.perf_counter() - t1
     del handles, snaps
+    torch.cuda.ipc_collect()  # the snapshots the ranks mapped, freed
     torch.cuda.empty_cache()
     one["s"] = t1 - t0
     return one, got, held, world_s
 
 
 def _tensor_gates(got, cfg, rounds, R_loc, tau, topk_per_round, chunks,
-                  gossips, one_hist, bad, label):
+                  gossips, one_hist, bad, label, limit=TENSOR_UPDATE_SHARE):
     """Each rank's launches (attention forward and backward, top-k,
     decode-and-mix exactly, one a chunk; encode at least one a chunk of the
     slabs that ship encoded at every level: ``chunks``, ``slab_chunks``'
@@ -7137,10 +7197,15 @@ def _tensor_gates(got, cfg, rounds, R_loc, tau, topk_per_round, chunks,
     beyond the update gate); {kernel: launches summed over the ranks}."""
     med = lambda v: float(np.percentile(v, 50))
     chunks, encoded = chunks
+    remat = 2 if cfg.remat else 1
+    n_attn = attention_layers(cfg)
+    n_ssd = cfg.num_layers if cfg.family == "ssm" else 0
     for g in got:
         steps = rounds * R_loc * tau
-        want_l = {"flash_attention": steps * cfg.num_layers * 2,
-                  "flash_attention_bwd": steps * cfg.num_layers,
+        want_l = {"flash_attention": steps * n_attn * remat,
+                  "flash_attention_bwd": steps * n_attn,
+                  "ssd_scan_fwd": steps * n_ssd * remat,
+                  "ssd_scan_bwd": steps * n_ssd,
                   "topk_compress": rounds * topk_per_round,
                   "wire_decode_mix": chunks * gossips}
         for k, v in want_l.items():
@@ -7167,22 +7232,22 @@ def _tensor_gates(got, cfg, rounds, R_loc, tau, topk_per_round, chunks,
               f"transport ms {mine('rank_transport_ms')}, gossip rounds "
               f"{sum(h['gossip'] for h in g['history'])}, launches "
               f"{g['launches']}")
-        for r, (far, total, worst, sums, ufar, _, need, top) in enumerate(
-                g["checks"]):
+        for r, check in enumerate(g["checks"]):
+            far, total, worst, sums, ufar, _, need, top, by_leaf = check
+            worst_leaves = sorted(by_leaf.items(), key=lambda kv: -kv[1])
             allowed = int(Q_FLIP_SHARE * total)
             print(f"{label} rank {g['rank']} round {r}: {far} of {total} "
                   f"sampled slab entries beyond the bf16 tolerance of the "
                   f"1-rank state (largest |diff| {worst:.3e}), {ufar} beyond "
-                  f"{TENSOR_UPDATE_SHARE} of their leaf's largest 1-rank "
+                  f"{limit} of their leaf's largest 1-rank "
                   f"update (the share that leaves {allowed} beyond "
                   f"{need:.3e}, the largest {top:.3e}); {allowed} allowed; "
-                  f"row sums within {sums:.3e}")
+                  f"row sums within {sums:.3e}; beyond the update gate by "
+                  f"leaf {dict(worst_leaves[:6])}")
             if far > allowed or ufar > allowed:
                 bad.append(f"{label} rank {g['rank']} round {r}: {far} and "
                            f"{ufar} beyond")
-    return {k: sum(g["launches"][k] for g in got) for k in (
-        "flash_attention", "flash_attention_bwd", "topk_compress",
-        "wire_encode", "wire_decode_mix")}
+    return {k: sum(g["launches"][k] for g in got) for k in TENSOR_KERNELS}
 
 
 def _tensor_stats(label, one, got, held, world_s, nd, n, bad):
@@ -7283,6 +7348,352 @@ def tensor_heads_phase(train, rnd_mod, fa, topk_per_round):
     return launches, fwd, bwd
 
 
+# phase 49: mamba2-1.3B at full width through --mesh single --model-axis 2
+# on 4 ranks, (2, 2), depth MAMBA_TENSOR_LAYERS of 48 (R 16, 8 replicas a
+# data rank), in lockstep with its 1-rank run as phase 47: intra, gossip
+MAMBA_TENSOR_LAYERS = 2
+MAMBA_TENSOR_ARGV = ["--arch", "mamba2_1p3b", "--full", "--mesh", "single",
+                     "--rounds", "2", "--seq", "511", "--tau", "2", "--q",
+                     "2", "--sparse-gossip", "--wire-dtype", "int4"]
+# phase 49: recurrentgemma-9b at full width through make_round_step on
+# (2, 2): one (rglru, rglru, attn) group, R 2 in 2 clusters x 1 device
+# (phase 28's topology, one replica a data rank), tau = q = 2, one
+# GRIFFIN_SEQ-token sequence a step, intra then gossip on the int4 wire at
+# the devices' levels: 1.0, as the launcher's controller sets mamba2's
+# (without a reset between rounds, a top-k flip of round 0 would move
+# every later gradient)
+GRIFFIN_TENSOR_LAYERS = 3
+GRIFFIN_TENSOR_ROUNDS = 2
+GRIFFIN_TENSOR_THETA = (1.0, 1.0)
+GRIFFIN_TENSOR_PARAMS = 1_705_062_400  # 2 x 234,913,792 + 186,654,720 + emb
+# its ranks' allocator: four ranks of about 17 GB each share the card, so
+# no cached block may sit unused (expandable segments, not fixed ones)
+GRIFFIN_TENSOR_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+# phase 49: the SSD kernels at a model-2 rank's shapes: mamba2-1.3B's 32 of
+# its 64 heads over 4 of its 8 groups (the tensor-core route), and 32 heads
+# over one whole group (a one-group model's rank; more than 8 heads a
+# group: the SIMT route)
+SSD_RANK_CASES = ((dict(b=2, s=512, h=32, p=64, g=4, n=128), "tc"),
+                  (dict(b=2, s=512, h=32, p=64, g=1, n=128), "simt"))
+
+
+def griffin_tensor_parts(configs, base):
+    """Phase 49's recurrentgemma-9b: (cfg, hcef, topology)."""
+    bundle = configs.get_config(GRIFFIN_ARCH)
+    cfg = bundle.model.replace(num_layers=GRIFFIN_TENSOR_LAYERS)
+    hcef = dataclasses.replace(bundle.hcef, tau=2, q=2, sparse_gossip=True,
+                               wire_dtype="int4")
+    return cfg, hcef, base.FLTopology(*GRIFFIN_TOPO)
+
+
+def griffin_tensor_rounds(mesh=None, want=None, starts=None):
+    """Phase 49's recurrentgemma-9b rounds on one rank of a (2, 2) mesh, or
+    with ``mesh`` None in this process on a 1-rank one, from the seeded
+    weights (drawn as the launcher draws them), through ``make_round_step``
+    on the fused branch: each round's slabs sampled ({rank: [samples a
+    round]} on 1 rank, every rank's slabs; on a rank against ``want`` (the
+    1-rank run's samples of its slab), within BF16_TOL, and each round's
+    update from its own start (``starts``, the 1-rank run's) against the
+    1-rank update (``compare_updates``), the runs not reset between
+    rounds: the 1-rank state does not fit beside the ranks').  Returns the
+    history, round ms, phases, peak, samples or checks, launches."""
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.convert import slab_params
+    from repro_torch.core import round as rnd_mod
+    from repro_torch.core.compression import (cluster_levels_from_theta,
+                                              quantize_theta)
+    from repro_torch.data import synthetic
+    from repro_torch.dist.policies import make_train_policy
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import flatten, tree_map
+    build.lib()
+    mods = _rank_kernel_mods()
+    if mesh is not None:
+        for mod in mods:
+            mod.reset_launches()
+    cfg, hcef, topo = griffin_tensor_parts(configs, base)
+    R = topo.num_devices
+    policy = (make_train_policy(topo) if mesh is None else
+              make_train_policy(mesh, topo, dp_axes=("data",)))
+    n, R_loc = policy.model, policy.local_replicas
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params0 = get_model(cfg).init(cfg, gen, device="cuda")
+    n_params = sum(v.numel() for v in flatten(params0).values())
+    if n_params != GRIFFIN_TENSOR_PARAMS:
+        fail(f"{cfg.name} at {cfg.num_layers} layers: {n_params} "
+             f"parameters, expected {GRIFFIN_TENSOR_PARAMS}")
+    if n > 1:
+        dims = policy.storage_dims(
+            tree_map(lambda v: (R,) + tuple(v.shape), params0))
+        params0 = slab_params(params0, policy, dims)
+    state = rnd_mod.init_state(cfg, hcef, topo, params0, device="cuda",
+                               replicas=R_loc)
+    del params0
+    steps = {g: rnd_mod.make_round_step(
+        cfg, hcef, topo, policy, gossip=g,
+        cluster_levels=cluster_levels_from_theta(
+            np.asarray(GRIFFIN_TENSOR_THETA), hcef.theta_levels,
+            np.arange(R) // topo.devices_per_cluster) if g else None)
+        for g in (False, True)}
+    corpus = synthetic.synthetic_tokens(cfg.vocab_size, n_seq=train.N_SEQ,
+                                        seq_len=GRIFFIN_SEQ + 1,
+                                        n_devices=R, beta=0.5)
+    rng = np.random.default_rng(0)
+    theta = quantize_theta(np.asarray(GRIFFIN_TENSOR_THETA),
+                           hcef.theta_levels)
+    rho = np.ones(R)
+    hist, walls, timings, samples, checks = [], [], {}, {}, []
+    if mesh is None:  # each rank's slabs of the state round 0 starts from
+        starts = {rank: [{f"{fld}/{k}": leaf_sample(_slab(v, rows, nn, mm),
+                                                     TENSOR_SAMPLE)
+                          for fld in TENSOR_FIELDS
+                          for k, v in flatten(getattr(state, fld)).items()}]
+                  for rank, (rows, nn, mm) in GRIFFIN_TENSOR_COORDS.items()}
+    for rnd in range(GRIFFIN_TENSOR_ROUNDS):
+        gossip = (rnd + 1) % hcef.q == 0
+        idx = rng.integers(0, train.N_SEQ, (R, hcef.tau))
+        tokens = np.concatenate([corpus[d, idx[d]] for d in range(R)])
+        if mesh is not None:
+            mesh.barrier()
+            before = _staged(mesh)
+        t0 = time.perf_counter()
+        state, m = steps[gossip](state, {"tokens": torch.from_numpy(tokens)},
+                                 rho, theta, 2000 + rnd, timings=timings)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        hist.append(dict(loss=float(m["loss"].mean()), gossip=gossip))
+        if mesh is not None:  # this rank's entry of the launcher's lists
+            after = _staged(mesh)
+            for i, key in enumerate(("rank_tensor_staged_bytes",
+                                     "rank_aggregate_staged_bytes",
+                                     "rank_transport_ms")):
+                hist[-1][key] = [after[i] - before[i] if r == mesh.rank
+                                 else 0 for r in range(mesh.world)]
+        if mesh is None:
+            for rank, (rows, nn, mm) in GRIFFIN_TENSOR_COORDS.items():
+                samples.setdefault(rank, []).append({
+                    f"{fld}/{k}": leaf_sample(_slab(v, rows, nn, mm),
+                                              TENSOR_SAMPLE)
+                    for fld in TENSOR_FIELDS
+                    for k, v in flatten(getattr(state, fld)).items()})
+        else:
+            eps = {f"{fld}/{k}": torch.finfo(v.dtype).eps
+                   for fld in TENSOR_FIELDS
+                   for k, v in flatten(getattr(state, fld)).items()}
+            got = state_sample(state, TENSOR_FIELDS, TENSOR_SAMPLE)
+            mine = samples.setdefault(mesh.rank, [])
+            mine.append(got)
+            own = mine[rnd - 1] if rnd else starts[mesh.rank][0]
+            w = want[mesh.rank][rnd]
+            checks.append(compare_samples(
+                got, w, 0, atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"])
+                + compare_updates(got, w, starts[mesh.rank][rnd], eps,
+                                  own_start=own, skip=update_skips(
+                                      flatten(state.params), (), gossip),
+                                  limit=GRIFFIN_UPDATE_SHARE))
+    torch.cuda.synchronize()
+    out = dict(rank=0 if mesh is None else mesh.rank, history=hist,
+               round_ms=walls, timings=timings,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=_rank_launches(mods), cfg=cfg, R=R,
+               topk_per_round=topk_launches(
+                   list(flatten(state.params).values()),
+                   list(flatten(state.ef).values()), mods[2]))
+    if mesh is None:
+        # round r starts from the state after round r - 1
+        out["samples"] = samples
+        out["starts"] = {rank: starts[rank] + samples[rank][:-1]
+                         for rank in samples}
+    else:
+        out["checks"] = checks
+    del state, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+# the (rows, n, model index) of each rank of phase 49's griffin mesh
+# (row-major, "model" minor): data rank d holds replica d
+GRIFFIN_TENSOR_COORDS = {r: (slice(r // 2, r // 2 + 1), 2, r % 2)
+                         for r in range(4)}
+
+
+def _staged(mesh):
+    """(bytes staged by the tensor axis, by the aggregation, ms inside the
+    transport) so far on this rank."""
+    by = lambda tag: mesh.stats_by.get(tag, {}).get("staged_bytes", 0)
+    return by("tensor"), by("aggregate"), mesh.stats["ms"]
+
+
+def griffin_tensor_rank(mesh, want, starts):
+    """Phase 49's recurrentgemma-9b on one rank (``griffin_tensor_rounds``)."""
+    out = griffin_tensor_rounds(mesh, want, starts)
+    out.pop("cfg")
+    return out
+
+
+def recurrent_tensor_phase(train, rnd_mod, fa, ss):
+    """Phase 49: the recurrent families on the tensor axis at full width.
+
+    The kernels at a model-2 rank's shapes against their plain versions:
+    the SSD forward and backward on 32 of mamba2-1.3B's 64 heads over 4 of
+    its 8 groups and on 32 heads over one whole group (SSD_RANK_CASES, with
+    mamba2's dt and A), the attention forward and backward at
+    recurrentgemma-9b's layer (16 heads over its one KV head of 256,
+    window 2048, S 4096: whole on each rank, n does not divide its KV
+    heads).  Then recurrentgemma-9b through ``make_round_step`` on (2, 2)
+    (``griffin_tensor_rounds``) against its 1-rank run, round by round,
+    first, while this process holds nothing on the card; and mamba2-1.3B
+    through the launcher's --mesh single --model-axis 2
+    (MAMBA_TENSOR_ARGV, depth MAMBA_TENSOR_LAYERS) on 4 ranks in lockstep
+    with its 1-rank run (``tensor_lockstep``: each round from the 1-rank
+    state).  Each rank's launches (SSD forward 2 a layer and step under
+    remat, backward 1; griffin's attention layer 2 and 1), losses within
+    TENSOR_LOSS_TOL, the ranks' peaks summed (with the 1-rank state kept)
+    within PEAK_LIMIT_GB.  Returns the launches summed over the ranks and
+    the kernel rows."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    ssd_rows = [ssd_case(ss, gen, ssd_inputs(gen, dtype=torch.bfloat16,
+                                             regime="model", **shape),
+                         label=f"model-2 rank, {shape['h']} heads over "
+                               f"{shape['g']} groups",
+                         chunk=SSD_MAIN["chunk"], route=route,
+                         timed=route == "tc")
+                for shape, route in SSD_RANK_CASES]
+    g = GRIFFIN_LAYER
+    fwd = prefill_case(fa, gen, S=g["S"], H=g["H"], KH=g["KH"], Dh=g["Dh"],
+                       dtype=torch.bfloat16, window=g["window"],
+                       masked_library=True)
+    bwd = attention_bwd_case(fa, gen, g["B"], g["S"], g["H"], g["KH"],
+                             g["Dh"], torch.bfloat16, True, g["window"])
+    print(f"phase 49 kernels took {time.perf_counter() - t0:.1f} s")
+    bad = []
+    # recurrentgemma-9b through the round step, round by round; first,
+    # while this process holds no state of its own on the card
+    t1 = time.perf_counter()
+    one = griffin_tensor_rounds()
+    one_s = time.perf_counter() - t1
+    want, starts = one.pop("samples"), one.pop("starts")
+    from repro_torch.dist.mesh import run_world
+    torch.cuda.empty_cache()  # the card's memory to the ranks
+    free = torch.cuda.mem_get_info()[0] / 1e9
+    t2 = time.perf_counter()
+    got = run_world(griffin_tensor_rank, 4, want, starts, shape=(2, 2),
+                    timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS,
+                    env=GRIFFIN_TENSOR_ENV)
+    world_s = time.perf_counter() - t2
+    gcfg = one["cfg"]
+    gchunks = slab_chunks(gcfg, 1, 2, GRIFFIN_TOPO[0], rnd_mod,
+                          GRIFFIN_TENSOR_THETA)
+    glaunches = _tensor_gates(got, gcfg, GRIFFIN_TENSOR_ROUNDS, 1, 2,
+                              got[0]["topk_per_round"], gchunks, 1,
+                              one["history"], bad, "griffin tensor (2, 2)",
+                              limit=GRIFFIN_UPDATE_SHARE)
+    peaks = [g_["peak_gb"] for g_ in got]
+    if sum(peaks) > PEAK_LIMIT_GB:
+        bad.append(f"griffin rank peaks {peaks} sum over {PEAK_LIMIT_GB} GB")
+    print("griffin_tensor " + json.dumps(dict(
+        mesh=[2, 2], replicas=one["R"], layers=gcfg.num_layers,
+        d_model=gcfg.d_model, lru_width=gcfg.lru_width,
+        one_rank_round_ms=one["round_ms"], one_rank_peak_gb=one["peak_gb"],
+        one_rank_s=one_s, card_free_gb_before_the_ranks=free,
+        rank_peaks_gb=peaks,
+        rank_round_ms=[g_["round_ms"] for g_ in got],
+        rank_phases_ms=[g_["timings"] for g_ in got],
+        loss=[h["loss"] for h in got[0]["history"]],
+        one_rank_loss=[h["loss"] for h in one["history"]],
+        tensor_staged_bytes=[[h["rank_tensor_staged_bytes"][g_["rank"]]
+                              for h in g_["history"]] for g_ in got],
+        aggregate_staged_bytes=[[h["rank_aggregate_staged_bytes"][g_["rank"]]
+                                 for h in g_["history"]] for g_ in got],
+        launches_per_rank=got[0]["launches"], world_s=world_s)))
+    t3 = time.perf_counter()
+    print(f"phase 49 griffin took {t3 - t1:.1f} s")
+    # mamba2-1.3B through the launcher, in lockstep
+    print(f"python -m repro_torch.launch.train {' '.join(MAMBA_TENSOR_ARGV)} "
+          f"(at depth {MAMBA_TENSOR_LAYERS}; 1 rank, then --model-axis 2 on "
+          f"4 ranks, in lockstep)")
+    unaligned = unaligned_leaves(configs.get_config(
+        "mamba2_1p3b").model.replace(num_layers=MAMBA_TENSOR_LAYERS), 16, 2)
+    print(f"mamba2's slabs that are not whole blocks (their top-k and wire "
+          f"blocks the shard's, as the reference's; their parameters and EF "
+          f"held by the bf16 tolerance, their momentum by the update gate "
+          f"too): {sorted(unaligned)}")
+    one, mgot, held, world_s = tensor_lockstep(train, MAMBA_TENSOR_ARGV,
+                                               MAMBA_TENSOR_LAYERS, 2, 2,
+                                               unaligned=unaligned)
+    cfg = one["cfg"]
+    R_loc = one["R"] // 2
+    bundle = configs.get_config("mamba2_1p3b")
+    chunks = slab_chunks(cfg, R_loc, 2, bundle.fl_single.clusters, rnd_mod,
+                         bundle.hcef.theta_levels)
+    topk = mamba2_topk_per_round(cfg)
+    launches = _tensor_gates(mgot, cfg, 2, R_loc, 2, topk, chunks, 1,
+                             one["history"], bad, "mamba2 tensor (2, 2)")
+    _tensor_stats("mamba2_tensor", one, mgot, held, world_s, 2, 2, bad)
+    print(f"phase 49 mamba2 took {time.perf_counter() - t3:.1f} s")
+    for k in launches:
+        launches[k] += glaunches[k]
+    print(f"phase 49 launches (the ranks of both worlds): {launches}")
+    print(f"phase 49 took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"phase 49: {bad}")
+    return launches, ssd_rows, fwd, bwd
+
+
+def update_skips(leaves, unaligned, gossip):
+    """The field/leaf keys phase 49 leaves out of the update gate (held by
+    the bf16 tolerance alone): the parameters and EF of ``unaligned``
+    leaves, whose blocks are the shard's; and in a gossip round every
+    leaf's parameters, which the int4 wire quantizes per block, so that an
+    entry whose pre-wire value differs between the runs in its last bits
+    (the tensor-parallel sums round otherwise) may land one int4 level
+    apart, most often in the small-valued leaves (mamba2's and griffin's
+    zero-initialised conv_b, mamba2's f32 dt_bias, A_log, D_skip).  The
+    momentum, which carries the local steps' gradients and which the wire
+    does not touch, stays gated in every round."""
+    out = {f"{f}/{k}" for k in unaligned for f in ("params", "ef")}
+    if gossip:
+        out |= {f"params/{k}" for k in leaves}
+    return out
+
+
+def unaligned_leaves(cfg, R, n):
+    """The leaves whose slab on a model axis of n ranks (R replicas) is not
+    whole blocks: its split run is not a multiple of BLOCK_ALIGN, the top-k
+    and wire block (mamba2's 64-value dt_bias, A_log, D_skip rows).  Their
+    blocks are the shard's, as in the reference (its per-leaf shard_map),
+    not the 1-rank run's: the same delta is quantized at other scales."""
+    from repro_torch.dist.policies import BLOCK_ALIGN, leaf_split
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import flatten
+    out = set()
+    for k, v in flatten(get_model(cfg).init(cfg, device="meta")).items():
+        shape = (R,) + tuple(v.shape)
+        d = leaf_split(shape, n)
+        if d is not None and (shape[d] // n) * int(
+                np.prod(shape[d + 1:], initial=1)) % BLOCK_ALIGN:
+            out.add(k)
+    return out
+
+
+def mamba2_topk_per_round(cfg):
+    """The grouped top-k's launches a round over a rank's slabs of mamba2
+    (one a (parameter type, EF type) pair: bf16 and the f32 dt_bias, A_log
+    and D_skip)."""
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import flatten
+    leaves = list(flatten(get_model(cfg).init(cfg, device="meta")).values())
+    return topk_launches(leaves, leaves, tk)
+
+
 def ckpt_agrees(ckpt_dir, whole, bad):
     """The last checkpoint under ``ckpt_dir`` (TENSOR_CKPT_ARGV's, all R
     rows) against ``whole``, the state gathered from the ranks' slabs:
@@ -7317,6 +7728,10 @@ def main():
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no port package under {SRC}: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
+    from repro_torch.dist.mesh import start_world_server
+    # phases 42-49's ranks fork from this server: it imports torch, its
+    # compile stack and the port beside phases 1-41
+    start_world_server()
     from repro_torch import configs
     from repro_torch.kernels import build
     from repro_torch.configs import base
@@ -7658,8 +8073,12 @@ def main():
     m47 = tensor_axis_phase(train, rnd_mod, topk_lm)
     m48, fwd_model3, bwd_model3 = tensor_heads_phase(train, rnd_mod, fa,
                                                      topk_lm)
+
+    # -- phase 49: the recurrent families on the tensor axis ---------------
+    m49, ssd_rank_rows, griffin_rank_fwd, griffin_rank_bwd = \
+        recurrent_tensor_phase(train, rnd_mod, fa, ss)
     for k in m47:
-        launches[k] += m47[k] + m48[k]
+        launches[k] += m47[k] + m48[k] + m49[k]
 
     # -- report --------------------------------------------------------------
     kernels = []
@@ -7794,7 +8213,30 @@ def main():
                                        "phase_45": m45[k],
                                        "phase_46": m46[k],
                                        "phase_47": m47[k],
-                                       "phase_48": m48[k]}
+                                       "phase_48": m48[k],
+                                       "phase_49": m49[k]}
+    for i, k in ((3, "ssd_scan_fwd"), (4, "ssd_scan_bwd")):
+        # mamba2-1.3B's ranks on the tensor axis (phase 49)
+        kernels[i]["mesh_launches"] = {"phase_49": m49[k]}
+    # a model-2 rank's shapes (phase 49): the SSD scan on 32 of mamba2's 64
+    # heads over 4 of its 8 groups (timed) and over one whole group;
+    # griffin's attention layer, whole on each rank (its one KV head)
+    for i, key in ((3, "fwd"), (4, "bwd")):
+        row = ssd_rank_rows[0]
+        kernels[i]["mamba2_model2_rank"] = dict(
+            {k: row[k] for k in ("h", "g", "kernel", "launches_per_call")},
+            ms=row[f"{key}_ms"], plain_ms=row[f"{key}_plain_ms"],
+            bound_ms=row[f"{key}_bound_ms"], bound_by=row[f"{key}_bound_by"],
+            library_ms=None, max_abs_err=row["max_abs_err" if key == "fwd"
+                                             else "bwd_max_abs_err"],
+            one_group_kernel=ssd_rank_rows[1]["kernel"],
+            one_group_max_abs_err=ssd_rank_rows[1][
+                "max_abs_err" if key == "fwd" else "bwd_max_abs_err"])
+    kernels[0]["griffin_model2_rank"] = {k: griffin_rank_fwd[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")}
+    kernels[9]["griffin_model2_rank"] = {
+        k: griffin_rank_bwd[k] for k in ("max_abs_err", "err_of_max")}
     # a model-3 rank's attention (phase 48: 3 of smollm's 9 heads over 1
     # of its 3 KV heads)
     for i, row in ((0, fwd_model3), (9, bwd_model3)):

@@ -61,19 +61,21 @@ controller sees the same numbers.  The overlapped engine runs there too
 its stage 2 the wire across ranks on them, and with every cluster stale
 each rank encodes its own rows' stale payloads ahead of its local steps.
 
-With a "model" axis of n > 1 ranks (the dense decoder family) each rank
-holds a slab of every leaf (``convert.shard_slabs``: its rows, and its 1
-/ n of the leaf's ``Policy.leaf_split`` dim in the reference's
-shard-local layout).  Each local replica's parameters and momentum go
-from that storage piece to the model's compute pieces
-(``models/lm.tensor_dims``, ``dist.tensor.to_compute``) once a round,
-the local steps run the model on the tensor axis (``lm.loss_fn(...,
-tp=)``), and the delta and momentum come back to storage
-(``to_storage``) before Q.  The gradient norm behind g2 and sigma2 sums
-each split leaf's squares over the axis and counts a leaf every rank
-computes whole once.  Q, x0 + Q, the intra mean and the gossip then run
-on the slab, over the replica axes only: each model index is its own
-group (the reference's per-leaf shard_map, :301-480).  The transport's
+With a "model" axis of n > 1 ranks (the dense decoder, mamba2 and
+griffin) each rank holds a slab of every leaf (``convert.shard_slabs``:
+its rows, and its 1 / n of the leaf's ``Policy.leaf_split`` dim in the
+reference's shard-local layout).  Each local replica's parameters and
+momentum go from that storage piece to the model's compute pieces (the
+model module's ``tensor_dims``, ``dist.tensor.to_compute``) once a
+round, the local steps run the model on the tensor axis
+(``model.loss_fn(..., tp=)``), and the delta and momentum come back to
+storage (``to_storage``) before Q.  The gradient norm behind g2 and
+sigma2 sums each split leaf's squares over the axis and counts once what
+every rank computes whole: a whole leaf, and the whole segments of a
+segmented one (mamba2's B and C at one group).  Q, x0 + Q, the intra
+mean and the gossip then run on the slab, over the replica axes only:
+each model index is its own group (the reference's per-leaf shard_map,
+:301-480).  The transport's
 bytes of the local steps and of the aggregation are kept apart
 (``RankMesh.counted``: "tensor", "aggregate").  The overlap engine and
 the chaos masks raise there (``policies.check_model_axis``).
@@ -100,7 +102,8 @@ from repro_torch.device import from_numpy, resolve
 from repro_torch.dist.collectives import (mix_local, payload_tensors,
                                           sparse_exchange_, stale_payloads)
 from repro_torch.dist.policies import check_model_axis
-from repro_torch.dist.tensor import tensor_axis, to_compute, to_storage
+from repro_torch.dist.tensor import (Segmented, segments, shift,
+                                     tensor_axis, to_compute, to_storage)
 from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import get_model
 from repro_torch.optim.sgd import sgd_update_
@@ -187,18 +190,58 @@ def bernoulli_bits(key: int, rho, *, tau: int) -> torch.Tensor:
     return (u < rho[:, None]).float()
 
 
+NORM_COLS = 1 << 24  # entries of a tensor squared in f32 at a time
+
+
 def _global_norm2(tensors) -> torch.Tensor:
-    """sum of squares of every tensor, in f32 (:95)."""
-    return sum(torch.sum(torch.square(t.float())) for t in tensors)
+    """sum of squares of every tensor, in f32 (:95), a tensor's f32
+    squares summed NORM_COLS entries at a time (no f32 copy of a whole
+    large gradient: recurrentgemma-9b's embedding is 1.05 B entries)."""
+    return sum(_sum_squares(t) for t in tensors)
 
 
-def _tensor_norm2(tensors, whole, ax) -> torch.Tensor:
-    """``_global_norm2`` of a model split over the tensor axis ``ax``:
-    the split tensors' squares summed over it, the ``whole`` ones (every
-    rank holds the same) once."""
-    split = [t for t, w in zip(tensors, whole) if not w]
+def _sum_squares(t: torch.Tensor) -> torch.Tensor:
+    flat = t.reshape(-1)
+    if flat.numel() <= NORM_COLS:
+        return torch.sum(torch.square(flat.float()))
+    return sum(torch.sum(torch.square(flat[c0:c0 + NORM_COLS].float()))
+               for c0 in range(0, flat.numel(), NORM_COLS))
+
+
+def _tensor_norm2(tensors, specs, ax) -> torch.Tensor:
+    """``_global_norm2`` of a model split over the tensor axis ``ax``,
+    each tensor a compute piece under its split (``specs``): the split
+    tensors' and segments' squares summed over it, what every rank holds
+    whole (a None split, a ``Segmented`` split's whole segments) once."""
+    split, whole = [], []
+    for t, spec in zip(tensors, specs):
+        if isinstance(spec, Segmented):
+            for v, w in segments(t, spec, ax.size):
+                (whole if w else split).append(v)
+        else:
+            (whole if spec is None else split).append(t)
     total = ax.psum(_global_norm2(split).reshape(1))[0] if split else 0.0
-    return total + _global_norm2([t for t, w in zip(tensors, whole) if w])
+    return total + _global_norm2(whole)
+
+
+def _held_in(buf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The compute piece ``x`` in the memory of ``buf`` (a contiguous
+    storage row) where they hold as many entries: a view of buf with x's
+    values; else x itself."""
+    if buf.numel() != x.numel():
+        return x
+    return buf.view(x.shape).copy_(x)
+
+
+def _back_to_storage(y, s, c, ax, out):
+    """``to_storage`` of the compute piece y into ``out``, through a
+    temporary where y lies in out's memory (``_held_in``)."""
+    if y.data_ptr() != out.data_ptr():
+        to_storage(y, s, c, ax, out=out)
+        return
+    tmp = torch.empty_like(out)
+    to_storage(y, s, c, ax, out=tmp)
+    out.copy_(tmp)
 
 
 def init_state(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
@@ -467,8 +510,11 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
             sd = policy.leaf_split((R,) + tuple(v.shape))
             layout[k] = (None if sd is None else sd - 1, cdims[k])
         loss_fn = functools.partial(model.loss_fn, cfg, tp=ax)
+        # a gradient's split: a layer leaf's on one layer's slice
+        gspec = {k: shift(c, -1) if "/" in k else c
+                 for k, (_, c) in layout.items()}
         norm2 = lambda grads, keys: _tensor_norm2(
-            grads, [layout[k][1] is None for k in keys], ax)
+            grads, [gspec[k] for k in keys], ax)
 
     def device_round(work, x0, mom, batch, bits):
         """One device's tau local iterations, in place.  work: a copy of
@@ -505,22 +551,34 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
         """Replica r's local steps on the tensor axis: its parameters and
         momentum from storage to compute pieces, ``device_round``, then
         the delta into ``delta``'s row r and the momentum back, in
-        storage."""
+        storage.  A leaf whose compute piece is its storage piece (the
+        same split) runs on ``delta``'s row and on the momentum in place:
+        nothing moves or is copied twice; one whose compute piece has as
+        many entries as its storage piece runs in their memory (the
+        embedding, stored on d_model and computed on the vocab)."""
         moms = None if mom is None else flatten(mom)
+        work, mom_c = {}, {}
         with torch.no_grad():
-            work = unflatten({k: to_compute(v[r], *layout[k], ax)
-                              for k, v in params.items()})
-            mom_c = None if moms is None else unflatten(
-                {k: to_compute(m[r], *layout[k], ax)
-                 for k, m in moms.items()})
-        metrics = device_round(work, None, mom_c, batch, bits)
+            for k, v in params.items():
+                s, c = layout[k]
+                same = s == c
+                work[k] = (delta[k][r].copy_(v[r]) if same else
+                           _held_in(delta[k][r], to_compute(v[r], s, c, ax)))
+                if moms is not None:
+                    m = moms[k][r]
+                    mom_c[k] = (m if same else
+                                _held_in(m, to_compute(m, s, c, ax)))
+        metrics = device_round(unflatten(work), None,
+                               unflatten(mom_c) if mom_c else None, batch,
+                               bits)
         with torch.no_grad():
-            for k, w in flatten(work).items():
-                to_storage(w, *layout[k], ax, out=delta[k][r])
+            for k, w in work.items():
+                s, c = layout[k]
+                if s != c:
+                    _back_to_storage(w, s, c, ax, delta[k][r])
+                    if moms is not None:
+                        _back_to_storage(mom_c[k], s, c, ax, moms[k][r])
                 delta[k][r].sub_(params[k][r])
-            if mom_c is not None:
-                for k, m in flatten(mom_c).items():
-                    to_storage(m, *layout[k], ax, out=moms[k][r])
         return metrics
 
     def counted(tag):

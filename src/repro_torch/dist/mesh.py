@@ -40,13 +40,21 @@ host ms spent inside the transport calls (``ms``: the staging copies and
 the waits for the peers included); ``counted(tag)`` also adds a body's
 share to ``stats_by[tag]`` (the round step's "tensor" and "gossip").
 
-``run_world`` spawns an n-rank world (the ``spawn`` start method), each
-rank building its mesh over a ``file://`` store and running a function,
-and joins every rank with a timeout: a rank's failure or a timeout
-raises, after every rank has been stopped.
+``run_world`` starts an n-rank world, each rank building its mesh over a
+``file://`` store and running a function, and joins every rank with a
+timeout: a rank's failure or a timeout raises, after every rank has been
+stopped.  The ranks are forked from the ``forkserver`` start method's
+server, which imports the main module, torch, numpy and the port once
+(``WORLD_PRELOAD``; for ranks on the card also ``CARD_PRELOAD``) and
+serves every later world of the process: a rank starts without importing
+them again, where a ``spawn``ed one would (about 8 s on the H100's host,
+``tools/world_startup.py``).  Each rank keeps the wall-clock times of
+its start-up in ``STARTUP`` (entered, the job read, the mesh made) for
+``fn``.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import itertools
 import os
@@ -227,11 +235,16 @@ class RankMesh:
         for dst in sorted(sends):
             ts = [t.contiguous() for t in sends[dst]]
             offs, total = _layout([(tuple(t.shape), t.dtype) for t in ts])
-            buf = torch.zeros(total, dtype=torch.uint8, device=self.device)
-            for t, o in zip(ts, offs):
-                if t.numel():
-                    buf[o:o + _nbytes(t)].copy_(t.reshape(-1).view(
-                        torch.uint8))
+            if len(ts) == 1 and _nbytes(ts[0]) == total:
+                # one tensor fills the message: sent as its bytes, unpacked
+                buf = ts[0].reshape(-1).view(torch.uint8)
+            else:
+                buf = torch.zeros(total, dtype=torch.uint8,
+                                  device=self.device)
+                for t, o in zip(ts, offs):
+                    if t.numel():
+                        buf[o:o + _nbytes(t)].copy_(t.reshape(-1).view(
+                            torch.uint8))
             out = self._host(buf)
             ops.append(dist.P2POp(dist.isend, out, dst))
             self.stats["messages"] += 1
@@ -480,8 +493,20 @@ def describe(mesh: RankMesh) -> str:
 # spawned worlds (tests, chip_smoke.py)
 # ---------------------------------------------------------------------------
 
+# the modules the forkserver's server imports once for every world's ranks
+WORLD_PRELOAD = ("__main__", "numpy", "torch", "repro_torch.launch.train")
+# and for ranks on the card: torch's compile stack, which a CUDA rank's
+# first round imports (sympy, torch.distributed's tensor modules, triton:
+# about 9 s a process on the H100's host, tools/world_startup.py)
+CARD_PRELOAD = ("torch._dynamo",)
+STARTUP: Dict[str, float] = {}  # a rank's start-up, time.time() stamps
+_SERVER_STOP: list = []  # the atexit stop, once registered
+
+
 def _world_child(rank, world, job, shape, axes, store, out_dir, device,
                  threads, env):
+    STARTUP.clear()
+    STARTUP["entry"] = time.time()
     os.environ.update(env)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
@@ -489,8 +514,10 @@ def _world_child(rank, world, job, shape, axes, store, out_dir, device,
         torch.set_num_threads(threads)
     with open(job, "rb") as f:
         fn, args = pickle.load(f)
+    STARTUP["job"] = time.time()
     mesh = init_rank_mesh(shape, axes, init_method=f"file://{store}",
                           device=device)
+    STARTUP["mesh"] = time.time()
     try:
         out = fn(mesh, *args)
         with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
@@ -500,19 +527,43 @@ def _world_child(rank, world, job, shape, axes, store, out_dir, device,
             dist.destroy_process_group()
 
 
+def start_world_server(device=None):
+    """Starts the forkserver's server (where this process has none) with
+    ``WORLD_PRELOAD`` and, for ranks on the card (``device`` None or CUDA),
+    ``CARD_PRELOAD``; it imports them while the caller goes on, and the
+    first world waits for it.  ``run_world`` calls it; a caller with work
+    to do first may call it earlier."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+    card = device is None or torch.device(device).type == "cuda"
+    mp.get_context("forkserver").set_forkserver_preload(
+        list(WORLD_PRELOAD) + list(CARD_PRELOAD if card else ()))
+    if not _SERVER_STOP:
+        _SERVER_STOP.append(atexit.register(stop_world_server))
+    forkserver.ensure_running()
+
+
+def stop_world_server():
+    """Stops the forkserver's server, if this process started one (at
+    exit: the server outlives nothing that started it)."""
+    from multiprocessing import forkserver
+    forkserver._forkserver._stop()
+
+
 def run_world(fn, world: int, *args, shape=None, axes=("data", "model"),
               device=None, timeout_s: float = 300.0, threads: int = 1,
               root=None, env=None) -> list:
     """Runs ``fn(mesh, *args)`` on each rank of a ``world``-rank world
-    (``spawn``ed processes; ``fn`` and ``args`` picklable, ``fn`` a
-    module-level function) over a mesh of ``shape`` (default (world, 1))
-    on ``axes``, and returns the ranks' return values (pickled through
-    files under ``root`` or a temporary directory).  Each rank pins torch
-    to ``threads`` threads.  A rank's non-zero exit or the timeout stops
-    every rank and raises."""
+    (processes forked by the ``forkserver`` start method's server; ``fn``
+    and ``args`` picklable, ``fn`` a module-level function) over a mesh of
+    ``shape`` (default (world, 1)) on ``axes``, and returns the ranks'
+    return values (pickled through files under ``root`` or a temporary
+    directory).  Each rank pins torch to ``threads`` threads.  A rank's
+    non-zero exit or the timeout stops every rank and raises."""
     import multiprocessing as mp
     shape = (world, 1) if shape is None else tuple(shape)
-    ctx = mp.get_context("spawn")
+    start_world_server(device)
+    ctx = mp.get_context("forkserver")
     with tempfile.TemporaryDirectory(dir=root) as tmp:
         store = Path(tmp) / "store"
         # the function and its arguments go through a file: a start()

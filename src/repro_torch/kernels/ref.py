@@ -633,14 +633,17 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def rglru_gates(x, wa, wx, log_lambda):
+def rglru_gates(x, wa, wx, log_lambda, xg=None):
     """(log_a, gated_x) of the RG-LRU (ref.py:310).  x: (b, s, w); wa, wx:
     (w, w) recurrence and input gate weights; log_lambda: (w,) f32, a =
     sigmoid(log_lambda).  The reference's promotions: the gates in x's
     type, -c r in x's type times the f32 softplus, so log_a and gated are
-    f32 for a bf16 x."""
-    r = torch.sigmoid(x @ wa)
-    i = torch.sigmoid(x @ wx)
+    f32 for a bf16 x.  ``xg`` (default x): the gate matmuls' input, where
+    x, wa / wx's columns and log_lambda are one rank's channels of a
+    width split over a tensor axis and xg all of it."""
+    xg = x if xg is None else xg
+    r = torch.sigmoid(xg @ wa)
+    i = torch.sigmoid(xg @ wx)
     log_a = (-RGLRU_C * r) * _softplus(-log_lambda)[None, None, :]
     a2 = torch.exp(2.0 * log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * (i * x)

@@ -142,16 +142,17 @@ gives each rank's gossip phase ms and its ms inside the transport.
 
 ``--model-axis N`` > 1 splits each replica's model over N ranks (the
 tensor axis: the dense decoder family, smollm-135M, qwen2-7b,
-codeqwen1.5-7b, phi3-medium-14b): each rank holds a slab of every leaf
+codeqwen1.5-7b, phi3-medium-14b; mamba2-1.3B; recurrentgemma-9b): each
+rank holds a slab of every leaf
 (its rows and its 1 / N of the leaf's split dim) and runs its replicas'
 local steps tensor-parallel (``core/round.py``); the round line adds
 each rank's bytes staged by the tensor axis (tp=), apart from the
 aggregation's (agg=), and ``--ckpt-dir`` writes, on rank 0, the whole
 leaves reassembled from every rank's slab (``convert.
 gather_slabs_to_host``).  Still out on a model axis, exiting with
-ROADMAP.md item 5: the other families (MoE, mamba2, griffin, the
-frontends and the encoder-decoder), ``--overlap``, ``--population`` and
-``--chaos``; and the dry run's ``--mesh`` (``launch/dryrun.py``).
+ROADMAP.md item 5: MoE (item 5.3), the frontends and the encoder-decoder,
+``--overlap``, ``--population`` and ``--chaos`` (item 5.2b); and the dry
+run's ``--mesh`` (``launch/dryrun.py``, item 5.5).
 ``--tau`` / ``--q`` override the configuration's round structure.
 """
 from __future__ import annotations

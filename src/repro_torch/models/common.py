@@ -21,6 +21,17 @@ def rms_norm(x, w, eps=1e-6):
     return (out * w).to(x.dtype)
 
 
+def rms_norm_split(x, w, eps, tp, size: int):
+    """``rms_norm`` of a dim of ``size`` split over the tensor axis ``tp``:
+    x and w are this rank's columns.  The sum of squares is reduced over
+    the axis, and its gradient (each rank's columns read it) summed back:
+    ``copy`` after ``reduce``."""
+    xf = x.float()
+    ss = tp.copy(tp.reduce(torch.sum(xf * xf, dim=-1, keepdim=True)))
+    out = xf * torch.rsqrt(ss / size + eps)
+    return (out * w).to(x.dtype)
+
+
 def rope_tables(positions, head_dim, theta=10_000.0):
     """(cos, sin) of the rotary embedding, f32 angles, each (B, S, 1,
     head_dim / 2) for positions (B, S) or (1, S, 1, ...) for (S,):

@@ -22,6 +22,23 @@ respect to each layer's slices).  With ``cfg.remat`` each block runs under
 ``torch.utils.checkpoint`` (per layer, where the reference checkpoints a
 group and each trailing block): its forward runs again in the backward.
 
+On a tensor ("model") axis (``tp``, a ``dist.tensor.TensorAxis``)
+``forward`` and ``loss_fn`` split a recurrent block's width W over the
+ranks where n divides it (``w_y``, ``w_x``, the conv, ``log_lambda`` and
+``wa`` / ``wg``'s columns: their storage split, so nothing moves): the
+conv's output is all-gathered for the dense gate matmuls, whose
+gradient of it is then reduce-scattered (``gather_rs``: every rank's
+gates read all of it), the RG-LRU scan runs on the rank's W / n
+channels, and ``w_out``'s partial sums are reduced.  The MLP splits its
+hidden F as the dense decoder's FFN; an attention block is
+``lm._attention`` on the axis (its heads split where n divides H and
+KH, else whole on every rank: recurrentgemma-9b's one KV head); the
+embedding, the tied head, the softcap and the cross entropy are
+vocab-parallel (``lm._embed``, ``lm._logits``), the loss's chunks
+checkpointed with the axis's ``checkpoint_context`` as the blocks are.
+``tensor_dims`` says where each leaf is computed; without ``tp``
+nothing changes.
+
 Serving (reference :192-391): ``init_cache`` holds each recurrent block's
 conv window and f32 LRU state and each attention block's rolling K / V
 ring of min(window, max_len) slots.  ``prefill`` runs the blocks as the
@@ -126,18 +143,55 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _mlp(cfg, x, w):
+def _splits_width(cfg: ModelConfig, n: int) -> bool:
+    """Whether a model axis of n ranks splits the recurrent width W."""
+    return n > 1 and cfg.lru_width % n == 0
+
+
+def tensor_dims(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    """Where griffin computes each leaf on a model axis of ``n`` ranks:
+    {flat leaf name: the split dim of the unstacked leaf (a layer leaf's
+    counts its L dim), or None where every rank computes it whole}: a
+    recurrent block's W (``w_y``, ``w_x``, the conv, ``log_lambda``,
+    ``wa`` / ``wg``'s columns, ``w_out``'s rows), the MLP's F, the
+    attention's heads where n divides H and KH (``lm.tensor_dims``' rule),
+    the vocab; the norms whole."""
+    heads, ffn, vocab = lm._splits(cfg, n)
+    mlp = dict(w_gate=2, w_up=2, w_down=1) if ffn else {}
+    rec = dict(w_y=2, w_x=2, conv_w=2, conv_b=1, log_lambda=1, wa=2, wg=2,
+               w_out=1) if _splits_width(cfg, n) else {}
+    attn = dict(wq=2, wk=2, wv=2, wo=1) if heads else {}
+    dims = {"emb": 0 if vocab else None, "final_norm": None}
+    for stack, shapes, split in (("rec_layers", _rec_shapes(cfg), rec),
+                                 ("attn_layers", _attn_shapes(cfg), attn)):
+        for name in shapes:
+            dims[f"{stack}/{name}"] = {**split, **mlp}.get(name)
+    return dims
+
+
+def _mlp(cfg, x, w, tp=None):
+    """The gelu-gated MLP; where ``tp`` splits F, over the rank's F / n
+    with the down projection's partial sums reduced."""
+    split = tp is not None and lm._splits(cfg, tp.size)[lm.FFN]
+    if split:
+        x = tp.copy(x)
     cd = dtype_of(cfg.compute_dtype)
     g = _gelu((x @ w["w_gate"]).float()).to(cd)
     u = (x @ w["w_up"]).to(cd)
-    return (g * u) @ w["w_down"]
+    out = (g * u) @ w["w_down"]
+    return tp.reduce(out) if split else out
 
 
-def _rec_temporal(cfg, h, w):
+def _rec_temporal(cfg, h, w, tp=None):
     """The recurrent branch of h (B, S, D) from a zero state (reference
     ``_rec_temporal`` with no conv or LRU state): (out, the conv window
     (B, conv_width - 1, W), the last LRU state (B, W) f32).  A prompt
-    shorter than the window leaves zeros at the window's head."""
+    shorter than the window leaves zeros at the window's head.  Where
+    ``tp`` splits W: the rank's W / n channels, the gates reading the
+    conv's output gathered over the axis, out's partial sums reduced."""
+    split = tp is not None and _splits_width(cfg, tp.size)
+    if split:
+        h = tp.copy(h)
     cd = dtype_of(cfg.compute_dtype)
     S = h.shape[1]
     y = _gelu((h @ w["w_y"]).float()).to(cd)
@@ -148,23 +202,26 @@ def _rec_temporal(cfg, h, w):
     for i in range(1, K):
         conv = conv + xp[:, i:i + S] * w["conv_w"][i][None, None, :]
     conv = (conv + w["conv_b"][None, None, :]).to(cd)
-    log_a, gated = ref.rglru_gates(conv, w["wa"], w["wg"], w["log_lambda"])
+    log_a, gated = ref.rglru_gates(conv, w["wa"], w["wg"], w["log_lambda"],
+                                   xg=tp.gather_rs(conv, 2) if split
+                                   else None)
     hs, h_last = ops.rglru(log_a, gated)
-    return (y * hs.to(cd)) @ w["w_out"], xp[:, -(K - 1):], h_last
+    out = (y * hs.to(cd)) @ w["w_out"]
+    return (tp.reduce(out) if split else out), xp[:, -(K - 1):], h_last
 
 
-def _rec_block(cfg, x, w, tables):
+def _rec_block(cfg, x, w, tables, tp=None):
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
-    x = x + _rec_temporal(cfg, h, w)[0]
-    return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
+    x = x + _rec_temporal(cfg, h, w, tp)[0]
+    return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w, tp)
 
 
-def _attn_block(cfg, x, w, tables):
+def _attn_block(cfg, x, w, tables, tp=None):
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     out, _ = lm._attention(cfg, h, w, tables, causal=True,
-                           window=cfg.window)
+                           window=cfg.window, tp=tp)
     x = x + out
-    return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w)
+    return x + _mlp(cfg, rms_norm(x, w["ln2"], cfg.norm_eps), w, tp)
 
 
 def _order(cfg):
@@ -181,23 +238,35 @@ def _order(cfg):
     return out + [("rglru", n_groups * rpg + j) for j in range(n_rem_rec)]
 
 
-def _blocks(cfg, params):
+def _blocks(cfg, params, tp=None):
     """(block, weights) in ``_order``."""
-    stacks = {"rglru": (functools.partial(_rec_block, cfg),
+    stacks = {"rglru": (functools.partial(_rec_block, cfg, tp=tp),
                         stack_list(params["rec_layers"])),
-              "attn": (functools.partial(_attn_block, cfg),
+              "attn": (functools.partial(_attn_block, cfg, tp=tp),
                        stack_list(params["attn_layers"]))}
     return [(stacks[kind][0], stacks[kind][1][i]) for kind, i in _order(cfg)]
 
 
-def _trunk(cfg, params, batch):
+def _remat_kw(tp):
+    """``torch.utils.checkpoint``'s options: on a tensor axis its forward
+    collectives' outputs kept, not issued again in the recompute."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if tp is not None:
+        kw["context_fn"] = tp.checkpoint_context
+    return kw
+
+
+def _trunk(cfg, params, batch, tp=None):
     """The residual stream after the last block, (B, S, D)."""
-    x = params["emb"][batch["tokens"].long()].to(dtype_of(cfg.compute_dtype))
+    if tp is None:
+        x = params["emb"][batch["tokens"].long()].to(
+            dtype_of(cfg.compute_dtype))
+    else:
+        x = lm._embed(cfg, params, batch, tp)
     tables = lm._rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
-    for block, w in _blocks(cfg, params):
+    for block, w in _blocks(cfg, params, tp):
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, w, tables, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(block, x, w, tables, **_remat_kw(tp))
         else:
             x = block(x, w, tables)
     return x
@@ -211,22 +280,32 @@ def _head(cfg, final_norm, emb, x):
     return mask_padded_logits(cfg, softcap(logits, cfg.logits_softcap))
 
 
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, tp=None):
     """Teacher-forced logits (B, S, vocab_padded) of ``batch["tokens"]``
     (B, S): the embedding (tied head), softcapped logits, padded columns
-    masked."""
-    return _head(cfg, params["final_norm"], params["emb"],
-                 _trunk(cfg, params, batch))
+    masked; on a tensor axis ``tp`` (``params`` the rank's compute pieces)
+    the rank's vocab columns where it splits the vocab."""
+    x = _trunk(cfg, params, batch, tp)
+    if tp is None:
+        return _head(cfg, params["final_norm"], params["emb"], x)
+    return lm._logits(cfg, params, x, tp)
 
 
-def _ce_sum(cfg, final_norm, emb, x, labels):
-    """The summed cross entropy of ``labels`` under ``_head`` of x."""
-    return cross_entropy(_head(cfg, final_norm, emb, x), labels) * \
+def _ce_sum(cfg, final_norm, emb, x, labels, tp=None):
+    """The summed cross entropy of ``labels`` under ``_head`` of x (on the
+    axis ``tp``, its vocab-parallel form)."""
+    if tp is None:
+        return cross_entropy(_head(cfg, final_norm, emb, x), labels) * \
+            labels.numel()
+    vocab = lm._splits(cfg, tp.size)[lm.VOCAB]
+    logits = lm._logits(cfg, {"final_norm": final_norm, "emb": emb}, x, tp)
+    return cross_entropy(logits, labels, tp=tp if vocab else None) * \
         labels.numel()
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
-    """Mean next-token cross entropy of ``batch["tokens"]`` in f32.
+def loss_fn(cfg: ModelConfig, params, batch, tp=None):
+    """Mean next-token cross entropy of ``batch["tokens"]`` in f32; ``tp``:
+    as ``forward``'s, the same loss on every rank of the axis.
 
     The head, the softcap and the cross entropy run over LOSS_CHUNK
     positions at a time, each chunk under ``torch.utils.checkpoint`` when
@@ -236,16 +315,15 @@ def loss_fn(cfg: ModelConfig, params, batch):
     keeps a quarter.  The chunks' sums in order, over the token count,
     are the reference's mean up to the order of the f32 sum."""
     tokens = batch["tokens"]
-    x = _trunk(cfg, params, batch)[:, :-1]
+    x = _trunk(cfg, params, batch, tp)[:, :-1]
     labels = tokens[:, 1:]
     piece = functools.partial(_ce_sum, cfg, params["final_norm"],
-                              params["emb"])
+                              params["emb"], tp=tp)
     total = 0.0
     for c0 in range(0, labels.shape[1], LOSS_CHUNK):
         args = (x[:, c0:c0 + LOSS_CHUNK], labels[:, c0:c0 + LOSS_CHUNK])
         if torch.is_grad_enabled():
-            total = total + checkpoint(piece, *args, use_reentrant=False,
-                                       preserve_rng_state=False)
+            total = total + checkpoint(piece, *args, **_remat_kw(tp))
         else:
             total = total + piece(*args)
     return total / labels.numel()

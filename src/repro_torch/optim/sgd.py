@@ -16,6 +16,9 @@ def sgd_init(params, momentum: float, state_dtype=torch.float32):
             for k, p in params.items()}
 
 
+_WIDENED = (torch.bfloat16, torch.float16)  # exact in f32
+
+
 def _in_type(momentum: float, dtype: torch.dtype) -> float:
     """The momentum factor as the reference multiplies by it: a Python
     float times a jax array takes the array's type, so a bf16 momentum
@@ -48,5 +51,10 @@ def sgd_update_(params, grads, moms, *, lr, momentum: float):
             p.sub_(g, alpha=lr)
         return
     for p, g, m in zip(params, grads, moms):
-        m.mul_(_in_type(momentum, m.dtype)).add_(g.to(m.dtype))
+        m.mul_(_in_type(momentum, m.dtype))
+        # a bf16 or f16 g into an f32 m: the in-place add widens each
+        # entry exactly, as the cast would, without an f32 copy of g
+        m.add_(g if g.dtype == m.dtype or (m.dtype == torch.float32 and
+                                           g.dtype in _WIDENED)
+               else g.to(m.dtype))
         p.sub_(m, alpha=lr)

@@ -128,17 +128,18 @@ def test_train_policy_topology_tiling():
 
 
 def test_model_axis_exits_naming_item_5():
-    """A model axis builds a policy (the dense decoder runs on it,
-    tests/test_torch_tensor_axis.py); a family that does not raises
-    naming item 5 when its round step is made."""
+    """A model axis builds a policy (the dense decoder, mamba2 and
+    griffin run on it, tests/test_torch_tensor_axis.py and
+    tests/test_torch_tensor_recurrent.py); a family that does not (MoE)
+    raises naming item 5 when its round step is made."""
     from repro_torch.configs import get_config, smoke_model
     from repro_torch.configs.base import HCEFConfig
     from repro_torch.core.round import make_round_step
     mesh = RankMesh((1, 2), ("data", "model"), world=2)  # no group needed
     p = make_train_policy(mesh, FLTopology(2, 2), dp_axes=("data",))
     assert (p.model, p.tensor_axes) == (2, ("model",))
-    cfg = smoke_model(get_config("mamba2_1p3b").model)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    cfg = smoke_model(get_config("granite_moe_1b_a400m").model)
+    with pytest.raises(NotImplementedError, match="item 5.3"):
         make_round_step(cfg, HCEFConfig(), FLTopology(2, 2), p)
 
 

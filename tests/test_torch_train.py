@@ -50,8 +50,8 @@ def test_unported_options_exit_naming_the_roadmap(flag, capsys, monkeypatch):
     policy path: the fused branch over the architecture's own topology
     (fl_single 8 x 2, fl_multi 8 x 4), all R replicas in this process.
     What the mesh does not port raises naming ROADMAP.md item 5: a
-    "model" axis of more than one rank under a family other than the
-    dense decoder (tests/test_torch_launch_mesh.py,
+    "model" axis of more than one rank under the MoE family (item 5.3;
+    tests/test_torch_launch_mesh.py,
     tests/test_torch_launch_mesh_state.py and
     tests/test_torch_round_tensor.py run the ranks)."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
