@@ -440,7 +440,12 @@ Phases (any failure ends the run with a non-zero exit):
    (``--verify-conservation``), each against its 1-rank run on the card:
    histories, stale sets, cohorts and the swaps' sums equal, rows within
    MESH_ROW_TOL, every checkpoint and manifest's arrays and every page
-   file's bytes equal;
+   file's bytes equal; and ``--chaos --population 64 --ckpt-dir`` with
+   ``--model-axis 2``, ("pod", "data", "model") = (2, 1, 2), 2 rounds,
+   against its 1-rank run: the histories' discrete parts and the
+   manifests equal, the losses, swap sums, rows and checkpoints within
+   the reference's sharded tolerances, every client page within
+   PAGE_RTOL of each leaf's largest entry;
 47. the tensor ("model") axis: ``launch/train.py --mesh single
    --model-axis 2`` on smollm-135M at full width, depth TENSOR_LAYERS
    (TENSOR_ARGV: fl_single R 16, the int4 wire at per-cluster levels, tau =
@@ -472,6 +477,25 @@ Phases (any failure ends the run with a non-zero exit):
    GRIFFIN_TENSOR_LAYERS, R 2, through ``make_round_step`` on (2, 2)
    against its 1-rank run round by round; each rank's SSD, attention,
    top-k, encode and decode-and-mix launches, losses and the ranks' peaks
+   gated;
+50. the frontend and the encoder-decoder on the tensor axis: the training
+   attention forward and backward at a model-2 rank's three shapes
+   (RANK_ATTENTION: internvl2-2b's causal layer, 8 of 16 heads over 4 of
+   8 KV heads of 128; seamless-m4t-large-v2's non-causal encoder layer
+   and its cross-attention, Sq != Skv, 8 of 16 heads of 64) against
+   their plain versions, timed beside SDPA; internvl2-2b and
+   seamless-m4t-large-v2 at full width, depth MULTIMODAL_TENSOR_LAYERS
+   (seamless: as many encoder layers), R 2 in 2 clusters x 1 device,
+   through ``--mesh single --model-axis 2`` on 4 ranks, (2, 2), in
+   lockstep with the 1-rank run as phase 47 (intra, then gossip on the
+   int4 wire), the launcher's N(0, 1) patch embeddings and frames beside
+   the tokens, with the runtime options (MULTIMODAL_OPTIONS: internvl2-2b
+   with ``--chaos``, seamless with ``--overlap``), and smollm-135M at
+   full width, depth TENSOR_LAYERS, R 2, the same way with ``--chaos
+   --population 2``: each rank's launches, losses, update share and the
+   ranks' peaks gated; the histories' discrete parts (stale sets,
+   faults), the store's accounting and rank 0's store of whole client
+   rows against the 1-rank run's, bit for bit, and the swaps' host ms
    gated.
 
 It prints one JSON line of per-kernel numbers and, last, the device line.
@@ -2954,12 +2978,14 @@ BWD_BF16_KERNELS = BWD_KERNELS[:2] + ("flash_fwd_tc",)
 
 
 def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
-                       timed=False):
+                       timed=False, Skv=None):
     """The backward kernel against ``flash_attention_bwd_plain`` on the
     same inputs (q, k, v, dout seeded; out and lse from the forward
     kernel), twice for the same bits; at the timed shape also the plain
-    version's and SDPA's backward times."""
-    shape_q, shape_k = (B, S, H, Dh), (B, S, KH, Dh)
+    version's and SDPA's backward times.  ``Skv`` (default S): the keys'
+    length, a cross-attention's where it differs."""
+    Skv = Skv or S
+    shape_q, shape_k = (B, S, H, Dh), (B, Skv, KH, Dh)
     q, dout = (torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
                for _ in range(2))
     k, v = (torch.randn(shape_k, generator=gen, device="cuda").to(dtype)
@@ -2978,7 +3004,7 @@ def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
         of_max[name] = errs[name] / scale
         ok = ok and errs[name] <= share * scale
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    row = dict(B=B, S=S, H=H, KH=KH, Dh=Dh, dtype=str(dtype)[6:],
+    row = dict(B=B, S=S, Skv=Skv, H=H, KH=KH, Dh=Dh, dtype=str(dtype)[6:],
                causal=causal, window=window, max_abs_err=max(errs.values()),
                errs=errs, err_of_max=of_max, tol_of_max=share,
                deterministic=same)
@@ -3006,7 +3032,7 @@ def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
         # which launch takes the time, prep or the passes (warm L2)
         row["split_us"] = kernel_split(
             lambda: fa.flash_attention_bwd_cuda(*args, **kw))
-        pairs = B * live_pairs(S, S, causal, window, 0)
+        pairs = B * live_pairs(S, Skv, causal, window, 0)
         flops = 5 * 2 * Dh * H * pairs  # S, dP, dV, dQ, dK: 5 products
         nbytes = (sum(t.numel() for t in (q, k, v, out, dout)) +
                   sum(t.numel() for t in got)) * q.element_size() + \
@@ -3024,13 +3050,15 @@ def attention_bwd_case(fa, gen, B, S, H, KH, Dh, dtype, causal, window,
     return row
 
 
-def attention_fwd_train(fa, gen, B, S, H, KH, Dh, causal=True):
+def attention_fwd_train(fa, gen, B, S, H, KH, Dh, causal=True, Skv=None):
     """The training forward (``return_lse``) at a training layer (smollm-
-    135M's; INTERNVL_LAYER, SEAMLESS_LAYER) against its plain version,
-    timed beside SDPA's forward (K and V repeated to the query heads
-    outside the timing, as phase 2) and its bound."""
+    135M's; INTERNVL_LAYER, SEAMLESS_LAYER; RANK_ATTENTION, with ``Skv``
+    keys where a cross-attention's differ from S) against its plain
+    version, timed beside SDPA's forward (K and V repeated to the query
+    heads outside the timing, as phase 2) and its bound."""
+    Skv = Skv or S
     q = torch.randn((B, S, H, Dh), generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn((B, S, KH, Dh), generator=gen, device="cuda")
+    k, v = (torch.randn((B, Skv, KH, Dh), generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
     kw = dict(return_lse=True, causal=causal)
     out, lse = fa.flash_attention_cuda(q, k, v, **kw)
@@ -3047,11 +3075,11 @@ def attention_fwd_train(fa, gen, B, S, H, KH, Dh, causal=True):
     vt = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
-    flops = 4 * Dh * H * B * live_pairs(S, S, causal, 0, 0)
+    flops = 4 * Dh * H * B * live_pairs(S, Skv, causal, 0, 0)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + \
         lse.numel() * 4
     bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
-    row = dict(kernel="flash_fwd_tc", B=B, S=S, H=H, KH=KH, Dh=Dh,
+    row = dict(kernel="flash_fwd_tc", B=B, S=S, Skv=Skv, H=H, KH=KH, Dh=Dh,
                dtype="bfloat16", causal=causal, max_abs_err=err,
                lse_max_abs_err=lse_err, tol=BF16_TOL["atol"], ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -6538,7 +6566,25 @@ MESH_STATE_ARGV = ["--arch", "smollm_135m", "--mesh", "multi", "--rounds",
                    "--sparse-gossip", "--wire-dtype", "int4"]
 MESH_STATE_RUNS = {
     "overlap": ["--overlap", "--staleness", "1", "--stale-quantile", "0.2"],
-    "population": ["--population", "64", "--verify-conservation"]}
+    "population": ["--population", "64", "--verify-conservation"],
+    # with chaos masks, 2 rounds, and on the ranks the model axis too
+    "model_axis": ["--chaos", "--population", "64", "--verify-conservation",
+                   "--rounds", "2"]}
+MESH_STATE_CKPT = ("population", "model_axis")  # with --ckpt-dir
+# the runs whose ranks add --model-axis N: ("pod", "data", "model") =
+# (2, 1, 2), against the 1-rank run at the reference's sharded tolerances
+# (tests/test_sharded_consistency.py: the losses, the state and the
+# checkpoints; the swaps' sums at 64 clients' worth), each client page's
+# leaves within PAGE_RTOL of their largest entry: a slab joined in the
+# wrong order moves entries by their own size, where the f32 sums' order
+# moves them by the rounding of what they are the difference of (on the
+# CPU at most 9.7e-5 of the leaf's largest entry, an EF's wq: 3.7e-9 on
+# 3.8e-5, of parameters about 1e-2)
+MESH_STATE_MODEL = {"model_axis": 2}
+MODEL_LOSS_TOL, MODEL_STATE_TOL, PAGE_RTOL = 1e-3, 5e-3, 1e-3
+MODEL_HIST_KEYS = ("gossip", "rho_mean", "theta_mean", "time", "energy",
+                   "stale", "cohort", "participation", "n_deadline_missed",
+                   "coordinator", "n_partitioned", "degraded")
 
 
 def overlap_mesh_rounds(mesh=None, want=None):
@@ -6750,27 +6796,138 @@ def _digests(root):
 
 
 def _launch_state(train, argv):
-    """The launcher's history (host-only keys) and its state's rows."""
+    """The launcher's history (host-only keys), its state's rows and its
+    first row; on a model axis all R rows gathered from the slabs on
+    world rank 0 (from row 0), None on the other ranks."""
+    from repro_torch.convert import gather_slabs
     from repro_torch.tree import flatten
     out = train.main(argv)
     st = out["state"]
-    rows = _state_rows(st.fl if hasattr(st, "fl") else st)
+    fl = st.fl if hasattr(st, "fl") else st
+    tree = {f: getattr(fl, f) for f in ("params", "ef")}
     if hasattr(st, "pending"):
-        rows["pending"] = {k: v.float().cpu().numpy()
-                           for k, v in flatten(st.pending).items()}
-    keep = ("loss", "gossip", "rho_mean", "theta_mean", "time", "energy",
-            "stale", "cohort", "swap_check")
+        tree["pending"] = st.pending
+    first = out["policy"].first_replica
+    if out["dims"] is not None:
+        tree = {f: gather_slabs(t, out["policy"], out["dims"])
+                for f, t in tree.items()}
+        first = 0
+        if out["policy"].mesh.rank:
+            tree = None
+    rows = None if tree is None else {
+        f: {k: v.float().cpu().numpy() for k, v in flatten(t).items()}
+        for f, t in tree.items()}
+    keep = ("loss", "swap_check") + MODEL_HIST_KEYS
     hist = [{k: h[k] for k in keep if k in h} for h in out["history"]]
     for h in hist:
         if "swap_check" in h:
             h["swap_check"] = {k: v for k, v in h["swap_check"].items()
                                if k != "host_ms"}
-    return hist, rows, out["policy"].first_replica
+    return hist, rows, first
 
 
-def mesh_state_rank(mesh, ckpt_dir):
-    """Phase 46 on one rank: each MESH_STATE_RUNS launcher run (the
-    population's with ``--ckpt-dir ckpt_dir``); rows and counters."""
+def _mesh_state_argv(name, ckpt_root, ranks):
+    """MESH_STATE_RUNS[name]'s launcher arguments (with ``--ckpt-dir
+    ckpt_root/name`` for MESH_STATE_CKPT; on ``ranks`` the model axis of
+    MESH_STATE_MODEL)."""
+    argv = MESH_STATE_ARGV + MESH_STATE_RUNS[name]
+    if name in MESH_STATE_CKPT:
+        argv = argv + ["--ckpt-dir", str(Path(ckpt_root) / name)]
+    if ranks and name in MESH_STATE_MODEL:
+        argv = argv + ["--model-axis", str(MESH_STATE_MODEL[name])]
+    return argv
+
+
+def _hist_agree(h, w, model):
+    """A rank's round record against the 1-rank run's: equal but for the
+    loss (within 1e-6 of it); on a model axis MODEL_HIST_KEYS equal, the
+    loss within MODEL_LOSS_TOL, both swaps' sums conserved and within
+    64 MODEL_STATE_TOL of each other."""
+    if not model:
+        return ({k: v for k, v in h.items() if k != "loss"}
+                == {k: v for k, v in w.items() if k != "loss"}
+                and abs(h["loss"] - w["loss"]) <= 1e-6 * abs(w["loss"]))
+    if {k: h.get(k) for k in MODEL_HIST_KEYS} != \
+            {k: w.get(k) for k in MODEL_HIST_KEYS} or \
+            abs(h["loss"] - w["loss"]) > MODEL_LOSS_TOL or \
+            ("swap_check" in h) != ("swap_check" in w):
+        return False
+    if "swap_check" not in w:
+        return True
+    hc, wc = h["swap_check"], w["swap_check"]
+    return hc["equal"] and wc["equal"] and max(
+        abs(hc[k] - wc[k]) for k in ("ef_before", "ef_after", "state_before",
+                                     "state_after")) <= 64 * MODEL_STATE_TOL
+
+
+def _client_pages(ckpt_dir, manifest):
+    """Every client page ``manifest`` pins, read back through a store of
+    whole client rows restored from it: {client: {leaf: array}}."""
+    from repro_torch import configs
+    from repro_torch.core.round import client_template, init_state
+    from repro_torch.models import lm
+    from repro_torch.runtime.population import PopulationStore
+    bundle = configs.get_config("smollm_135m")
+    cfg = configs.smoke_model(bundle.model)
+    tmpl = client_template(init_state(cfg, bundle.hcef, bundle.fl_multi,
+                                      lm.init(cfg, device="meta"),
+                                      device="meta", replicas=1))
+    store = PopulationStore(64, tmpl, root=Path(ckpt_dir) / "pop_store")
+    store.restore(Path(ckpt_dir) / manifest)
+    return {cid: {k: v.float().numpy() for k, v in
+                  zip(store.keys, store._client_rows(cid, lru=False))}
+            for cid in sorted(store.touched)}
+
+
+def _leaf_rel(a, b):
+    """|a - b|'s largest entry over a's largest |entry| (float64)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not a.size:
+        return 0.0
+    return float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
+
+
+def model_ckpt_agrees(d_one, d_ranks, bad):
+    """A model-axis run's checkpoint directory against its 1-rank run's:
+    the same files; the manifests (accounting, page versions) and every
+    array's type and shape equal; the checkpoints within MODEL_STATE_TOL;
+    every page the last manifest pins within PAGE_RTOL of each leaf's
+    largest entry."""
+    names = sorted(p.relative_to(d_one).as_posix()
+                   for p in Path(d_one).rglob("*") if p.is_file())
+    if names != sorted(p.relative_to(d_ranks).as_posix()
+                       for p in Path(d_ranks).rglob("*") if p.is_file()):
+        bad.append("model_axis: the checkpoint directories hold other files")
+        return
+    worst, same = 0.0, True
+    for n in (n for n in names if n.endswith(".npz")):
+        with np.load(Path(d_one) / n) as w, np.load(Path(d_ranks) / n) as g:
+            for k in w.files:
+                a, b = w[k], g[k]
+                same = same and a.shape == b.shape and a.dtype == b.dtype
+                if ".pop" in n or k.startswith("__"):
+                    same = same and np.array_equal(a, b)
+                elif same and a.size:
+                    worst = max(worst, float(np.abs(
+                        a.astype(np.float64) - b.astype(np.float64)).max()))
+    last = [n for n in names if n.endswith(".pop.npz")][-1]
+    want, got = _client_pages(d_one, last), _client_pages(d_ranks, last)
+    prel = max((_leaf_rel(w, got[c][k]) for c, leaves in want.items()
+                for k, w in leaves.items()), default=0.0) \
+        if sorted(got) == sorted(want) and want else float("inf")
+    print(f"--ckpt-dir with the model axis: {len(names)} files; manifests "
+          f"{'equal' if same else 'DIFFER'}; checkpoints within "
+          f"{worst:.3e} (tolerance {MODEL_STATE_TOL}); the {len(want)} "
+          f"pages of {last} within {prel:.3e} of each leaf's largest entry "
+          f"(tolerance {PAGE_RTOL})")
+    if not same or worst > MODEL_STATE_TOL or prel > PAGE_RTOL:
+        bad.append(f"model_axis: checkpoints {worst:.3e}, pages "
+                   f"{prel:.3e}, manifests equal {same}")
+
+
+def mesh_state_rank(mesh, ckpt_root):
+    """Phase 46 on one rank: each MESH_STATE_RUNS launcher run
+    (``_mesh_state_argv``); rows and counters."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_compress as tk
@@ -6779,63 +6936,69 @@ def mesh_state_rank(mesh, ckpt_dir):
     build.lib()
     for mod in (fa, tk, wp):
         mod.reset_launches()
-    out = {}
-    for name, extra in MESH_STATE_RUNS.items():
-        ck = ["--ckpt-dir", ckpt_dir] if name == "population" else []
-        out[name] = _launch_state(train, MESH_STATE_ARGV + extra + ck)
+    out = {name: _launch_state(train, _mesh_state_argv(name, ckpt_root,
+                                                       True))
+           for name in MESH_STATE_RUNS}
     out["launches"] = {**fa.LAUNCHES, **tk.LAUNCHES, **wp.LAUNCHES}
     return out
 
 
 def mesh_state_phase(train):
     """Phase 46: the launcher's ``--mesh multi`` at smoke size on 4 ranks
-    with ``--overlap --staleness 1`` and with ``--population 64
-    --ckpt-dir``, each against its 1-rank run on this card: histories
-    (the stale sets, the cohorts, the swaps' sums), the rows within
-    MESH_ROW_TOL, every checkpoint, manifest and page file equal (each
-    ``.npz``'s arrays, the other files' bytes)."""
+    with ``--overlap --staleness 1``, with ``--population 64 --ckpt-dir``
+    and, with the model axis (MESH_STATE_MODEL), with ``--chaos
+    --population 64 --ckpt-dir``, each against its 1-rank run on this
+    card: histories (the stale sets, the faults, the cohorts, the swaps'
+    sums; ``_hist_agree``), the rows within MESH_ROW_TOL (the model
+    axis's within MODEL_STATE_TOL), every checkpoint, manifest and page
+    file of the population's run equal (each ``.npz``'s arrays, the other
+    files' bytes), the model axis's by ``model_ckpt_agrees``."""
     from repro_torch.dist.mesh import run_world
     t0 = time.perf_counter()
     bad = []
     with tempfile.TemporaryDirectory(prefix="mesh_state_") as tmp:
-        one = {}
-        for name, extra in MESH_STATE_RUNS.items():
-            ck = (["--ckpt-dir", str(Path(tmp) / "one")]
-                  if name == "population" else [])
-            one[name] = _launch_state(train, MESH_STATE_ARGV + extra + ck)
+        d_one, d_ranks = Path(tmp) / "one", Path(tmp) / "ranks"
+        one = {name: _launch_state(train, _mesh_state_argv(name, d_one,
+                                                           False))
+               for name in MESH_STATE_RUNS}
         torch.cuda.empty_cache()
-        got = run_world(mesh_state_rank, 4, str(Path(tmp) / "ranks"),
+        got = run_world(mesh_state_rank, 4, str(d_ranks),
                         timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS)
-        files_one = _digests(Path(tmp) / "one")
-        files_ranks = _digests(Path(tmp) / "ranks")
+        files_one = _digests(d_one / "population")
+        files_ranks = _digests(d_ranks / "population")
+        model_ckpt_agrees(d_one / "model_axis", d_ranks / "model_axis", bad)
     for name in MESH_STATE_RUNS:
         hist1, rows1, _ = one[name]
-        parts = sorted((g[name] for g in got), key=lambda p: p[2])
-        for p in parts:
-            for h, w in zip(p[0], hist1):
-                if {k: v for k, v in h.items() if k != "loss"} != \
-                        {k: v for k, v in w.items() if k != "loss"} or \
-                        abs(h["loss"] - w["loss"]) > 1e-6 * abs(w["loss"]):
+        model = name in MESH_STATE_MODEL
+        parts = sorted((g[name] for g in got if g[name][1] is not None),
+                       key=lambda p: p[2])
+        for g in got:
+            for h, w in zip(g[name][0], hist1):
+                if not _hist_agree(h, w, model):
                     bad.append(f"{name}: history {h} != {w}")
         worst = 0.0
         for fld, leaves in rows1.items():
             for k, w in leaves.items():
                 g = np.concatenate([p[1][fld][k] for p in parts])
                 worst = max(worst, float(np.abs(g - w).max()))
+        tol = MODEL_STATE_TOL if model else MESH_ROW_TOL
         stale = [h.get("stale") for h in hist1]
         checks = [h["swap_check"] for h in hist1 if "swap_check" in h]
-        print(f"--mesh multi {name} on 4 ranks: largest deviation from the "
-              f"1-rank rows {worst:.3e} (tolerance {MESH_ROW_TOL}); losses "
-              f"{[h['loss'] for h in parts[0][0]]} (1 rank "
-              f"{[h['loss'] for h in hist1]}); stale sets {stale}; swap "
-              f"sums {checks}")
-        if worst > MESH_ROW_TOL:
+        print(f"--mesh multi {name} on 4 ranks"
+              f"{' --model-axis 2' if model else ''}: largest deviation "
+              f"from the 1-rank rows {worst:.3e} (tolerance {tol}); losses "
+              f"{[h['loss'] for h in got[0][name][0]]} (1 rank "
+              f"{[h['loss'] for h in hist1]}); stale sets {stale}; degraded "
+              f"{[h.get('degraded') for h in hist1]}; swap sums {checks}")
+        if worst > tol:
             bad.append(f"{name}: rows {worst:.3e} from the 1-rank rows")
         if name == "overlap" and not any(stale):
             bad.append("overlap: no stale round")
-        if name == "population" and (not checks or not all(
+        if name in MESH_STATE_CKPT and (not checks or not all(
                 c["equal"] for c in checks)):
-            bad.append(f"population: swap sums {checks}")
+            bad.append(f"{name}: swap sums {checks}")
+        if model and not any(h.get("degraded") for h in hist1):
+            bad.append(f"{name}: no degraded round")
     print(f"--ckpt-dir on 4 ranks: {len(files_ranks)} files (checkpoints, "
           f"their meta, manifests, pages), "
           f"{sum(files_ranks.get(k) == v for k, v in files_one.items())} "
@@ -6915,15 +7078,24 @@ GRIFFIN_UPDATE_SHARE = 0.1
 
 
 @contextlib.contextmanager
-def launcher_depth(train, layers):
+def launcher_depth(train, layers, topo=None):
     """Within the block, the train launcher's configurations cut to their
-    first ``layers`` layers (phases 47-48's depth)."""
+    first ``layers`` layers (an encoder's too: phases 47-50's depth), with
+    ``topo`` (a (clusters, devices a cluster) pair) as ``fl_single`` where
+    given (phase 50's R 2)."""
+    from repro_torch.configs.base import FLTopology
     real = train.get_config
 
     def cut(arch):
         bundle = real(arch)
-        return dataclasses.replace(
-            bundle, model=bundle.model.replace(num_layers=layers))
+        kw = dict(num_layers=layers)
+        if bundle.model.enc_layers:
+            kw["enc_layers"] = layers
+        bundle = dataclasses.replace(bundle, model=bundle.model.replace(**kw))
+        if topo is not None:
+            bundle = dataclasses.replace(bundle,
+                                         fl_single=FLTopology(*topo))
+        return bundle
     train.get_config = cut
     try:
         yield
@@ -7043,15 +7215,18 @@ def compare_updates(got, want, start, eps, own_start=None, skip=(),
 
 
 def tensor_lockstep_rank(mesh, argv, layers, want, starts, snaps, coords,
-                         ckpt_dir, unaligned=None):
-    """Phases 47-48 on one rank: the launcher at depth ``layers``, each
+                         ckpt_dir, unaligned=None, topo=None):
+    """Phases 47-50 on one rank: the launcher at depth ``layers`` (and
+    ``topo``, ``launcher_depth``'s), each
     round's slabs sampled against the 1-rank run's (``want``, this
     rank's): within BF16_TOL, and each entry's update from the round's
     start (``starts``) against the 1-rank update (``compare_updates``);
     then every slab set to the 1-rank run's state of that round
-    (``snaps[rank]``: this rank's CUDA IPC handles of its leaves) so that
+    (``snaps[rank]``: this rank's CUDA IPC handles of its leaves; the
+    overlap engine's ``pending``, the round's params, with them) so that
     the next round starts from it; then, with ``ckpt_dir``, in the same
-    world, ``tensor_ckpt_rank``."""
+    world, ``tensor_ckpt_rank``.  With ``--population`` the store's
+    accounting and swap bytes, and on rank 0 ``store_digest``."""
     from repro_torch.kernels import build
     from repro_torch.launch import train
     from repro_torch.tree import flatten
@@ -7064,6 +7239,8 @@ def tensor_lockstep_rank(mesh, argv, layers, want, starts, snaps, coords,
     checks = []
 
     def on_round(rnd, state, rec):
+        pending = getattr(state, "pending", None)
+        state = getattr(state, "fl", state)
         eps = {f"{fld}/{k}": torch.finfo(v.dtype).eps for fld in TENSOR_FIELDS
                for k, v in flatten(getattr(state, fld)).items()}
         got = state_sample(state, TENSOR_FIELDS, TENSOR_SAMPLE)
@@ -7082,18 +7259,51 @@ def tensor_lockstep_rank(mesh, argv, layers, want, starts, snaps, coords,
                 for k, (rebuild, args) in snaps[rnd][fld].items():
                     src = rebuild(*args)
                     mine[k].copy_(_slab(src, rows, n, m))
+                    if fld == "params" and pending is not None:
+                        flatten(pending)[k].copy_(mine[k])
                     del src
         torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    with launcher_depth(train, layers):
+    with launcher_depth(train, layers, topo):
         out = train.main(argv, on_round=on_round)
     torch.cuda.synchronize()
-    return dict(rank=mesh.rank, history=out["history"],
-                round_ms=out["round_ms"], timings=out["timings"],
-                peak_gb=out["peak_mem_gb"], checks=checks,
-                launches=_rank_launches(mods),
-                ckpt=ckpt_dir and tensor_ckpt_rank(mesh, ckpt_dir))
+    res = dict(rank=mesh.rank, history=out["history"],
+               round_ms=out["round_ms"], timings=out["timings"],
+               peak_gb=out["peak_mem_gb"], checks=checks,
+               launches=_rank_launches(mods), **store_record(out))
+    del out
+    res["ckpt"] = ckpt_dir and tensor_ckpt_rank(mesh, ckpt_dir)
+    return res
+
+
+def store_digest(store):
+    """Every client a ``PopulationStore`` holds: each page leaf's bits as
+    integers, a stride of TENSOR_SAMPLE of them and their int64 sum (no
+    float sum, whose order the threads decide), {client: {leaf:
+    (samples, sum)}}."""
+    def bits(v):
+        b = v.reshape(-1).view({2: torch.int16, 4: torch.int32}[
+            v.element_size()])
+        return (b[::max(1, b.numel() // TENSOR_SAMPLE)][:TENSOR_SAMPLE]
+                .clone(), int(b.sum(dtype=torch.int64)))
+    return {cid: {k: bits(v) for k, v in zip(
+        store.keys, store._client_rows(cid, lru=False))}
+        for cid in sorted(store.touched)}
+
+
+def store_record(out):
+    """A launcher run's population store (none: {}): its accounting, the
+    swaps' bytes and, where this process holds the store,
+    ``store_digest``."""
+    pop = out["pop_store"]
+    if pop is None:
+        return {}
+    store = getattr(pop, "store", pop)
+    return dict(acct={a: np.array(getattr(pop, a)) for a in (
+        "rounds_participated", "last_round", "energy_spent", "time_spent")},
+        swap_bytes=out["swap_bytes"],
+        store=None if store is None else store_digest(store))
 
 
 def tensor_ckpt_rank(mesh, ckpt_dir):
@@ -7118,21 +7328,26 @@ def tensor_ckpt_rank(mesh, ckpt_dir):
 
 
 def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None,
-                    unaligned=None):
-    """``argv`` through the launcher at depth ``layers``, on 1 rank in
+                    unaligned=None, topo=None):
+    """``argv`` through the launcher at depth ``layers`` (and ``topo``:
+    ``launcher_depth``), on 1 rank in
     this process and then with ``--model-axis n`` on nd * n ranks in
     lockstep with it (``tensor_lockstep_rank``): the 1-rank run first,
     each round's state sampled for every (data, model) slab and, before
     the last round, kept on the card, its CUDA IPC handles passed to the
-    ranks.  Returns (the 1-rank run's {"cfg", "R", "history", "round_ms",
-    "peak_gb", "s"}, the ranks' results, the GB kept, the world's s)."""
+    ranks.  With ``--population`` the store's pages lie in a directory of
+    each run's own (``--store-root``).  Returns (the 1-rank run's {"cfg",
+    "R", "history", "round_ms", "timings", "peak_gb", "s"} and
+    ``store_record``'s keys, the ranks' results, the GB kept, the world's
+    s)."""
     from torch.multiprocessing.reductions import reduce_tensor
     from repro_torch.configs import get_config
     from repro_torch.dist.mesh import run_world
     from repro_torch.tree import flatten
     t0 = time.perf_counter()
     rounds = int(argv[argv.index("--rounds") + 1])
-    R = get_config(argv[argv.index("--arch") + 1]).fl_single.num_devices
+    R = (topo[0] * topo[1] if topo is not None else get_config(
+        argv[argv.index("--arch") + 1]).fl_single.num_devices)
     R_loc = R // nd
     coords = {}
     for rank in range(nd * n):
@@ -7142,6 +7357,7 @@ def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None,
     snaps = []
 
     def keep(rnd, state, rec):
+        state = getattr(state, "fl", state)
         with torch.no_grad():
             for rank, (rows, _, m) in coords.items():
                 want[rank].append({
@@ -7153,13 +7369,21 @@ def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None,
                 snaps.append({fld: {k: v.clone() for k, v in flatten(
                     getattr(state, fld)).items()} for fld in TENSOR_FIELDS})
 
+    stores = None
+    if "--population" in argv:
+        stores = tempfile.TemporaryDirectory(prefix="lockstep_store_")
+        argv_one = argv + ["--store-root", str(Path(stores.name) / "one")]
+        argv = argv + ["--store-root", str(Path(stores.name) / "ranks")]
+    else:
+        argv_one = argv
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with launcher_depth(train, layers):
-        out = train.main(argv, on_round=keep)
+    with launcher_depth(train, layers, topo):
+        out = train.main(argv_one, on_round=keep)
     one = dict(cfg=out["cfg"], R=out["policy"].replicas,
                history=out["history"], round_ms=out["round_ms"],
-               peak_gb=out["peak_mem_gb"])
+               timings=out["timings"], peak_gb=out["peak_mem_gb"],
+               **store_record(out))
     del out
     base = start_samples(one["cfg"], R, coords)
     starts = {rank: [base[rank]] + want[rank][:-1] for rank in coords}
@@ -7176,9 +7400,11 @@ def tensor_lockstep(train, argv, layers, nd, n, ckpt_dir=None,
     t1 = time.perf_counter()
     got = run_world(tensor_lockstep_rank, nd * n,
                     argv + ["--model-axis", str(n)], layers, want, starts,
-                    handles, coords, ckpt_dir, unaligned,
+                    handles, coords, ckpt_dir, unaligned, topo,
                     timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS)
     world_s = time.perf_counter() - t1
+    if stores is not None:
+        stores.cleanup()
     del handles, snaps
     torch.cuda.ipc_collect()  # the snapshots the ranks mapped, freed
     torch.cuda.empty_cache()
@@ -7722,6 +7948,177 @@ def _np_bits(t):
     return t.numpy()
 
 
+# ---------------------------------------------------------------------------
+# phase 50: the frontend and the encoder-decoder on the tensor axis, and the
+# runtime options there
+# ---------------------------------------------------------------------------
+
+# internvl2-2b and seamless-m4t-large-v2 at full width, depth
+# MULTIMODAL_TENSOR_LAYERS (seamless: as many encoder layers), R 2 in 2
+# clusters x 1 device (one replica a data rank: four replicas of either do
+# not fit the card, phases 30-31), through --mesh single --model-axis 2 on
+# (2, 2) in lockstep with the 1-rank run: intra, then gossip on the int4
+# wire, 512 tokens (and 512 frames) a sequence
+MULTIMODAL_TENSOR_LAYERS = 2
+MULTIMODAL_TENSOR_ARGV = ["--full", "--mesh", "single", "--rounds", "2",
+                          "--seq", "511", "--tau", "2", "--q", "2",
+                          "--sparse-gossip", "--wire-dtype", "int4"]
+# the attention at a model-2 rank's shapes: internvl2-2b's causal layer (8
+# of its 16 heads over 4 of its 8 KV heads of 128), seamless-m4t-large-v2's
+# non-causal encoder layer and its cross-attention (8 of 16 heads of 64;
+# Sq != Skv, which the launcher's equal token and frame counts never give)
+RANK_ATTENTION = {
+    "internvl_model2_layer": dict(B=2, S=2048, H=8, KH=4, Dh=128,
+                                  causal=True),
+    "seamless_model2_layer": dict(B=2, S=2048, H=8, KH=8, Dh=64,
+                                  causal=False),
+    "seamless_model2_cross": dict(B=2, S=512, Skv=768, H=8, KH=8, Dh=64,
+                                  causal=False)}
+# phase 50's runtime options at full width, each on a lockstep of its
+# own architecture (all are checked on the CPU against the reference):
+# internvl2-2b with chaos masks, seamless with the overlap engine at
+# staleness 1, and smollm-135M (depth TENSOR_LAYERS, R 2 as the others)
+# with chaos masks and the population store of its R clients, so that a
+# cohort swap moves each slot's whole client row (42,527,808 entries of
+# f32 momentum and bf16 EF, 255 MB) through rank 0's host and back while
+# the round's start stays the 1-rank run's.  A swap of internvl2-2b's
+# rows (3.03 GB a client) took 18.0 s a rank and its conservation check
+# 17.0-24.2 s more (PERF.md section 6): phase 50's budget holds neither.
+MULTIMODAL_OPTIONS = {
+    "internvl2_2b": ["--chaos"],
+    "seamless_m4t_large_v2": ["--overlap", "--staleness", "1",
+                              "--stale-quantile", "0.2"],
+    "smollm_135m": ["--chaos", "--population", "2"]}
+MULTIMODAL_DEPTH = {"smollm_135m": TENSOR_LAYERS}  # else the layers above
+# a cohort swap's host ms on a rank: 0.51 GB of client rows each way
+# through the staged transport (1.4-1.5 GB/s) and the host's copies
+SWAP_LIMIT_MS = 5000.0
+
+
+def _sums(h):
+    """A round record's swap check without its host ms (None: no swap
+    was checked)."""
+    c = h.get("swap_check")
+    return c and {k: v for k, v in c.items() if k != "host_ms"}
+
+
+def options_agree(arch, one, got, bad):
+    """A lockstep with MULTIMODAL_OPTIONS against its 1-rank run: every
+    rank's history's discrete parts (MODEL_HIST_KEYS: the stale sets, the
+    faults, the cohorts) equal; the store's accounting and swap bytes on
+    every rank equal; rank 0's store (``store_digest``: every client's
+    page's bits sampled, and summed) equal to the 1-rank store, bit for
+    bit (the lockstep hands both runs the same rows to swap out); each
+    rank's swaps within SWAP_LIMIT_MS; with --overlap a stale round, with
+    --chaos a masked one."""
+    hist = one["history"]
+    for g in got:
+        for h, w in zip(g["history"], hist):
+            if {k: h.get(k) for k in MODEL_HIST_KEYS} != \
+                    {k: w.get(k) for k in MODEL_HIST_KEYS} or \
+                    _sums(h) != _sums(w):
+                bad.append(f"{arch} rank {g['rank']}: round "
+                           f"{ {k: h.get(k) for k in MODEL_HIST_KEYS} } "
+                           f"swap sums {_sums(h)} != "
+                           f"{ {k: w.get(k) for k in MODEL_HIST_KEYS} } "
+                           f"swap sums {_sums(w)}")
+    opts = MULTIMODAL_OPTIONS[arch]
+    checks = [_sums(h) for h in hist if "swap_check" in h]
+    swap_ms = [g["timings"].get("cohort_swap", []) for g in got]
+    print(f"{arch} options {' '.join(opts)}: stale sets "
+          f"{[h.get('stale') for h in hist]}; degraded "
+          f"{[h.get('degraded') for h in hist]}; swap checks {checks}; "
+          f"the ranks' swap host ms {swap_ms} (1 rank "
+          f"{one['timings'].get('cohort_swap', [])}; limit "
+          f"{SWAP_LIMIT_MS}), bytes {one.get('swap_bytes')}")
+    if "--overlap" in opts and not any(h.get("stale") for h in hist):
+        bad.append(f"{arch}: no stale round")
+    if "--chaos" in opts and not any(h.get("degraded") for h in hist):
+        bad.append(f"{arch}: no masked round")
+    if "--population" not in opts:
+        return
+    if max(max(v, default=0.0) for v in swap_ms) > SWAP_LIMIT_MS:
+        bad.append(f"{arch}: swap host ms {swap_ms}")
+    for g in got:
+        if g["swap_bytes"] != one["swap_bytes"] or any(
+                not np.array_equal(g["acct"][a], v)
+                for a, v in one["acct"].items()):
+            bad.append(f"{arch} rank {g['rank']}: the store's accounting "
+                       f"differs")
+    want, mine = one["store"], got[0]["store"]
+    same = sorted(mine) == sorted(want) and all(
+        torch.equal(mine[c][k][0], w[0]) and mine[c][k][1] == w[1]
+        for c, leaves in want.items() for k, w in leaves.items())
+    print(f"{arch}: rank 0's store holds clients {sorted(mine)}, whole "
+          f"rows joined from the slabs; their pages' samples and sums "
+          f"{'equal' if same else 'DIFFER FROM'} the 1-rank store's "
+          f"{sorted(want)}, bit for bit")
+    if not same or not want:
+        bad.append(f"{arch}: the store's pages differ from the 1-rank "
+                   f"store's")
+
+
+def multimodal_tensor_phase(train, rnd_mod, fa, tk, configs, registry):
+    """Phase 50: the attention forward and backward at a model-2 rank's
+    three shapes (RANK_ATTENTION) against their plain versions, timed
+    beside SDPA; internvl2-2b and seamless-m4t-large-v2 at full width,
+    depth MULTIMODAL_TENSOR_LAYERS, and smollm-135M at full width, depth
+    TENSOR_LAYERS, R 2, through --mesh single --model-axis 2 on (2, 2)
+    with MULTIMODAL_OPTIONS in lockstep with their 1-rank runs
+    (``tensor_lockstep``, the gates of phase 49's mamba2, and
+    ``options_agree``).  Returns the launches summed over the ranks and
+    the attention rows."""
+    from repro_torch.tree import flatten
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    rows = {}
+    for name, c in RANK_ATTENTION.items():
+        fwd = attention_fwd_train(fa, gen, **c)
+        print(f"attention_fwd_train {name} " + json.dumps(fwd))
+        bwd = attention_bwd_case(fa, gen, c["B"], c["S"], c["H"], c["KH"],
+                                 c["Dh"], torch.bfloat16, c["causal"], 0,
+                                 timed=True, Skv=c.get("Skv"))
+        rows[name] = (fwd, bwd)
+    print(f"phase 50 kernels took {time.perf_counter() - t0:.1f} s")
+    bad = []
+    launches = {k: 0 for k in TENSOR_KERNELS}
+    topo = MULTIMODAL_TOPO
+    for arch in MULTIMODAL_OPTIONS:
+        t1 = time.perf_counter()
+        argv = (["--arch", arch] + MULTIMODAL_TENSOR_ARGV
+                + MULTIMODAL_OPTIONS[arch])
+        bundle = configs.get_config(arch)
+        L = MULTIMODAL_DEPTH.get(arch, MULTIMODAL_TENSOR_LAYERS)
+        cfg = bundle.model.replace(
+            num_layers=L, enc_layers=L if bundle.model.enc_layers else 0)
+        R = topo[0] * topo[1]
+        unaligned = unaligned_leaves(cfg, R, 2)
+        print(f"python -m repro_torch.launch.train {' '.join(argv)} (at "
+              f"depth {L}, R {R} in {topo[0]} x {topo[1]}; 1 rank, then "
+              f"--model-axis 2 on 4 ranks, in lockstep); slabs not whole "
+              f"blocks {sorted(unaligned)}")
+        one, got, held, world_s = tensor_lockstep(
+            train, argv, L, 2, 2, unaligned=unaligned, topo=topo)
+        cfg = one["cfg"]
+        chunks = slab_chunks(cfg, 1, 2, topo[0], rnd_mod,
+                             bundle.hcef.theta_levels)
+        leaves = list(flatten(registry.get_model(cfg).init(
+            cfg, device="meta")).values())
+        la = _tensor_gates(got, cfg, 2, 1, 2,
+                           topk_launches(leaves, leaves, tk), chunks, 1,
+                           one["history"], bad, f"{arch} tensor (2, 2)")
+        _tensor_stats(f"{arch}_tensor", one, got, held, world_s, 2, 2, bad)
+        options_agree(arch, one, got, bad)
+        for k in launches:
+            launches[k] += la[k]
+        print(f"phase 50 {arch} took {time.perf_counter() - t1:.1f} s")
+    print(f"phase 50 launches (the ranks of both worlds): {launches}")
+    print(f"phase 50 took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail(f"phase 50: {bad}")
+    return launches, rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -7913,6 +8310,7 @@ def main():
     print("attention_fwd_train " + json.dumps(fwd_train))
 
     # -- phases 17-20: degraded mode and cohorts -----------------------------
+    t17 = time.perf_counter()  # phases 17-41 move with the host's speed
     masked_mix_phase(wp, col, tk, compression, chaos_mod, configs, mamba2,
                      rnd_mod.GOSSIP_COLS, leaf_shapes)
     m18 = rounds_under_masks(configs, lm, mamba2, rnd_mod, base, compression,
@@ -8056,6 +8454,8 @@ def main():
     t0 = time.perf_counter()
     dryrun_phase(dryrun, roofline, wire_bytes_report)
     print(f"phase 41 took {time.perf_counter() - t0:.1f} s")
+    print(f"phases 17-41 took {time.perf_counter() - t17:.1f} s")
+    t42 = time.perf_counter()
 
     # -- phases 42-44: the replica axis across ranks sharing the card -------
     mesh_collectives_phase()
@@ -8075,10 +8475,16 @@ def main():
                                                      topk_lm)
 
     # -- phase 49: the recurrent families on the tensor axis ---------------
+    print(f"phases 42-48 took {time.perf_counter() - t42:.1f} s")
     m49, ssd_rank_rows, griffin_rank_fwd, griffin_rank_bwd = \
         recurrent_tensor_phase(train, rnd_mod, fa, ss)
+
+    # -- phase 50: the frontend and the encoder-decoder on the tensor axis,
+    # and the runtime options there ----------------------------------------
+    m50, rank_attention = multimodal_tensor_phase(train, rnd_mod, fa, tk,
+                                                  configs, registry)
     for k in m47:
-        launches[k] += m47[k] + m48[k] + m49[k]
+        launches[k] += m47[k] + m48[k] + m49[k] + m50[k]
 
     # -- report --------------------------------------------------------------
     kernels = []
@@ -8207,14 +8613,15 @@ def main():
                  (8, "wire_decode_mix")):
         # the ranks' launches (each rank's counters summed): phase 43's
         # main path, phase 44's smoke runs, phase 45's overlap engine,
-        # phase 46's launcher runs, phases 47-48's tensor axis
+        # phase 46's launcher runs, phases 47-50's tensor axis
         kernels[i]["mesh_launches"] = {"phase_43": m43[k],
                                        "phase_44": m44[k],
                                        "phase_45": m45[k],
                                        "phase_46": m46[k],
                                        "phase_47": m47[k],
                                        "phase_48": m48[k],
-                                       "phase_49": m49[k]}
+                                       "phase_49": m49[k],
+                                       "phase_50": m50[k]}
     for i, k in ((3, "ssd_scan_fwd"), (4, "ssd_scan_bwd")):
         # mamba2-1.3B's ranks on the tensor axis (phase 49)
         kernels[i]["mesh_launches"] = {"phase_49": m49[k]}
@@ -8243,6 +8650,13 @@ def main():
         kernels[i]["smollm_model3_layer"] = {k: row[k] for k in (
             "H", "KH", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err") if k in row}
+    # a model-2 rank's attention (phase 50): internvl2-2b's causal layer,
+    # seamless-m4t-large-v2's encoder layer and its cross-attention
+    for name, (fwd, bwd) in rank_attention.items():
+        for i, row in ((0, fwd), (9, bwd)):
+            kernels[i][name] = {k: row[k] for k in (
+                "S", "Skv", "H", "KH", "Dh", "causal", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "max_abs_err")}
     print("generate_full " + json.dumps(static_rows))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

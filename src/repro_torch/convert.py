@@ -12,8 +12,9 @@ rank's contiguous rows of a stacked state and put them back (a rank mesh,
 host memory.  With a "model" axis (``dist.policies``) a rank holds a slab
 of each stacked leaf: its rows and its 1 / n of the leaf's ``leaf_split``
 dim, contiguous, the reference's shard-local layout; ``shard_slabs`` /
-``gather_slabs`` / ``gather_slabs_to_host`` are the slab counterparts,
-``slab_params`` a rank's pieces of an unstacked parameter dict.
+``gather_slabs`` / ``gather_slabs_to_host`` / ``scatter_slabs_from_host``
+are the slab counterparts, ``slab_params`` a rank's pieces of an
+unstacked parameter dict.
 """
 from __future__ import annotations
 
@@ -100,16 +101,19 @@ def gather_rows_to_host(tree, mesh, axes):
     return out if lead else None
 
 
-def _walk(fn, tree, dims):
+def _walk(fn, tree, dims, other=None):
     """fn(leaf, dim) over a nested dict of leaves (None kept) beside a
     dict of the same nesting (or a sub-nesting: a state field's dims are
-    the params')."""
+    the params'); with ``other`` (a tree of the same nesting, or None)
+    fn(leaf, dim, other's leaf or None)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: _walk(fn, v, dims[k] if isinstance(dims, dict) and k in
-                         dims else dims) for k, v in tree.items()}
-    return fn(tree, dims)
+                         dims else dims,
+                         other if other is None else other[k])
+                for k, v in tree.items()}
+    return fn(tree, dims) if other is None else fn(tree, dims, other)
 
 
 def slab_params(params, policy, dims):
@@ -128,9 +132,21 @@ def shard_slabs(tree, policy, dims):
     leaf's ``dims`` entry over the tensor axes, contiguous.  ``dims``:
     ``policy.storage_dims`` of the params (every state field is
     params-shaped)."""
-    rows = shard_rows(tree, policy.mesh, policy.replica_axes)
+    mesh, rep = policy.mesh, policy.replica_axes
+    nr, f = mesh.size(rep), mesh.flat_index(rep)
     n, i = policy.model, policy.model_index
-    return _walk(lambda x, d: piece(x, d, n, i).contiguous(), rows, dims)
+    return _walk(lambda x, d: _cut(x, d, nr, f, n, i).contiguous(), tree,
+                 dims)
+
+
+def _cut(x, dim, nr, f, n, i):
+    """The slab of a stacked (R, ...) leaf at replica flat index f of nr
+    and model index i of n: rows [f R / nr, (f + 1) R / nr), then the
+    i-th of n pieces of ``dim`` (None: whole), a view."""
+    if x.shape[0] % nr:
+        raise ValueError(f"{x.shape[0]} rows do not tile {nr} ranks")
+    r = x.shape[0] // nr
+    return piece(x[f * r:(f + 1) * r], dim, n, i)
 
 
 def _join(parts, dim):
@@ -166,3 +182,22 @@ def gather_slabs_to_host(tree, policy, dims):
         return torch.cat([_join(g[r].unbind(0), d) for r in range(nr)])
     out = _walk(put, tree, dims)
     return out if lead else None
+
+
+def scatter_slabs_from_host(tree, policy, dims, out):
+    """The inverse of ``gather_slabs_to_host``: world rank 0's (R, ...)
+    leaves of ``tree`` (None on the other ranks) cut into every rank's
+    slab (``shard_slabs``' cut) and copied, leaf by leaf, into each
+    rank's leaf of ``out`` (its slabs, the same nesting as ``tree``), in
+    place (``RankMesh.scatter_from`` over the replica and the tensor
+    axes).  Returns ``out``."""
+    mesh = policy.mesh
+    rep, ten = tuple(policy.replica_axes), tuple(policy.tensor_axes)
+    nr, nm = mesh.size(rep), mesh.size(ten)
+
+    def put(v, d, w=None):
+        parts = None if w is None else torch.stack([
+            _cut(w, d, nr, f, nm, m) for f in range(nr) for m in range(nm)])
+        v.copy_(mesh.scatter_from(parts, rep + ten, v))
+    _walk(put, out, dims, tree if mesh.rank == 0 else None)
+    return out

@@ -61,8 +61,9 @@ controller sees the same numbers.  The overlapped engine runs there too
 its stage 2 the wire across ranks on them, and with every cluster stale
 each rank encodes its own rows' stale payloads ahead of its local steps.
 
-With a "model" axis of n > 1 ranks (the dense decoder, mamba2 and
-griffin) each rank holds a slab of every leaf (``convert.shard_slabs``:
+With a "model" axis of n > 1 ranks (the dense decoder with the ViT stub,
+the encoder-decoder, mamba2 and griffin) each rank holds a slab of every
+leaf (``convert.shard_slabs``:
 its rows, and its 1 / n of the leaf's ``Policy.leaf_split`` dim in the
 reference's shard-local layout).  Each local replica's parameters and
 momentum go from that storage piece to the model's compute pieces (the
@@ -77,8 +78,15 @@ mean and the gossip then run on the slab, over the replica axes only:
 each model index is its own group (the reference's per-leaf shard_map,
 :301-480).  The transport's
 bytes of the local steps and of the aggregation are kept apart
-(``RankMesh.counted``: "tensor", "aggregate").  The overlap engine and
-the chaos masks raise there (``policies.check_model_axis``).
+(``RankMesh.counted``: "tensor", "aggregate").  The chaos masks are per
+row, and every model rank of a data rank holds the same rows: each
+applies them to its slabs as on the replica axes, after checking once a
+masked round that the axis's ranks were given the same masks (a CRC of
+their bytes, gathered over the axis).  The overlapped engine's
+``pending`` is the rank's slabs: its stale payloads are encoded slab by
+slab and ship over the replica axes of each model index, as the
+synchronous gossip's do.  MoE raises there
+(``policies.check_model_axis``, item 5.3).
 
 The masked-step bits, ``jax.random.bernoulli(key, rho, (tau,))`` in the
 reference (:220), cannot be reproduced: they come from ``bits_fn(key, rho)
@@ -90,6 +98,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
+import zlib
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -588,8 +597,6 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     def round_step(state: FLState, batch, rho, theta, key, timings=None,
                    alive=None, alive_w=None, conn=None, events=None):
         chaos = alive is not None
-        if chaos and tensor:
-            check_model_axis(policy, None, **{"chaos masks": True})
         if chaos:
             if alive_w is None:
                 raise ValueError("alive requires alive_w (host-computed "
@@ -600,6 +607,8 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
                     "partitions (conn): a partitioned sender's neighbors "
                     "would zero its contribution while its own estimate "
                     "advances; the shared estimates desync")
+            if tensor:
+                _same_masks_on_axis(policy, alive, alive_w, conn)
             alive = np.asarray(alive, np.float32)[r0:r0 + R_loc]
             alive_w = np.asarray(alive_w, np.float32)[r0:r0 + R_loc]
             conn = None if conn is None else np.asarray(conn, np.float32)
@@ -734,6 +743,24 @@ def make_round_step(cfg: ModelConfig, hcef: HCEFConfig, topo: FLTopology,
     return round_step
 
 
+def _same_masks_on_axis(policy, alive, alive_w, conn):
+    """Raises unless every rank of the policy's tensor axes was given the
+    same chaos masks (the whole round's host arrays): one CRC-32 of their
+    bytes a rank, gathered over the axes."""
+    crc = 0
+    for a in (alive, alive_w, conn):
+        crc = zlib.crc32(b"-" if a is None else
+                         np.ascontiguousarray(a, np.float32).tobytes(), crc)
+    got = policy.mesh.all_gather(torch.tensor(
+        [crc], dtype=torch.int64, device=policy.mesh.device),
+        policy.tensor_axes).cpu()
+    if bool((got != crc).any()):
+        raise ValueError(f"the ranks of the model axis were given different "
+                         f"chaos masks (CRC-32s {got.flatten().tolist()}): "
+                         f"each model rank of a data rank must mask the "
+                         f"same rows")
+
+
 def _wire_level(cluster_levels, levels, theta):
     """The sparse gossip's level arguments and its theta_wire: the static
     per-cluster levels, else the smallest grid level >= max theta, in f32
@@ -784,11 +811,13 @@ def make_overlap_round_step(cfg: ModelConfig, hcef: HCEFConfig,
     inputs are the whole round's and the metrics are for all R, as
     ``make_round_step``'s.  Stage 2 runs the wire across the ranks; an
     all-stale round encodes each rank's own payloads on its side stream
-    (``stale_payloads(mesh=)``) and ships them in stage 2."""
+    (``stale_payloads(mesh=)``) and ships them in stage 2.  With a model
+    axis both buffers hold the rank's slabs (``convert.shard_slabs``) and
+    each slab's payloads go over the replica axes of its model index."""
     if not hcef.overlap:
         raise ValueError("make_overlap_round_step requires hcef.overlap "
                          "(use make_round_step for the synchronous engine)")
-    check_model_axis(policy, cfg, **{"the overlap engine": True})
+    check_model_axis(policy, cfg)
     C, Dev = topo.clusters, topo.devices_per_cluster
     R = topo.num_devices
     if stale_clusters is not None:

@@ -97,11 +97,9 @@ from repro_torch.kernels.wire_pack import (MixStep, _p4_sizes, decode_rows,
 
 WIRE_DTYPES = wf.WIRE_DTYPES
 MULTI_RANK = ("ROADMAP.md, modules to port, item 5 (multi-GPU mesh path: "
-              "5.2b, the tensor axis for the frontends and the "
-              "encoder-decoder, the overlap engine, the population store "
-              "and chaos masks; 5.3, sequence-sharded MoE routing and MoE "
-              "on the tensor axis; the serve policy, the dry run's mesh "
-              "half, NCCL across cards)")
+              "5.3, sequence-sharded MoE routing and MoE on the tensor "
+              "axis; the serve policy, the dry run's mesh half, NCCL "
+              "across cards)")
 
 
 def _axes_tuple(axes) -> tuple:

@@ -20,12 +20,12 @@ shard-local (R_local, -1) flattening is the reference's.  Where the run is
 aligned, the shard's blocks are the unsharded leaf's; elsewhere (smollm's
 norms) the block partition shifts, as in the reference.  How the model
 computes on that axis is the model's (its module's ``tensor_dims``): the
-dense decoder (``models/lm.py``), mamba2 (``models/mamba2.py``) and
-griffin (``models/griffin.py``) run on it here, and
+dense decoder with internvl2-2b's ViT stub and seamless-m4t's encoder
+and cross-attention (``models/lm.py``), mamba2 (``models/mamba2.py``)
+and griffin (``models/griffin.py``) run on it here, and so do the
+overlap engine, the population store and chaos masks;
 ``check_model_axis`` names what does not: MoE (ROADMAP.md item 5.3, with
-its sequence-sharded routing blocks), the frontends and the
-encoder-decoder, and the overlap engine, the population store and chaos
-masks on the axis (item 5.2b).
+its sequence-sharded routing blocks).
 """
 from __future__ import annotations
 
@@ -113,44 +113,26 @@ def leaf_split(shape, n: int) -> Optional[int]:
     return divisible[-1] if divisible else None
 
 
-# the families whose models compute on a tensor axis (``tensor_dims``)
-TENSOR_FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def model_axis_refusal(cfg, n: int, **unported) -> Optional[str]:
-    """Why a model axis of ``n`` ranks cannot run ``cfg`` with the
-    options ``unported`` (name -> value: the overlap engine, the
-    population store, chaos masks), naming ROADMAP.md item 5.2b or 5.3;
-    None where it can (n of 1, or a ``TENSOR_FAMILIES`` config without a
-    frontend or an encoder, with none of them)."""
+def model_axis_refusal(cfg, n: int) -> Optional[str]:
+    """Why a model axis of ``n`` ranks cannot run ``cfg``, naming
+    ROADMAP.md item 5.3; None where it can (n of 1, or a config without
+    experts: every other family's model module has its ``tensor_dims``)."""
     if n <= 1:
         return None
     where = f"a model axis of {n} ranks"
-    if cfg is not None and cfg.num_experts:
+    if cfg.num_experts:
         return (f"{cfg.name} ({cfg.family}, {cfg.num_experts} experts) on "
                 f"{where}: MoE on the tensor axis goes with item 5.3's "
                 f"sequence-sharded routing blocks (the reference routes in "
                 f"one block a model rank there) and is not ported yet: "
                 f"{MULTI_RANK}")
-    if cfg is not None and (cfg.family not in TENSOR_FAMILIES
-                            or cfg.frontend or cfg.enc_layers):
-        return (f"{cfg.name} ({cfg.family}"
-                f"{', ' + cfg.frontend if cfg.frontend else ''}) on {where}: "
-                f"the dense decoder, mamba2 and griffin run on the tensor "
-                f"axis; the frontends and the encoder-decoder (item 5.2b) "
-                f"are not ported yet: {MULTI_RANK}")
-    for name, value in unported.items():
-        if value:
-            return (f"{name} on {where} (item 5.2b) is not ported yet: "
-                    f"{MULTI_RANK}")
     return None
 
 
-def check_model_axis(policy, cfg, **unported):
+def check_model_axis(policy, cfg):
     """Raises NotImplementedError with ``model_axis_refusal``'s reason
-    where the policy's model axis cannot run ``cfg`` or ``unported``."""
-    why = model_axis_refusal(cfg, 1 if policy is None else policy.model,
-                             **unported)
+    where the policy's model axis cannot run ``cfg``."""
+    why = model_axis_refusal(cfg, 1 if policy is None else policy.model)
     if why is not None:
         raise NotImplementedError(why)
 

@@ -142,17 +142,22 @@ gives each rank's gossip phase ms and its ms inside the transport.
 
 ``--model-axis N`` > 1 splits each replica's model over N ranks (the
 tensor axis: the dense decoder family, smollm-135M, qwen2-7b,
-codeqwen1.5-7b, phi3-medium-14b; mamba2-1.3B; recurrentgemma-9b): each
-rank holds a slab of every leaf
-(its rows and its 1 / N of the leaf's split dim) and runs its replicas'
-local steps tensor-parallel (``core/round.py``); the round line adds
-each rank's bytes staged by the tensor axis (tp=), apart from the
-aggregation's (agg=), and ``--ckpt-dir`` writes, on rank 0, the whole
-leaves reassembled from every rank's slab (``convert.
-gather_slabs_to_host``).  Still out on a model axis, exiting with
-ROADMAP.md item 5: MoE (item 5.3), the frontends and the encoder-decoder,
-``--overlap``, ``--population`` and ``--chaos`` (item 5.2b); and the dry
-run's ``--mesh`` (``launch/dryrun.py``, item 5.5).
+codeqwen1.5-7b, phi3-medium-14b; internvl2-2b with its ViT stub;
+seamless-m4t-large-v2's encoder and cross-attention; mamba2-1.3B;
+recurrentgemma-9b): each rank holds a slab of every leaf (its rows and
+its 1 / N of the leaf's split dim) and runs its replicas' local steps
+tensor-parallel (``core/round.py``); every rank draws the whole round's
+frontend stand-ins from the one seeded generator, so the model ranks of
+a data rank read the same rows.  The round line adds each rank's bytes
+staged by the tensor axis (tp=), apart from the aggregation's (agg=),
+and ``--ckpt-dir`` writes, on rank 0, the whole leaves reassembled from
+every rank's slab (``convert.gather_slabs_to_host``).  ``--overlap``,
+``--chaos`` and ``--population`` run there too: ``pending`` is the
+rank's slabs, every rank is given the same masks, and a cohort swap
+joins the slabs of the slots' rows on rank 0's host, so that the store's
+pages hold whole client rows, as on one rank.  Still out on a model
+axis, exiting with ROADMAP.md item 5: MoE (item 5.3); and the dry run's
+``--mesh`` (``launch/dryrun.py``, item 5.5).
 ``--tau`` / ``--q`` override the configuration's round structure.
 """
 from __future__ import annotations
@@ -325,9 +330,7 @@ def main(argv=None, on_round=None):
                  "would fall in the traced wall time")
     bundle = get_config(args.arch)
     cfg = smoke_model(bundle.model) if args.smoke else bundle.model
-    why = model_axis_refusal(cfg, N, **{"--overlap": args.overlap,
-                                        "--population": args.population,
-                                        "--chaos": args.chaos})
+    why = model_axis_refusal(cfg, N)
     if why is not None:
         ap.exit(2, why + "\n")
     if world % N:
@@ -362,6 +365,8 @@ def main(argv=None, on_round=None):
     R = topo.num_devices
     R_loc = policy.local_replicas if policy is not None else R
     ranked = policy is not None and policy.ranks > 1
+    # the cohort swap gathers the slots' rows (or slabs) from every rank
+    split_store = ranked or (policy is not None and policy.model > 1)
     lead = mesh is None or mesh.rank == 0
     if args.population and args.population < R:
         ap.exit(2, f"--population {args.population} smaller than the mesh "
@@ -428,10 +433,13 @@ def main(argv=None, on_round=None):
         elif lead:
             tmp = tempfile.TemporaryDirectory(prefix="pop_store_")
             root = Path(tmp.name)
-        tmpl = client_template(fl())
-        pop_store = (RankPopulation(mesh, policy.replica_axes,
-                                    args.population, tmpl, root=root,
-                                    resident_max=4 * R) if ranked else
+        # one client's whole page (on a model axis the slots hold slabs)
+        tmpl = client_template(init_state(
+            cfg, hcef, topo, get_model(cfg).init(cfg, device="meta"),
+            device="meta", replicas=1))
+        pop_store = (RankPopulation(policy, args.population, tmpl, dims,
+                                    root=root, resident_max=4 * R)
+                     if split_store else
                      PopulationStore(args.population, tmpl, root=root,
                                      resident_max=4 * R))
         client_bytes = sum(t.numel() * t.element_size()
@@ -487,7 +495,7 @@ def main(argv=None, on_round=None):
         new_ids = (het.sample_cohort(rnd, R, seed=args.cohort_seed)
                    if args.population > R else np.arange(R, dtype=np.int64))
         _, client = split_state(fl())
-        if ranked:  # the rows go to rank 0's store and back
+        if split_store:  # the rows go to rank 0's store and back
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()

@@ -17,16 +17,24 @@ top-k routing, capacity-bounded dispatch by gathers whose gradients are
 gathers too, and the expert products as batched GEMMs.
 
 On a tensor ("model") axis (``tp``, a ``dist.tensor.TensorAxis``: the
-dense decoder family, ``dist.policies.check_model_axis``) ``forward`` and
-``loss_fn`` compute where the reference's activation constraints put the
-work (policies.py:104-148): the heads split where the axis divides both
-H and KH, else the attention whole on every rank; the FFN hidden split,
-the down projection's partial sums reduced; the embedding looked up in
-the rank's vocab rows and reduced; the logits split over the vocab, the
-padded columns masked by their global index, and the cross entropy's
-log-sum-exp and label logit reduced (``common.cross_entropy``).  The
-residual stream is whole on every rank.  The weights are then each
-rank's compute pieces (``tensor_dims``); without ``tp`` nothing changes.
+dense and encdec families, ``dist.policies.check_model_axis``)
+``forward`` and ``loss_fn`` compute where the reference's activation
+constraints put the work (policies.py:104-148): the heads split where
+the axis divides both H and KH, else the attention whole on every rank;
+the FFN hidden split, the down projection's partial sums reduced; the
+embedding looked up in the rank's vocab rows and reduced; the logits
+split over the vocab, the padded columns masked by their global index,
+and the cross entropy's log-sum-exp and label logit reduced
+(``common.cross_entropy``).  The encoder's blocks split as the
+decoder's (reference lm.py:324-332), and so does each cross-attention:
+the rank's heads of its queries and of its K and V of the encoder
+output, the output projection's partial sums reduced.  The residual
+streams, the encoder output included, are whole on every rank; the
+encoder output enters every layer's cross K and V projections through
+one ``tp.copy``, whose backward sums over the axis the gradient each
+rank's heads give it.  The patch embeddings replace the first
+positions after the vocab reduce.  The weights are then each rank's
+compute pieces (``tensor_dims``); without ``tp`` nothing changes.
 
 The frontends are stubs, as in the reference: ``vit_stub`` (internvl2-2b)
 puts ``batch["patch_embeds"]`` in the first ``frontend_tokens`` positions
@@ -173,23 +181,29 @@ def _split(cfg, tp, part: int) -> bool:
 
 
 def tensor_dims(cfg: ModelConfig, n: int) -> Dict[str, Any]:
-    """Where the dense decoder computes each leaf on a model axis of ``n``
-    ranks: {flat leaf name: the split dim of the unstacked leaf (a layer
-    leaf's counts its L dim), or None where every rank computes it
-    whole}.  The heads (wq, wk, wv and their biases on H * Dh, wo's rows)
-    where n divides H and KH (the reference's "heads", policies.py:129),
-    the FFN hidden F ("ffn_hidden"), the vocab ("logits", :124); the
-    norms whole."""
+    """Where the model computes each leaf on a model axis of ``n`` ranks:
+    {flat leaf name: the split dim of the unstacked leaf (a layer leaf's
+    counts its L dim), or None where every rank computes it whole}.  The
+    heads (wq, wk, wv and their biases on H * Dh, wo's rows; the cross
+    leaves wxq, wxk, wxv on H * Dh / KH * Dh, wxo's rows) where n divides
+    H and KH (the reference's "heads", policies.py:129), the FFN hidden F
+    ("ffn_hidden"), the vocab ("logits", :124); the norms (lnx and
+    enc_norm too) whole.  The encoder's stack (``enc_layers/*``) splits as
+    the decoder's."""
     heads, ffn, vocab = _splits(cfg, n)
     dims = {"emb": 0 if vocab else None, "final_norm": None}
     if not cfg.tie_embeddings:
         dims["out_head"] = 1 if vocab else None
     split = {"wq": 2, "wk": 2, "wv": 2, "bq": 1, "bk": 1, "bv": 1,
-             "wo": 1} if heads else {}
+             "wo": 1, "wxq": 2, "wxk": 2, "wxv": 2, "wxo": 1} if heads else {}
     if ffn:
         split.update(w_gate=2, w_up=2, w_down=1)
     for name in _layer_shapes(cfg, cross=cfg.cross_attention):
         dims["layers/" + name] = split.get(name)
+    if cfg.enc_layers:
+        for name in _layer_shapes(_enc_cfg(cfg)):
+            dims["enc_layers/" + name] = split.get(name)
+        dims["enc_norm"] = None
     return dims
 
 
@@ -252,25 +266,31 @@ def _attention(cfg, x, w, tables, *, causal, window=0, tp=None):
 
 def _cross_kv(cfg, mem, w):
     """One decoder layer's K and V of the encoder output ``mem`` (B,
-    S_enc, D), each (B, S_enc, KH, Dh) in the compute type: no RoPE."""
-    B = mem.shape[0]
-    KH, Dh = cfg.num_kv_heads, cfg.head_dim
+    S_enc, D), each (B, S_enc, KH, Dh) in the compute type (a rank's KH /
+    n where the weights are its heads' pieces): no RoPE."""
+    B, S_enc = mem.shape[:2]
+    Dh = cfg.head_dim
     cd = dtype_of(cfg.compute_dtype)
-    xk = (mem @ w["wxk"]).to(cd).reshape(B, -1, KH, Dh)
-    xv = (mem @ w["wxv"]).to(cd).reshape(B, -1, KH, Dh)
+    xk = (mem @ w["wxk"]).to(cd).reshape(B, S_enc, -1, Dh)
+    xv = (mem @ w["wxv"]).to(cd).reshape(B, S_enc, -1, Dh)
     return xk, xv
 
 
-def _cross_attention(cfg, x, w, mem_kv):
+def _cross_attention(cfg, x, w, mem_kv, tp=None):
     """Cross-attention of x (B, S, D) over ``mem_kv`` (``_cross_kv``):
-    queries from ``wxq`` with no RoPE, non-causal (reference lm.py:116)."""
+    queries from ``wxq`` with no RoPE, non-causal (reference lm.py:116).
+    Where ``tp`` splits the heads, the rank's (its pieces of wxq and of
+    ``mem_kv``), the output's partial sums reduced."""
     B, S, D = x.shape
-    H, Dh = cfg.num_heads, cfg.head_dim
+    split = _split(cfg, tp, HEADS)
+    if split:
+        x = tp.copy(x)
     cd = dtype_of(cfg.compute_dtype)
-    q = (x @ w["wxq"]).to(cd).reshape(B, S, H, Dh)
+    q = (x @ w["wxq"]).to(cd).reshape(B, S, -1, cfg.head_dim)
     k, v = mem_kv
     o = ops.flash_attention(q, k, v, causal=False)
-    return o.reshape(B, S, H * Dh) @ w["wxo"]
+    o = o.reshape(B, S, -1) @ w["wxo"]
+    return tp.reduce(o) if split else o
 
 
 def _dense_ffn(cfg, x, w, tp=None):
@@ -589,14 +609,15 @@ def _block(cfg, x, w, tables, mem=None, *, causal=True, tp=None):
     """One block: self-attention (RoPE at ``tables``); with ``mem``, the
     encoder output, the cross-attention over this layer's K and V of it,
     made here (inside the layer's checkpoint, as in the reference's scan
-    body); then the FFN half."""
+    body); then the FFN half.  On a tensor axis that splits the heads
+    ``mem`` has passed ``tp.copy`` (``forward``)."""
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     attn_out, _ = _attention(cfg, h, w, tables, causal=causal,
                              window=cfg.window, tp=tp)
     x = x + attn_out
     if mem is not None:
         h = rms_norm(x, w["lnx"], cfg.norm_eps)
-        x = x + _cross_attention(cfg, h, w, _cross_kv(cfg, mem, w))
+        x = x + _cross_attention(cfg, h, w, _cross_kv(cfg, mem, w), tp)
     return _ffn_half(cfg, x, w, tp)
 
 
@@ -616,14 +637,15 @@ def _run_stack(cfg, layers, x, tables, mem=None, *, causal=True, tp=None):
     return x
 
 
-def _encode(cfg, params, frames):
+def _encode(cfg, params, frames, tp=None):
     """The encoder over ``frames`` (B, S_enc, D), cast to the compute
     type: non-causal blocks with RoPE at arange(S_enc), then
-    ``enc_norm`` (reference lm.py:324-332)."""
+    ``enc_norm`` (reference lm.py:324-332); on the tensor axis ``tp``
+    as the decoder's blocks."""
     x = frames.to(dtype_of(cfg.compute_dtype))
     tables = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
     x = _run_stack(_enc_cfg(cfg), stack_list(params["enc_layers"]), x,
-                   tables, causal=False)
+                   tables, causal=False, tp=tp)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -636,8 +658,11 @@ def forward(cfg: ModelConfig, params, batch, tp=None):
     check_config(cfg)
     x = _embed(cfg, params, batch, tp)
     tables = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
-    mem = (_encode(cfg, params, batch["frames"].to(x.device))
-           if cfg.enc_layers else None)
+    mem = None
+    if cfg.enc_layers:
+        mem = _encode(cfg, params, batch["frames"].to(x.device), tp)
+        if _split(cfg, tp, HEADS):  # every layer's cross K and V read it
+            mem = tp.copy(mem)
     x = _run_stack(cfg, layer_list(params), x, tables, mem, tp=tp)
     return _logits(cfg, params, x, tp)
 

@@ -29,12 +29,17 @@ store does not read them; its pages are ``.npz`` archives).
 
 Across the ranks of a ``dist.mesh.RankMesh`` (``RankPopulation``, the
 train launcher's ``--population`` on more than one rank) there is still
-one store, on the rank at flat index 0 of the replica axes: one page
-root, one manifest.  Every rank keeps the same host accounting.  A cohort
-swap brings the slots' per-client rows of every rank into host memory on
-that rank, runs the one-process swap on all R rows in their order, and
-sends each rank its rows back; so the store sees the rows of the 1-rank
-run, and its pages, manifests and sums are that run's bits.
+one store, on world rank 0: one page root, one manifest.  Every rank
+keeps the same host accounting.  A cohort swap brings the slots'
+per-client rows of every rank into host memory on that rank, runs the
+one-process swap on all R rows in their order, and sends each rank its
+rows back; so the store sees the rows of the 1-rank run, and its pages,
+manifests and sums are that run's bits.  With a "model" axis a rank
+holds slabs of its rows (``convert.shard_slabs``): the swap joins every
+rank's slabs on their storage dims (``convert.gather_slabs_to_host``),
+so that the store's pages hold whole client rows in the reference's
+layout, and cuts the rows back into slabs
+(``convert.scatter_slabs_from_host``).
 """
 from __future__ import annotations
 
@@ -424,19 +429,25 @@ class PopulationStore:
 
 
 class RankPopulation:
-    """The population store of a cohort split over the ranks of ``axes``
-    of ``mesh`` (they must span its world): the ``PopulationStore`` on
-    the rank at flat index 0 (``store``, None elsewhere), the accounting
-    on every rank.  ``root`` and ``resident_max`` are the store's; only
-    that rank writes pages and manifests."""
+    """The population store of a cohort split over the ranks of
+    ``policy``: its rows over the replica axes, each row's leaves further
+    split into slabs over the tensor axes (``dims``: the params'
+    ``policy.storage_dims``, None without a model axis; together the axes
+    must span the mesh's world).  The ``PopulationStore`` of WHOLE client
+    rows on world rank 0 (``store``, None elsewhere; ``template`` is one
+    client's whole page, ``core.round.client_template`` of an unsplit
+    state), the accounting on every rank.  ``root`` and ``resident_max``
+    are the store's; only that rank writes pages and manifests."""
 
-    def __init__(self, mesh, axes, population: int, template: Any, *,
-                 root: Optional[Path] = None, resident_max: int = 256):
-        self.mesh, self.axes = mesh, tuple(axes)
-        if mesh.size(self.axes) != mesh.world:
-            raise ValueError(f"replica axes {self.axes} span "
-                             f"{mesh.size(self.axes)} of {mesh.world} ranks")
-        self.lead = mesh.flat_index(self.axes) == 0
+    def __init__(self, policy, population: int, template: Any, dims=None,
+                 *, root: Optional[Path] = None, resident_max: int = 256):
+        self.policy, self.dims = policy, dims
+        self.mesh = mesh = policy.mesh
+        span = tuple(policy.replica_axes) + tuple(policy.tensor_axes)
+        if mesh.size(span) != mesh.world:
+            raise ValueError(f"replica and tensor axes {span} span "
+                             f"{mesh.size(span)} of {mesh.world} ranks")
+        self.lead = mesh.rank == 0
         self.population = int(population)
         self.store = (PopulationStore(population, template, root=root,
                                       resident_max=resident_max)
@@ -469,21 +480,29 @@ class RankPopulation:
 
     def swap(self, client, out_ids, in_ids, *, verify: bool = False):
         """The cohort swap ``out_ids`` -> ``in_ids`` (``out_ids`` None:
-        the first cohort into zeroed slots) on this rank's slots
-        ``client`` (the client half of its rows), in place.  Returns
-        (clients moved between the card and the host, the
-        ``verified_swap`` record or None), the same on every rank."""
-        flat = _flat(client)
-        rows = {k: self.mesh.gather_to(v, self.axes) for k, v in
-                flat.items()}
+        the first cohort into the slots) on this rank's slots ``client``
+        (the client half of its rows, its slabs on a model axis), in
+        place: the slots' rows reassembled on rank 0's host
+        (``convert.gather_slabs_to_host``), the one-process swap there,
+        the rows cut back into every rank's slabs
+        (``convert.scatter_slabs_from_host``).  Returns (clients moved
+        between the card and the host, the ``verified_swap`` record or
+        None), the same on every rank."""
+        from repro_torch.convert import (gather_slabs_to_host,
+                                         scatter_slabs_from_host)
+        store, ids = self.store, np.asarray(in_ids).tolist()
+        if out_ids is None and not self.mesh.broadcast_object(
+                self.lead and bool(store.touched & set(ids)), src=0):
+            # first-time clients: their rows are zeros where they lie
+            for v in _flat(client).values():
+                v.zero_()
+            return 0, None
+        tree = gather_slabs_to_host(client, self.policy, self.dims)
         info = None
         if self.lead:
-            tree = _unflatten({k: v.reshape((-1,) + tuple(v.shape[2:]))
-                               for k, v in rows.items()})
-            store = self.store
             held = store.touched | set(() if out_ids is None
                                        else np.asarray(out_ids).tolist())
-            moved = sum(int(c) in held for c in in_ids)
+            moved = sum(int(c) in held for c in ids)
 
             def move():
                 if out_ids is None:
@@ -496,17 +515,11 @@ class RankPopulation:
             else:
                 move()
             if out_ids is not None:
-                moved += len(in_ids)
-            rows = _flat(tree)
+                moved += len(ids)
             info = (moved, check, store.resident_count)
         moved, check, self.resident_count = self.mesh.broadcast_object(
-            info, src=self.mesh.rank_of(self.axes, 0))
-        n = self.mesh.size(self.axes)
-        for k, v in flat.items():
-            part = rows.get(k) if self.lead else None
-            if part is not None:
-                part = part.view((n,) + tuple(v.shape))
-            v.copy_(self.mesh.scatter_from(part, self.axes, v))
+            info, src=0)
+        scatter_slabs_from_host(tree, self.policy, self.dims, client)
         return moved, check
 
     def save(self, manifest: Path) -> None:

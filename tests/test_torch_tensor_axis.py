@@ -18,10 +18,8 @@ computed over it, and what it does not run yet.
   recompute issues no collective of its own (the psums' outputs are kept:
   as many transport calls as without remat); the axis's gather and
   scatter and their gradients.
-- What a model axis does not run raises naming ROADMAP.md item 5: MoE
-  (item 5.3), the frontends and the encoder-decoder, the overlap engine
-  and chaos masks in the round step (item 5.2b), and the launcher's
-  ``--overlap``, ``--population``, ``--chaos`` and MoE.
+- What a model axis does not run raises naming ROADMAP.md item 5.3: MoE,
+  in the round step and in the launcher.
 """
 import importlib.util
 
@@ -253,40 +251,19 @@ def _model_policy(n=2):
     return make_train_policy(mesh, FLTopology(2, 2), dp_axes=("data",))
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "internvl2_2b",
-                                  "seamless_m4t_large_v2"])
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m"])
 def test_other_families_raise_naming_item_5(arch):
     from repro_torch.configs import get_config, smoke_model
     from repro_torch.configs.base import FLTopology, HCEFConfig
     from repro_torch.core.round import make_round_step
     cfg = smoke_model(get_config(arch).model)
-    item = "item 5.3" if cfg.num_experts else "item 5.2b"
-    with pytest.raises(NotImplementedError, match=item) as exc:
+    with pytest.raises(NotImplementedError, match="item 5.3") as exc:
         make_round_step(cfg, HCEFConfig(), FLTopology(2, 2),
                         _model_policy())
     assert "not ported yet" in str(exc.value)
 
 
-def test_overlap_and_chaos_raise_naming_item_5():
-    from repro_torch.configs.base import FLTopology, HCEFConfig
-    from repro_torch.core import round as tround
-    cfg, topo, pol = smoke_cfg("heads split"), FLTopology(2, 2), \
-        _model_policy()
-    with pytest.raises(NotImplementedError,
-                       match="overlap engine.*item 5.2b"):
-        tround.make_overlap_round_step(cfg, HCEFConfig(overlap=True,
-                                                       staleness=1),
-                                       topo, pol)
-    step = tround.make_round_step(cfg, HCEFConfig(), topo, pol,
-                                  gossip=False)
-    with pytest.raises(NotImplementedError, match="chaos masks.*item 5.2b"):
-        step(None, {}, np.ones(4), np.ones(4), 0, alive=np.ones(4),
-             alive_w=np.ones(4))
-
-
-@pytest.mark.parametrize("flags", [["--overlap"], ["--population", "32"],
-                                   ["--chaos"],
-                                   ["--arch", "granite_moe_1b_a400m"]])
+@pytest.mark.parametrize("flags", [["--arch", "granite_moe_1b_a400m"]])
 def test_launcher_exits_naming_item_5(flags, capsys):
     from repro_torch.launch import train
     argv = ["--device", "cpu", "--arch", "smollm_135m", "--mesh", "single",
@@ -294,4 +271,4 @@ def test_launcher_exits_naming_item_5(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(argv)
     assert exc.value.code == 2
-    assert "item 5" in capsys.readouterr().err
+    assert "item 5.3" in capsys.readouterr().err
